@@ -1,0 +1,112 @@
+"""Framework-wide configuration (counterpart of ``int8inferenceengine_tpu.config``).
+
+The dataclass is copied whole so that a configuration written for the JAX
+package means the same thing here.  This package implements a slice of it:
+``check_supported`` names every field whose value the slice does not
+implement yet and raises ``NotImplementedError`` for it, instead of
+silently running something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Post-training static quantization configuration.
+
+    Defaults reproduce the reference engine's hardcoded behavior:
+    per-tensor asymmetric u8 activations, per-tensor symmetric s8 weights
+    with a single joint weight+bias scale, truncating (round-toward-zero)
+    float->int conversions, and requantization to each layer's calibrated
+    output (scale, zero_point) at every layer boundary.
+    """
+
+    # Input quantization applied by Module.__call__ after convert().
+    input_scale: float = 0.025
+    input_zero_point: int = 127
+
+    # Calibration: 'minmax' (reference semantics) or 'mse' (grid-searched
+    # clip range over the reservoir samples).
+    calib_method: str = "minmax"
+    calib_quantile: float = 1.0
+    calib_reservoir_size: int = 1000
+    # True  -> exact streaming min/max over every observed activation.
+    # False -> reference-style random reservoir (needed for quantile < 1).
+    calib_exact_minmax: bool = True
+
+    # Per-output-channel weight scales instead of one joint weight+bias
+    # scale per layer.
+    weight_per_channel: bool = False
+
+    # Float->int conversion: 'trunc' (the reference's C cast) or 'nearest'.
+    rounding: str = "trunc"
+
+    # Fold the expected weight-quantization error into the bias.
+    bias_correction: bool = False
+
+    # INT8 conv lowering: 'auto' runs im2col + the quantized GEMM with the
+    # reference's conv epilogue order (bit-identical to the JAX package's
+    # native integer conv); 'gemm' uses the GEMM epilogue order (the JAX
+    # package's conv2d_int8_gemm); 'xla_conv' has no counterpart here.
+    conv_backend: str = "auto"
+
+    # Quantized GEMM backend.  Here the tensor's device decides: the
+    # hand-written kernel on a CUDA tensor, the plain version on the CPU.
+    kernel_backend: str = "auto"
+
+    # Weight-only and 4-bit weight modes.
+    weight_only: bool = False
+    weight_bits: int = 8
+    w4_group: int = 128
+    w4_mse_scales: bool = True
+    w4_kernel: str = "auto"
+
+    # Per-token dynamic activation quantization (requires weight_only).
+    dynamic_act: bool = False
+
+    # Transformer-layer fusions (layers not ported yet).
+    fuse_linear_act: bool = True
+    fuse_qkv: str = "auto"
+    fused_attention: str = "auto"
+    decode_attention: str = "auto"
+
+    # Computation dtypes of the FP32 path, the conv epilogue and the glue.
+    fp_dtype: str = "float32"
+    epilogue_dtype: str = "float32"
+    glue_dtype: str = "float32"
+
+
+DEFAULT_CONFIG = QuantConfig()
+
+# field -> the only value this package implements so far
+_IMPLEMENTED = {
+    "weight_only": False,
+    "weight_bits": 8,
+    "dynamic_act": False,
+    "bias_correction": False,
+    "glue_dtype": "float32",
+    "epilogue_dtype": "float32",
+    "fp_dtype": "float32",
+    "kernel_backend": "auto",
+}
+
+
+def check_supported(config: QuantConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first field set to a value
+    this package does not implement."""
+    for field, value in _IMPLEMENTED.items():
+        got = getattr(config, field)
+        if got != value:
+            raise NotImplementedError(
+                f"QuantConfig.{field}={got!r} is not implemented by the "
+                f"PyTorch port yet (only {value!r})")
+    if config.conv_backend == "xla_conv":
+        raise NotImplementedError(
+            "QuantConfig.conv_backend='xla_conv' is not implemented by the "
+            "PyTorch port ('auto' gives the same codes through im2col)")
+    if config.conv_backend not in ("auto", "gemm"):
+        raise ValueError(f"unknown conv_backend {config.conv_backend!r}")
+    if config.rounding not in ("trunc", "nearest"):
+        raise ValueError(f"unknown rounding {config.rounding!r}")

@@ -29,3 +29,9 @@ import pytest  # noqa: E402
 @pytest.fixture(autouse=True)
 def _seed():
     np.random.seed(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (PyTorch port kernels); "
+        "skips without one")
