@@ -2,26 +2,43 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py             # every phase; exit 0 only if all pass
-    python3 chip_smoke.py --profile   # also print a torch.profiler breakdown
-                                      # of the AlexNet INT8 and FP32 forwards
+    python3 chip_smoke.py --profile   # also print torch.profiler breakdowns
+                                      # of the AlexNet forwards and of
+                                      # decode steps
 
 Phases, in order (any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); a CUDA device is required;
-2. build every kernel from ``int8inferenceengine_tpu_torch/csrc`` (timed);
+2. build every kernel from ``int8inferenceengine_tpu_torch/csrc``, one nvcc
+   per source, all started together (timed);
 3. on-card numerics: ``quantize_u8`` and the epilogue vectors equal the CPU's
-   bit for bit; the quantized GEMM kernel equals ``qgemm_plain`` exactly on
-   the eight AlexNet batch-100 GEMM shapes and on ragged shapes, over both
-   epilogue orders, both roundings, relu on/off, per-tensor and per-channel
-   weight scales;
-4. the main path at full width: AlexNet-224 with seeded random weights —
-   FP32 forward against its ``torch.nn`` twin (rtol 1e-4), prepare,
-   calibrate on one batch of 100, convert, INT8 forward with exactly 8
-   kernel launches, and the first two images' output codes equal to those
-   of a CPU copy carrying the same converted state;
-5. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
-   and per GEMM shape the kernel, its plain version, the bound, and
-   ``torch._int_mm`` + the eager epilogue as a library yardstick.
+   bit for bit; the quantized GEMM kernel (B1) equals ``qgemm_plain``
+   exactly on the eight AlexNet batch-100 GEMM shapes and on ragged shapes,
+   over both epilogue orders, both roundings, relu on/off, per-tensor and
+   per-channel weight scales;
+4. the decoder's kernels against their plain versions at its shapes: B1's
+   act epilogue with each of its seven activations (exact for the
+   piecewise-linear ones, the 1-code/0.2% contract for sigmoid, silu,
+   gelu), the merged QKV GEMM (B2) exactly at M = 8, 512 and ragged
+   shapes, and the decode attention kernel (B3/B4) within the contract at
+   B=8, H=12, D=64, T=512 over several live lengths, a per-sequence length
+   vector, GQA, four query positions, a window and a softcap;
+5. the AlexNet main path at full width: AlexNet-224 with seeded random
+   weights — FP32 forward against its ``torch.nn`` twin (rtol 1e-4),
+   prepare, calibrate on one batch of 100, convert, INT8 forward with
+   exactly 8 kernel launches, the first two images' codes equal to a CPU
+   copy's;
+6. the decoder main path at full width (gpt2-small-ish: 768d, 12 layers, 12
+   heads, vocab 50257, max_len 512) with seeded random weights, batch 8, a
+   64-token prompt: FP32 forward against its twin (rtol 1e-4), prepare,
+   calibrate, convert, greedy ``generate(ids, 128)`` with exactly 12 B2, 37
+   B1 and 12 B3 launches per decode step, then the kernel path's logit codes
+   against the plain path's on the card, teacher-forced on its tokens;
+7. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
+   decode ms/step as ``(t(128 steps) - t(16 steps)) / 112`` (best of 3) and
+   the prefill, and per kernel and shape the kernel, its plain version, the
+   bound and, for the GEMMs, ``torch._int_mm`` + the eager epilogue as a
+   library yardstick.
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -33,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +61,10 @@ import numpy as np
 # H100 SXM data-sheet peaks (dense): int8 tensor cores and HBM3.
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# the device spin before each timed launch: about 0.2 ms at the H100's
+# 1.98 GHz, more than a wrapper's host time (the decode attention wrapper's
+# outlasted the 256 MB flush alone)
+HOST_LEAD_CYCLES = 400_000
 
 # AlexNet-224 batch-100 GEMMs: (layer, M, K, N); convs through im2col.
 ALEXNET_B100 = [
@@ -58,6 +80,46 @@ ALEXNET_B100 = [
 CONV_LAYERS = {"conv1", "conv2", "conv3", "conv4", "conv5"}
 RAGGED = [(7, 33, 5), (1, 16, 1), (129, 48, 130), (300, 100, 17),
           (255, 257, 129), (64, 4096, 8), (1000, 64, 1)]
+
+# gpt2-small-ish decode (bench.py's decode leg): the geometry, the batch,
+# the prompt and the two generate lengths of the ms/step protocol
+GPT = dict(vocab_size=50257, max_len=512, dim=768, depth=12, heads=12)
+DEC_BATCH, DEC_PROMPT, DEC_STEPS, DEC_SHORT = 8, 64, 128, 16
+# one decode step's B1 launches: (layer, M, K, N, launches per step, act)
+DEC_GEMMS = [("proj", 8, 768, 768, 12, None),
+             ("fc1+gelu", 8, 768, 3072, 12, "gelu"),
+             ("fc2", 8, 3072, 768, 12, None),
+             ("head", 8, 768, 50257, 1, None)]
+# its B2 launches (M, K, per-head N, launches per step)
+DEC_QKV = (8, 768, 768, 12)
+# its B3 launches; the live length is the mean over generate(ids, 128)
+# after a 64-token prompt (65 ... 191)
+DEC_ATTN = dict(b=8, t=512, h=12, d=64, valid=128, launches=12)
+PIECEWISE = ("relu", "relu6", "hardsigmoid", "hardswish")
+# output range of each activation over inputs in [-5, 5]: the act grid
+ACT_RANGE = {"relu": (0.0, 5.0), "relu6": (0.0, 6.0),
+             "hardsigmoid": (0.0, 1.0), "hardswish": (-0.375, 5.0),
+             "sigmoid": (0.0, 1.0), "silu": (-0.28, 5.0),
+             "gelu": (-0.17, 5.0)}
+ATTN_PARAMS = dict(scale_q=0.021, zp_q=117, scale_k=0.034, zp_k=131,
+                   scale_v=0.027, zp_v=125, scale_s=0.4, zp_s=140,
+                   scale_p=0.0039, zp_p=0, scale_c=0.05, zp_c=128,
+                   alpha=0.125)
+# the decoder's codes, kernel path vs plain path, teacher-forced
+MAX_CODE_DIFF, MAX_SHARE_DIFF = 2, 0.01
+
+KERNEL_INFO = {
+    "qgemm_u8s8": dict(
+        source="int8inferenceengine_tpu_torch/csrc/qgemm_int8.cu",
+        replaces="int8inferenceengine_tpu/ops/gemm_int8.py:111"),
+    "qgemm_u8s8_vzp": dict(
+        source="int8inferenceengine_tpu_torch/csrc/qgemm_int8.cu",
+        replaces="int8inferenceengine_tpu/ops/gemm_int8.py:422"),
+    "decode_attn_flat": dict(
+        source="int8inferenceengine_tpu_torch/csrc/decode_attn.cu",
+        replaces="int8inferenceengine_tpu/ops/attention.py:417",
+        also_replaces="int8inferenceengine_tpu/ops/attention.py:214"),
+}
 
 
 def log(msg: str) -> None:
@@ -75,14 +137,31 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(m: int, k: int, n: int):
-    """Least time on the card: operands read once, output written once
-    (a u8, w s8, oc s32, ep f32, out u8) vs the int8 tensor-core peak."""
-    ops = 2.0 * m * n * k
-    nbytes = m * k + n * k + 8 * n + m * n
+def bound(nbytes: float, ops: float):
+    """Least time on the card (ms): the bytes at the HBM rate vs the
+    operations at the int8 tensor-core peak, and which one bounds."""
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                        else "operations"), t_ops, t_bytes
+
+
+def bound_ms(m: int, k: int, n: int, vectors: int = 2):
+    """A GEMM's bound: operands read once, output written once (a u8, w s8,
+    ``vectors`` 4-byte [N] epilogue vectors, out u8)."""
+    return bound(m * k + n * k + 4 * vectors * n + m * n, 2.0 * m * n * k)
+
+
+def attn_bound_ms(b, h, hkv, d, valid, mq=1):
+    """Decode attention's bound: q, the live k/v rows and the output moved
+    once; QK^T and P@V as int8 operations."""
+    nbytes = 2 * b * mq * h * d + 2 * b * valid * hkv * d + 4 * b
+    return bound(nbytes, 4.0 * b * mq * h * valid * d)
+
+
+def contract(torch, got, want):
+    """(max |code difference|, share of codes that differ)."""
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    return int(d.max()), float((d > 0).float().mean())
 
 
 def gemm_case(torch, gen, m, k, n, dev):
@@ -99,9 +178,22 @@ def gemm_case(torch, gen, m, k, n, dev):
                 s_c=0.02 * 0.01 * acc_std / 60.0, zp_c=110)
 
 
+def rowsum(torch, w):
+    return w.to(torch.int32).sum(1, dtype=torch.int32)
+
+
+def act_grid(fn: str):
+    """(name, act_scale, act_zp) spanning ``fn``'s outputs over [-5, 5]."""
+    lo, hi = ACT_RANGE[fn]
+    act_scale = (hi - lo) / 255.0
+    return fn, act_scale, int(round(-lo / act_scale))
+
+
 def time_cuda(torch, fn, iters: int, flush=None) -> float:
     """Mean ms of ``fn`` over ``iters`` launches, each timed with CUDA
-    events; ``flush`` (run outside the timed span) evicts the L2 cache."""
+    events.  ``flush`` (run outside the timed span) evicts the L2 cache;
+    a device-side spin after it keeps the card busy while the host runs the
+    wrapper's Python, so that the span holds the device work alone."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -109,6 +201,7 @@ def time_cuda(torch, fn, iters: int, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush()
+            torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -134,11 +227,669 @@ def alexnet_state(torch, twin, seed: int):
     return state
 
 
+def decoder_state(torch, twin, depth: int, seed: int):
+    """GPT-2-style random weights from numpy's default_rng(seed): N(0, 0.02)
+    for Linear weights and embeddings (0.02/sqrt(2*depth) for the residual
+    projections proj/fc2), N(0, 0.01) positions and biases, LayerNorm gains
+    1 + N(0, 0.02)."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, p in twin.state_dict().items():
+        z = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+        if key.startswith("ln"):
+            v = 1.0 + 0.02 * z if key.endswith("weight") else 0.02 * z
+        elif key.endswith("bias") or key == "pe.weight":
+            v = 0.01 * z
+        elif key.startswith(("proj", "fc2")):
+            v = (0.02 / math.sqrt(2 * depth)) * z
+        else:
+            v = 0.02 * z
+        state[key] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return state
+
+
+def profile_rows(torch, prof):
+    """Device-side rows (kernels, memcpy, memset), largest first: the aten
+    op rows repeat their kernels' time."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return rows
+
+
+# -- phase 3: B1 against its plain version at the AlexNet shapes -------------
+
+def check_alexnet_kernel(torch, G, gen, dev):
+    max_err = 0
+    n_cases = 0
+    for shape in [s[1:] for s in ALEXNET_B100] + RAGGED:
+        m, k, n = shape
+        c = gemm_case(torch, gen, m, k, n, dev)
+        oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                              c["zp_a"], recentered=True)
+        spread = None
+        for order in G.ORDERS:
+            for per_channel in (False, True):
+                s_w = c["s_w_pc"] if per_channel else 0.01
+                ep = G.epilogue_vector(c["s_a"], s_w, c["s_c"], n, dev, order)
+                for rounding in ("trunc", "nearest"):
+                    for relu in (False, True):
+                        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"],
+                                  zp_c=c["zp_c"], relu=relu,
+                                  rounding=rounding, order=order)
+                        got = G.qgemm(c["a"], c["w"], oc, ep, **kw)
+                        want = G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
+                        torch.cuda.synchronize()
+                        err = int((got.to(torch.int32) - want.to(torch.int32)
+                                   ).abs().max())
+                        max_err = max(max_err, err)
+                        n_cases += 1
+                        if err:
+                            bad = int((got != want).sum())
+                            fail(f"qgemm kernel != plain at M={m} K={k} N={n} "
+                                 f"order={order} per_channel={per_channel} "
+                                 f"rounding={rounding} relu={relu}: {bad} "
+                                 f"codes differ, max {err}")
+                        if spread is None:
+                            spread = int(torch.unique(want).numel())
+        log(json.dumps({"phase": "kernel_vs_plain", "M": m, "K": k, "N": n,
+                        "cases": 16, "distinct_codes": spread,
+                        "max_abs_err": 0}))
+    log(json.dumps({"phase": "kernel_vs_plain", "cases": n_cases,
+                    "max_abs_err": max_err}))
+    return max_err
+
+
+# -- phase 4: the decoder's kernels against their plain versions ------------
+
+def check_decoder_kernels(torch, G, A, gen, dev):
+    """Returns {kernel: max |code difference|} over every case."""
+    err = {"qgemm_u8s8": 0, "qgemm_u8s8_vzp": 0, "decode_attn_flat": 0}
+    for fn in G.KERNEL_ACTS:
+        worst = (0, 0.0)
+        for m, k, n in [(8, 768, 3072), (512, 768, 3072), (37, 100, 61)]:
+            c = gemm_case(torch, gen, m, k, n, dev)
+            oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]),
+                                  c["s_a"], c["zp_a"], recentered=True)
+            # scale s_w and s_c alike: the same codes, dequantized to [-5, 5]
+            f = 5.0 / (110 * c["s_c"])
+            ep = G.epilogue_vector(c["s_a"], c["s_w_pc"] * f, c["s_c"] * f,
+                                   n, dev, "gemm")
+            for rounding in ("trunc", "nearest"):
+                kw = dict(scale_a=c["s_a"], scale_c=c["s_c"] * f,
+                          zp_c=c["zp_c"], rounding=rounding, act=act_grid(fn))
+                got = G.qgemm(c["a"], c["w"], oc, ep, **kw)
+                want = G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
+                torch.cuda.synchronize()
+                mx, share = contract(torch, got, want)
+                worst = max(worst, (mx, share))
+                if (fn in PIECEWISE and mx) or mx > 1 or share > 0.002:
+                    fail(f"qgemm act={fn} kernel != plain at M={m} K={k} "
+                         f"N={n} {rounding}: max {mx}, share {share}")
+        err["qgemm_u8s8"] = max(err["qgemm_u8s8"], worst[0])
+        log(json.dumps({"phase": "act_kernel_vs_plain", "act": fn,
+                        "max_abs_err": worst[0], "share_differing": worst[1],
+                        "contract": "exact" if fn in PIECEWISE
+                        else "<=1 code on <=0.2%"}))
+
+    for m, k, widths in [(8, 768, (768, 768, 768)), (512, 768, (768,) * 3),
+                         (37, 100, (13, 50, 7)), (1, 48, (130, 1, 64))]:
+        parts = []
+        for i, n in enumerate(widths):
+            c = gemm_case(torch, gen, m, k, n, dev)
+            parts.append(dict(w_s8_nk=c["w"], q_bias=c["q_bias"],
+                              rowsum=rowsum(torch, c["w"]),
+                              scale_w=c["s_w_pc"] if i == 1 else 0.01,
+                              scale_c=c["s_c"] * (1 + 0.3 * i),
+                              zp_c=100 + 20 * i))
+        merged = G.merge_parts(parts, scale_a=c["s_a"], zp_a=c["zp_a"])
+        for rounding in ("trunc", "nearest"):
+            got = torch.cat(G.qgemm_multi(c["a"], merged, rounding=rounding),
+                            1)
+            want = torch.cat(G.qgemm_multi_plain(c["a"], merged,
+                                                 rounding=rounding), 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"qgemm_multi kernel != plain at M={m} K={k} "
+                     f"N={widths} {rounding}: "
+                     f"{int((got != want).sum())} codes differ")
+        log(json.dumps({"phase": "vzp_kernel_vs_plain", "M": m, "K": k,
+                        "N": list(widths), "max_abs_err": 0,
+                        "distinct_codes": int(torch.unique(got).numel())}))
+
+    b, t, d = DEC_ATTN["b"], DEC_ATTN["t"], DEC_ATTN["d"]
+    cases = [(12, 12, 1, None, None), (12, 2, 1, None, None),
+             (12, 4, 1, None, None), (12, 12, 4, None, None),
+             (12, 12, 1, 128, None), (12, 12, 1, None, 30.0),
+             (12, 2, 4, 128, 30.0)]
+    for h, kv, mq, window, softcap in cases:
+        qshape = (b, mq, h * d) if mq > 1 else (b, h * d)
+        q = torch.randint(0, 256, qshape, generator=gen, dtype=torch.uint8,
+                          device=dev)
+        k = torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                          dtype=torch.uint8, device=dev)
+        v = torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                          dtype=torch.uint8, device=dev)
+        per_seq = torch.randint(1, t - mq + 2, (b,), generator=gen,
+                                dtype=torch.int32, device=dev)
+        kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv, window=window,
+                  softcap=softcap)
+        worst = (0, 0.0)
+        for valid in (1, 77, 128, t - mq + 1, per_seq):
+            for rounding, merged in (("trunc", True), ("nearest", False)):
+                got = A.decode_attention_flat(q, k, v, valid,
+                                              rounding=rounding,
+                                              merged=merged, **kw)
+                want = A.decode_attention_flat(q, k, v, valid, backend="xla",
+                                               rounding=rounding, **kw)
+                torch.cuda.synchronize()
+                mx, share = contract(torch, got, want)
+                worst = max(worst, (mx, share))
+                if mx > 1 or share > 0.002:
+                    fail(f"decode attention kernel != plain at H={h} "
+                         f"Hkv={kv} mq={mq} window={window} "
+                         f"softcap={softcap} valid="
+                         f"{valid if isinstance(valid, int) else 'per-seq'}"
+                         f" {rounding}: max {mx}, share {share}")
+        err["decode_attn_flat"] = max(err["decode_attn_flat"], worst[0])
+        log(json.dumps({"phase": "attn_kernel_vs_plain", "B": b, "T": t,
+                        "H": h, "Hkv": kv, "D": d, "mq": mq,
+                        "window": window, "softcap": softcap,
+                        "valid": [1, 77, 128, t - mq + 1, "per-seq"],
+                        "max_abs_err": worst[0],
+                        "share_differing": worst[1]}))
+    return err
+
+
+# -- phase 5: the AlexNet main path -----------------------------------------
+
+def alexnet_main_path(torch, q, zoo, kernel_fns, dev):
+    """The AlexNet-224 b100 lifecycle; returns (INT8 model, FP32 input,
+    state, launches by kernel)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    batch = 100
+    twin = zoo.torch_twin("alexnet")
+    state = alexnet_state(torch, twin, seed=0)
+    twin.load_state_dict(state)
+    twin = twin.to(dev).eval()
+    rng = np.random.default_rng(0)
+    x_calib = rng.standard_normal((batch, 3, 224, 224)).astype(np.float32)
+    x_test = rng.standard_normal((batch, 3, 224, 224)).astype(np.float32)
+
+    # the launch count covers the whole lifecycle: load, FP32 forward,
+    # calibration, convert (none of which launch a kernel) and one INT8
+    # forward (one launch per layer)
+    reset_counts(kernel_fns)
+    model = zoo.AlexNet(device="cuda")
+    model.load(state)
+    fp32 = model(q.tensor(x_test)).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(x_test, device=dev))
+    scale = float(ref.abs().max())
+    fp_err = float((fp32 - ref).abs().max()) / scale
+    if not torch.allclose(fp32, ref, rtol=1e-4, atol=1e-4 * scale):
+        fail(f"FP32 AlexNet differs from its torch twin: max error "
+             f"{fp_err} of max |logit|")
+    log(json.dumps({"phase": "fp32_vs_twin", "max_err_rel_to_max": fp_err}))
+
+    t0 = time.perf_counter()
+    model.prepare()
+    model(q.tensor(x_calib))
+    model.convert()
+    torch.cuda.synchronize()
+    lifecycle_s = time.perf_counter() - t0
+
+    out = model(q.tensor(x_test)).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    if counts != {"qgemm_u8s8": 8, "qgemm_u8s8_vzp": 0,
+                  "decode_attn_flat": 0}:
+        fail(f"INT8 AlexNet forward launched {counts}, want 8 qgemm_u8s8 "
+             f"and nothing else")
+    if tuple(out.shape) != (batch, 10) or not bool(torch.isfinite(out).all()):
+        fail(f"INT8 output shape {tuple(out.shape)} or non-finite values")
+    top1 = float((out.argmax(1) == ref.argmax(1)).float().mean())
+    log(json.dumps({"phase": "int8_forward", "launches": counts,
+                    "calibrate_convert_s": round(lifecycle_s, 3),
+                    "top1_agreement_vs_fp32": top1,
+                    "output_scale": model.fc3.scale,
+                    "output_zero_point": model.fc3.zero_point}))
+
+    cpu = zoo.AlexNet(device="cpu")
+    load_jax_state(cpu, export_state(model))
+    out_cpu = cpu(q.tensor(x_test[:2], device="cpu")).data
+    if not torch.equal(out[:2].cpu(), out_cpu):
+        fail("INT8 codes on the card differ from the CPU copy's")
+    log(json.dumps({"phase": "gpu_vs_cpu_codes", "images": 2, "equal": True}))
+    return model, x_test, state, counts
+
+
+def alexnet_timing(torch, q, zoo, model, x_test, state, profile):
+    xt = q.tensor(x_test)
+    batch = x_test.shape[0]
+    int8_ms = time_cuda(torch, lambda: model(xt), iters=20)
+    fp_model = zoo.AlexNet(device="cuda")
+    fp_model.load(state)
+    fp32_ms = time_cuda(torch, lambda: fp_model(xt), iters=20)
+    log(json.dumps({"model": "alexnet_cifar10_224", "batch": batch,
+                    "int8_ms_per_batch": int8_ms,
+                    "int8_images_per_s": batch * 1e3 / int8_ms,
+                    "fp32_ms_per_batch": fp32_ms,
+                    "fp32_images_per_s": batch * 1e3 / fp32_ms}))
+    if not profile:
+        return
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    reps = 5
+    for name, net in (("int8", model), ("fp32", fp_model)):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                net(xt)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        rows = profile_rows(torch, prof)
+        busy = sum(e.self_device_time_total for e in rows) / reps
+        log(json.dumps({"profile": name, "batch": batch,
+                        "wall_us_per_fwd": wall_us,
+                        "device_busy_us_per_fwd": busy,
+                        "device_idle_share": 1 - busy / wall_us,
+                        "kernels": [{
+                            "name": e.key[:90],
+                            "us_per_fwd": e.self_device_time_total / reps,
+                            "calls_per_fwd": e.count / reps}
+                            for e in rows[:30]]}))
+
+
+# -- phase 6: the decoder main path -----------------------------------------
+
+def teacher_forced(torch, model, prompt, tokens):
+    """The u8 logit codes [B, steps, V] of ``model`` fed the prompt and then
+    ``tokens`` [B, steps] one step at a time through its KV cache."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    t0 = prompt.shape[1]
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(prompt))
+        out = [codes]
+        pos = torch.full((), t0, dtype=torch.int64, device=prompt.device)
+        for s in range(tokens.shape[1] - 1):
+            codes, cache = model._decode_step(cache, pos, tokens[:, s])
+            out.append(codes)
+            pos = pos + 1
+    return torch.stack(out, 1)
+
+
+def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
+    """The gpt2-small-ish lifecycle and greedy generate; returns (INT8
+    model, prompt ids, launches by kernel)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    twin = TD.torch_text_decoder(**GPT, seed=0)
+    state = decoder_state(torch, twin, GPT["depth"], seed=0)
+    twin.load_state_dict(state)
+    twin = twin.to(dev).eval()
+    ids = np.random.default_rng(0).integers(
+        0, GPT["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+
+    reset_counts(kernel_fns)
+    t0 = time.perf_counter()
+    model = zoo.build("gpt_tiny", **GPT)
+    model.load(state)
+    fp32 = model(q.tensor(ids)).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(ids, dtype=torch.int64, device=dev))
+    scale = float(ref.abs().max())
+    fp_err = float((fp32 - ref).abs().max()) / scale
+    if tuple(fp32.shape) != (DEC_BATCH, DEC_PROMPT, GPT["vocab_size"]) or \
+            not torch.allclose(fp32, ref, rtol=1e-4, atol=1e-4 * scale):
+        fail(f"FP32 decoder differs from its torch twin: shape "
+             f"{tuple(fp32.shape)}, max error {fp_err} of max |logit|")
+    log(json.dumps({"phase": "decoder_fp32_vs_twin",
+                    "max_err_rel_to_max": fp_err}))
+    del twin, ref, fp32
+
+    model.prepare()
+    model(q.tensor(ids))
+    model.convert()
+    torch.cuda.synchronize()
+    lifecycle_s = time.perf_counter() - t0
+    tokens = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    # the prefill runs 37 B1 and one B2 per block; it takes the first
+    # token, and each of the DEC_STEPS - 1 decode steps after it runs 37
+    # B1, one B2 and one B3 per block
+    depth = GPT["depth"]
+    per_step = {"qgemm_u8s8": 3 * depth + 1, "qgemm_u8s8_vzp": depth,
+                "decode_attn_flat": depth}
+    prefill = dict(per_step, decode_attn_flat=0)
+    want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
+    if counts != want:
+        fail(f"decoder launches {counts}, want {want} (per decode step "
+             f"{per_step})")
+    if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.dtype != np.int32 \
+            or tokens.min() < 0 or tokens.max() >= GPT["vocab_size"]:
+        fail(f"generate returned {tokens.dtype} {tokens.shape} in "
+             f"[{tokens.min()}, {tokens.max()}]")
+    log(json.dumps({"phase": "decoder_generate", "steps": DEC_STEPS,
+                    "launches": counts, "launches_per_decode_step": per_step,
+                    "prepare_calibrate_convert_s": round(lifecycle_s, 3),
+                    "distinct_tokens": int(np.unique(tokens).size)}))
+
+    # the same converted state on the plain path (every kernel's plain
+    # version), on the card, teacher-forced on the kernel path's tokens
+    plain_cfg = q.QuantConfig(kernel_backend="xla", fuse_qkv="xla",
+                              decode_attention="xla")
+    plain = zoo.build("gpt_tiny", config=plain_cfg, **GPT)
+    load_jax_state(plain, export_state(model))
+    prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+    toks = torch.tensor(tokens, dtype=torch.int64, device=dev)
+    got = teacher_forced(torch, model, prompt, toks)
+    want_codes = teacher_forced(torch, plain, prompt, toks)
+    if not torch.equal(got.argmax(-1), toks):
+        fail("the kernel path's teacher-forced argmax differs from the "
+             "tokens its generate() returned")
+    mx, share = contract(torch, got, want_codes)
+    differs = (want_codes.argmax(-1) != toks).any(0).nonzero()
+    first = int(differs[0]) if differs.numel() else None
+    log(json.dumps({"phase": "decoder_kernel_vs_plain_path",
+                    "codes": int(got.numel()), "max_abs_err": mx,
+                    "share_differing": share,
+                    "first_step_with_other_greedy_token": first,
+                    "limits": {"max": MAX_CODE_DIFF,
+                               "share": MAX_SHARE_DIFF}}))
+    if mx > MAX_CODE_DIFF or share > MAX_SHARE_DIFF:
+        fail(f"decoder codes, kernel path vs plain path: max {mx}, share "
+             f"{share}")
+    del plain, got, want_codes
+    return model, ids, counts
+
+
+def decoder_timing(torch, model, ids, profile):
+    """Decode ms/step by bench.py's protocol, the prefill, and under
+    ``profile`` the device time of decode steps by kernel."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    vocab = GPT["vocab_size"]
+    times = {}
+    for steps in (DEC_SHORT, DEC_STEPS):
+        model.generate(ids, steps)
+        best = float("inf")
+        for trial in range(3):
+            p2 = (ids + trial + 1) % vocab
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.generate(p2, steps)
+            best = min(best, time.perf_counter() - t0)
+        times[steps] = best
+    per_step = (times[DEC_STEPS] - times[DEC_SHORT]) / (DEC_STEPS - DEC_SHORT)
+    prompt = Tensor(torch.tensor(ids, dtype=torch.int64, device=model.device))
+    with torch.no_grad():
+        prefill_ms = time_cuda(torch, lambda: model._prefill(prompt), iters=5)
+    res = {"model": "gpt2_small_ish_decode", "batch": DEC_BATCH,
+           "prompt": DEC_PROMPT, "decode_ms_per_step": per_step * 1e3,
+           "tokens_per_s": DEC_BATCH / per_step, "prefill_ms": prefill_ms,
+           "generate_s": {str(k): v for k, v in times.items()}}
+    log(json.dumps(res))
+    if profile:
+        profile_decode(torch, model, prompt, per_step * 1e6)
+    return res
+
+
+def kernel_of(name: str):
+    """The port's kernel a profiler row belongs to, or None."""
+    if "decode_attn_kernel" in name:
+        return "decode_attn_flat"
+    if "qgemm_u8s8_kernel" in name:
+        # the template's second argument is the epilogue mode; 2 is B2's
+        vzp = re.search(r"qgemm_u8s8_kernel<\w+, 2>", name)
+        return "qgemm_u8s8_vzp" if vzp else "qgemm_u8s8"
+    return None
+
+
+def profile_decode(torch, model, prompt, step_us):
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    reps = 8
+    with torch.no_grad():
+        codes, cache = model._prefill(prompt)
+        tok = codes.argmax(-1)
+        pos = torch.full((), prompt.shape[1], dtype=torch.int64,
+                         device=model.device)
+        for _ in range(2):                       # warm
+            codes, cache = model._decode_step(cache, pos, tok)
+            tok, pos = codes.argmax(-1), pos + 1
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                codes, cache = model._decode_step(cache, pos, tok)
+                tok, pos = codes.argmax(-1), pos + 1
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    rows = profile_rows(torch, prof)
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    by_kernel = {}
+    for e in rows:
+        k = kernel_of(e.key) or "other (eager glue)"
+        us, n = by_kernel.get(k, (0.0, 0.0))
+        by_kernel[k] = (us + e.self_device_time_total / reps,
+                        n + e.count / reps)
+    log(json.dumps({"profile": "decode_step", "batch": DEC_BATCH,
+                    "wall_us_per_step_profiled": wall_us,
+                    "wall_us_per_step_unprofiled": step_us,
+                    "device_busy_us_per_step": busy,
+                    "device_idle_share": 1 - busy / step_us,
+                    "device_idle_share_profiled": 1 - busy / wall_us,
+                    "by_kernel": {k: {"us_per_step": us,
+                                      "launches_per_step": n}
+                                  for k, (us, n) in by_kernel.items()},
+                    "rows": [{"name": e.key[:90],
+                              "us_per_step": e.self_device_time_total / reps,
+                              "calls_per_step": e.count / reps}
+                             for e in rows[:30]]}))
+
+
+# -- phase 7: per-kernel times ------------------------------------------------
+
+def int_mm_operands(torch, a_u8, w_s8_nk):
+    """cuBLAS int8 operands: a recentered to s8, M padded to 32 and K, N to
+    multiples of 8 with zeros (a zero tap adds nothing)."""
+    m, k = a_u8.shape
+    n = w_s8_nk.shape[0]
+    mp, kp, np_ = max(32, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    a = torch.zeros((mp, kp), dtype=torch.int8, device=a_u8.device)
+    a[:m, :k] = (a_u8.to(torch.int16) - 128).to(torch.int8)
+    w = torch.zeros((np_, kp), dtype=torch.int8, device=a_u8.device)
+    w[:n, :k] = w_s8_nk
+    return a, w
+
+
+def time_alexnet_gemms(torch, G, gen, dev, flush):
+    rows = []
+    for layer, m, k, n in ALEXNET_B100:
+        c = gemm_case(torch, gen, m, k, n, dev)
+        order = "conv" if layer in CONV_LAYERS else "gemm"
+        oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                              c["zp_a"], recentered=True)
+        ep = G.epilogue_vector(c["s_a"], 0.01, c["s_c"], n, dev, order)
+        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
+                  relu=layer != "fc3", rounding="trunc", order=order)
+        ms = time_cuda(torch, lambda: G.qgemm(c["a"], c["w"], oc, ep, **kw),
+                       iters=10, flush=flush)
+        plain_ms = time_cuda(
+            torch, lambda: G.qgemm_plain(c["a"], c["w"], oc, ep, **kw),
+            iters=3, flush=flush)
+        a_s8, w_p = int_mm_operands(torch, c["a"], c["w"])
+
+        def library():
+            acc = torch._int_mm(a_s8, w_p.t())[:m, :n]
+            return G._requant_epilogue(acc + oc.reshape(1, -1), ep, **kw)
+
+        if not torch.equal(library(), G.qgemm(c["a"], c["w"], oc, ep, **kw)):
+            fail(f"{layer}: torch._int_mm + epilogue disagrees with the "
+                 f"kernel")
+        library_ms = time_cuda(torch, library, iters=5, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
+        rows.append(dict(kernel="qgemm_u8s8", path="alexnet_b100",
+                         layer=layer, M=m, K=k, N=n, launches_per_unit=1,
+                         ms=ms, bound_ms=b_ms, bound_by=b_by,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         t_ops=t_ops, t_bytes=t_bytes))
+        log(json.dumps({k_: v for k_, v in rows[-1].items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": b_ms / ms}))
+        del c, a_s8, w_p
+    return rows
+
+
+def time_decode_kernels(torch, G, A, gen, dev, flush):
+    """Each kernel at one decode step's shapes; a row per shape with its
+    launches per step."""
+    rows = []
+    for layer, m, k, n, per_step, act_name in DEC_GEMMS:
+        c = gemm_case(torch, gen, m, k, n, dev)
+        oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                              c["zp_a"], recentered=True)
+        ep = G.epilogue_vector(c["s_a"], c["s_w_pc"], c["s_c"], n, dev)
+        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
+                  rounding="trunc",
+                  act=act_grid(act_name) if act_name else None)
+        ms = time_cuda(torch, lambda: G.qgemm(c["a"], c["w"], oc, ep, **kw),
+                       iters=20, flush=flush)
+        plain_ms = time_cuda(
+            torch, lambda: G.qgemm_plain(c["a"], c["w"], oc, ep, **kw),
+            iters=5, flush=flush)
+        a_s8, w_p = int_mm_operands(torch, c["a"], c["w"])
+
+        def library():
+            acc = torch._int_mm(a_s8, w_p.t())[:m, :n]
+            return G._requant_epilogue(acc + oc.reshape(1, -1), ep, **kw)
+
+        if not torch.equal(library(),
+                           G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)):
+            fail(f"{layer}: torch._int_mm + epilogue disagrees with the "
+                 f"plain version")
+        library_ms = time_cuda(torch, library, iters=10, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
+        rows.append(dict(kernel="qgemm_u8s8", path="decode_step",
+                         layer=layer, M=m, K=k, N=n,
+                         launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
+                         bound_by=b_by, plain_ms=plain_ms,
+                         library_ms=library_ms, t_ops=t_ops,
+                         t_bytes=t_bytes))
+        del c, a_s8, w_p
+
+    m, k, n, per_step = DEC_QKV
+    parts, cases = [], []
+    for i in range(3):
+        c = gemm_case(torch, gen, m, k, n, dev)
+        cases.append(c)
+        parts.append(dict(w_s8_nk=c["w"], q_bias=c["q_bias"],
+                          rowsum=rowsum(torch, c["w"]), scale_w=c["s_w_pc"],
+                          scale_c=c["s_c"] * (1 + 0.3 * i), zp_c=110 + 9 * i))
+    a = cases[0]["a"]
+    merged = G.merge_parts(parts, scale_a=cases[0]["s_a"],
+                           zp_a=cases[0]["zp_a"])
+    ms = time_cuda(torch, lambda: G.qgemm_multi(a, merged), iters=20,
+                   flush=flush)
+    plain_ms = time_cuda(torch, lambda: G.qgemm_multi_plain(a, merged),
+                         iters=5, flush=flush)
+    a_s8, w_p = int_mm_operands(torch, a, merged["w"])
+
+    def library_multi():
+        acc = torch._int_mm(a_s8, w_p.t())[:m, :3 * n]
+        return G.vzp_epilogue(acc + merged["oc"].reshape(1, -1), merged)
+
+    if not torch.equal(library_multi(),
+                       torch.cat(G.qgemm_multi(a, merged), 1)):
+        fail("merged QKV: torch._int_mm + epilogue disagrees with the kernel")
+    library_ms = time_cuda(torch, library_multi, iters=10, flush=flush)
+    b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, 3 * n, vectors=3)
+    rows.append(dict(kernel="qgemm_u8s8_vzp", path="decode_step",
+                     layer="qkv", M=m, K=k, N=3 * n,
+                     launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
+                     bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
+                     t_ops=t_ops, t_bytes=t_bytes))
+
+    b, t, h, d = (DEC_ATTN[x] for x in ("b", "t", "h", "d"))
+    valid = DEC_ATTN["valid"]
+    q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    k_, v_ = (torch.randint(0, 256, (b, t, h * d), generator=gen,
+                            dtype=torch.uint8, device=dev) for _ in range(2))
+    valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
+    kw = dict(ATTN_PARAMS, n_heads=h)
+    ms = time_cuda(torch, lambda: A.decode_attention_flat(q, k_, v_, valid_t,
+                                                          **kw),
+                   iters=20, flush=flush)
+    plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
+        q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
+    b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, h, d, valid)
+    rows.append(dict(kernel="decode_attn_flat", path="decode_step",
+                     layer=f"attention (live length {valid} of {t})", B=b,
+                     T=t, H=h, D=d, launches_per_unit=DEC_ATTN["launches"],
+                     ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                     library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+    for r in rows:
+        log(json.dumps({k_: v for k_, v in r.items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+    step = {key: sum(r[key] * r["launches_per_unit"] for r in rows)
+            for key in ("ms", "bound_ms", "plain_ms")}
+    log(json.dumps({"decode_step_kernels": step,
+                    "launches_per_step": {
+                        "qgemm_u8s8": 37, "qgemm_u8s8_vzp": 12,
+                        "decode_attn_flat": 12}}))
+    return rows
+
+
+def kernels_line(rows, counts_by_path, max_err):
+    """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are sums over the ``work`` named in the entry: every
+    launch of one AlexNet b100 forward and of one decode step, at their
+    shapes."""
+    out = []
+    for name, info in KERNEL_INFO.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        tot = {key: sum(r[key] * r["launches_per_unit"] for r in mine)
+               for key in ("ms", "plain_ms", "bound_ms", "t_ops", "t_bytes")}
+        libs = [r["library_ms"] for r in mine]
+        paths = sorted({r["path"] for r in mine})
+        out.append(dict(
+            name=name, route="cuda", source=info["source"],
+            replaces=info["replaces"],
+            **({"also_replaces": info["also_replaces"]}
+               if "also_replaces" in info else {}),
+            launches=sum(c[name] for c in counts_by_path.values()),
+            launches_by_path={p: c[name] for p, c in counts_by_path.items()},
+            max_abs_err=max_err[name], ms=tot["ms"],
+            plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("bytes" if tot["t_bytes"] >= tot["t_ops"]
+                      else "operations"),
+            library_ms=(None if any(x is None for x in libs) else
+                        sum(r["library_ms"] * r["launches_per_unit"]
+                            for r in mine)),
+            work=" + ".join(f"one {p.replace('_', ' ')}" for p in paths)))
+    return out
+
+
+def reset_counts(kernel_fns):
+    for fn in kernel_fns.values():
+        fn.launches = 0
+
+
+def read_counts(kernel_fns):
+    return {name: fn.launches for name, fn in kernel_fns.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="print a torch.profiler breakdown of the INT8 "
-                         "and FP32 forwards")
+                    help="print torch.profiler breakdowns of the AlexNet "
+                         "forwards and of decode steps")
     args = ap.parse_args(argv)
 
     import torch
@@ -147,10 +898,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import int8inferenceengine_tpu_torch as q
     from int8inferenceengine_tpu_torch import kernels
-    from int8inferenceengine_tpu_torch.carry import export_state, load_jax_state
+    from int8inferenceengine_tpu_torch.models import text_decoder as TD
     from int8inferenceengine_tpu_torch.models import zoo
+    from int8inferenceengine_tpu_torch.ops import attention as A
     from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
     from int8inferenceengine_tpu_torch.ops.quant import quantize_u8
+    kernel_fns = {"qgemm_u8s8": G.qgemm, "qgemm_u8s8_vzp": G.qgemm_multi,
+                  "decode_attn_flat": A.decode_attention_flat}
+    t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
     smi = nvidia_smi()
@@ -200,197 +955,35 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    max_err = 0
-    n_cases = 0
-    for shape in [s[1:] for s in ALEXNET_B100] + RAGGED:
-        m, k, n = shape
-        c = gemm_case(torch, gen, m, k, n, dev)
-        oc = G.compute_offset(c["q_bias"], c["w"].to(torch.int32).sum(
-            1, dtype=torch.int32), c["s_a"], c["zp_a"], recentered=True)
-        spread = None
-        for order in G.ORDERS:
-            for per_channel in (False, True):
-                s_w = c["s_w_pc"] if per_channel else 0.01
-                ep = G.epilogue_vector(c["s_a"], s_w, c["s_c"], n, dev, order)
-                for rounding in ("trunc", "nearest"):
-                    for relu in (False, True):
-                        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"],
-                                  zp_c=c["zp_c"], relu=relu,
-                                  rounding=rounding, order=order)
-                        got = G.qgemm(c["a"], c["w"], oc, ep, **kw)
-                        want = G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
-                        torch.cuda.synchronize()
-                        err = int((got.to(torch.int32) - want.to(torch.int32)
-                                   ).abs().max())
-                        max_err = max(max_err, err)
-                        n_cases += 1
-                        if err:
-                            bad = int((got != want).sum())
-                            fail(f"qgemm kernel != plain at M={m} K={k} N={n} "
-                                 f"order={order} per_channel={per_channel} "
-                                 f"rounding={rounding} relu={relu}: {bad} "
-                                 f"codes differ, max {err}")
-                        if spread is None:
-                            spread = int(torch.unique(want).numel())
-        log(json.dumps({"phase": "kernel_vs_plain", "M": m, "K": k, "N": n,
-                        "cases": 16, "distinct_codes": spread,
-                        "max_abs_err": 0}))
-    log(json.dumps({"phase": "kernel_vs_plain", "cases": n_cases,
-                    "max_abs_err": max_err}))
+    max_err = {"qgemm_u8s8": check_alexnet_kernel(torch, G, gen, dev)}
 
-    # -- 4. the main path: AlexNet-224 at batch 100 ----------------------------
-    batch = 100
-    twin = zoo.torch_twin("alexnet")
-    state = alexnet_state(torch, twin, seed=0)
-    twin.load_state_dict(state)
-    twin = twin.to(dev).eval()
-    rng = np.random.default_rng(0)
-    x_calib = rng.standard_normal((batch, 3, 224, 224)).astype(np.float32)
-    x_test = rng.standard_normal((batch, 3, 224, 224)).astype(np.float32)
+    # -- 4. the decoder's kernels against their plain versions ----------------
+    for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
+        max_err[name] = max(max_err.get(name, 0), err)
 
-    # the launch count covers the whole lifecycle: load, FP32 forward,
-    # calibration, convert (none of which launch the kernel) and one INT8
-    # forward (one launch per layer)
-    G.qgemm.launches = 0
-    model = zoo.AlexNet(device="cuda")
-    model.load(state)
-    fp32 = model(q.tensor(x_test)).data
-    with torch.no_grad():
-        ref = twin(torch.tensor(x_test, device=dev))
-    scale = float(ref.abs().max())
-    fp_err = float((fp32 - ref).abs().max()) / scale
-    if not torch.allclose(fp32, ref, rtol=1e-4, atol=1e-4 * scale):
-        fail(f"FP32 AlexNet differs from its torch twin: max error "
-             f"{fp_err} of max |logit|")
-    log(json.dumps({"phase": "fp32_vs_twin", "max_err_rel_to_max": fp_err}))
+    # -- 5. the AlexNet main path ---------------------------------------------
+    counts_by_path = {}
+    model, x_test, state, counts_by_path["alexnet_b100"] = alexnet_main_path(
+        torch, q, zoo, kernel_fns, dev)
+    alexnet_timing(torch, q, zoo, model, x_test, state, args.profile)
+    del model, state
 
-    t0 = time.perf_counter()
-    model.prepare()
-    model(q.tensor(x_calib))
-    model.convert()
-    torch.cuda.synchronize()
-    lifecycle_s = time.perf_counter() - t0
+    # -- 6. the decoder main path ---------------------------------------------
+    dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
+        torch, q, zoo, TD, kernel_fns, dev)
+    decoder_timing(torch, dec, ids, args.profile)
+    del dec
+    torch.cuda.empty_cache()
 
-    out = model(q.tensor(x_test)).data
-    torch.cuda.synchronize()
-    launches = G.qgemm.launches
-    if launches != 8:
-        fail(f"INT8 forward launched the qgemm kernel {launches} times, "
-             f"want 8")
-    if tuple(out.shape) != (batch, 10) or not bool(torch.isfinite(out).all()):
-        fail(f"INT8 output shape {tuple(out.shape)} or non-finite values")
-    top1 = float((out.argmax(1) == ref.argmax(1)).float().mean())
-    log(json.dumps({"phase": "int8_forward", "launches": launches,
-                    "calibrate_convert_s": round(lifecycle_s, 3),
-                    "top1_agreement_vs_fp32": top1,
-                    "output_scale": model.fc3.scale,
-                    "output_zero_point": model.fc3.zero_point}))
-
-    cpu = zoo.AlexNet(device="cpu")
-    load_jax_state(cpu, export_state(model))
-    out_cpu = cpu(q.tensor(x_test[:2], device="cpu")).data
-    if not torch.equal(out[:2].cpu(), out_cpu):
-        fail("INT8 codes on the card differ from the CPU copy's")
-    log(json.dumps({"phase": "gpu_vs_cpu_codes", "images": 2, "equal": True}))
-
-    # -- 5. timing -------------------------------------------------------------
-    xt = q.tensor(x_test)
-    int8_ms = time_cuda(torch, lambda: model(xt), iters=20)
-    fp_model = zoo.AlexNet(device="cuda")
-    fp_model.load(state)
-    fp32_ms = time_cuda(torch, lambda: fp_model(xt), iters=20)
-    log(json.dumps({"model": "alexnet_cifar10_224", "batch": batch,
-                    "int8_ms_per_batch": int8_ms,
-                    "int8_images_per_s": batch * 1e3 / int8_ms,
-                    "fp32_ms_per_batch": fp32_ms,
-                    "fp32_images_per_s": batch * 1e3 / fp32_ms}))
-
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        reps = 5
-        for name, net in (("int8", model), ("fp32", fp_model)):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(reps):
-                    net(xt)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6 / reps
-            # device-side rows only (kernels, memcpy, memset): the aten op
-            # rows repeat their kernels' time
-            rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            rows.sort(key=lambda e: -e.self_device_time_total)
-            busy = sum(e.self_device_time_total for e in rows) / reps
-            log(json.dumps({"profile": name, "batch": batch,
-                            "wall_us_per_fwd": wall_us,
-                            "device_busy_us_per_fwd": busy,
-                            "device_idle_share": 1 - busy / wall_us,
-                            "kernels": [{
-                                "name": e.key[:90],
-                                "us_per_fwd": e.self_device_time_total / reps,
-                                "calls_per_fwd": e.count / reps}
-                                for e in rows[:30]]}))
-    del fp_model, model, twin
-
+    # -- 7. per-kernel times ---------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                  t_ops=0.0, t_bytes=0.0)
-    for layer, m, k, n in ALEXNET_B100:
-        c = gemm_case(torch, gen, m, k, n, dev)
-        order = "conv" if layer in CONV_LAYERS else "gemm"
-        oc = G.compute_offset(c["q_bias"], c["w"].to(torch.int32).sum(
-            1, dtype=torch.int32), c["s_a"], c["zp_a"], recentered=True)
-        ep = G.epilogue_vector(c["s_a"], 0.01, c["s_c"], n, dev, order)
-        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
-                  relu=layer != "fc3", rounding="trunc", order=order)
-        ms = time_cuda(torch, lambda: G.qgemm(c["a"], c["w"], oc, ep, **kw),
-                       iters=10, flush=flush)
-        plain_ms = time_cuda(
-            torch, lambda: G.qgemm_plain(c["a"], c["w"], oc, ep, **kw),
-            iters=3, flush=flush)
-        # library yardstick: cuBLAS int8 GEMM (K, N padded to multiples of
-        # 8 with zeros) + the same eager epilogue; never used by the port
-        kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
-        a_s8 = torch.zeros((m, kp), dtype=torch.int8, device=dev)
-        a_s8[:, :k] = (c["a"].to(torch.int16) - 128).to(torch.int8)
-        w_p = torch.zeros((np_, kp), dtype=torch.int8, device=dev)
-        w_p[:n, :k] = c["w"]
-
-        def library():
-            acc = torch._int_mm(a_s8, w_p.t())[:, :n]
-            return G._requant_epilogue(acc + oc.reshape(1, -1), ep, **kw)
-
-        if not torch.equal(library(), G.qgemm(c["a"], c["w"], oc, ep, **kw)):
-            fail(f"{layer}: torch._int_mm + epilogue disagrees with the "
-                 f"kernel")
-        library_ms = time_cuda(torch, library, iters=5, flush=flush)
-        b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                       ("library_ms", library_ms), ("t_ops", t_ops),
-                       ("t_bytes", t_bytes)):
-            totals[key] += v
-        log(json.dumps({"kernel": "qgemm_u8s8", "layer": layer, "M": m,
-                        "K": k, "N": n, "ms": ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "plain_ms": plain_ms,
-                        "library_ms": library_ms,
-                        "share_of_bound": b_ms / ms}))
-        del c, a_s8, w_p
+    rows = time_alexnet_gemms(torch, G, gen, dev, flush)
+    rows += time_decode_kernels(torch, G, A, gen, dev, flush)
+    log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "qgemm_u8s8", "route": "cuda",
-        "source": "int8inferenceengine_tpu_torch/csrc/qgemm_int8.cu",
-        "replaces": "int8inferenceengine_tpu/ops/gemm_int8.py:111",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
-        "bound_ms": totals["bound_ms"],
-        "bound_by": ("bytes" if totals["t_bytes"] >= totals["t_ops"]
-                     else "operations"),
-        "library_ms": totals["library_ms"]}]}))
+    log(json.dumps({"kernels": kernels_line(rows, counts_by_path, max_err)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

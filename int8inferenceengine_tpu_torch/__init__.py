@@ -5,7 +5,8 @@ The same ``Module``/``Linear``/``Conv2d``/``tensor`` API and
 ``int8inferenceengine_tpu``, with the same numerics (u8 asymmetric
 activations, s8 symmetric weights, i32 accumulation, trunc/nearest requant
 epilogues), running on an NVIDIA Hopper card through hand-written CUDA
-kernels (``csrc/``).  Entry points run on the card unless the caller passes
+kernels (``csrc/``): the CNN zoo and the GPT-style ``TextDecoder`` with its
+u8 KV cache and greedy ``generate``.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 
 TF32 is switched off for float32 matmuls and cuDNN convolutions at import:
@@ -19,7 +20,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import DEFAULT_CONFIG, QuantConfig  # noqa: E402
-from .layers import Conv2d, Layer, Linear  # noqa: E402
+from .layers import (Conv2d, Layer, Linear, QuantAct,  # noqa: E402
+                     QuantAdd, QuantEmbed, QuantLayerNorm, QuantMatmul,
+                     QuantPosEmbed, QuantSoftmax)
 from .module import Module, TruncDepthWarning  # noqa: E402
 from .ops.functional import (argmax, dequantize, max_pool2d,  # noqa: E402
                              quantize, relu)
@@ -28,6 +31,8 @@ from .tensor import Tensor, tensor  # noqa: E402
 __all__ = [
     "tensor", "argmax", "relu", "max_pool2d",
     "Linear", "Conv2d", "Tensor", "Layer", "Module",
+    "QuantAct", "QuantAdd", "QuantEmbed", "QuantLayerNorm", "QuantMatmul",
+    "QuantPosEmbed", "QuantSoftmax",
     "quantize", "dequantize",
     "QuantConfig", "DEFAULT_CONFIG", "TruncDepthWarning",
 ]

@@ -5,12 +5,22 @@ A state maps each layer name (``Module.named_layers()``) to
     {"params": {name: np.ndarray}, "scale": float, "zero_point": int,
      "weight_scale": float or np.ndarray, "is_quantized": bool}
 
-with ``params`` in the JAX package's layouts: before convert ``weight`` /
-``bias`` (Linear, [out, in]) or ``w_hwio`` / ``bias`` (Conv2d, HWIO); after
-convert ``qw_kn`` ([K, N] s8) or ``qw_hwio`` (HWIO s8), with ``q_bias``,
-``rowsum`` and, per channel, ``w_scale``.  It is what a JAX ``Layer`` holds
-in ``layer.params`` and its attributes, so after ``load_jax_state`` both
-packages compute the same function.
+with ``params`` in the JAX package's layouts:
+
+* Linear: before convert ``weight`` / ``bias`` ([out, in]); after it
+  ``qw_kn`` ([K, N] s8), ``q_bias``, ``rowsum`` and, per channel,
+  ``w_scale``;
+* Conv2d: ``w_hwio`` / ``bias`` (HWIO), after convert ``qw_hwio`` (HWIO s8)
+  with ``q_bias``, ``rowsum`` and, per channel, ``w_scale``;
+* QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
+  ([V, C] u8);
+* QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
+* QuantLayerNorm: ``weight`` and ``bias``;
+* the weightless layers (QuantAct, QuantAdd, QuantMatmul, QuantSoftmax):
+  none, only ``scale`` and ``zero_point``.
+
+It is what a JAX ``Layer`` holds in ``layer.params`` and its attributes, so
+after ``load_jax_state`` both packages compute the same function.
 """
 
 from __future__ import annotations
@@ -18,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import Conv2d, Layer
+from .layers import (Conv2d, Layer, Linear, QuantEmbed, QuantLayerNorm,
+                     QuantPosEmbed)
 
 
 def _t(arr, dtype) -> torch.Tensor:
@@ -31,7 +42,7 @@ def _expect(layer_name: str, what: str, arr, shape):
                          f"expected {tuple(shape)}")
 
 
-def _load_layer(name: str, layer: Layer, st: dict) -> None:
+def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     p = st["params"]
     k = getattr(layer, "kernel_size", None)
     n, c = layer.out_channels, layer.in_channels
@@ -42,22 +53,44 @@ def _load_layer(name: str, layer: Layer, st: dict) -> None:
         else:
             layer.load_weight(p["weight"])
         layer.load_bias(p["bias"])
-        layer.is_quantized = False
+        return
+    if isinstance(layer, Conv2d):
+        _expect(name, "qw_hwio", p["qw_hwio"], (k, k, c, n))
+        qw = np.asarray(p["qw_hwio"]).reshape(k * k * c, n).T
     else:
-        if isinstance(layer, Conv2d):
-            _expect(name, "qw_hwio", p["qw_hwio"], (k, k, c, n))
-            qw = np.asarray(p["qw_hwio"]).reshape(k * k * c, n).T
-        else:
-            _expect(name, "qw_kn", p["qw_kn"], (c, n))
-            qw = np.asarray(p["qw_kn"]).T
-        _expect(name, "q_bias", p["q_bias"], (n,))
-        s_w = (_t(p["w_scale"], np.float32) if "w_scale" in p
-               else float(np.float32(st["weight_scale"])))
-        layer.set_quantized(_t(qw, np.int8), _t(p["q_bias"], np.int8), s_w)
-        rowsum = np.asarray(p["rowsum"], np.int64)
-        if not np.array_equal(layer.rowsum.cpu().numpy(), rowsum):
-            raise ValueError(f"{name}.rowsum disagrees with its weights")
-        layer.is_quantized = True
+        _expect(name, "qw_kn", p["qw_kn"], (c, n))
+        qw = np.asarray(p["qw_kn"]).T
+    _expect(name, "q_bias", p["q_bias"], (n,))
+    s_w = (_t(p["w_scale"], np.float32) if "w_scale" in p
+           else float(np.float32(st["weight_scale"])))
+    layer.set_quantized(_t(qw, np.int8), _t(p["q_bias"], np.int8), s_w)
+    rowsum = np.asarray(p["rowsum"], np.int64)
+    if not np.array_equal(layer.rowsum.cpu().numpy(), rowsum):
+        raise ValueError(f"{name}.rowsum disagrees with its weights")
+
+
+def _load_table_layer(name: str, layer: Layer, st: dict) -> None:
+    p = st["params"]
+    if isinstance(layer, QuantEmbed) and st["is_quantized"]:
+        _expect(name, "q_weight", p["q_weight"],
+                (layer.vocab_size, layer.dim))
+        layer.q_weight = _t(p["q_weight"], np.uint8).to(layer.device)
+        layer.weight = None
+        return
+    layer.load_weight(p["weight"])
+    if "bias" in p:
+        layer.load_bias(p["bias"])
+
+
+def _load_layer(name: str, layer: Layer, st: dict) -> None:
+    if isinstance(layer, (Linear, Conv2d)):
+        _load_gemm_layer(name, layer, st)
+    elif isinstance(layer, (QuantEmbed, QuantPosEmbed, QuantLayerNorm)):
+        _load_table_layer(name, layer, st)
+    elif st["params"]:
+        raise ValueError(f"{name}: {type(layer).__name__} has no params, got "
+                         f"{sorted(st['params'])}")
+    layer.is_quantized = bool(st["is_quantized"])
     layer.scale = float(st["scale"])
     layer.zero_point = int(st["zero_point"])
     layer.is_preparing = False
@@ -79,32 +112,48 @@ def load_jax_state(module, state: dict) -> None:
     module.is_quant = quantized == {True}
 
 
+def _gemm_params(layer: Layer) -> tuple[dict, object]:
+    if layer.is_quantized:
+        qw = layer.qw.cpu().numpy()
+        if isinstance(layer, Conv2d):
+            k = layer.kernel_size
+            params = {"qw_hwio": qw.T.reshape(k, k, layer.in_channels,
+                                              layer.out_channels)}
+        else:
+            params = {"qw_kn": qw.T.copy()}
+        params["q_bias"] = layer.q_bias.cpu().numpy()
+        params["rowsum"] = layer.rowsum.cpu().numpy()
+        ws = layer.weight_scale
+        if isinstance(ws, torch.Tensor):
+            ws = params["w_scale"] = ws.cpu().numpy()
+        return params, ws
+    w = layer.weight.cpu().numpy()
+    params = ({"w_hwio": np.transpose(w, (2, 3, 1, 0))}
+              if isinstance(layer, Conv2d) else {"weight": w})
+    params["bias"] = layer.bias.cpu().numpy()
+    return params, layer.weight_scale
+
+
+def _params(layer: Layer) -> tuple[dict, object]:
+    if isinstance(layer, (Linear, Conv2d)):
+        return _gemm_params(layer)
+    if isinstance(layer, QuantEmbed) and layer.is_quantized:
+        return {"q_weight": layer.q_weight.cpu().numpy()}, layer.weight_scale
+    params = {}
+    for key in ("weight", "bias"):
+        if isinstance(layer, (QuantEmbed, QuantPosEmbed, QuantLayerNorm)) \
+                and getattr(layer, key) is not None:
+            params[key] = getattr(layer, key).cpu().numpy()
+    return params, layer.weight_scale
+
+
 def export_state(module) -> dict:
     """The inverse of ``load_jax_state``: ``module``'s state in the JAX
     package's layouts, as numpy arrays."""
     state = {}
     for name, layer in module.named_layers():
-        if layer.is_quantized:
-            qw = layer.qw.cpu().numpy()
-            if isinstance(layer, Conv2d):
-                k = layer.kernel_size
-                params = {"qw_hwio": qw.T.reshape(k, k, layer.in_channels,
-                                                  layer.out_channels)}
-            else:
-                params = {"qw_kn": qw.T.copy()}
-            params["q_bias"] = layer.q_bias.cpu().numpy()
-            params["rowsum"] = layer.rowsum.cpu().numpy()
-            ws = layer.weight_scale
-            if isinstance(ws, torch.Tensor):
-                ws = params["w_scale"] = ws.cpu().numpy()
-        else:
-            w = layer.weight.cpu().numpy()
-            params = ({"w_hwio": np.transpose(w, (2, 3, 1, 0))}
-                      if isinstance(layer, Conv2d) else {"weight": w})
-            params["bias"] = layer.bias.cpu().numpy()
-            ws = layer.weight_scale
+        params, ws = _params(layer)
         state[name] = {"params": params, "scale": layer.scale,
                        "zero_point": layer.zero_point, "weight_scale": ws,
                        "is_quantized": layer.is_quantized}
     return state
-

@@ -52,8 +52,10 @@ class QuantConfig:
     # package's conv2d_int8_gemm); 'xla_conv' has no counterpart here.
     conv_backend: str = "auto"
 
-    # Quantized GEMM backend.  Here the tensor's device decides: the
-    # hand-written kernel on a CUDA tensor, the plain version on the CPU.
+    # Quantized GEMM backend.  'auto' and 'pallas': the hand-written kernel
+    # on a CUDA tensor (the plain version on a CPU tensor); 'xla': the plain
+    # PyTorch version on any device, the counterpart of the JAX package's
+    # plain lax.dot_general path.
     kernel_backend: str = "auto"
 
     # Weight-only and 4-bit weight modes.
@@ -66,10 +68,18 @@ class QuantConfig:
     # Per-token dynamic activation quantization (requires weight_only).
     dynamic_act: bool = False
 
-    # Transformer-layer fusions (layers not ported yet).
+    # Transformer-layer fusions (layers.fused_*).
+    # Fold a Linear's following QuantAct into the GEMM's requant epilogue.
     fuse_linear_act: bool = True
+    # Q/K/V projections as one GEMM with a per-column zero point: 'auto' /
+    # 'pallas' launch kernel B2 on a CUDA tensor, 'xla' runs the merged
+    # GEMM's plain version, 'off' the three Linears.
     fuse_qkv: str = "auto"
+    # Fused prefill attention (the JAX package's ViT and text transformer,
+    # not ported yet; the decoder's prefill attention is composed).
     fused_attention: str = "auto"
+    # Cached-decode attention: 'auto' / 'pallas' launch kernel B3 on a CUDA
+    # tensor, 'xla' / 'off' run the composed plain version.
     decode_attention: str = "auto"
 
     # Computation dtypes of the FP32 path, the conv epilogue and the glue.
@@ -89,7 +99,14 @@ _IMPLEMENTED = {
     "glue_dtype": "float32",
     "epilogue_dtype": "float32",
     "fp_dtype": "float32",
-    "kernel_backend": "auto",
+    "fused_attention": "auto",
+}
+
+# field -> the values this package accepts
+_CHOICES = {
+    "kernel_backend": ("auto", "pallas", "xla"),
+    "fuse_qkv": ("auto", "pallas", "xla", "off"),
+    "decode_attention": ("auto", "pallas", "xla", "off"),
 }
 
 
@@ -110,3 +127,7 @@ def check_supported(config: QuantConfig) -> None:
         raise ValueError(f"unknown conv_backend {config.conv_backend!r}")
     if config.rounding not in ("trunc", "nearest"):
         raise ValueError(f"unknown rounding {config.rounding!r}")
+    for field, allowed in _CHOICES.items():
+        if getattr(config, field) not in allowed:
+            raise ValueError(f"QuantConfig.{field}={getattr(config, field)!r}"
+                             f" is not one of {allowed}")

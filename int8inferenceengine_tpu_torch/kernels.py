@@ -25,14 +25,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 # source name -> {C function: argtypes}; every function returns a CUDA error code
 SIGNATURES = {
     "qgemm_int8": {
         # a, w, oc, ep, out, M, N, K, s_a, s_c, zp_c, conv_order, relu,
-        # nearest, stream
+        # nearest, act, act_scale, act_zp, stream
         "qgemm_u8s8": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
-                       _I, _P],
+                       _I, _I, _F, _F, _P],
+        # a, w, oc, mult, zp, out, M, N, K, nearest, stream
+        "qgemm_u8s8_vzp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "decode_attn": {
+        # q, k, v, valid, out, B, T, H, Hkv, D, mq, q_sb, q_sj,
+        # valid_per_seq, window, softcap, zp_q, zp_k, zp_p, zp_v, mult_s,
+        # zp_s, s_s, s_p, zp_p (float), mult_o, zp_c, nearest, smem_bytes,
+        # stream
+        "decode_attn_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
+                             _L, _I, _I, _F, _I, _I, _I, _I, _F, _F, _F, _F,
+                             _F, _F, _F, _I, _I, _P],
     },
 }
 

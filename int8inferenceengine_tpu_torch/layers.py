@@ -1,5 +1,6 @@
-"""Layers: Linear and Conv2d with the load -> prepare -> convert lifecycle
-(counterpart of ``int8inferenceengine_tpu.layers``).
+"""Layers: Linear and Conv2d with the load -> prepare -> convert lifecycle,
+and the transformer layers of the decoder (counterpart of
+``int8inferenceengine_tpu.layers``).
 
 Semantics preserved for accuracy parity with the reference engine:
 
@@ -17,6 +18,15 @@ FP32 ``weight``/``bias`` before convert, and after it ``qw`` (s8 [N, K],
 K-major, the kernel's layout; a conv's K is ordered (kh, kw, in_channel)),
 ``q_bias`` (s8 [N]), ``rowsum`` (s32 [N]) and ``w_scale`` (f32 [N], the
 per-tensor scale repeated when weights are not per-channel).
+
+The transformer layers (``QuantEmbed``, ``QuantPosEmbed``,
+``QuantLayerNorm``, ``QuantMatmul``, ``QuantSoftmax``, ``QuantAct``,
+``QuantAdd``) follow the same lifecycle: their FP32 path observes its
+output while preparing, and after convert the INT8 path dequantizes its u8
+inputs, computes in float32 in the JAX package's order and requantizes to
+the calibrated output grid.  ``fused_qkv``, ``fused_linear_act`` and
+``fused_decode_attention`` run converted layer groups through one kernel
+each (``QuantConfig.fuse_qkv``, ``fuse_linear_act``, ``decode_attention``).
 """
 
 from __future__ import annotations
@@ -29,9 +39,15 @@ from torch import nn
 
 from .calibrator import Calibrator
 from .config import DEFAULT_CONFIG, QuantConfig, check_supported
+from .ops import attention as attn_ops
 from .ops import conv as conv_ops
 from .ops import quant as quant_ops
-from .ops.gemm_int8 import compute_offset, epilogue_vector, qgemm
+from .ops.functional import ACTIVATIONS
+from .ops.gemm_int8 import (KERNEL_ACTS, compute_offset, epilogue_vector,
+                            merge_parts, qgemm, qgemm_multi,
+                            qgemm_multi_plain, qgemm_plain)
+from .ops.qmatmul import qmatmul_act
+from .ops.quant import dequantize_u8, f32, quantize_u8
 from .tensor import Tensor, resolve_device
 
 
@@ -55,6 +71,8 @@ class Layer(nn.Module):
         # (input scale, input zp) -> (oc, ep): both depend only on the
         # input grid, which is fixed once the model is converted.
         self._epilogue_cache: dict = {}
+        # fused_qkv's merged operands, on the first layer of the group
+        self._merged_cache: dict = {}
         for name in ("qw", "q_bias", "rowsum", "w_scale"):
             self.register_buffer(name, None)
 
@@ -122,6 +140,7 @@ class Layer(nn.Module):
         self.weight = None
         self.bias = None
         self._epilogue_cache = {}
+        self._merged_cache = {}
 
     def _load_array(self, arr, expected_shape, what: str) -> torch.Tensor:
         if isinstance(arr, torch.Tensor):
@@ -148,9 +167,12 @@ class Layer(nn.Module):
             cached = self._epilogue_cache[key] = (oc, ep)
         return cached
 
-    def _check_int8(self, x: Tensor):
+    def _check_converted(self):
         if not self.is_quantized:
             raise RuntimeError("layer not converted; call convert() first")
+
+    def _check_int8(self, x: Tensor):
+        self._check_converted()
         if x.device != self.qw.device:
             raise ValueError(f"input on {x.device}, layer on {self.qw.device}")
 
@@ -159,6 +181,12 @@ class Layer(nn.Module):
             raise RuntimeError(
                 "layer already converted to INT8 — quantize the input "
                 "(FP32 weights were freed, as in the reference)")
+
+    def _gemm(self):
+        """The quantized GEMM this layer runs: the kernel's wrapper, or its
+        plain version when ``QuantConfig.kernel_backend='xla'`` asks for
+        it (the JAX package's backend of that name)."""
+        return qgemm_plain if self.config.kernel_backend == "xla" else qgemm
 
 
 class Linear(Layer):
@@ -192,13 +220,18 @@ class Linear(Layer):
         self._observe(out)
         return Tensor(out)
 
-    def _forward_int8(self, x: Tensor) -> Tensor:
+    def _forward_int8(self, x: Tensor, act=None) -> Tensor:
+        """``act=(name, act_scale, act_zp)`` folds a following QuantAct
+        into the epilogue (``fused_linear_act``)."""
         self._check_int8(x)
         oc, ep = self._epilogue(x, "gemm")
-        out = qgemm(x.data.contiguous(), self.qw, oc, ep,
-                    scale_a=x.scale, scale_c=self.scale, zp_c=self.zero_point,
-                    relu=self.fuse_relu, rounding=self.config.rounding,
-                    order="gemm")
+        out = self._gemm()(x.data.contiguous(), self.qw, oc, ep,
+                           scale_a=x.scale, scale_c=self.scale,
+                           zp_c=self.zero_point, relu=self.fuse_relu,
+                           rounding=self.config.rounding, order="gemm",
+                           act=act)
+        if act is not None:
+            return Tensor(out, act[1], act[2])
         return Tensor(out, self.scale, self.zero_point)
 
 
@@ -269,5 +302,425 @@ class Conv2d(Layer):
             x.as_nhwc_data(), self.qw, oc, ep, kh=k, kw=k, stride=self.stride,
             padding=self.padding, scale_a=x.scale, zp_a=x.zero_point,
             scale_c=self.scale, zp_c=self.zero_point, relu=self.fuse_relu,
-            rounding=self.config.rounding, order=order)
+            rounding=self.config.rounding, order=order, gemm=self._gemm())
         return Tensor(out, self.scale, self.zero_point, _nhwc=True)
+
+
+# -- transformer layers ------------------------------------------------------
+
+class _Weightless(Layer):
+    """A calibrated layer with no weights to quantize."""
+
+    def _quantize_weights(self):
+        pass
+
+    def _requant(self, f: torch.Tensor) -> torch.Tensor:
+        return quantize_u8(f, self.scale, self.zero_point, self.config.rounding)
+
+
+class QuantAct(_Weightless):
+    """Calibrated activation in the quantized domain: ``u8 -> dequant -> fn
+    -> requant -> u8`` at this layer's calibrated output grid.  ``fn`` is an
+    ``ops/functional.ACTIVATIONS`` name or a callable; the JAX package's
+    256-entry ``lut`` backend is not ported."""
+
+    def __init__(self, fn="hardswish", config: QuantConfig = DEFAULT_CONFIG,
+                 backend: str = "elementwise", device=None):
+        super().__init__(config, device)
+        if callable(fn):
+            self.fn = fn
+            self.fn_name = getattr(fn, "__name__", "custom")
+        else:
+            try:
+                self.fn = ACTIVATIONS[fn]
+            except KeyError:
+                raise ValueError(
+                    f"unknown activation {fn!r}; available: "
+                    f"{sorted(ACTIVATIONS)} (or pass a callable)")
+            self.fn_name = fn
+        if backend == "lut":
+            raise NotImplementedError(
+                "QuantAct(backend='lut') is not implemented by the PyTorch "
+                "port yet; 'elementwise' gives the same codes")
+        if backend != "elementwise":
+            raise ValueError(f"backend must be 'elementwise' or 'lut', got "
+                             f"{backend!r}")
+        self.backend = backend
+
+    def forward(self, x: Tensor) -> Tensor:
+        if not x.quantized:
+            out = self.fn(x.data)
+            self._observe(out)
+            return Tensor(out, _nhwc=x._nhwc)
+        self._check_converted()
+        f = self.fn(dequantize_u8(x.data, x.scale, x.zero_point))
+        return Tensor(self._requant(f), self.scale, self.zero_point,
+                      _nhwc=x._nhwc)
+
+
+class QuantAdd(_Weightless):
+    """Calibrated elementwise add (residual connections): both addends are
+    dequantized at their own grids, summed in float32 and requantized."""
+
+    def __init__(self, config: QuantConfig = DEFAULT_CONFIG,
+                 fuse_relu: bool = False, device=None):
+        super().__init__(config, device)
+        self.fuse_relu = fuse_relu
+
+    @staticmethod
+    def _aligned(a: Tensor, b: Tensor) -> torch.Tensor:
+        """b's data in a's physical layout."""
+        if a._nhwc == b._nhwc:
+            return b.data
+        return b.data.permute(0, 2, 3, 1) if a._nhwc else \
+            b.data.permute(0, 3, 1, 2)
+
+    def forward(self, a: Tensor, b: Tensor) -> Tensor:
+        if a.quantized != b.quantized:
+            raise ValueError(
+                "QuantAdd: both inputs must be quantized or both float")
+        b_data = self._aligned(a, b)
+        if not a.quantized:
+            out = a.data + b_data
+            self._observe(out)
+            return Tensor(out, _nhwc=a._nhwc)
+        self._check_converted()
+        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point)
+                          + dequantize_u8(b_data, b.scale, b.zero_point))
+        if self.fuse_relu:
+            q = q.clamp_min(self.zero_point)
+        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
+
+
+class QuantMatmul(_Weightless):
+    """Calibrated activation x activation batched matmul (``QK^T`` with
+    ``transpose_b``, ``P@V``); ``alpha`` folds into the requant multiplier
+    (``ops/qmatmul.qmatmul_act``).  Leading dims are batch dims."""
+
+    def __init__(self, alpha: float = 1.0, transpose_b: bool = False,
+                 config: QuantConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(config, device)
+        self.alpha = float(alpha)
+        self.transpose_b = transpose_b
+
+    def forward(self, a: Tensor, b: Tensor) -> Tensor:
+        if a.quantized != b.quantized:
+            raise ValueError(
+                "QuantMatmul: both inputs must be quantized or both float")
+        if a._nhwc or b._nhwc:
+            raise ValueError("QuantMatmul expects token-major tensors "
+                             "(no NHWC image layout)")
+        if not a.quantized:
+            bd = b.data.transpose(-1, -2) if self.transpose_b else b.data
+            out = f32(self.alpha, a.device) * torch.matmul(a.data, bd)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        out = qmatmul_act(
+            a.data, b.data, scale_a=a.scale, zp_a=a.zero_point,
+            scale_b=b.scale, zp_b=b.zero_point, scale_c=self.scale,
+            zp_c=self.zero_point, alpha=self.alpha,
+            transpose_b=self.transpose_b, rounding=self.config.rounding)
+        return Tensor(out, self.scale, self.zero_point)
+
+
+class QuantSoftmax(_Weightless):
+    """Calibrated softmax over the last axis (attention probabilities).
+
+    ``causal=True`` masks square scores above the diagonal; ``valid_len``
+    (an int, a 0-dim tensor, [B, 1, 1, 1] per sequence or [..., tq, 1] per
+    row) masks columns >= valid_len; ``window`` also drops columns more than
+    ``window`` back; ``softcap`` maps scores through ``softcap*tanh(x /
+    softcap)`` before the mask.  Masked positions quantize to exactly the
+    zero point.  ALiBi (``alibi_heads``) is not ported."""
+
+    def __init__(self, config: QuantConfig = DEFAULT_CONFIG,
+                 causal: bool = False, window: int | None = None,
+                 softcap: float | None = None,
+                 alibi_heads: int | None = None, device=None):
+        super().__init__(config, device)
+        if alibi_heads is not None:
+            raise NotImplementedError(
+                "QuantSoftmax(alibi_heads=...) is not implemented by the "
+                "PyTorch port yet")
+        self.causal = causal
+        self.window = None if window is None else int(window)
+        self.softcap = None if softcap is None else float(softcap)
+
+    def _masked(self, f: torch.Tensor, valid_len) -> torch.Tensor:
+        if self.softcap is not None:
+            f = attn_ops.softcap_(f, self.softcap)
+        tq, tk = f.shape[-2], f.shape[-1]
+        neg = f32(float("-inf"), f.device)
+        window_done = False
+        if self.causal and tq > 1 and tq == tk:
+            row = torch.arange(tq, device=f.device).reshape(-1, 1)
+            col = torch.arange(tk, device=f.device).reshape(1, -1)
+            keep = col <= row
+            if self.window is not None:
+                keep = keep & (col > row - self.window)
+            f = torch.where(keep, f, neg)
+            window_done = True
+        elif self.causal and tq > 1:
+            if valid_len is None or not (
+                    getattr(valid_len, "ndim", 0) >= 2
+                    and valid_len.shape[-2] == tq):
+                raise ValueError(
+                    f"causal softmax expects square scores, got "
+                    f"{tuple(f.shape)}; cached multi-row decode passes a "
+                    f"PER-ROW valid_len (shape [..., tq, 1], row j = pos + "
+                    f"j + 1) instead")
+        if valid_len is not None:
+            col = torch.arange(tk, device=f.device, dtype=torch.int32)
+            keep = col < valid_len
+            if self.window is not None and not window_done:
+                keep = keep & (col >= valid_len - self.window)
+            f = torch.where(keep, f, neg)
+        return f
+
+    def forward(self, x: Tensor, valid_len=None) -> Tensor:
+        if not x.quantized:
+            out = attn_ops.softmax_last(self._masked(x.data, valid_len))
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        f = dequantize_u8(x.data, x.scale, x.zero_point)
+        out = attn_ops.softmax_last(self._masked(f, valid_len))
+        return Tensor(self._requant(out), self.scale, self.zero_point)
+
+
+class QuantLayerNorm(Layer):
+    """LayerNorm over the last axis with a calibrated u8 output; gamma/beta
+    stay float32.  ``mean``, ``mean((f - mean)^2)`` and ``rsqrt(var +
+    eps)`` are taken in the JAX package's order."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 config: QuantConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(config, device)
+        self.dim = int(dim)
+        self.eps = float(eps)
+        self.register_buffer("weight", torch.ones(dim, device=self.device))
+        self.register_buffer("bias", self._buf((dim,)))
+
+    def load_weight(self, w):
+        self.weight = self._load_array(w, (self.dim,), "load_weight")
+
+    def load_bias(self, b):
+        self.bias = self._load_array(b, (self.dim,), "load_bias")
+
+    def _quantize_weights(self):
+        pass                         # gamma/beta stay float32
+
+    def _ln(self, f: torch.Tensor) -> torch.Tensor:
+        mean = f.mean(dim=-1, keepdim=True)
+        var = torch.square(f - mean).mean(dim=-1, keepdim=True)
+        norm = (f - mean) * torch.rsqrt(var + f32(self.eps, f.device))
+        return norm * self.weight + self.bias
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.shape[-1] != self.dim:
+            raise ValueError(
+                f"QuantLayerNorm({self.dim}) got last-dim {x.shape[-1]}")
+        if not x.quantized:
+            out = self._ln(x.data)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        f = dequantize_u8(x.data, x.scale, x.zero_point)
+        out = quantize_u8(self._ln(f), self.scale, self.zero_point,
+                          self.config.rounding)
+        return Tensor(out, self.scale, self.zero_point)
+
+
+class QuantPosEmbed(Layer):
+    """Learned positional embedding with a calibrated output.
+
+    ``cls=True`` (ViT stem): prepends the class token (``bias`` [C]) to the
+    [B, T, C] tokens and adds ``weight`` [T+1, C].  ``cls=False`` (decoder
+    stem): ``weight`` is [num_tokens, C], the input may be any T <=
+    num_tokens, and ``start`` offsets the table rows: an int, a 0-dim
+    tensor (one position for the batch) or a [B] tensor (one per row); a
+    tensor start is gathered on its device, with no host sync."""
+
+    def __init__(self, num_tokens: int, dim: int,
+                 config: QuantConfig = DEFAULT_CONFIG, cls: bool = True,
+                 device=None):
+        super().__init__(config, device)
+        self.num_tokens = int(num_tokens)
+        self.dim = int(dim)
+        self.cls = cls
+        rows = num_tokens + 1 if cls else num_tokens
+        self.register_buffer("weight", self._buf((rows, dim)))
+        self.register_buffer("bias", self._buf((dim,)) if cls else None)
+
+    def load_weight(self, w):
+        rows = self.num_tokens + 1 if self.cls else self.num_tokens
+        self.weight = self._load_array(w, (rows, self.dim), "load_weight")
+
+    def load_bias(self, b):
+        if not self.cls:
+            raise ValueError("cls=False QuantPosEmbed has no bias")
+        self.bias = self._load_array(b, (self.dim,), "load_bias")
+
+    def _quantize_weights(self):
+        pass                         # additive float32 tables stay float32
+
+    def _apply(self, f: torch.Tensor, start) -> torch.Tensor:
+        if self.cls:
+            cls = self.bias.reshape(1, 1, self.dim).expand(f.shape[0], 1,
+                                                           self.dim)
+            return torch.cat([cls, f], dim=1) + self.weight
+        t = f.shape[1]
+        if not isinstance(start, torch.Tensor):
+            return f + self.weight[int(start):int(start) + t]
+        steps = torch.arange(t, device=f.device)
+        if start.dim() == 1:
+            idx = start.to(f.device, torch.int64).reshape(-1, 1) + steps
+            return f + self.weight[idx]
+        return f + self.weight.index_select(0, start.to(torch.int64) + steps)
+
+    def forward(self, x: Tensor, start=0) -> Tensor:
+        if self.cls:
+            if len(x.shape) != 3 or x.shape[1] != self.num_tokens \
+                    or x.shape[2] != self.dim:
+                raise ValueError(
+                    f"QuantPosEmbed expects [B, {self.num_tokens}, "
+                    f"{self.dim}] tokens, got {x.shape}")
+        elif len(x.shape) != 3 or x.shape[1] > self.num_tokens \
+                or x.shape[2] != self.dim:
+            raise ValueError(
+                f"QuantPosEmbed(cls=False) expects [B, <= "
+                f"{self.num_tokens}, {self.dim}] tokens, got {x.shape}")
+        if not x.quantized:
+            out = self._apply(x.data, start)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        f = dequantize_u8(x.data, x.scale, x.zero_point)
+        out = quantize_u8(self._apply(f, start), self.scale, self.zero_point,
+                          self.config.rounding)
+        return Tensor(out, self.scale, self.zero_point)
+
+
+class QuantEmbed(Layer):
+    """Token embedding with a pre-quantized table (the NLP stem).
+
+    Takes token ids (integer, or float32 holding integers) and clamps them
+    into the table.  The FP32 path gathers float rows and is observed;
+    ``convert()`` widens the observed range to the whole table and
+    quantizes all of it once (``q_weight`` u8 [V, C]), so the INT8 path is a
+    pure u8 row gather.  ``Module`` skips input quantization for a model
+    with an id-consuming layer (``consumes_ids``)."""
+
+    consumes_ids = True
+
+    def __init__(self, vocab_size: int, dim: int,
+                 config: QuantConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(config, device)
+        self.vocab_size = int(vocab_size)
+        self.dim = int(dim)
+        self.register_buffer("weight", self._buf((vocab_size, dim)))
+        self.register_buffer("q_weight", None)
+
+    def load_weight(self, w):
+        self.weight = self._load_array(w, (self.vocab_size, self.dim),
+                                       "load_weight")
+
+    def load_bias(self, b):
+        raise ValueError("QuantEmbed has no bias")
+
+    def convert(self):
+        # the whole table is quantized at the calibrated grid, so the range
+        # covers every row, not only the tokens calibration happened to see
+        if self.is_preparing and self.calibrator is not None:
+            self.calibrator.sample(self.weight)
+        super().convert()
+
+    def _quantize_weights(self):
+        self.q_weight = quantize_u8(self.weight, self.scale, self.zero_point,
+                                    self.config.rounding)
+        self.weight = None
+
+    def forward(self, ids: Tensor) -> Tensor:
+        if ids.quantized:
+            raise ValueError(
+                "QuantEmbed consumes raw token ids, not quantized codes")
+        idx = ids.data.to(torch.int64).clamp(0, self.vocab_size - 1)
+        if not self.is_quantized:
+            out = self.weight[idx]
+            self._observe(out)
+            return Tensor(out)
+        return Tensor(self.q_weight[idx], self.scale, self.zero_point)
+
+
+def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
+    """The three attention projections sharing input ``x`` as one GEMM
+    (``ops/gemm_int8.qgemm_multi``, kernel B2): the same codes as calling
+    each Linear, one launch instead of three.  The merged operands are
+    built once per input grid and kept on ``wq``.  ``fuse_qkv='xla'`` runs
+    the merged GEMM's plain version; a group that is not converted, or has
+    a fused relu, runs the three Linears."""
+    heads = (wq, wk, wv)
+    if not (x.quantized and all(l.is_quantized and not l.fuse_relu
+                                for l in heads)):
+        return wq(x), wk(x), wv(x)
+    key = (x.scale, x.zero_point, id(wk), id(wv))
+    merged = wq._merged_cache.get(key)
+    if merged is None:
+        parts = []
+        for l in heads:
+            oc, _ = l._epilogue(x, "gemm")
+            parts.append(dict(w_s8_nk=l.qw, oc=oc, scale_w=l.w_scale,
+                              scale_c=l.scale, zp_c=l.zero_point))
+        merged = wq._merged_cache[key] = merge_parts(
+            parts, scale_a=x.scale, zp_a=x.zero_point)
+    gemm = qgemm_multi_plain if wq.config.fuse_qkv == "xla" else qgemm_multi
+    outs = gemm(x.data.contiguous(), merged, rounding=wq.config.rounding)
+    return tuple(Tensor(o, l.scale, l.zero_point) for l, o in zip(heads, outs))
+
+
+def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
+    """A converted Linear -> QuantAct pair as one GEMM with the activation in
+    the requant epilogue: the same codes as ``act(linear(x))`` (the
+    intermediate u8 grid is replayed in registers), without the standalone
+    pass over the Linear's output.  Pairs the kernel cannot fuse (a custom
+    fn, the lut backend) run composed."""
+    fusable = (linear.is_quantized and act.is_quantized and x.quantized
+               and act.fn_name in KERNEL_ACTS
+               and act.fn is ACTIVATIONS.get(act.fn_name)
+               and act.backend == "elementwise")
+    if not fusable:
+        return act(linear(x))
+    return linear._forward_int8(x, act=(act.fn_name, act.scale,
+                                        act.zero_point))
+
+
+def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
+                           av: QuantMatmul, q2: Tensor, kc: Tensor,
+                           vc: Tensor, valid, head_dim: int) -> Tensor:
+    """One query row per sequence against the flat KV cache: semantically
+    ``merge(av(smax(attn(split(q), split(k)), valid_len=valid), split(v)))``
+    after convert, through ``ops/attention.decode_attention_flat`` (kernel
+    B3 on the card; ``decode_attention='off'``/``'xla'`` runs the composed
+    plain version).  ``q2`` [B, C], ``kc``/``vc`` [B, T, C_kv]."""
+    if not (attn.is_quantized and smax.is_quantized and av.is_quantized):
+        raise RuntimeError("fused_decode_attention requires converted "
+                           "layers")
+    if not attn.transpose_b or av.transpose_b or av.alpha != 1.0:
+        raise ValueError("fused_decode_attention expects attn=QK^T "
+                         "(transpose_b) and a plain P@V")
+    backend = attn.config.decode_attention
+    out = attn_ops.decode_attention_flat(
+        q2.data, kc.data, vc.data, valid,
+        n_heads=q2.data.shape[-1] // head_dim,
+        n_kv_heads=kc.data.shape[-1] // head_dim,
+        backend="xla" if backend == "off" else backend,
+        scale_q=q2.scale, zp_q=q2.zero_point,
+        scale_k=kc.scale, zp_k=kc.zero_point,
+        scale_v=vc.scale, zp_v=vc.zero_point,
+        scale_s=attn.scale, zp_s=attn.zero_point,
+        scale_p=smax.scale, zp_p=smax.zero_point,
+        scale_c=av.scale, zp_c=av.zero_point,
+        alpha=attn.alpha, rounding=attn.config.rounding,
+        window=smax.window, softcap=smax.softcap)
+    return Tensor(out, av.scale, av.zero_point)

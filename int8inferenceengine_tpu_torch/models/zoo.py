@@ -1,14 +1,15 @@
-"""Model zoo: the reference's sample models as framework Modules
-(counterpart of ``int8inferenceengine_tpu.models.zoo``, for the four
-reference-parity models).
+"""Model zoo: the reference's sample models and the GPT-style decoder as
+framework Modules (counterpart of ``int8inferenceengine_tpu.models.zoo``,
+for the four reference-parity models and ``gpt_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
 ``model.load(torch_twin(name).state_dict())`` works as-is — the reference
 notebooks' differential workflow.
 
-All models take NCHW float input via ``tensor()`` and return logits
-[batch, classes].
+The CNNs take NCHW float input via ``tensor()`` and return logits
+[batch, classes]; ``gpt_tiny`` (``models.text_decoder.TextDecoder``) takes
+token ids [batch, T] and returns logits [batch, T, vocab].
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import Conv2d, Linear
 from ..module import Module
 from ..ops import functional as F
+from .text_decoder import TextDecoder, torch_text_decoder
 
-__all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "build",
-           "torch_twin", "MODEL_SPECS"]
+__all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "TextDecoder",
+           "build", "torch_twin", "MODEL_SPECS"]
 
 
 class FCMnist(Module):
@@ -130,6 +132,7 @@ MODEL_SPECS = {
     "simple_conv": SimpleConv,
     "alexnet": AlexNet,
     "lenet": LeNet,
+    "gpt_tiny": TextDecoder,
 }
 
 
@@ -150,6 +153,9 @@ def torch_twin(name: str, seed: int = 42):
     import torch
     import torch.nn as nn
     import torch.nn.functional as tF
+
+    if name == "gpt_tiny":
+        return torch_text_decoder(seed=seed)
 
     torch.manual_seed(seed)
 

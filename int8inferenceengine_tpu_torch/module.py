@@ -14,7 +14,8 @@ Lifecycle (identical to the reference): ``load(state_dict)`` ->
 ``prepare()`` -> run FP32 batches to calibrate -> ``convert()`` -> quantized
 inference.  After convert, ``__call__`` quantizes the input at the configured
 (scale, zero_point) — default (0.025, 127), the reference's hardcoded values —
-runs ``forward`` and dequantizes the output.
+unless the model consumes token ids, runs ``forward`` and dequantizes the
+output.
 
 Everything runs eagerly.  While preparing, each layer folds its output's
 min/max into on-device running scalars; ``convert()`` reads them on the host
@@ -119,6 +120,12 @@ class Module(nn.Module):
     def _preparing(self) -> bool:
         return any(l.is_preparing for _, l in self.named_layers())
 
+    def _consumes_ids(self) -> bool:
+        """True when the model's stem takes raw token ids (QuantEmbed):
+        its input is never quantized."""
+        return any(getattr(layer, "consumes_ids", False)
+                   for _, layer in self.named_layers())
+
     def __call__(self, x) -> Tensor:
         t = x if isinstance(x, Tensor) else tensor(x, device=self.device)
         if t.device.type != self.device.type:
@@ -128,9 +135,11 @@ class Module(nn.Module):
                 "calibration observes FP32 activation ranges — feed "
                 "float input while preparing, not a quantized tensor")
         with torch.no_grad():
-            if self.is_quant and not t.quantized:
+            if self.is_quant and not t.quantized \
+                    and not self._consumes_ids():
                 # Reference behavior: quantize at the configured input
-                # (scale, zp).  Already-quantized input runs at its own.
+                # (scale, zp).  Already-quantized input runs at its own;
+                # token ids pass through untouched.
                 t = F.quantize(t, self.config.input_scale,
                                self.config.input_zero_point,
                                self.config.rounding)

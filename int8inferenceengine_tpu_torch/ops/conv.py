@@ -61,8 +61,9 @@ def conv2d_int8_gemm(x_u8_nhwc: torch.Tensor, qw_nk: torch.Tensor,
                      oc: torch.Tensor, ep: torch.Tensor, *, kh: int, kw: int,
                      stride: int, padding: int, scale_a, zp_a, scale_c, zp_c,
                      relu=False, rounding: str = "trunc",
-                     order: str = "conv") -> torch.Tensor:
-    """Quantized conv as im2col + the quantized GEMM; returns u8 NHWC.
+                     order: str = "conv", gemm=qgemm) -> torch.Tensor:
+    """Quantized conv as im2col + the quantized GEMM (``gemm``: ``qgemm``
+    or its plain version); returns u8 NHWC.
 
     ``qw_nk`` is the weight as [O, kh*kw*I]; ``oc``/``ep`` as for
     ``qgemm``."""
@@ -70,7 +71,7 @@ def conv2d_int8_gemm(x_u8_nhwc: torch.Tensor, qw_nk: torch.Tensor,
     patches = im2col_nhwc(x_u8_nhwc, kh, kw, stride, padding,
                           pad_value=int(zp_a))
     _, oh, ow, k = patches.shape
-    out = qgemm(patches.reshape(n * oh * ow, k), qw_nk, oc, ep,
+    out = gemm(patches.reshape(n * oh * ow, k), qw_nk, oc, ep,
                 scale_a=scale_a, scale_c=scale_c, zp_c=zp_c, relu=relu,
                 rounding=rounding, order=order)
     return out.reshape(n, oh, ow, -1)

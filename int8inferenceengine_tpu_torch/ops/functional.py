@@ -1,4 +1,5 @@
-"""Functional tensor ops: relu, max_pool2d, argmax, module-level quant ops
+"""Functional tensor ops: relu, max_pool2d, argmax, module-level quant ops,
+the activation table and the attention head layout ops
 (counterpart of ``int8inferenceengine_tpu.ops.functional``).
 
 They preserve quantization metadata exactly like the reference:
@@ -11,6 +12,8 @@ They preserve quantization metadata exactly like the reference:
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -18,6 +21,53 @@ import torch.nn.functional as F
 from ..tensor import Tensor
 from . import quant
 from .conv import windows_nhwc
+from .quant import f32
+
+_SQRT_HALF = float(np.float32(math.sqrt(0.5)))
+_SQRT_2_OVER_PI = float(np.float32(math.sqrt(2 / math.pi)))
+
+
+def _relu6(x):
+    return x.clamp(0.0, 6.0)
+
+
+def _hardsigmoid(x):
+    return _relu6(x + f32(3.0, x.device)) / f32(6.0, x.device)
+
+
+def _sigmoid(x):
+    one = f32(1.0, x.device)
+    return one / (one + torch.exp(-x))
+
+
+def _gelu(x):
+    # 0.5*x*erfc(-x*sqrt(1/2)): the exact form jax.nn.gelu(approximate=
+    # False) evaluates, in its order, not x*0.5*(1+erf(x/sqrt(2)))
+    return (f32(0.5, x.device) * x) * torch.erfc(-x * f32(_SQRT_HALF,
+                                                          x.device))
+
+
+def _gelu_tanh(x):
+    inner = x + f32(0.044715, x.device) * (x * x * x)
+    cdf = f32(0.5, x.device) * (f32(1.0, x.device) + torch.tanh(
+        f32(_SQRT_2_OVER_PI, x.device) * inner))
+    return x * cdf
+
+
+# Float-domain activations of QuantAct's FP32 and INT8 paths and of the GEMM
+# kernel's fused act epilogue: each replays the JAX package's formula of the
+# same name (ops/functional.ACTIVATIONS there) op for op, with every scalar a
+# float32 tensor on the operand's device (see ops/quant.py).
+ACTIVATIONS = {
+    "relu": lambda x: x.clamp_min(0.0),
+    "relu6": _relu6,
+    "hardsigmoid": _hardsigmoid,
+    "hardswish": lambda x: x * _hardsigmoid(x),
+    "sigmoid": _sigmoid,
+    "silu": lambda x: x * _sigmoid(x),
+    "gelu": _gelu,
+    "gelu_tanh": _gelu_tanh,
+}
 
 
 def relu(x: Tensor) -> Tensor:
@@ -65,6 +115,22 @@ def max_pool2d(x: Tensor, kernel_size: int, stride: int,
     if not x._nhwc:
         out = out.permute(0, 3, 1, 2).contiguous()
     return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+
+
+def split_heads(x: Tensor, num_heads: int) -> Tensor:
+    """[B, T, C] -> [B, H, T, C/H] (quantization-transparent layout op)."""
+    b, t, c = x.data.shape
+    if c % num_heads:
+        raise ValueError(f"dim {c} not divisible by heads {num_heads}")
+    d = x.data.reshape(b, t, num_heads, c // num_heads)
+    return Tensor(d.permute(0, 2, 1, 3), x.scale, x.zero_point)
+
+
+def merge_heads(x: Tensor) -> Tensor:
+    """[B, H, T, D] -> [B, T, H*D] (inverse of ``split_heads``)."""
+    b, h, t, d = x.data.shape
+    out = x.data.permute(0, 2, 1, 3).reshape(b, t, h * d)
+    return Tensor(out, x.scale, x.zero_point)
 
 
 def argmax(x: Tensor, *args, **kwargs) -> Tensor:

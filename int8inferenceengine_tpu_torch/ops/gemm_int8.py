@@ -23,19 +23,35 @@ zero point.  ``epilogue_vector`` gives the f32 [N] vector each order reads
 (``mult`` or ``s_w``), so the kernel and ``qgemm_plain`` share it as they
 share ``oc``.
 
-``qgemm`` is the wrapper of the hand-written CUDA kernel
-(``csrc/qgemm_int8.cu``); ``qgemm_plain`` is the plain PyTorch version of the
-same function.  The wrapper takes the plain version for a CPU tensor only;
-for a CUDA tensor it launches the kernel or raises.
+``act=(name, act_scale, act_zp)`` (gemm order only) folds a following
+``QuantAct`` into the epilogue, as ``qgemm_xla`` does: the truncated code is
+dequantized at (s_c, zp_c), ``ACTIVATIONS[name]`` is applied and the result
+is requantized to (act_scale, act_zp) with a true division.
+
+``qgemm_multi`` runs several weight heads that share one input (the
+attention Q/K/V projections) as one GEMM over the merged ``[N_total, K]``
+weight, with a per-column zero point: ``q = f32(acc + oc)*mult[n] + zp[n]``,
+no relu, no act.  ``merge_parts`` builds its operands once.
+
+``qgemm`` and ``qgemm_multi`` wrap the hand-written CUDA kernels
+(``csrc/qgemm_int8.cu``: ``qgemm_u8s8`` and ``qgemm_u8s8_vzp``);
+``qgemm_plain`` and ``qgemm_multi_plain`` are the plain PyTorch versions of
+the same functions.  A wrapper takes the plain version for a CPU tensor
+only; for a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .quant import down_scale, f32
+from .quant import down_scale, f32, quantize_u8
 
 ORDERS = ("gemm", "conv")
+
+# Activations the kernel's act epilogue implements, with its ids
+# (csrc/qgemm_int8.cu apply_act); the formulas are ops/functional.ACTIVATIONS.
+KERNEL_ACTS = {"relu": 1, "relu6": 2, "hardsigmoid": 3, "hardswish": 4,
+               "sigmoid": 5, "silu": 6, "gelu": 7}
 
 
 def compute_offset(q_bias: torch.Tensor, rowsum_w: torch.Tensor,
@@ -69,7 +85,7 @@ def epilogue_vector(scale_a, scale_w, scale_c, n: int, device,
 
 def _requant_epilogue(c: torch.Tensor, ep: torch.Tensor, *, scale_a,
                       scale_c, zp_c, relu=False, rounding: str = "trunc",
-                      order: str = "gemm") -> torch.Tensor:
+                      order: str = "gemm", act=None) -> torch.Tensor:
     """The requant tail on an s32 accumulator that already includes the
     offset vector.  ``ep`` is ``epilogue_vector(..., order=order)``."""
     if order == "conv":
@@ -80,25 +96,46 @@ def _requant_epilogue(c: torch.Tensor, ep: torch.Tensor, *, scale_a,
     if rounding == "nearest":
         q = q + f32(0.5, c.device)
     qi = q.to(torch.int32)
+    if act is not None:
+        from .functional import ACTIVATIONS
+        name, act_scale, act_zp = act
+        x = ((qi.to(torch.float32) - f32(zp_c, c.device))
+             * f32(scale_c, c.device))
+        return quantize_u8(ACTIVATIONS[name](x), act_scale, act_zp, rounding)
     if relu:
         qi = qi.clamp_min(int(zp_c))
     return qi.to(torch.uint8)
 
 
+def _accumulate(a_u8: torch.Tensor, w_s8_nk: torch.Tensor) -> torch.Tensor:
+    """sum_k (a[m,k]-128) * w[n,k] as int32.  The product accumulates in
+    float64, which is exact here (|acc| <= 128*127*K < 2**53) and runs on
+    the CPU and on CUDA alike (PyTorch has no int32 matmul on CUDA)."""
+    a = a_u8.to(torch.float64) - 128.0          # widen before recentering
+    return torch.matmul(a, w_s8_nk.to(torch.float64).t()).to(torch.int32)
+
+
 def qgemm_plain(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
                 ep: torch.Tensor, *, scale_a, scale_c, zp_c, relu=False,
-                rounding: str = "trunc", order: str = "gemm"
+                rounding: str = "trunc", order: str = "gemm", act=None
                 ) -> torch.Tensor:
-    """u8[M,K] x s8[N,K] (+oc[N]) -> u8[M,N], in plain PyTorch.
+    """u8[M,K] x s8[N,K] (+oc[N]) -> u8[M,N], in plain PyTorch."""
+    return _requant_epilogue(_accumulate(a_u8, w_s8_nk) + oc.reshape(1, -1),
+                             ep, scale_a=scale_a, scale_c=scale_c, zp_c=zp_c,
+                             relu=relu, rounding=rounding, order=order,
+                             act=act)
 
-    The product accumulates in float64, which is exact here
-    (|acc| <= 128*127*K < 2**53) and runs on the CPU and on CUDA alike
-    (PyTorch has no int32 matmul on CUDA); it is then cast to int32."""
-    a = a_u8.to(torch.float64) - 128.0          # widen before recentering
-    acc = torch.matmul(a, w_s8_nk.to(torch.float64).t()).to(torch.int32)
-    return _requant_epilogue(acc + oc.reshape(1, -1), ep, scale_a=scale_a,
-                             scale_c=scale_c, zp_c=zp_c, relu=relu,
-                             rounding=rounding, order=order)
+
+def _check_act(act, relu, order):
+    if act is None:
+        return
+    if relu:
+        raise ValueError("act epilogue and fuse_relu are exclusive")
+    if order != "gemm":
+        raise ValueError("the act epilogue follows the gemm order only")
+    if act[0] not in KERNEL_ACTS:
+        raise ValueError(f"act {act[0]!r} has no kernel epilogue; one of "
+                         f"{sorted(KERNEL_ACTS)}")
 
 
 def _check_operands(a_u8, w_s8_nk, oc, ep, order):
@@ -122,37 +159,52 @@ def _check_operands(a_u8, w_s8_nk, oc, ep, order):
         raise ValueError(f"unknown epilogue order {order!r}; one of {ORDERS}")
 
 
+def _card_operands(fn: str, a_u8: torch.Tensor, *others):
+    """The device of a CUDA launch (or None for the CPU), after checking
+    that every operand lies on it and is contiguous."""
+    dev = a_u8.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or CPU tensors, got {dev}")
+    for i, t in enumerate((a_u8,) + others):
+        if t.device != dev:
+            raise ValueError(f"{fn}: operand {i} is on {t.device}, a on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: operand {i} must be contiguous")
+    m, k = a_u8.shape
+    n = others[0].shape[0]
+    if max(m, n, k) >= 2 ** 31:
+        raise ValueError(f"{fn}: shape M={m} N={n} K={k} too large")
+    if k == 0:
+        raise ValueError(f"{fn}: K must be positive")
+    return dev
+
+
 def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
           ep: torch.Tensor, *, scale_a, scale_c, zp_c, relu=False,
-          rounding: str = "trunc", order: str = "gemm") -> torch.Tensor:
-    """u8[M,K] x s8[N,K] (+oc[N]) -> u8[M,N] requantized to (scale_c, zp_c).
+          rounding: str = "trunc", order: str = "gemm",
+          act=None) -> torch.Tensor:
+    """u8[M,K] x s8[N,K] (+oc[N]) -> u8[M,N] requantized to (scale_c, zp_c),
+    or to the act layer's grid under ``act=(name, act_scale, act_zp)``.
 
     On CUDA tensors this launches the hand-written kernel
     (``csrc/qgemm_int8.cu``) on the current stream and adds one to
     ``qgemm.launches``; on CPU tensors it is ``qgemm_plain``."""
     _check_operands(a_u8, w_s8_nk, oc, ep, order)
-    kw = dict(scale_a=scale_a, scale_c=scale_c, zp_c=zp_c, relu=relu,
-              rounding=rounding, order=order)
-    dev = a_u8.device
-    if dev.type == "cpu":
-        return qgemm_plain(a_u8, w_s8_nk, oc, ep, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"qgemm runs on CUDA or CPU tensors, got {dev}")
-    for name, t in (("w", w_s8_nk), ("oc", oc), ("ep", ep)):
-        if t.device != dev:
-            raise ValueError(f"qgemm: {name} is on {t.device}, a on {dev}")
-    for name, t in (("a", a_u8), ("w", w_s8_nk), ("oc", oc), ("ep", ep)):
-        if not t.is_contiguous():
-            raise ValueError(f"qgemm: {name} must be contiguous")
-    m, k = a_u8.shape
-    n = w_s8_nk.shape[0]
-    if max(m, n, k) >= 2 ** 31:
-        raise ValueError(f"qgemm: shape M={m} N={n} K={k} too large")
+    _check_act(act, relu, order)
+    dev = _card_operands("qgemm", a_u8, w_s8_nk, oc, ep)
+    if dev is None:
+        return qgemm_plain(a_u8, w_s8_nk, oc, ep, scale_a=scale_a,
+                           scale_c=scale_c, zp_c=zp_c, relu=relu,
+                           rounding=rounding, order=order, act=act)
+    m, n, k = a_u8.shape[0], w_s8_nk.shape[0], a_u8.shape[1]
     out = torch.empty((m, n), dtype=torch.uint8, device=dev)
     if m == 0 or n == 0:
         return out
-    if k == 0:
-        raise ValueError("qgemm: K must be positive")
+    act_id, act_scale, act_zp = 0, 1.0, 0.0
+    if act is not None:
+        act_id, act_scale, act_zp = KERNEL_ACTS[act[0]], act[1], act[2]
     from ..kernels import load
     lib = load("qgemm_int8")
     with torch.cuda.device(dev):
@@ -161,7 +213,8 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
             a_u8.data_ptr(), w_s8_nk.data_ptr(), oc.data_ptr(), ep.data_ptr(),
             out.data_ptr(), m, n, k, float(scale_a), float(scale_c),
             int(zp_c), int(order == "conv"), int(bool(relu)),
-            int(rounding == "nearest"), stream)
+            int(rounding == "nearest"), act_id, float(act_scale),
+            float(act_zp), stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_u8s8 launch failed with CUDA error {rc}")
     qgemm.launches += 1
@@ -169,3 +222,91 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
 
 
 qgemm.launches = 0
+
+
+# -- several weight heads sharing one input: one GEMM (kernel B2) ----------
+
+def merge_parts(parts, *, scale_a, zp_a) -> dict:
+    """The merged operands of ``qgemm_multi`` for input grid (scale_a, zp_a).
+
+    ``parts``: dicts with ``w_s8_nk`` ([N_i, K] s8), ``rowsum`` ([N_i] s32),
+    ``q_bias`` ([N_i] s8), ``scale_w`` (float or [N_i]), ``scale_c``,
+    ``zp_c``; an ``oc`` key, when given, is taken instead of computing it.
+    Returns ``w`` [N_total, K], ``oc`` s32, ``mult`` f32 and ``zp`` f32
+    [N_total] and the part ``widths``.  A caller caches the result per input
+    grid: the concatenation is not redone per call."""
+    w = torch.cat([p["w_s8_nk"] for p in parts], dim=0).contiguous()
+    dev = w.device
+    oc = torch.cat([p["oc"] if "oc" in p else compute_offset(
+        p["q_bias"], p["rowsum"], scale_a, zp_a, recentered=True)
+        for p in parts]).contiguous()
+    widths = [int(p["w_s8_nk"].shape[0]) for p in parts]
+    mult = torch.cat([_mult_vector(scale_a, p["scale_w"], p["scale_c"], n,
+                                   dev) for p, n in zip(parts, widths)])
+    zp = torch.cat([f32(float(p["zp_c"]), dev).expand(n)
+                    for p, n in zip(parts, widths)]).contiguous()
+    return dict(w=w, oc=oc, mult=mult.contiguous(), zp=zp, widths=widths)
+
+
+def _split(out: torch.Tensor, widths) -> list:
+    return list(torch.split(out, widths, dim=1))
+
+
+def vzp_epilogue(c: torch.Tensor, merged: dict,
+                 rounding: str = "trunc") -> torch.Tensor:
+    """The merged GEMM's requant tail on an s32 accumulator that already
+    includes ``oc``: ``f32(c) * mult[n] + zp[n]``, clip, +0.5, truncate."""
+    q = (c.to(torch.float32) * merged["mult"].reshape(1, -1)
+         + merged["zp"].reshape(1, -1))
+    q = torch.clamp(q, 0.0, 255.0)
+    if rounding == "nearest":
+        q = q + f32(0.5, c.device)
+    return q.to(torch.int32).to(torch.uint8)
+
+
+def qgemm_multi_plain(a_u8: torch.Tensor, merged: dict, *,
+                      rounding: str = "trunc") -> list:
+    """The merged GEMM in plain PyTorch: one u8 [M, N_i] output per part."""
+    c = _accumulate(a_u8, merged["w"]) + merged["oc"].reshape(1, -1)
+    return _split(vzp_epilogue(c, merged, rounding), merged["widths"])
+
+
+def qgemm_multi(a_u8: torch.Tensor, merged: dict, *,
+                rounding: str = "trunc") -> list:
+    """One GEMM over several heads sharing ``a_u8`` [M, K]; one u8 [M, N_i]
+    output per part (column views of one [M, N_total] result), each equal
+    to a ``qgemm`` call of that part alone.
+
+    On CUDA tensors this launches ``qgemm_u8s8_vzp`` and adds one to
+    ``qgemm_multi.launches``; on CPU tensors it is ``qgemm_multi_plain``."""
+    w, oc, mult, zp = merged["w"], merged["oc"], merged["mult"], merged["zp"]
+    if a_u8.dtype != torch.uint8 or w.dtype != torch.int8:
+        raise TypeError("qgemm_multi takes u8 activations and s8 weights")
+    n = w.shape[0]
+    if a_u8.dim() != 2 or a_u8.shape[1] != w.shape[1] or any(
+            t.shape != (n,) for t in (oc, mult, zp)):
+        raise ValueError(f"qgemm_multi shapes: a {tuple(a_u8.shape)}, w "
+                         f"{tuple(w.shape)}")
+    dev = _card_operands("qgemm_multi", a_u8, w, oc, mult, zp)
+    if dev is None:
+        return qgemm_multi_plain(a_u8, merged, rounding=rounding)
+    m, k = a_u8.shape
+    out = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    if m == 0:
+        return _split(out, merged["widths"])
+    from ..kernels import load
+    lib = load("qgemm_int8")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qgemm_u8s8_vzp(
+            a_u8.data_ptr(), w.data_ptr(), oc.data_ptr(), mult.data_ptr(),
+            zp.data_ptr(), out.data_ptr(), m, n, k,
+            int(rounding == "nearest"), stream)
+    if rc != 0:
+        raise RuntimeError(f"qgemm_u8s8_vzp launch failed with CUDA error "
+                           f"{rc}")
+    qgemm_multi.launches += 1
+    return _split(out, merged["widths"])
+
+
+qgemm_multi.launches = 0

@@ -132,7 +132,7 @@ def test_deep_trunc_model_warns_on_convert(rounding, warns):
     ("weight_only", True), ("weight_bits", 4), ("dynamic_act", True),
     ("bias_correction", True), ("glue_dtype", "bfloat16"),
     ("epilogue_dtype", "bfloat16"), ("fp_dtype", "bfloat16"),
-    ("conv_backend", "xla_conv"), ("kernel_backend", "xla"),
+    ("conv_backend", "xla_conv"), ("fused_attention", "xla"),
 ])
 def test_unimplemented_config_fields_raise(field, value):
     cfg = qt.QuantConfig(**{field: value})
