@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py             # every phase; exit 0 only if all pass
     python3 chip_smoke.py --profile   # also print torch.profiler breakdowns
-                                      # of the AlexNet forwards and of
-                                      # decode steps
+                                      # of the AlexNet forwards, of decode
+                                      # steps and of the llama prefill
 
 Phases, in order (any failure exits non-zero):
 
@@ -34,11 +34,33 @@ Phases, in order (any failure exits non-zero):
    calibrate, convert, greedy ``generate(ids, 128)`` with exactly 12 B2, 37
    B1 and 12 B3 launches per decode step, then the kernel path's logit codes
    against the plain path's on the card, teacher-forced on its tokens;
-7. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
+7. the 4-bit kernels against their plain versions at every shape the llama
+   legs launch: B6 (W4A8 with exact per-group integer partials) exactly at
+   the decode shapes under both roundings, B7 (W4A8 over f32-dequantized
+   weights) within 1 code on 0.2% at the prefill shapes with scalar and
+   per-column ``mult`` and at ragged shapes, B5 (W4 weight-only) within
+   2e-5 of the largest |output| at the weight-only shapes;
+8. the llama W4A8 main path at full width (bench.py's W4A8 leg: 768d, 12
+   layers, 12 heads over 2 kv heads, vocab 32000, max_len 512, group 256,
+   nearest rounding) with seeded random weights, batch 8, a 64-token prompt:
+   FP32 forward against its twin (1e-4 of the largest logit), prepare,
+   calibrate, convert, greedy ``generate(ids, 128)`` with exactly 49 B6 and
+   12 B3 launches per decode step and 25 single-layer + 24 merged B7
+   launches in the prefill; every W4 launch of the prefill and of 16 decode
+   steps replayed through its plain version on its own operands; from one
+   shared prefill cache, 128 teacher-forced decode steps whose logit codes
+   must equal those of the same model with its W4 and B3 wrappers swapped
+   for their plain versions; the prefill's codes against the plain path's
+   (recorded, not gated);
+9. the llama W4 weight-only forward (group 128) on the same weights and
+   prompt: exactly 85 B5 launches, every launch replayed, logits within
+   1e-4 of the largest |logit| of the plain path's;
+10. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
    decode ms/step as ``(t(128 steps) - t(16 steps)) / 112`` (best of 3) and
-   the prefill, and per kernel and shape the kernel, its plain version, the
-   bound and, for the GEMMs, ``torch._int_mm`` + the eager epilogue as a
-   library yardstick.
+   the prefill for both decoders, the weight-only forward, and per kernel
+   and shape the kernel, its plain version, the bound and, for the int8
+   GEMMs, ``torch._int_mm`` + the eager epilogue as a library yardstick (no
+   single PyTorch call computes a packed 4-bit GEMM with these epilogues).
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -48,6 +70,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -58,8 +81,10 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM data-sheet peaks (dense): int8 tensor cores and HBM3.
+# H100 SXM data-sheet peaks (dense): int8 tensor cores, float32 outside the
+# tensor cores (B5 and B7 are true f32) and HBM3.
 PEAK_INT8_OPS = 1979e12
+PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # the device spin before each timed launch: about 0.2 ms at the H100's
 # 1.98 GHz, more than a wrapper's host time (the decode attention wrapper's
@@ -108,6 +133,33 @@ ATTN_PARAMS = dict(scale_q=0.021, zp_q=117, scale_k=0.034, zp_k=131,
 # the decoder's codes, kernel path vs plain path, teacher-forced
 MAX_CODE_DIFF, MAX_SHARE_DIFF = 2, 0.01
 
+# bench.py's W4A8 llama leg (bench.py:258-293): geometry and config; the
+# batch and prompt are the decoder's (DEC_BATCH, DEC_PROMPT)
+LLAMA = dict(vocab_size=32000, max_len=512, dim=768, depth=12, heads=12,
+             kv_heads=2)
+LLAMA_W4A8 = dict(rounding="nearest", weight_bits=4, w4_group=256)
+LLAMA_W4 = dict(weight_only=True, weight_bits=4)          # group 128
+# one decode step's B6 launches: (layer, M, K, N, launches per step)
+W4_DECODE = [("qkv", 8, 768, 1024, 12), ("proj", 8, 768, 768, 12),
+             ("gate+up", 8, 768, 4096, 12), ("down", 8, 2048, 768, 12),
+             ("head", 8, 768, 32000, 1)]
+# the prefill's B7 launches at M = 8 x 64: (layer, M, K, N, launches,
+# per-column mult), the merged calls carry one mult per column
+W4_PREFILL = [("qkv", 512, 768, 1024, 12, True),
+              ("proj", 512, 768, 768, 12, False),
+              ("gate+up", 512, 768, 4096, 12, True),
+              ("down", 512, 2048, 768, 12, False),
+              ("head", 512, 768, 32000, 1, False)]
+# the weight-only forward's B5 launches at M = 8 x 64, group 128
+W4_FORWARD = [("wq", 512, 768, 768, 12), ("wk", 512, 768, 128, 12),
+              ("wv", 512, 768, 128, 12), ("proj", 512, 768, 768, 12),
+              ("gate", 512, 768, 2048, 12), ("up", 512, 768, 2048, 12),
+              ("down", 512, 2048, 768, 12), ("head", 512, 768, 32000, 1)]
+# the llama decode's B3 launches (Hkv = 2)
+LLAMA_ATTN = dict(b=8, t=512, h=12, hkv=2, d=64, valid=128, launches=12)
+# B5's contract against its plain version, relative to the largest |output|
+W4_RTOL = 2e-5
+
 KERNEL_INFO = {
     "qgemm_u8s8": dict(
         source="int8inferenceengine_tpu_torch/csrc/qgemm_int8.cu",
@@ -119,6 +171,15 @@ KERNEL_INFO = {
         source="int8inferenceengine_tpu_torch/csrc/decode_attn.cu",
         replaces="int8inferenceengine_tpu/ops/attention.py:417",
         also_replaces="int8inferenceengine_tpu/ops/attention.py:214"),
+    "w4_gemm": dict(
+        source="int8inferenceengine_tpu_torch/csrc/w4_gemm.cu",
+        replaces="int8inferenceengine_tpu/ops/w4.py:116"),
+    "w4a8_v2_gemm": dict(
+        source="int8inferenceengine_tpu_torch/csrc/w4_gemm.cu",
+        replaces="int8inferenceengine_tpu/ops/w4.py:357"),
+    "w4a8_v1_gemm": dict(
+        source="int8inferenceengine_tpu_torch/csrc/w4_gemm.cu",
+        replaces="int8inferenceengine_tpu/ops/w4.py:247"),
 }
 
 
@@ -137,10 +198,11 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak: float = PEAK_INT8_OPS):
     """Least time on the card (ms): the bytes at the HBM rate vs the
-    operations at the int8 tensor-core peak, and which one bounds."""
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    operations at ``peak`` (the int8 tensor-core peak unless given), and
+    which one bounds."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                        else "operations"), t_ops, t_bytes
 
@@ -156,6 +218,21 @@ def attn_bound_ms(b, h, hkv, d, valid, mq=1):
     once; QK^T and P@V as int8 operations."""
     nbytes = 2 * b * mq * h * d + 2 * b * valid * hkv * d + 4 * b
     return bound(nbytes, 4.0 * b * mq * h * valid * d)
+
+
+def w4_bound_ms(kernel: str, m: int, k: int, n: int, group: int):
+    """A 4-bit GEMM's bound: the packed weight (K/2 bytes a row), its f32
+    group scales, the activations (u8, or f32 for B5), two f32 [N] vectors
+    (mult and zpb, or the bias for B5) and the output (u8, or f32 for B5),
+    each moved once; 2MNK operations, int8 tensor-core ones for B6, true
+    f32 ones for B5 and B7."""
+    g = min(group, k)
+    x_bytes, out_bytes = (4, 4) if kernel == "w4_gemm" else (1, 1)
+    vectors = 1 if kernel == "w4_gemm" else 2
+    nbytes = (n * k // 2 + 4 * n * -(-k // g) + x_bytes * m * k
+              + 4 * vectors * n + out_bytes * m * n)
+    peak = PEAK_INT8_OPS if kernel == "w4a8_v2_gemm" else PEAK_FP32_OPS
+    return bound(nbytes, 2.0 * m * n * k, peak)
 
 
 def contract(torch, got, want):
@@ -227,11 +304,12 @@ def alexnet_state(torch, twin, seed: int):
     return state
 
 
-def decoder_state(torch, twin, depth: int, seed: int):
+def decoder_state(torch, twin, depth: int, seed: int,
+                  residual=("proj", "fc2")):
     """GPT-2-style random weights from numpy's default_rng(seed): N(0, 0.02)
     for Linear weights and embeddings (0.02/sqrt(2*depth) for the residual
-    projections proj/fc2), N(0, 0.01) positions and biases, LayerNorm gains
-    1 + N(0, 0.02)."""
+    projections, proj/fc2 or the llama's proj/down), N(0, 0.01) positions
+    and biases, LayerNorm and RMSNorm gains 1 + N(0, 0.02)."""
     rng = np.random.default_rng(seed)
     state = {}
     for key, p in twin.state_dict().items():
@@ -240,7 +318,7 @@ def decoder_state(torch, twin, depth: int, seed: int):
             v = 1.0 + 0.02 * z if key.endswith("weight") else 0.02 * z
         elif key.endswith("bias") or key == "pe.weight":
             v = 0.01 * z
-        elif key.startswith(("proj", "fc2")):
+        elif key.startswith(residual):
             v = (0.02 / math.sqrt(2 * depth)) * z
         else:
             v = 0.02 * z
@@ -402,6 +480,206 @@ def check_decoder_kernels(torch, G, A, gen, dev):
     return err
 
 
+# -- phase 7: the 4-bit kernels against their plain versions ----------------
+
+def w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=False,
+            weight_only=False):
+    """Random operands of a 4-bit GEMM: N(0, 0.02) weights packed with the
+    MSE scale search (the config's default), f32 N(0, 1) activations for B5
+    or u8 codes whose output grid puts the results mid-range for B6/B7
+    (``vector_mult``: one mult per column, as a merged call has)."""
+    w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+    packed, scales = W.pack_w4(w, group, optimize=True)
+    bias = torch.randn((n,), generator=gen, device=dev) * 0.01
+    if weight_only:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        return dict(x=x, packed=packed, scales=scales, bias=bias, k=k,
+                    group=group)
+    x = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    s_x, zp_x = 0.02, 117
+    s_out = float(np.float32(s_x * 74.0 * 0.02 * math.sqrt(k) / 40.0))
+    mult = float(np.float32(s_x) / np.float32(s_out))
+    if vector_mult:
+        mult = mult * (1.0 + 0.3 * torch.rand((n,), generator=gen,
+                                               device=dev))
+    zpb = torch.full((), 128.0, device=dev) + bias / torch.full(
+        (), s_out, device=dev)
+    ops = W.w4a8_operands(packed, scales, zpb, k, group, zp_x=zp_x,
+                          mult=mult)
+    return dict(x=x, ops=ops)
+
+
+def v2_plain(W, x, ops, rounding="trunc"):
+    """B6's plain version on a wrapper's operands."""
+    return W.w4a8_v2_plain(x, ops["packed"], ops["scales_t"], ops["mult_v"],
+                           ops["zpb_eff"], ops["k"], ops["group"], rounding)
+
+
+def v1_plain(W, x, ops, rounding="trunc"):
+    """B7's plain version on a wrapper's operands."""
+    return W.w4a8_v1_plain(x, ops["packed"], ops["scales"], ops["zpb"],
+                           ops["k"], ops["group"], zp_x=ops["zp_x"],
+                           mult=ops["mult_v"], rounding=rounding)
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over the largest |want| (B5's contract)."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_w4_kernels(torch, W, gen, dev):
+    """B6 exactly, B7 within the code contract, B5 within W4_RTOL of the
+    largest |output|, at every shape the llama legs launch and at ragged
+    ones; returns {kernel: max |difference|}."""
+    err = {"w4a8_v2_gemm": 0, "w4a8_v1_gemm": 0, "w4_gemm": 0.0}
+    v2_cases = [(name, m, k, n, 256, name in ("qkv", "gate+up"))
+                for name, m, k, n, _ in W4_DECODE]
+    v2_cases += [("ragged", 16, 96, 70, 32, False),
+                 ("ragged", 64, 768, 768, 128, True)]
+    for name, m, k, n, group, vec in v2_cases:
+        c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec)
+        for rounding in ("trunc", "nearest"):
+            got = W.w4a8_v2(c["x"], c["ops"], rounding)
+            want = v2_plain(W, c["x"], c["ops"], rounding)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"B6 kernel != plain at {name} M={m} K={k} N={n} "
+                     f"group={group} {rounding}: "
+                     f"{int((got != want).sum())} codes differ")
+        log(json.dumps({"phase": "w4a8_v2_kernel_vs_plain", "layer": name,
+                        "M": m, "K": k, "N": n, "group": group,
+                        "per_column_mult": vec, "max_abs_err": 0,
+                        "distinct_codes": int(torch.unique(want).numel())}))
+
+    v1_cases = [(name, m, k, n, 256, vec)
+                for name, m, k, n, _, vec in W4_PREFILL]
+    v1_cases += [(name, m, k, n, 256, not vec)
+                 for name, m, k, n, _, vec in W4_PREFILL if name != "head"]
+    v1_cases += [("ragged", 37, 200, 61, 128, True),
+                 ("ragged", 1, 48, 130, 256, False),
+                 ("ragged", 300, 768, 17, 256, True)]
+    for name, m, k, n, group, vec in v1_cases:
+        c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec)
+        worst = (0, 0.0)
+        for rounding in ("trunc", "nearest"):
+            got = W.w4a8_v1(c["x"], c["ops"], rounding)
+            want = v1_plain(W, c["x"], c["ops"], rounding)
+            torch.cuda.synchronize()
+            mx, share = contract(torch, got, want)
+            worst = max(worst, (mx, share))
+            if mx > 1 or share > 0.002:
+                fail(f"B7 kernel != plain at {name} M={m} K={k} N={n} "
+                     f"group={group} {rounding}: max {mx}, share {share}")
+        err["w4a8_v1_gemm"] = max(err["w4a8_v1_gemm"], worst[0])
+        log(json.dumps({"phase": "w4a8_v1_kernel_vs_plain", "layer": name,
+                        "M": m, "K": k, "N": n, "group": group,
+                        "per_column_mult": vec, "max_abs_err": worst[0],
+                        "share_differing": worst[1],
+                        "distinct_codes": int(torch.unique(want).numel())}))
+
+    b5_cases = [(name, m, k, n, 128) for name, m, k, n, _ in W4_FORWARD]
+    b5_cases += [("ragged", 37, 200, 61, 128), ("ragged", 1, 48, 130, 128)]
+    for name, m, k, n, group in b5_cases:
+        c = w4_case(torch, W, gen, m, k, n, group, dev, weight_only=True)
+        args = (c["x"], c["packed"], c["scales"], c["bias"], k, group)
+        got, want = W.w4_gemm(*args), W.w4_gemm_plain(*args)
+        torch.cuda.synchronize()
+        rel = rel_err(torch, got, want)
+        err["w4_gemm"] = max(err["w4_gemm"],
+                             float((got - want).abs().max()))
+        if not rel <= W4_RTOL:
+            fail(f"B5 kernel != plain at {name} M={m} K={k} N={n}: "
+                 f"{rel} of the largest |output|")
+        log(json.dumps({"phase": "w4_gemm_kernel_vs_plain", "layer": name,
+                        "M": m, "K": k, "N": n, "group": group,
+                        "max_err_rel_to_max": rel}))
+    return err
+
+
+@contextlib.contextmanager
+def swapped(module, **fns):
+    """Replace module-level functions while the block runs (a harness swap:
+    the layers call them by their module attribute).  A kernel wrapper adds
+    to the counter of the name it is bound to, so while the swap lasts its
+    launches go to the stand-in, never to the counts of the main path."""
+    old = {name: getattr(module, name) for name in fns}
+    for name, fn in fns.items():
+        fn.launches = fn.merged_launches = 0
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in old.items():
+            setattr(module, name, fn)
+
+
+def replaying(torch, W, stats):
+    """Stand-ins for the three 4-bit wrappers that launch the kernel and
+    then run its plain version on the same operands, holding each launch to
+    its contract and adding to ``stats``."""
+    v2, v1, b5 = W.w4a8_v2, W.w4a8_v1, W.w4_gemm
+
+    def note(kernel, value, share=0.0):
+        s = stats.setdefault(kernel, {"launches": 0, "max_abs_err": 0,
+                                      "max_share_differing": 0.0})
+        s["launches"] += 1
+        s["max_abs_err"] = max(s["max_abs_err"], value)
+        s["max_share_differing"] = max(s["max_share_differing"], share)
+
+    def r_v2(x, ops, rounding="trunc"):
+        got = v2(x, ops, rounding)
+        want = v2_plain(W, x, ops, rounding)
+        mx, share = contract(torch, got, want)
+        note("w4a8_v2_gemm", mx, share)
+        if mx:
+            fail(f"replayed B6 launch at M={x.shape[0]} K={ops['k']} N="
+                 f"{got.shape[1]}: {share} of the codes differ, max {mx}")
+        return got
+
+    def r_v1(x, ops, rounding="trunc"):
+        got = v1(x, ops, rounding)
+        mx, share = contract(torch, got, v1_plain(W, x, ops, rounding))
+        note("w4a8_v1_gemm", mx, share)
+        if mx > 1 or share > 0.002:
+            fail(f"replayed B7 launch at M={x.shape[0]} K={ops['k']} N="
+                 f"{got.shape[1]}: max {mx}, share {share}")
+        return got
+
+    def r_b5(x, packed, scales, bias, k, group=128):
+        got = b5(x, packed, scales, bias, k, group)
+        rel = rel_err(torch, got, W.w4_gemm_plain(x, packed, scales, bias, k,
+                                                  group))
+        note("w4_gemm", rel)
+        if not rel <= W4_RTOL:
+            fail(f"replayed B5 launch at M={x.shape[0]} K={k} N="
+                 f"{got.shape[1]}: {rel} of the largest |output|")
+        return got
+
+    return dict(w4a8_v2=r_v2, w4a8_v1=r_v1, w4_gemm=r_b5)
+
+
+def plain_w4(W):
+    """Stand-ins for the three 4-bit wrappers that run their plain versions
+    on the card."""
+    return dict(w4a8_v2=lambda x, ops, rounding="trunc":
+                v2_plain(W, x, ops, rounding),
+                w4a8_v1=lambda x, ops, rounding="trunc":
+                v1_plain(W, x, ops, rounding),
+                w4_gemm=lambda *args: W.w4_gemm_plain(*args))
+
+
+def plain_attn(A):
+    """A stand-in for the decode attention wrapper that runs its plain
+    version on the card."""
+    attn = A.decode_attention_flat
+
+    def p_attn(*args, **kw):
+        return attn(*args, **dict(kw, backend="xla"))
+
+    return dict(decode_attention_flat=p_attn)
+
+
 # -- phase 5: the AlexNet main path -----------------------------------------
 
 def alexnet_main_path(torch, q, zoo, kernel_fns, dev):
@@ -444,8 +722,7 @@ def alexnet_main_path(torch, q, zoo, kernel_fns, dev):
     out = model(q.tensor(x_test)).data
     torch.cuda.synchronize()
     counts = read_counts(kernel_fns)
-    if counts != {"qgemm_u8s8": 8, "qgemm_u8s8_vzp": 0,
-                  "decode_attn_flat": 0}:
+    if counts != dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": 8}:
         fail(f"INT8 AlexNet forward launched {counts}, want 8 qgemm_u8s8 "
              f"and nothing else")
     if tuple(out.shape) != (batch, 10) or not bool(torch.isfinite(out).all()):
@@ -506,20 +783,28 @@ def alexnet_timing(torch, q, zoo, model, x_test, state, profile):
 
 # -- phase 6: the decoder main path -----------------------------------------
 
-def teacher_forced(torch, model, prompt, tokens):
-    """The u8 logit codes [B, steps, V] of ``model`` fed the prompt and then
-    ``tokens`` [B, steps] one step at a time through its KV cache."""
-    from int8inferenceengine_tpu_torch.tensor import Tensor
-    t0 = prompt.shape[1]
+def decode_from(torch, model, cache, t0: int, tokens):
+    """The u8 logit codes [B, S, V] of decode steps fed ``tokens`` [B, S] one
+    at a time from position ``t0`` through ``cache`` (updated in place)."""
+    out = []
     with torch.no_grad():
-        codes, cache = model._prefill(Tensor(prompt))
-        out = [codes]
-        pos = torch.full((), t0, dtype=torch.int64, device=prompt.device)
-        for s in range(tokens.shape[1] - 1):
+        pos = torch.full((), t0, dtype=torch.int64, device=tokens.device)
+        for s in range(tokens.shape[1]):
             codes, cache = model._decode_step(cache, pos, tokens[:, s])
             out.append(codes)
             pos = pos + 1
     return torch.stack(out, 1)
+
+
+def teacher_forced(torch, model, prompt, tokens):
+    """The u8 logit codes [B, steps, V] of ``model`` fed the prompt and then
+    ``tokens`` [B, steps] one step at a time through its KV cache."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(prompt))
+    return torch.cat([codes[:, None],
+                      decode_from(torch, model, cache, prompt.shape[1],
+                                  tokens[:, :-1])], 1)
 
 
 def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
@@ -563,8 +848,9 @@ def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
     # token, and each of the DEC_STEPS - 1 decode steps after it runs 37
     # B1, one B2 and one B3 per block
     depth = GPT["depth"]
-    per_step = {"qgemm_u8s8": 3 * depth + 1, "qgemm_u8s8_vzp": depth,
-                "decode_attn_flat": depth}
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 3 * depth + 1, "qgemm_u8s8_vzp": depth,
+        "decode_attn_flat": depth}
     prefill = dict(per_step, decode_attn_flat=0)
     want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
     if counts != want:
@@ -608,11 +894,174 @@ def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
     return model, ids, counts
 
 
-def decoder_timing(torch, model, ids, profile):
+# -- phases 8 and 9: the llama legs ------------------------------------------
+
+def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
+    """bench.py's W4A8 llama lifecycle and greedy generate; returns (INT8
+    model, prompt ids, FP32 state, launches by kernel)."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    depth = LLAMA["depth"]
+    twin = LL.torch_llama(**LLAMA, seed=0)
+    state = decoder_state(torch, twin, depth, seed=0,
+                          residual=("proj", "down"))
+    twin.load_state_dict(state)
+    twin = twin.to(dev).eval()
+    ids = np.random.default_rng(0).integers(
+        0, LLAMA["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+
+    reset_counts(kernel_fns)
+    t0 = time.perf_counter()
+    model = zoo.build("llama_tiny", config=q.QuantConfig(**LLAMA_W4A8),
+                      **LLAMA)
+    model.load(state)
+    fp32 = model(q.tensor(ids)).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(ids, dtype=torch.int64, device=dev))
+    fp_err = float((fp32 - ref).abs().max() / ref.abs().max())
+    if tuple(fp32.shape) != (DEC_BATCH, DEC_PROMPT, LLAMA["vocab_size"]) \
+            or not fp_err <= 1e-4:
+        fail(f"FP32 llama differs from its torch twin: shape "
+             f"{tuple(fp32.shape)}, max error {fp_err} of max |logit|")
+    log(json.dumps({"phase": "llama_fp32_vs_twin",
+                    "max_err_rel_to_max": fp_err}))
+    del twin, ref, fp32
+
+    model.prepare()
+    model(q.tensor(ids))
+    model.convert()
+    torch.cuda.synchronize()
+    lifecycle_s = time.perf_counter() - t0
+    tokens = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    merged = W.w4a8_v1.merged_launches
+    # the prefill (M = 512, over B6's envelope) runs B7: proj, down and
+    # the head alone, qkv and gate+up merged; each of the DEC_STEPS - 1
+    # decode steps runs B6 at all 4 * depth + 1 Linears and B3 per block
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "w4a8_v2_gemm": 4 * depth + 1, "decode_attn_flat": depth}
+    prefill = dict.fromkeys(kernel_fns, 0) | {"w4a8_v1_gemm": 4 * depth + 1}
+    want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
+    if counts != want or merged != 2 * depth:
+        fail(f"llama W4A8 launches {counts} ({merged} merged B7), want "
+             f"{want} ({2 * depth} merged B7)")
+    if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.dtype != np.int32 \
+            or tokens.min() < 0 or tokens.max() >= LLAMA["vocab_size"]:
+        fail(f"generate returned {tokens.dtype} {tokens.shape} in "
+             f"[{tokens.min()}, {tokens.max()}]")
+    log(json.dumps({"phase": "llama_w4a8_generate", "steps": DEC_STEPS,
+                    "launches": counts,
+                    "launches_per_decode_step": {
+                        k: v for k, v in per_step.items() if v},
+                    "prefill_launches": {
+                        "w4a8_v1_gemm single-layer": 4 * depth + 1 - merged,
+                        "w4a8_v1_gemm merged": merged},
+                    "prepare_calibrate_convert_s": round(lifecycle_s, 3),
+                    "distinct_tokens": int(np.unique(tokens).size)}))
+
+    # (b) every W4 launch of the prefill and of 16 decode steps, replayed
+    prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+    toks = torch.tensor(tokens, dtype=torch.int64, device=dev)
+    stats = {}
+    with swapped(W, **replaying(torch, W, stats)):
+        teacher_forced(torch, model, prompt, toks[:, :DEC_SHORT + 1])
+    replayed = {"w4a8_v1_gemm": 4 * depth + 1,
+                "w4a8_v2_gemm": DEC_SHORT * (4 * depth + 1)}
+    if {k: s["launches"] for k, s in stats.items()} != replayed:
+        fail(f"replayed {stats}, want {replayed} launches")
+    log(json.dumps({"phase": "llama_w4a8_replayed_launches", "stats": stats,
+                    "contract": {"w4a8_v2_gemm": "exact",
+                                 "w4a8_v1_gemm": "<=1 code on <=0.2%"}}))
+
+    # (c) one shared prefill cache, 128 teacher-forced decode steps on the
+    # kernel path and on the plain path (harness swap, same model)
+    with torch.no_grad():
+        codes0, cache = model._prefill(Tensor(prompt))
+    cache_plain = {i: (k.clone(), v.clone()) for i, (k, v) in cache.items()}
+    got = decode_from(torch, model, cache, DEC_PROMPT, toks)
+    if not torch.equal(codes0.argmax(-1), toks[:, 0]) or \
+            not torch.equal(got[:, :-1].argmax(-1), toks[:, 1:]):
+        fail("the kernel path's teacher-forced argmax differs from the "
+             "tokens its generate() returned")
+    with swapped(W, **plain_w4(W)), swapped(A, **plain_attn(A)):
+        want_codes = decode_from(torch, model, cache_plain, DEC_PROMPT, toks)
+        with torch.no_grad():
+            prefill_plain = model.forward(Tensor(prompt)).data
+    mx, share = contract(torch, got, want_codes)
+    log(json.dumps({"phase": "llama_w4a8_kernel_vs_plain_path",
+                    "shared_prefill_cache": True,
+                    "decode_steps": DEC_STEPS, "codes": int(got.numel()),
+                    "max_abs_err": mx, "share_differing": share,
+                    "limit": "equal"}))
+    if mx:
+        fail(f"llama W4A8 teacher-forced codes, kernel path vs plain path: "
+             f"max {mx}, share {share}")
+    # (d) the prefill run apart on each path: B7's free f32 sum order may
+    # move a code, which the plain path's cache would carry on (recorded)
+    with torch.no_grad():
+        prefill_kernel = model.forward(Tensor(prompt)).data
+    mx, share = contract(torch, prefill_kernel, prefill_plain)
+    log(json.dumps({"phase": "llama_w4a8_prefill_kernel_vs_plain",
+                    "codes": int(prefill_kernel.numel()), "max_abs_err": mx,
+                    "share_differing": share, "gated": False}))
+    del got, want_codes, prefill_plain, prefill_kernel, cache, cache_plain
+    return model, ids, state, counts
+
+
+def llama_w4_forward_path(torch, q, zoo, W, kernel_fns, state, ids):
+    """The W4 weight-only llama forward on the same weights and prompt;
+    returns (model, launches by kernel)."""
+    depth = LLAMA["depth"]
+    reset_counts(kernel_fns)
+    model = zoo.build("llama_tiny", config=q.QuantConfig(**LLAMA_W4),
+                      **LLAMA)
+    model.load(state)
+    model.convert()                    # weight-only: no calibration pass
+    xt = q.tensor(ids)
+    out = model(xt).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    want = dict.fromkeys(kernel_fns, 0) | {"w4_gemm": 7 * depth + 1}
+    if counts != want:
+        fail(f"weight-only llama forward launched {counts}, want {want}")
+    if tuple(out.shape) != (DEC_BATCH, DEC_PROMPT, LLAMA["vocab_size"]) or \
+            out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
+        fail(f"weight-only output {out.dtype} {tuple(out.shape)} or "
+             f"non-finite values")
+    stats = {}
+    with swapped(W, **replaying(torch, W, stats)):
+        model(xt)
+    if stats["w4_gemm"]["launches"] != 7 * depth + 1:
+        fail(f"replayed {stats}, want {7 * depth + 1} B5 launches")
+    with swapped(W, **plain_w4(W)):
+        plain = model(xt).data
+    rel = rel_err(torch, out, plain)
+    log(json.dumps({"phase": "llama_w4_forward", "launches": counts,
+                    "replayed": stats, "max_err_rel_to_max_vs_plain": rel,
+                    "limit": 1e-4}))
+    if not rel <= 1e-4:
+        fail(f"weight-only logits, kernel path vs plain path: {rel} of the "
+             f"largest |logit|")
+    return model, counts
+
+
+def llama_w4_timing(torch, q, model, ids, profile):
+    xt = q.tensor(ids)
+    ms = time_cuda(torch, lambda: model(xt), iters=5)
+    log(json.dumps({"model": "llama_w4_weight_only_forward",
+                    "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    "ms_per_forward": ms,
+                    "tokens_per_s": DEC_BATCH * DEC_PROMPT * 1e3 / ms}))
+    if profile:
+        profile_forward(torch, lambda: model(xt),
+                        "llama_w4_weight_only_forward")
+
+
+def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
     """Decode ms/step by bench.py's protocol, the prefill, and under
     ``profile`` the device time of decode steps by kernel."""
     from int8inferenceengine_tpu_torch.tensor import Tensor
-    vocab = GPT["vocab_size"]
+    vocab = model.vocab_size
     times = {}
     for steps in (DEC_SHORT, DEC_STEPS):
         model.generate(ids, steps)
@@ -628,13 +1077,17 @@ def decoder_timing(torch, model, ids, profile):
     prompt = Tensor(torch.tensor(ids, dtype=torch.int64, device=model.device))
     with torch.no_grad():
         prefill_ms = time_cuda(torch, lambda: model._prefill(prompt), iters=5)
-    res = {"model": "gpt2_small_ish_decode", "batch": DEC_BATCH,
+    res = {"model": label, "batch": DEC_BATCH,
            "prompt": DEC_PROMPT, "decode_ms_per_step": per_step * 1e3,
            "tokens_per_s": DEC_BATCH / per_step, "prefill_ms": prefill_ms,
-           "generate_s": {str(k): v for k, v in times.items()}}
+           "generate_s": {str(k): v for k, v in times.items()},
+           "protocol": f"(t(generate {DEC_STEPS}) - t(generate {DEC_SHORT}))"
+                       f" / {DEC_STEPS - DEC_SHORT}, best of 3"}
     log(json.dumps(res))
     if profile:
-        profile_decode(torch, model, prompt, per_step * 1e6)
+        profile_decode(torch, model, prompt, per_step * 1e6, label)
+        profile_forward(torch, lambda: model._prefill(prompt),
+                        f"{label}: prefill")
     return res
 
 
@@ -646,10 +1099,51 @@ def kernel_of(name: str):
         # the template's second argument is the epilogue mode; 2 is B2's
         vzp = re.search(r"qgemm_u8s8_kernel<\w+, 2>", name)
         return "qgemm_u8s8_vzp" if vzp else "qgemm_u8s8"
+    if "w4a8_v2_kernel" in name:
+        return "w4a8_v2_gemm"
+    if "w4_f32_kernel" in name:
+        # the template argument is true for B7 (W4A8), false for B5
+        b7 = re.search(r"w4_f32_kernel<(true|\(bool\)1)>", name)
+        return "w4a8_v1_gemm" if b7 else "w4_gemm"
     return None
 
 
-def profile_decode(torch, model, prompt, step_us):
+def by_kernel(rows, reps):
+    """{kernel: (us per rep, launches per rep)} of profiler rows."""
+    out = {}
+    for e in rows:
+        k = kernel_of(e.key) or "other (eager glue)"
+        us, n = out.get(k, (0.0, 0.0))
+        out[k] = (us + e.self_device_time_total / reps, n + e.count / reps)
+    return {k: {"us": us, "launches": n} for k, (us, n) in out.items()}
+
+
+def profile_forward(torch, fn, label, reps=3):
+    """The device time of ``fn`` by kernel under torch.profiler, and the
+    device's idle share of the profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    rows = profile_rows(torch, prof)
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    log(json.dumps({"profile": label, "wall_us_profiled": wall_us,
+                    "device_busy_us": busy,
+                    "device_idle_share_profiled": 1 - busy / wall_us,
+                    "by_kernel": by_kernel(rows, reps),
+                    "rows": [{"name": e.key[:90],
+                              "us": e.self_device_time_total / reps,
+                              "calls": e.count / reps} for e in rows[:20]]}))
+
+
+def profile_decode(torch, model, prompt, step_us, label):
     from torch.profiler import ProfilerActivity, profile as torch_profile
     reps = 8
     with torch.no_grad():
@@ -671,28 +1165,20 @@ def profile_decode(torch, model, prompt, step_us):
             wall_us = (time.perf_counter() - t0) * 1e6 / reps
     rows = profile_rows(torch, prof)
     busy = sum(e.self_device_time_total for e in rows) / reps
-    by_kernel = {}
-    for e in rows:
-        k = kernel_of(e.key) or "other (eager glue)"
-        us, n = by_kernel.get(k, (0.0, 0.0))
-        by_kernel[k] = (us + e.self_device_time_total / reps,
-                        n + e.count / reps)
-    log(json.dumps({"profile": "decode_step", "batch": DEC_BATCH,
+    log(json.dumps({"profile": f"{label}: decode_step", "batch": DEC_BATCH,
                     "wall_us_per_step_profiled": wall_us,
                     "wall_us_per_step_unprofiled": step_us,
                     "device_busy_us_per_step": busy,
                     "device_idle_share": 1 - busy / step_us,
                     "device_idle_share_profiled": 1 - busy / wall_us,
-                    "by_kernel": {k: {"us_per_step": us,
-                                      "launches_per_step": n}
-                                  for k, (us, n) in by_kernel.items()},
+                    "by_kernel": by_kernel(rows, reps),
                     "rows": [{"name": e.key[:90],
                               "us_per_step": e.self_device_time_total / reps,
                               "calls_per_step": e.count / reps}
                              for e in rows[:30]]}))
 
 
-# -- phase 7: per-kernel times ------------------------------------------------
+# -- phase 10: per-kernel times -----------------------------------------------
 
 def int_mm_operands(torch, a_u8, w_s8_nk):
     """cuBLAS int8 operands: a recentered to s8, M padded to 32 and K, N to
@@ -846,6 +1332,73 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
     return rows
 
 
+def time_w4_kernels(torch, W, A, gen, dev, flush):
+    """B6 at the llama decode step's shapes, B7 at the prefill's, B5 at the
+    weight-only forward's, and B3 at the llama decode (Hkv = 2); a row per
+    shape with its launches per unit of work."""
+    rows = []
+    shapes = ([("w4a8_v2_gemm", "llama_w4a8_decode_step", name, m, k, n, 256,
+                per, name in ("qkv", "gate+up"))
+               for name, m, k, n, per in W4_DECODE]
+              + [("w4a8_v1_gemm", "llama_w4a8_prefill", name, m, k, n, 256,
+                  per, vec) for name, m, k, n, per, vec in W4_PREFILL]
+              + [("w4_gemm", "llama_w4_forward", name, m, k, n, 128, per,
+                  False) for name, m, k, n, per in W4_FORWARD])
+    for kernel, path, name, m, k, n, group, per, vec in shapes:
+        c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec,
+                    weight_only=kernel == "w4_gemm")
+        if kernel == "w4_gemm":
+            args = (c["x"], c["packed"], c["scales"], c["bias"], k, group)
+            fn, plain = (lambda: W.w4_gemm(*args),
+                         lambda: W.w4_gemm_plain(*args))
+        elif kernel == "w4a8_v2_gemm":
+            fn, plain = (lambda: W.w4a8_v2(c["x"], c["ops"], "nearest"),
+                         lambda: v2_plain(W, c["x"], c["ops"], "nearest"))
+        else:
+            fn, plain = (lambda: W.w4a8_v1(c["x"], c["ops"], "nearest"),
+                         lambda: v1_plain(W, c["x"], c["ops"], "nearest"))
+        ms = time_cuda(torch, fn, iters=20, flush=flush)
+        plain_ms = time_cuda(torch, plain, iters=3, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = w4_bound_ms(kernel, m, k, n, group)
+        rows.append(dict(kernel=kernel, path=path, layer=name, M=m, K=k, N=n,
+                         group=group, launches_per_unit=per, ms=ms,
+                         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                         library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+        del c
+
+    cfg = LLAMA_ATTN
+    b, t, h, hkv, d = (cfg[x] for x in ("b", "t", "h", "hkv", "d"))
+    q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    k_, v_ = (torch.randint(0, 256, (b, t, hkv * d), generator=gen,
+                            dtype=torch.uint8, device=dev) for _ in range(2))
+    valid_t = torch.full((), cfg["valid"], dtype=torch.int32, device=dev)
+    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv, rounding="nearest")
+    ms = time_cuda(torch, lambda: A.decode_attention_flat(q, k_, v_, valid_t,
+                                                          **kw),
+                   iters=20, flush=flush)
+    plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
+        q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
+    b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, hkv, d, cfg["valid"])
+    rows.append(dict(kernel="decode_attn_flat", path="llama_w4a8_decode_step",
+                     layer=f"attention GQA {h}/{hkv} (live length "
+                           f"{cfg['valid']} of {t})", B=b, T=t, H=h, Hkv=hkv,
+                     D=d, launches_per_unit=cfg["launches"], ms=ms,
+                     bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                     library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+    for r in rows:
+        log(json.dumps({k_: v for k_, v in r.items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+    for path in ("llama_w4a8_decode_step", "llama_w4a8_prefill",
+                 "llama_w4_forward"):
+        mine = [r for r in rows if r["path"] == path]
+        log(json.dumps({"kernels_per_unit": path} | {
+            key: sum(r[key] * r["launches_per_unit"] for r in mine)
+            for key in ("ms", "bound_ms", "plain_ms")}))
+    return rows
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -879,6 +1432,8 @@ def kernels_line(rows, counts_by_path, max_err):
 def reset_counts(kernel_fns):
     for fn in kernel_fns.values():
         fn.launches = 0
+        if hasattr(fn, "merged_launches"):
+            fn.merged_launches = 0
 
 
 def read_counts(kernel_fns):
@@ -898,13 +1453,17 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import int8inferenceengine_tpu_torch as q
     from int8inferenceengine_tpu_torch import kernels
+    from int8inferenceengine_tpu_torch.models import llama as LL
     from int8inferenceengine_tpu_torch.models import text_decoder as TD
     from int8inferenceengine_tpu_torch.models import zoo
     from int8inferenceengine_tpu_torch.ops import attention as A
     from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
+    from int8inferenceengine_tpu_torch.ops import w4 as W
     from int8inferenceengine_tpu_torch.ops.quant import quantize_u8
     kernel_fns = {"qgemm_u8s8": G.qgemm, "qgemm_u8s8_vzp": G.qgemm_multi,
-                  "decode_attn_flat": A.decode_attention_flat}
+                  "decode_attn_flat": A.decode_attention_flat,
+                  "w4_gemm": W.w4_gemm, "w4a8_v2_gemm": W.w4a8_v2,
+                  "w4a8_v1_gemm": W.w4a8_v1}
     t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
@@ -961,6 +1520,9 @@ def main(argv=None) -> int:
     for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
         max_err[name] = max(max_err.get(name, 0), err)
 
+    # -- 7. the 4-bit kernels against their plain versions --------------------
+    max_err.update(check_w4_kernels(torch, W, gen, dev))
+
     # -- 5. the AlexNet main path ---------------------------------------------
     counts_by_path = {}
     model, x_test, state, counts_by_path["alexnet_b100"] = alexnet_main_path(
@@ -975,11 +1537,26 @@ def main(argv=None) -> int:
     del dec
     torch.cuda.empty_cache()
 
-    # -- 7. per-kernel times ---------------------------------------------------
+    # -- 8. the llama W4A8 main path ------------------------------------------
+    dec, ids, state, counts_by_path["llama_w4a8_generate"] = \
+        llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev)
+    decoder_timing(torch, dec, ids, args.profile, label="llama_w4a8_decode")
+    del dec
+    torch.cuda.empty_cache()
+
+    # -- 9. the llama W4 weight-only forward ----------------------------------
+    wo, counts_by_path["llama_w4_forward"] = llama_w4_forward_path(
+        torch, q, zoo, W, kernel_fns, state, ids)
+    llama_w4_timing(torch, q, wo, ids, args.profile)
+    del wo, state
+    torch.cuda.empty_cache()
+
+    # -- 10. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
     rows = time_alexnet_gemms(torch, G, gen, dev, flush)
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
+    rows += time_w4_kernels(torch, W, A, gen, dev, flush)
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)

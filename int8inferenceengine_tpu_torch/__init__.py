@@ -5,9 +5,10 @@ The same ``Module``/``Linear``/``Conv2d``/``tensor`` API and
 ``int8inferenceengine_tpu``, with the same numerics (u8 asymmetric
 activations, s8 symmetric weights, i32 accumulation, trunc/nearest requant
 epilogues), running on an NVIDIA Hopper card through hand-written CUDA
-kernels (``csrc/``): the CNN zoo and the GPT-style ``TextDecoder`` with its
-u8 KV cache and greedy ``generate``.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+kernels (``csrc/``): the CNN zoo, the GPT-style ``TextDecoder`` and the
+llama-family ``LlamaDecoder`` with their u8 KV cache and greedy
+``generate``, and 4-bit weights (W4A8 and W4 weight-only).  Entry points run
+on the card unless the caller passes ``device="cpu"``.
 
 TF32 is switched off for float32 matmuls and cuDNN convolutions at import:
 the FP32 calibration forward decides every quantization scale, and TF32
@@ -22,7 +23,8 @@ torch.backends.cudnn.allow_tf32 = False
 from .config import DEFAULT_CONFIG, QuantConfig  # noqa: E402
 from .layers import (Conv2d, Layer, Linear, QuantAct,  # noqa: E402
                      QuantAdd, QuantEmbed, QuantLayerNorm, QuantMatmul,
-                     QuantPosEmbed, QuantSoftmax)
+                     QuantMul, QuantPosEmbed, QuantRMSNorm, QuantRoPE,
+                     QuantSoftmax)
 from .module import Module, TruncDepthWarning  # noqa: E402
 from .ops.functional import (argmax, dequantize, max_pool2d,  # noqa: E402
                              quantize, relu)
@@ -32,7 +34,7 @@ __all__ = [
     "tensor", "argmax", "relu", "max_pool2d",
     "Linear", "Conv2d", "Tensor", "Layer", "Module",
     "QuantAct", "QuantAdd", "QuantEmbed", "QuantLayerNorm", "QuantMatmul",
-    "QuantPosEmbed", "QuantSoftmax",
+    "QuantMul", "QuantPosEmbed", "QuantRMSNorm", "QuantRoPE", "QuantSoftmax",
     "quantize", "dequantize",
     "QuantConfig", "DEFAULT_CONFIG", "TruncDepthWarning",
 ]

@@ -9,15 +9,18 @@ with ``params`` in the JAX package's layouts:
 
 * Linear: before convert ``weight`` / ``bias`` ([out, in]); after it
   ``qw_kn`` ([K, N] s8), ``q_bias``, ``rowsum`` and, per channel,
-  ``w_scale``;
+  ``w_scale``; with 4-bit weights ``w4_packed`` ([N, K/2] u8), ``w4_scales``
+  ([N, G] f32), ``bias`` and, on the static path (W4A8), ``w4_wsum`` ([N]
+  f32), carried as they are (``wsum`` is an f32 sum whose order is part of
+  the result, so it is never recomputed);
 * Conv2d: ``w_hwio`` / ``bias`` (HWIO), after convert ``qw_hwio`` (HWIO s8)
   with ``q_bias``, ``rowsum`` and, per channel, ``w_scale``;
 * QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
-  ([V, C] u8);
+  ([V, C] u8) (a weight-only model keeps ``weight``);
 * QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
-* QuantLayerNorm: ``weight`` and ``bias``;
-* the weightless layers (QuantAct, QuantAdd, QuantMatmul, QuantSoftmax):
-  none, only ``scale`` and ``zero_point``.
+* QuantLayerNorm: ``weight`` and ``bias``; QuantRMSNorm: ``weight``;
+* the weightless layers (QuantAct, QuantAdd, QuantMul, QuantMatmul,
+  QuantSoftmax, QuantRoPE): none, only ``scale`` and ``zero_point``.
 
 It is what a JAX ``Layer`` holds in ``layer.params`` and its attributes, so
 after ``load_jax_state`` both packages compute the same function.
@@ -29,7 +32,9 @@ import numpy as np
 import torch
 
 from .layers import (Conv2d, Layer, Linear, QuantEmbed, QuantLayerNorm,
-                     QuantPosEmbed)
+                     QuantPosEmbed, QuantRMSNorm)
+
+_TABLES = (QuantEmbed, QuantPosEmbed, QuantLayerNorm, QuantRMSNorm)
 
 
 def _t(arr, dtype) -> torch.Tensor:
@@ -42,10 +47,29 @@ def _expect(layer_name: str, what: str, arr, shape):
                          f"expected {tuple(shape)}")
 
 
+def _load_w4_layer(name: str, layer: Linear, p: dict) -> None:
+    n, c = layer.out_channels, layer.in_channels
+    _expect(name, "w4_packed", p["w4_packed"], (n, c // 2))
+    _expect(name, "bias", p["bias"], (n,))
+    if np.shape(p["w4_scales"])[0] != n:
+        raise ValueError(f"{name}.w4_scales: shape "
+                         f"{np.shape(p['w4_scales'])} has not {n} rows")
+    wsum = None
+    if "w4_wsum" in p:
+        _expect(name, "w4_wsum", p["w4_wsum"], (n,))
+        wsum = _t(p["w4_wsum"], np.float32)
+    elif not layer.config.weight_only:
+        raise ValueError(f"{name}: a W4A8 layer needs w4_wsum")
+    layer.set_w4(_t(p["w4_packed"], np.uint8), _t(p["w4_scales"], np.float32),
+                 _t(p["bias"], np.float32), wsum)
+
+
 def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     p = st["params"]
     k = getattr(layer, "kernel_size", None)
     n, c = layer.out_channels, layer.in_channels
+    if st["is_quantized"] and "w4_packed" in p:
+        return _load_w4_layer(name, layer, p)
     if not st["is_quantized"]:
         if isinstance(layer, Conv2d):
             _expect(name, "w_hwio", p["w_hwio"], (k, k, c, n))
@@ -71,7 +95,7 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
 
 def _load_table_layer(name: str, layer: Layer, st: dict) -> None:
     p = st["params"]
-    if isinstance(layer, QuantEmbed) and st["is_quantized"]:
+    if isinstance(layer, QuantEmbed) and "q_weight" in p:
         _expect(name, "q_weight", p["q_weight"],
                 (layer.vocab_size, layer.dim))
         layer.q_weight = _t(p["q_weight"], np.uint8).to(layer.device)
@@ -85,7 +109,7 @@ def _load_table_layer(name: str, layer: Layer, st: dict) -> None:
 def _load_layer(name: str, layer: Layer, st: dict) -> None:
     if isinstance(layer, (Linear, Conv2d)):
         _load_gemm_layer(name, layer, st)
-    elif isinstance(layer, (QuantEmbed, QuantPosEmbed, QuantLayerNorm)):
+    elif isinstance(layer, _TABLES):
         _load_table_layer(name, layer, st)
     elif st["params"]:
         raise ValueError(f"{name}: {type(layer).__name__} has no params, got "
@@ -113,6 +137,13 @@ def load_jax_state(module, state: dict) -> None:
 
 
 def _gemm_params(layer: Layer) -> tuple[dict, object]:
+    if layer.is_quantized and getattr(layer, "w4_packed", None) is not None:
+        params = {"w4_packed": layer.w4_packed.cpu().numpy(),
+                  "w4_scales": layer.w4_scales.cpu().numpy(),
+                  "bias": layer.bias.cpu().numpy()}
+        if layer.w4_wsum is not None:
+            params["w4_wsum"] = layer.w4_wsum.cpu().numpy()
+        return params, layer.weight_scale
     if layer.is_quantized:
         qw = layer.qw.cpu().numpy()
         if isinstance(layer, Conv2d):
@@ -137,12 +168,12 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
 def _params(layer: Layer) -> tuple[dict, object]:
     if isinstance(layer, (Linear, Conv2d)):
         return _gemm_params(layer)
-    if isinstance(layer, QuantEmbed) and layer.is_quantized:
+    if isinstance(layer, QuantEmbed) and layer.q_weight is not None:
         return {"q_weight": layer.q_weight.cpu().numpy()}, layer.weight_scale
     params = {}
     for key in ("weight", "bias"):
-        if isinstance(layer, (QuantEmbed, QuantPosEmbed, QuantLayerNorm)) \
-                and getattr(layer, key) is not None:
+        if isinstance(layer, _TABLES) and getattr(layer, key, None) \
+                is not None:
             params[key] = getattr(layer, key).cpu().numpy()
     return params, layer.weight_scale
 

@@ -92,8 +92,6 @@ DEFAULT_CONFIG = QuantConfig()
 
 # field -> the only value this package implements so far
 _IMPLEMENTED = {
-    "weight_only": False,
-    "weight_bits": 8,
     "dynamic_act": False,
     "bias_correction": False,
     "glue_dtype": "float32",
@@ -107,6 +105,10 @@ _CHOICES = {
     "kernel_backend": ("auto", "pallas", "xla"),
     "fuse_qkv": ("auto", "pallas", "xla", "off"),
     "decode_attention": ("auto", "pallas", "xla", "off"),
+    # 'auto' / 'pallas': kernels B6 (W4A8 v2 envelope), B7 (other W4A8
+    # shapes) and B5 (weight-only) on a CUDA tensor; 'xla': the plain
+    # versions of B7's and B5's functions on any device
+    "w4_kernel": ("auto", "pallas", "xla"),
 }
 
 
@@ -119,6 +121,15 @@ def check_supported(config: QuantConfig) -> None:
             raise NotImplementedError(
                 f"QuantConfig.{field}={got!r} is not implemented by the "
                 f"PyTorch port yet (only {value!r})")
+    if config.weight_bits not in (8, 4):
+        raise NotImplementedError(
+            f"QuantConfig.weight_bits={config.weight_bits!r} is not "
+            f"implemented by the PyTorch port (8 or 4)")
+    if config.weight_only and config.weight_bits != 4:
+        raise NotImplementedError(
+            "QuantConfig.weight_only=True with weight_bits=8 (the W8-float "
+            "mode) is not implemented by the PyTorch port yet; "
+            "weight_only=True takes weight_bits=4")
     if config.conv_backend == "xla_conv":
         raise NotImplementedError(
             "QuantConfig.conv_backend='xla_conv' is not implemented by the "

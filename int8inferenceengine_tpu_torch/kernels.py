@@ -46,6 +46,17 @@ SIGNATURES = {
                              _L, _I, _I, _F, _I, _I, _I, _I, _F, _F, _F, _F,
                              _F, _F, _F, _I, _I, _P],
     },
+    "w4_gemm": {
+        # x, packed, scales_t, mult, zpb_eff, out, M, N, K, group, nearest,
+        # stream
+        "w4a8_v2_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # x, packed, scales, mult, zpb, out, M, N, K, g, zp_x, nearest,
+        # stream
+        "w4a8_v1_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
+        # x, packed, scales, bias, out, M, N, K, g, stream
+        "w4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -42,6 +42,8 @@ from .config import DEFAULT_CONFIG, QuantConfig, check_supported
 from .ops import attention as attn_ops
 from .ops import conv as conv_ops
 from .ops import quant as quant_ops
+from .ops import rope as rope_ops
+from .ops import w4 as w4_ops
 from .ops.functional import ACTIVATIONS
 from .ops.gemm_int8 import (KERNEL_ACTS, compute_offset, epilogue_vector,
                             merge_parts, qgemm, qgemm_multi,
@@ -101,7 +103,10 @@ class Layer(nn.Module):
             warnings.warn("already quantized")
             return
         if not self.is_preparing:
-            warnings.warn("Not prepared, using default config (scale=1, zp=0)")
+            # weight-only models keep float activations: no grid to miss
+            if not self.config.weight_only:
+                warnings.warn(
+                    "Not prepared, using default config (scale=1, zp=0)")
         else:
             self.scale, self.zero_point = self.calibrator.get_range(
                 self.config.calib_quantile)
@@ -173,8 +178,10 @@ class Layer(nn.Module):
 
     def _check_int8(self, x: Tensor):
         self._check_converted()
-        if x.device != self.qw.device:
-            raise ValueError(f"input on {x.device}, layer on {self.qw.device}")
+        w = self.qw if self.qw is not None else getattr(self, "w4_packed",
+                                                        None)
+        if w is not None and x.device != w.device:
+            raise ValueError(f"input on {x.device}, layer on {w.device}")
 
     def _check_fp32(self):
         if self.is_quantized:
@@ -190,7 +197,15 @@ class Layer(nn.Module):
 
 
 class Linear(Layer):
-    """Fully-connected layer; torch-style weight [out, in]."""
+    """Fully-connected layer; torch-style weight [out, in].
+
+    ``QuantConfig.weight_bits=4`` stores the converted weight as packed
+    nibbles with group scales (``ops/w4.py``): ``w4_packed`` (u8 [N, K/2]),
+    ``w4_scales`` (f32 [N, G]), the f32 ``bias`` and, on the static path
+    (W4A8), ``w4_wsum`` (f32 [N], the dequantized weight's row sums).
+    W4A8 takes u8 codes to u8 codes through kernels B6/B7; with
+    ``weight_only=True`` the activations stay float and the layer runs
+    kernel B5."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  config: QuantConfig = DEFAULT_CONFIG, fuse_relu: bool = False,
@@ -201,10 +216,36 @@ class Linear(Layer):
         self.fuse_relu = fuse_relu
         self.register_buffer("weight", self._buf((out_channels, in_channels)))
         self.register_buffer("bias", self._buf((out_channels,)))
+        for name in ("w4_packed", "w4_scales", "w4_wsum"):
+            self.register_buffer(name, None)
 
     def load_weight(self, w):
         self.weight = self._load_array(
             w, (self.out_channels, self.in_channels), "load_weight")
+
+    def _quantize_weights(self):
+        if self.config.weight_bits != 4:
+            return super()._quantize_weights()
+        packed, scales = w4_ops.pack_w4(self.weight, self.config.w4_group,
+                                        optimize=self.config.w4_mse_scales)
+        wsum = None if self.config.weight_only else w4_ops.weight_rowsum(
+            packed, scales, self.in_channels, self.config.w4_group)
+        self.set_w4(packed, scales, self.bias, wsum)
+
+    def set_w4(self, packed: torch.Tensor, scales: torch.Tensor,
+               bias: torch.Tensor, wsum: torch.Tensor | None = None):
+        """Install converted 4-bit weights (``w4_wsum`` for W4A8 only); the
+        FP32 weight is freed."""
+        dev = self.device
+        self.w4_packed = packed.to(device=dev, dtype=torch.uint8).contiguous()
+        self.w4_scales = scales.to(device=dev,
+                                   dtype=torch.float32).contiguous()
+        self.bias = bias.to(device=dev, dtype=torch.float32).contiguous()
+        self.w4_wsum = None if wsum is None else wsum.to(
+            device=dev, dtype=torch.float32).contiguous()
+        self.weight = None
+        self._epilogue_cache = {}
+        self._merged_cache = {}
 
     def forward(self, x: Tensor) -> Tensor:
         if len(x.shape) != 2:
@@ -214,16 +255,57 @@ class Linear(Layer):
             return self._forward_int8(x)
         return self._forward_fp32(x)
 
+    def _check_fp32(self):
+        if not (self.is_quantized and self.config.weight_only):
+            super()._check_fp32()
+
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
+        if self.is_quantized:                    # W4 weight-only (kernel B5)
+            out = w4_ops.w4_matmul(x.data.contiguous(), self.w4_packed,
+                                   self.w4_scales, self.bias,
+                                   self.in_channels, self.config.w4_group,
+                                   backend=self.config.w4_kernel)
+            return Tensor(out)
         out = torch.matmul(x.data, self.weight.t()) + self.bias.reshape(1, -1)
         self._observe(out)
         return Tensor(out)
+
+    def w4a8_operands(self, x: Tensor) -> dict:
+        """This layer's W4A8 operands for input grid (x.scale,
+        x.zero_point), built once: ``zpb = f32(zp) + bias / f32(scale)``,
+        ``mult = f32(s_x) / f32(s_out)`` and what B6 reads (``zpb_eff``,
+        the transposed scales)."""
+        key = (x.scale, x.zero_point)
+        ops = self._epilogue_cache.get(key)
+        if ops is None:
+            dev = self.w4_packed.device
+            zpb = f32(float(self.zero_point), dev) + self.bias / f32(
+                self.scale, dev)
+            mult = float(np.float32(x.scale) / np.float32(self.scale))
+            ops = self._epilogue_cache[key] = w4_ops.w4a8_operands(
+                self.w4_packed, self.w4_scales, zpb, self.in_channels,
+                self.config.w4_group, zp_x=x.zero_point, mult=mult,
+                wsum=self.w4_wsum)
+        return ops
 
     def _forward_int8(self, x: Tensor, act=None) -> Tensor:
         """``act=(name, act_scale, act_zp)`` folds a following QuantAct
         into the epilogue (``fused_linear_act``)."""
         self._check_int8(x)
+        if self.config.weight_bits == 4:
+            if self.config.weight_only:
+                raise RuntimeError("a weight-only layer takes float input")
+            if act is not None:
+                raise RuntimeError("W4A8 has no fused-act epilogue; "
+                                   "fused_linear_act composes it")
+            out = w4_ops.w4a8_apply(x.data.contiguous(),
+                                    self.w4a8_operands(x),
+                                    backend=self.config.w4_kernel,
+                                    rounding=self.config.rounding)
+            if self.fuse_relu:
+                out = out.clamp_min(self.zero_point)
+            return Tensor(out, self.scale, self.zero_point)
         oc, ep = self._epilogue(x, "gemm")
         out = self._gemm()(x.data.contiguous(), self.qw, oc, ep,
                            scale_a=x.scale, scale_c=self.scale,
@@ -251,6 +333,10 @@ class Conv2d(Layer):
         if groups != 1:
             raise NotImplementedError(
                 "grouped Conv2d is not implemented by the PyTorch port yet")
+        if config.weight_only:
+            raise NotImplementedError(
+                "a weight-only Conv2d (s8 weights, float activations) is not "
+                "implemented by the PyTorch port yet")
         self.in_channels = int(in_channels)
         self.out_channels = int(out_channels)
         self.kernel_size = int(kernel_size)
@@ -389,6 +475,26 @@ class QuantAdd(_Weightless):
                           + dequantize_u8(b_data, b.scale, b.zero_point))
         if self.fuse_relu:
             q = q.clamp_min(self.zero_point)
+        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
+
+
+class QuantMul(_Weightless):
+    """Calibrated elementwise multiply (SwiGLU's ``silu(gate) * up``): both
+    factors are dequantized at their own grids, multiplied in float32 and
+    requantized."""
+
+    def forward(self, a: Tensor, b: Tensor) -> Tensor:
+        if a.quantized != b.quantized:
+            raise ValueError(
+                "QuantMul: both inputs must be quantized or both float")
+        b_data = QuantAdd._aligned(a, b)
+        if not a.quantized:
+            out = a.data * b_data
+            self._observe(out)
+            return Tensor(out, _nhwc=a._nhwc)
+        self._check_converted()
+        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point)
+                          * dequantize_u8(b_data, b.scale, b.zero_point))
         return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
 
 
@@ -532,6 +638,117 @@ class QuantLayerNorm(Layer):
         return Tensor(out, self.scale, self.zero_point)
 
 
+class QuantRMSNorm(Layer):
+    """RMSNorm over the last axis with a calibrated u8 output (the llama
+    family): ``y = x * rsqrt(mean(x^2) + eps) * g`` with ``g = weight``, or
+    ``1 + weight`` under ``unit_offset`` (gemma checkpoints store the
+    delta).  The gain stays float32."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 config: QuantConfig = DEFAULT_CONFIG,
+                 unit_offset: bool = False, device=None):
+        super().__init__(config, device)
+        self.dim = int(dim)
+        self.eps = float(eps)
+        self.unit_offset = bool(unit_offset)
+        init = torch.zeros if unit_offset else torch.ones
+        self.register_buffer("weight", init(dim, device=self.device))
+
+    def load_weight(self, w):
+        self.weight = self._load_array(w, (self.dim,), "load_weight")
+
+    def load_bias(self, b):
+        raise ValueError("QuantRMSNorm has no bias")
+
+    def _quantize_weights(self):
+        pass                         # the gain stays float32
+
+    def _norm(self, f: torch.Tensor) -> torch.Tensor:
+        ms = torch.square(f).mean(dim=-1, keepdim=True)
+        g = self.weight
+        if self.unit_offset:
+            g = f32(1.0, g.device) + g
+        return f * torch.rsqrt(ms + f32(self.eps, f.device)) * g
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.shape[-1] != self.dim:
+            raise ValueError(
+                f"QuantRMSNorm({self.dim}) got last-dim {x.shape[-1]}")
+        if not x.quantized:
+            out = self._norm(x.data)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        f = dequantize_u8(x.data, x.scale, x.zero_point)
+        out = quantize_u8(self._norm(f), self.scale, self.zero_point,
+                          self.config.rounding)
+        return Tensor(out, self.scale, self.zero_point)
+
+
+class QuantRoPE(_Weightless):
+    """Rotary position embedding of head-split q or k ([B, H, T, D]) with a
+    calibrated u8 output (``ops/rope.py``).  ``start`` offsets the
+    positions: an int, a 0-dim tensor or a [B] tensor (one per row).
+    ``rotary_dim`` rotates only the first channels of each head; the rest
+    pass through onto this layer's grid.  The k-side layer's grid is the
+    KV cache's: the angles come from one static ``inv_freq``, so prefill
+    and decode give a position the same codes."""
+
+    def __init__(self, head_dim: int, base: float = 10000.0,
+                 config: QuantConfig = DEFAULT_CONFIG, scaling=None,
+                 rotary_dim: int | None = None, device=None):
+        super().__init__(config, device)
+        if head_dim % 2:
+            raise ValueError(f"RoPE head_dim must be even, got {head_dim}")
+        self.head_dim = int(head_dim)
+        self.base = float(base)
+        self.scaling = tuple(scaling) if scaling is not None else None
+        if rotary_dim is not None:
+            rotary_dim = int(rotary_dim)
+            if rotary_dim % 2 or not 0 < rotary_dim <= self.head_dim:
+                raise ValueError(
+                    f"rotary_dim must be even in (0, {self.head_dim}], "
+                    f"got {rotary_dim}")
+            if rotary_dim == self.head_dim:
+                rotary_dim = None
+        self.rotary_dim = rotary_dim
+        freq, divisor = rope_ops.inv_freq(rotary_dim or self.head_dim,
+                                          self.base, self.scaling)
+        self._table = (freq.to(self.device), divisor)
+
+    def _rotate(self, f: torch.Tensor, start) -> torch.Tensor:
+        t = f.shape[-2]
+        r = self.rotary_dim or self.head_dim
+        pos = torch.arange(t, dtype=torch.int64, device=f.device)
+        per_row = isinstance(start, torch.Tensor) and start.dim() == 1
+        if per_row:
+            pos = start.to(f.device, torch.int64)[:, None] + pos    # [B, T]
+        else:
+            pos = (start.to(f.device, torch.int64) if isinstance(
+                start, torch.Tensor) else int(start)) + pos
+        cos, sin = rope_ops.rope_angles(pos, r, table=self._table)
+        if per_row:
+            cos, sin = cos[:, None], sin[:, None]                # [B,1,T,r/2]
+        if self.rotary_dim is None:
+            return rope_ops.apply_rope(f, cos, sin)
+        return torch.cat([rope_ops.apply_rope(f[..., :r], cos, sin),
+                          f[..., r:]], dim=-1)
+
+    def forward(self, x: Tensor, start=0) -> Tensor:
+        if x.shape[-1] != self.head_dim:
+            raise ValueError(
+                f"QuantRoPE(head_dim={self.head_dim}) got head-split "
+                f"last-dim {x.shape[-1]}")
+        if not x.quantized:
+            out = self._rotate(x.data, start)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        f = dequantize_u8(x.data, x.scale, x.zero_point)
+        return Tensor(self._requant(self._rotate(f, start)), self.scale,
+                      self.zero_point)
+
+
 class QuantPosEmbed(Layer):
     """Learned positional embedding with a calibrated output.
 
@@ -637,6 +854,8 @@ class QuantEmbed(Layer):
         super().convert()
 
     def _quantize_weights(self):
+        if self.config.weight_only:
+            return                   # float activations: the table stays
         self.q_weight = quantize_u8(self.weight, self.scale, self.zero_point,
                                     self.config.rounding)
         self.weight = None
@@ -646,7 +865,7 @@ class QuantEmbed(Layer):
             raise ValueError(
                 "QuantEmbed consumes raw token ids, not quantized codes")
         idx = ids.data.to(torch.int64).clamp(0, self.vocab_size - 1)
-        if not self.is_quantized:
+        if not self.is_quantized or self.config.weight_only:
             out = self.weight[idx]
             self._observe(out)
             return Tensor(out)
@@ -661,8 +880,13 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
     the merged GEMM's plain version; a group that is not converted, or has
     a fused relu, runs the three Linears."""
     heads = (wq, wk, wv)
-    if not (x.quantized and all(l.is_quantized and not l.fuse_relu
-                                for l in heads)):
+    cfg = wq.config
+    if cfg.weight_bits == 4:
+        merged = fused_w4a8_multi(heads, x)
+        if merged is not None:
+            return merged
+    if not (x.quantized and cfg.weight_bits == 8 and not cfg.weight_only
+            and all(l.is_quantized and not l.fuse_relu for l in heads)):
         return wq(x), wk(x), wv(x)
     key = (x.scale, x.zero_point, id(wk), id(wv))
     merged = wq._merged_cache.get(key)
@@ -679,13 +903,42 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
     return tuple(Tensor(o, l.scale, l.zero_point) for l, o in zip(heads, outs))
 
 
+def fused_w4a8_multi(layers, x: Tensor):
+    """Several converted W4A8 Linears sharing input ``x`` as one call of the
+    W4A8 dispatch (``ops/w4.w4a8_apply`` on operands concatenated along N,
+    each column keeping its own layer's mult and zpb): the same codes as the
+    per-layer calls, one launch instead of several.  The merged operands are
+    built once per input grid and kept on the first layer.  Returns None
+    when the group is not mergeable (then callers run the layers one by
+    one)."""
+    first = layers[0]
+    cfg = first.config
+    if not (x.quantized and cfg.weight_bits == 4 and not cfg.weight_only
+            and all(l.is_quantized and not l.fuse_relu
+                    and l.w4_packed is not None
+                    and l.in_channels == first.in_channels for l in layers)):
+        return None
+    key = (x.scale, x.zero_point) + tuple(id(l) for l in layers[1:])
+    ops = first._merged_cache.get(key)
+    if ops is None:
+        ops = first._merged_cache[key] = w4_ops.merge_operands(
+            [l.w4a8_operands(x) for l in layers])
+    out = w4_ops.w4a8_apply(x.data.contiguous(), ops, backend=cfg.w4_kernel,
+                            rounding=cfg.rounding)
+    outs = torch.split(out, ops["widths"], dim=1)
+    return tuple(Tensor(o, l.scale, l.zero_point)
+                 for l, o in zip(layers, outs))
+
+
 def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
     """A converted Linear -> QuantAct pair as one GEMM with the activation in
     the requant epilogue: the same codes as ``act(linear(x))`` (the
     intermediate u8 grid is replayed in registers), without the standalone
     pass over the Linear's output.  Pairs the kernel cannot fuse (a custom
-    fn, the lut backend) run composed."""
+    fn, the lut backend, 4-bit or weight-only layers) run composed."""
     fusable = (linear.is_quantized and act.is_quantized and x.quantized
+               and linear.config.weight_bits == 8
+               and not linear.config.weight_only
                and act.fn_name in KERNEL_ACTS
                and act.fn is ACTIVATIONS.get(act.fn_name)
                and act.backend == "elementwise")

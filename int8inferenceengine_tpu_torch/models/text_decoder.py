@@ -221,6 +221,11 @@ class TextDecoder(Module):
                 "by the PyTorch port yet; temperature=0 is greedy")
         if not self.is_quant:
             raise RuntimeError("generate() requires a converted model")
+        if self.config.weight_only:
+            raise NotImplementedError(
+                "weight-only generate() needs the float KV cache (head-split "
+                "[B, Hkv, T, D] float rows), which the PyTorch port does not "
+                "implement yet; the weight-only forward model(ids) runs")
         ids = np.asarray(ids)
         b, t0 = ids.shape
         if steps < 1:

@@ -1,6 +1,7 @@
-"""Model zoo: the reference's sample models and the GPT-style decoder as
-framework Modules (counterpart of ``int8inferenceengine_tpu.models.zoo``,
-for the four reference-parity models and ``gpt_tiny``).
+"""Model zoo: the reference's sample models and the GPT-style and llama
+decoders as framework Modules (counterpart of
+``int8inferenceengine_tpu.models.zoo``, for the four reference-parity
+models, ``gpt_tiny`` and ``llama_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
@@ -9,7 +10,9 @@ notebooks' differential workflow.
 
 The CNNs take NCHW float input via ``tensor()`` and return logits
 [batch, classes]; ``gpt_tiny`` (``models.text_decoder.TextDecoder``) takes
-token ids [batch, T] and returns logits [batch, T, vocab].
+token ids [batch, T] and returns logits [batch, T, vocab], as does
+``llama_tiny`` (``models.llama.LlamaDecoder``, 4 query heads over 2 kv heads
+by default).
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import Conv2d, Linear
 from ..module import Module
 from ..ops import functional as F
+from .llama import LlamaDecoder, torch_llama
 from .text_decoder import TextDecoder, torch_text_decoder
 
 __all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "TextDecoder",
-           "build", "torch_twin", "MODEL_SPECS"]
+           "LlamaDecoder", "build", "torch_twin", "MODEL_SPECS"]
 
 
 class FCMnist(Module):
@@ -127,12 +131,18 @@ class LeNet(Module):
         return self.fc2(x)
 
 
+def _llama_tiny(**kw):
+    kw.setdefault("kv_heads", 2)          # GQA by default (4 heads over 2)
+    return LlamaDecoder(**kw)
+
+
 MODEL_SPECS = {
     "fc_mnist": FCMnist,
     "simple_conv": SimpleConv,
     "alexnet": AlexNet,
     "lenet": LeNet,
     "gpt_tiny": TextDecoder,
+    "llama_tiny": _llama_tiny,
 }
 
 
@@ -140,11 +150,11 @@ def build(name: str, config: QuantConfig = DEFAULT_CONFIG, device=None,
           **kw) -> Module:
     """Build a zoo model by name."""
     try:
-        cls = MODEL_SPECS[name]
+        make = MODEL_SPECS[name]
     except KeyError:
         raise ValueError(
             f"unknown model {name!r}; available: {sorted(MODEL_SPECS)}")
-    return cls(config=config, device=device, **kw)
+    return make(config=config, device=device, **kw)
 
 
 def torch_twin(name: str, seed: int = 42):
@@ -156,6 +166,8 @@ def torch_twin(name: str, seed: int = 42):
 
     if name == "gpt_tiny":
         return torch_text_decoder(seed=seed)
+    if name == "llama_tiny":
+        return torch_llama(kv_heads=2, seed=seed)
 
     torch.manual_seed(seed)
 

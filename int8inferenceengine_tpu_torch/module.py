@@ -15,7 +15,8 @@ Lifecycle (identical to the reference): ``load(state_dict)`` ->
 inference.  After convert, ``__call__`` quantizes the input at the configured
 (scale, zero_point) — default (0.025, 127), the reference's hardcoded values —
 unless the model consumes token ids, runs ``forward`` and dequantizes the
-output.
+output.  A weight-only model (``QuantConfig.weight_only``) keeps float
+activations: its input and output pass through as they are.
 
 Everything runs eagerly.  While preparing, each layer folds its output's
 min/max into on-device running scalars; ``convert()`` reads them on the host
@@ -100,7 +101,8 @@ class Module(nn.Module):
         cfg = self.config
         if cfg.rounding != "trunc":
             return
-        if cfg.weight_per_channel or cfg.calib_method == "mse":
+        if cfg.weight_per_channel or cfg.calib_method == "mse" \
+                or cfg.weight_only:
             return
         n = len(by_name)
         if n > self.TRUNC_DEPTH_ADVISORY:
@@ -135,6 +137,11 @@ class Module(nn.Module):
                 "calibration observes FP32 activation ranges — feed "
                 "float input while preparing, not a quantized tensor")
         with torch.no_grad():
+            if self.config.weight_only:
+                # weight-only: activations stay float end to end, no input
+                # quantization and nothing to dequantize at the output
+                out = self.forward(t)
+                return Tensor(out.logical_data, out.scale, out.zero_point)
             if self.is_quant and not t.quantized \
                     and not self._consumes_ids():
                 # Reference behavior: quantize at the configured input

@@ -1,5 +1,6 @@
 """Functional tensor ops: relu, max_pool2d, argmax, module-level quant ops,
-the activation table and the attention head layout ops
+the activation table and the attention head layout ops (split, merge and
+the grouped-query ``repeat_kv``)
 (counterpart of ``int8inferenceengine_tpu.ops.functional``).
 
 They preserve quantization metadata exactly like the reference:
@@ -124,6 +125,18 @@ def split_heads(x: Tensor, num_heads: int) -> Tensor:
         raise ValueError(f"dim {c} not divisible by heads {num_heads}")
     d = x.data.reshape(b, t, num_heads, c // num_heads)
     return Tensor(d.permute(0, 2, 1, 3), x.scale, x.zero_point)
+
+
+def repeat_kv(x: Tensor, group: int) -> Tensor:
+    """[B, Hkv, T, D] -> [B, Hkv*group, T, D]: query head h reads kv head
+    h // group (grouped-query attention, repeat-interleave order).  Used on
+    the prefill path only; the decode attention keeps the cache
+    kv-compact."""
+    if group == 1:
+        return x
+    b, hkv, t, d = x.data.shape
+    out = x.data[:, :, None].expand(b, hkv, group, t, d)
+    return Tensor(out.reshape(b, hkv * group, t, d), x.scale, x.zero_point)
 
 
 def merge_heads(x: Tensor) -> Tensor:

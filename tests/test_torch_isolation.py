@@ -129,7 +129,7 @@ def test_deep_trunc_model_warns_on_convert(rounding, warns):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("weight_only", True), ("weight_bits", 4), ("dynamic_act", True),
+    ("weight_only", True), ("weight_bits", 2), ("dynamic_act", True),
     ("bias_correction", True), ("glue_dtype", "bfloat16"),
     ("epilogue_dtype", "bfloat16"), ("fp_dtype", "bfloat16"),
     ("conv_backend", "xla_conv"), ("fused_attention", "xla"),
@@ -140,3 +140,15 @@ def test_unimplemented_config_fields_raise(field, value):
         zoo.FCMnist(config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=field):
         qt.Linear(4, 2, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(weight_bits=4), dict(weight_only=True, weight_bits=4),
+    dict(weight_bits=4, w4_kernel="xla")])
+def test_four_bit_configs_are_accepted(cfg):
+    config = qt.QuantConfig(**cfg)
+    zoo.FCMnist(config=config, device="cpu")
+    qt.Linear(4, 2, config=config, device="cpu")
+    bad = qt.QuantConfig(**dict(cfg, w4_kernel="cuda"))
+    with pytest.raises(ValueError, match="w4_kernel"):
+        qt.Linear(4, 2, config=bad, device="cpu")

@@ -1,0 +1,309 @@
+"""PyTorch port vs JAX package: 4-bit grouped weights (``ops/w4.py``).
+
+The same numpy inputs go through the JAX function and its counterpart in
+the port:
+
+* ``pack_w4`` (max/7 and MSE-searched scales, a short last group) gives the
+  same packed bytes and scales; where an MSE group picks another candidate
+  the two candidates' float32 errors tie.  ``dequant_w4`` is exact.
+* B5's plain version (``w4_gemm_plain``) against ``w4_matmul_xla`` and the
+  Pallas kernel in interpret mode: rtol 2e-5 of the largest |output|
+  (float32 sums in other orders).
+* B6's plain version against the Pallas v2 kernel (``w4a8_matmul_pallas``,
+  interpret mode) at v2 shapes: exact, since both sum exact integer group
+  partials and fold them in group order.
+* B7's plain version against the Pallas v1 kernel and ``w4a8_matmul_xla``:
+  the repo's contract, at most one code off on at most 0.2% of the outputs.
+* ``w4a8_matmul_multi`` equals the per-layer calls, on both dispatch
+  branches.
+
+The ``cuda``-marked tests hold the three CUDA kernels against their plain
+versions on the card; they skip without one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from int8inferenceengine_tpu.ops import w4 as JW
+from int8inferenceengine_tpu_torch.ops import w4 as TW
+
+
+def assert_contract(got, want, what=""):
+    """At most one code off, on at most 0.2% of the elements."""
+    d = np.abs(np.asarray(got).astype(np.int32)
+               - np.asarray(want).astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 0.002, (
+        what, int(d.max()), float((d > 0).mean()))
+
+
+def _weights(n, k, seed=0, scale=0.1):
+    return np.random.default_rng(seed).normal(0, scale, (n, k)).astype(
+        np.float32)
+
+
+# -- pack / dequant ------------------------------------------------------------
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("n,k,group", [(48, 256, 64), (8, 96, 64),
+                                       (16, 200, 128), (24, 64, 128)])
+def test_pack_w4_matches_jax(optimize, n, k, group):
+    w = _weights(n, k, seed=k)
+    jp, js = (np.asarray(a) for a in JW.pack_w4(jnp.asarray(w), group,
+                                                 optimize=optimize))
+    tp, ts = TW.pack_w4(torch.tensor(w), group, optimize=optimize)
+    tp, ts = tp.numpy(), ts.numpy()
+    assert tp.dtype == np.uint8 and tp.shape == jp.shape == (n, k // 2)
+    assert ts.shape == js.shape == (n, -(-k // min(group, k)))
+    differ = np.argwhere(ts != js)
+    assert optimize or len(differ) == 0
+    g = min(group, k)
+    wg = np.pad(w, ((0, 0), (0, ts.shape[1] * g - k))).reshape(n, -1, g)
+    for r, c in differ:
+        # an MSE tie: both scales reconstruct the group equally well in f32
+        errs = []
+        for s in (np.float32(ts[r, c]), np.float32(js[r, c])):
+            q = np.clip(np.round(wg[r, c] / s), -7, 7)
+            errs.append(np.sum(np.square(q * s - wg[r, c]),
+                               dtype=np.float32))
+        assert errs[0] == errs[1], (r, c, errs)
+    if len(differ) == 0:
+        np.testing.assert_array_equal(tp, jp)
+
+
+def test_pack_w4_odd_k_raises():
+    w = _weights(4, 95)
+    with pytest.raises(ValueError, match="even K"):
+        TW.pack_w4(torch.tensor(w), 64)
+    with pytest.raises(ValueError, match="even K"):
+        JW.pack_w4(jnp.asarray(w), 64)
+
+
+@pytest.mark.parametrize("k,group", [(256, 64), (96, 64), (200, 128)])
+def test_dequant_w4_matches_jax(k, group):
+    jp, js = JW.pack_w4(jnp.asarray(_weights(32, k, seed=3)), group)
+    want = np.asarray(JW.dequant_w4(jp, js, k, group))
+    got = TW.dequant_w4(torch.tensor(np.asarray(jp)),
+                        torch.tensor(np.asarray(js)), k, group).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+# -- B5: W4 weight-only ----------------------------------------------------------
+
+def _b5_case(m, k, n, group, seed=6):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    bias = rng.normal(0, 0.1, n).astype(np.float32)
+    jp, js = JW.pack_w4(jnp.asarray(_weights(n, k, seed)), group)
+    return x, bias, np.asarray(jp), np.asarray(js)
+
+
+def _b5_port(x, bias, packed, scales, k, group):
+    return TW.w4_gemm(torch.tensor(x), torch.tensor(packed),
+                      torch.tensor(scales), torch.tensor(bias), k,
+                      group).numpy()
+
+
+@pytest.mark.parametrize("m,k,n,group", [(8, 256, 96, 64), (37, 200, 61, 128),
+                                         (64, 512, 128, 128)])
+def test_b5_plain_matches_w4_matmul_xla(m, k, n, group):
+    x, bias, packed, scales = _b5_case(m, k, n, group)
+    want = np.asarray(JW.w4_matmul_xla(jnp.asarray(x), packed, scales,
+                                       jnp.asarray(bias), k, group))
+    got = _b5_port(x, bias, packed, scales, k, group)
+    np.testing.assert_allclose(got, want, rtol=2e-5,
+                               atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m,k,n,group", [(8, 256, 96, 64),
+                                         (16, 256, 128, 128)])
+def test_b5_plain_matches_pallas_kernel(m, k, n, group):
+    x, bias, packed, scales = _b5_case(m, k, n, group)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JW.w4_matmul_pallas(
+            jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales),
+            jnp.asarray(bias), k, group))
+    got = _b5_port(x, bias, packed, scales, k, group)
+    np.testing.assert_allclose(got, want, rtol=2e-5,
+                               atol=2e-5 * np.abs(want).max())
+
+
+# -- B6 and B7: W4A8 ---------------------------------------------------------------
+
+def _w4a8_case(m, k, n, group, seed=0, vector_mult=False):
+    """u8 codes, packed weights, zpb, mult (scalar or per column) and the
+    weight's f32 row sums (JAX's ``w4_wsum``), the output mid-range."""
+    rng = np.random.default_rng(seed)
+    jp, js = JW.pack_w4(jnp.asarray(_weights(n, k, seed)), group)
+    x = rng.integers(0, 256, (m, k)).astype(np.uint8)
+    bias = rng.normal(0, 0.1, n).astype(np.float32)
+    s_x, zp_x = np.float32(0.05), 117
+    s_out = np.float32(s_x * 74 * 0.1 * np.sqrt(k) / 40)
+    zpb = np.float32(131) + bias / s_out
+    mult = s_x / s_out
+    if vector_mult:
+        mult = (mult * rng.uniform(0.7, 1.3, n)).astype(np.float32)
+    wsum = np.asarray(jnp.sum(JW.dequant_w4(jp, js, k, group), axis=1))
+    return dict(x=x, packed=np.asarray(jp), scales=np.asarray(js), zpb=zpb,
+                mult=mult, zp_x=zp_x, wsum=wsum, k=k, group=group)
+
+
+def _jax(fn, c, rounding, **kw):
+    mult = jnp.asarray(c["mult"]) if np.ndim(c["mult"]) else \
+        jnp.float32(c["mult"])
+    return np.asarray(fn(jnp.asarray(c["x"]), jnp.asarray(c["packed"]),
+                         jnp.asarray(c["scales"]), jnp.asarray(c["zpb"]),
+                         c["k"], c["group"], zp_x=c["zp_x"], mult=mult,
+                         rounding=rounding, **kw))
+
+
+def _port(c, rounding, backend="auto"):
+    mult = torch.tensor(c["mult"]) if np.ndim(c["mult"]) else \
+        float(c["mult"])
+    return TW.w4a8_matmul(torch.tensor(c["x"]), torch.tensor(c["packed"]),
+                          torch.tensor(c["scales"]), torch.tensor(c["zpb"]),
+                          c["k"], c["group"], backend, zp_x=c["zp_x"],
+                          mult=mult, rounding=rounding,
+                          wsum=torch.tensor(c["wsum"])).numpy()
+
+
+V2_SHAPES = [(8, 256, 96, 128, False), (16, 512, 200, 128, True),
+             (8, 768, 384, 256, True), (32, 256, 130, 64, False)]
+
+
+@pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+@pytest.mark.parametrize("m,k,n,group,vec", V2_SHAPES)
+def test_b6_plain_matches_pallas_v2(m, k, n, group, vec, rounding):
+    c = _w4a8_case(m, k, n, group, seed=m + n, vector_mult=vec)
+    assert TW.use_v2(m, k, group, k // group)
+    want = _jax(JW.w4a8_matmul_pallas, c, rounding, wsum=c["wsum"],
+                interpret=True)
+    got = _port(c, rounding)
+    assert len(np.unique(want)) > 16
+    np.testing.assert_array_equal(got, want)
+
+
+V1_SHAPES = [(5, 256, 96, 128), (37, 512, 70, 128), (8 * 65, 256, 40, 64)]
+
+
+@pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+@pytest.mark.parametrize("m,k,n,group", V1_SHAPES)
+def test_b7_plain_matches_pallas_v1_and_xla(m, k, n, group, rounding):
+    c = _w4a8_case(m, k, n, group, seed=m)
+    assert not TW.use_v2(m, k, group, k // group)
+    got = _port(c, rounding)
+    assert len(np.unique(got)) > 16
+    assert_contract(got, _jax(JW.w4a8_matmul_xla, c, rounding), "xla")
+    if m <= 512:               # the JAX dispatch's Pallas envelope
+        want = _jax(JW.w4a8_matmul_pallas, c, rounding, interpret=True)
+        assert_contract(got, want, "pallas v1")
+    # 'xla' runs B7's function on every shape
+    np.testing.assert_array_equal(_port(c, rounding, backend="xla"), got)
+
+
+@pytest.mark.parametrize("m", [8, 5])
+def test_w4a8_matmul_multi_equals_per_layer_calls(m):
+    k, group = 256, 128
+    cases = [_w4a8_case(m, k, n, group, seed=i)
+             for i, n in enumerate((64, 32, 96))]
+    parts = [dict(packed=torch.tensor(c["packed"]),
+                  scales=torch.tensor(c["scales"]),
+                  zpb=torch.tensor(c["zpb"]), mult=float(c["mult"]),
+                  wsum=torch.tensor(c["wsum"])) for c in cases]
+    x = cases[0]["x"]
+    outs = TW.w4a8_matmul_multi(torch.tensor(x), parts, k, group,
+                                zp_x=cases[0]["zp_x"], rounding="nearest")
+    jparts = [dict(packed=jnp.asarray(c["packed"]),
+                   scales=jnp.asarray(c["scales"]),
+                   zpb=jnp.asarray(c["zpb"]), mult=jnp.float32(c["mult"]),
+                   wsum=jnp.asarray(c["wsum"])) for c in cases]
+    with pltpu.force_tpu_interpret_mode():
+        jouts = JW.w4a8_matmul_multi(jnp.asarray(x), jparts, k, group,
+                                     zp_x=cases[0]["zp_x"],
+                                     rounding="nearest", backend="pallas")
+    for c, got, jgot in zip(cases, outs, jouts):
+        alone = _port(dict(c, x=x), "nearest")
+        np.testing.assert_array_equal(got.numpy(), alone)
+        if m % 8 == 0:         # B6's function on both sides: exact
+            np.testing.assert_array_equal(got.numpy(), np.asarray(jgot))
+        else:
+            assert_contract(got.numpy(), np.asarray(jgot))
+
+
+def test_w4_wrappers_check_operands():
+    c = _w4a8_case(8, 256, 64, 128)
+    ops = TW.w4a8_operands(torch.tensor(c["packed"]),
+                           torch.tensor(c["scales"]), torch.tensor(c["zpb"]),
+                           256, 128, zp_x=c["zp_x"], mult=float(c["mult"]))
+    with pytest.raises(TypeError, match="u8"):
+        TW.w4a8_v2(torch.zeros((8, 256)), ops)
+    with pytest.raises(ValueError, match="shapes"):
+        TW.w4a8_v1(torch.zeros((8, 128), dtype=torch.uint8), ops)
+    with pytest.raises(ValueError, match="w4_kernel"):
+        TW.w4a8_apply(torch.tensor(c["x"]), ops, backend="triton")
+
+
+# -- the kernels on the card ---------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group,vec", V2_SHAPES)
+def test_b6_kernel_matches_plain_on_card(cuda_device, m, k, n, group, vec):
+    c = _w4a8_case(m, k, n, group, seed=m + n, vector_mult=vec)
+    mult = torch.tensor(c["mult"]) if vec else float(c["mult"])
+    ops = TW.w4a8_operands(*(torch.tensor(c[key]).to(cuda_device)
+                             for key in ("packed", "scales", "zpb")),
+                           k, group, zp_x=c["zp_x"],
+                           mult=mult.to(cuda_device) if vec else mult,
+                           wsum=torch.tensor(c["wsum"]).to(cuda_device))
+    x = torch.tensor(c["x"]).to(cuda_device)
+    for rounding in ("trunc", "nearest"):
+        before = TW.w4a8_v2.launches
+        got = TW.w4a8_v2(x, ops, rounding)
+        assert TW.w4a8_v2.launches == before + 1
+        want = TW.w4a8_v2_plain(x, ops["packed"], ops["scales_t"],
+                                ops["mult_v"], ops["zpb_eff"], k, group,
+                                rounding)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", V1_SHAPES)
+def test_b7_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
+    c = _w4a8_case(m, k, n, group, seed=m, vector_mult=True)
+    ops = TW.w4a8_operands(*(torch.tensor(c[key]).to(cuda_device)
+                             for key in ("packed", "scales", "zpb")),
+                           k, group, zp_x=c["zp_x"],
+                           mult=torch.tensor(c["mult"]).to(cuda_device))
+    x = torch.tensor(c["x"]).to(cuda_device)
+    for rounding in ("trunc", "nearest"):
+        got = TW.w4a8_v1(x, ops, rounding)
+        want = TW.w4a8_v1_plain(x, ops["packed"], ops["scales"], ops["zpb"],
+                                k, group, zp_x=c["zp_x"], mult=ops["mult_v"],
+                                rounding=rounding)
+        torch.cuda.synchronize()
+        assert_contract(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", [(8, 256, 96, 64), (37, 200, 61, 128),
+                                         (512, 768, 2048, 128)])
+def test_b5_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
+    x, bias, packed, scales = _b5_case(m, k, n, group)
+    args = [torch.tensor(a).to(cuda_device) for a in (x, packed, scales,
+                                                      bias)]
+    args = (args[0], args[1], args[2], args[3], k, group)
+    got = TW.w4_gemm(*args)
+    want = TW.w4_gemm_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 2e-5, err
