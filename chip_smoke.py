@@ -36,10 +36,13 @@ Phases, in order (any failure exits non-zero):
    against the plain path's on the card, teacher-forced on its tokens;
 7. the 4-bit kernels against their plain versions at every shape the llama
    legs launch: B6 (W4A8 with exact per-group integer partials) exactly at
-   the decode shapes under both roundings, B7 (W4A8 over f32-dequantized
-   weights) within 1 code on 0.2% at the prefill shapes with scalar and
-   per-column ``mult`` and at ragged shapes, B5 (W4 weight-only) within
-   2e-5 of the largest |output| at the weight-only shapes;
+   the decode shapes under both roundings; B7 (W4A8 at every other shape)
+   at the prefill shapes with scalar and per-column ``mult``, at ragged
+   shapes and at groups off the 32-value k-step, bit for bit equal to B6's
+   plain arithmetic (``w4a8_v2_plain``, any M) and within 1 code on 0.2%
+   of its own f32 plain version; B5 (W4 weight-only) within 2e-5 of the
+   largest |output| at the weight-only shapes, the same edge shapes and an
+   input whose magnitudes span 2^-60 ... 2^60;
 8. the llama W4A8 main path at full width (bench.py's W4A8 leg: 768d, 12
    layers, 12 heads over 2 kv heads, vocab 32000, max_len 512, group 256,
    nearest rounding) with seeded random weights, batch 8, a 64-token prompt:
@@ -47,7 +50,7 @@ Phases, in order (any failure exits non-zero):
    calibrate, convert, greedy ``generate(ids, 128)`` with exactly 49 B6 and
    12 B3 launches per decode step and 25 single-layer + 24 merged B7
    launches in the prefill; every W4 launch of the prefill and of 16 decode
-   steps replayed through its plain version on its own operands; from one
+   steps replayed through its plain versions on its own operands; from one
    shared prefill cache, 128 teacher-forced decode steps whose logit codes
    must equal those of the same model with its W4 and B3 wrappers swapped
    for their plain versions; the prefill's codes against the plain path's
@@ -57,10 +60,15 @@ Phases, in order (any failure exits non-zero):
    1e-4 of the largest |logit| of the plain path's;
 10. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
    decode ms/step as ``(t(128 steps) - t(16 steps)) / 112`` (best of 3) and
-   the prefill for both decoders, the weight-only forward, and per kernel
-   and shape the kernel, its plain version, the bound and, for the int8
-   GEMMs, ``torch._int_mm`` + the eager epilogue as a library yardstick (no
-   single PyTorch call computes a packed 4-bit GEMM with these epilogues).
+   the prefill for both decoders, the weight-only forward, the full-context
+   forwards (8 x 512 tokens: the weight-only model, and the W4A8 model's
+   causal forward, B7 at M = 4096; recorded, not gated), and per kernel
+   and shape the kernel, its plain version, the bound and a library
+   yardstick: for the int8 GEMMs ``torch._int_mm`` + the eager epilogue,
+   for B5 ``torch.addmm`` on the weight dequantized beforehand (f32, TF32
+   off).  B3, B6 and B7 have none: no single PyTorch call computes
+   attention over the u8 cache or a packed 4-bit GEMM with a requantizing
+   epilogue.
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -81,9 +89,10 @@ from pathlib import Path
 
 import numpy as np
 
-# H100 SXM data-sheet peaks (dense): int8 tensor cores, float32 outside the
-# tensor cores (B5 and B7 are true f32) and HBM3.
+# H100 SXM data-sheet peaks (dense): int8 and bf16 tensor cores, float32
+# outside the tensor cores (the first port's B5 and B7 bound) and HBM3.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # the device spin before each timed launch: about 0.2 ms at the H100's
@@ -159,6 +168,8 @@ W4_FORWARD = [("wq", 512, 768, 768, 12), ("wk", 512, 768, 128, 12),
 LLAMA_ATTN = dict(b=8, t=512, h=12, hkv=2, d=64, valid=128, launches=12)
 # B5's contract against its plain version, relative to the largest |output|
 W4_RTOL = 2e-5
+# the full-context forwards: the batch at the model's max_len
+FULL_CONTEXT = (DEC_BATCH, LLAMA["max_len"])
 
 KERNEL_INFO = {
     "qgemm_u8s8": dict(
@@ -220,19 +231,26 @@ def attn_bound_ms(b, h, hkv, d, valid, mq=1):
     return bound(nbytes, 4.0 * b * mq * h * valid * d)
 
 
-def w4_bound_ms(kernel: str, m: int, k: int, n: int, group: int):
+def w4_bound_ms(kernel: str, m: int, k: int, n: int, group: int,
+                simt: bool = False):
     """A 4-bit GEMM's bound: the packed weight (K/2 bytes a row), its f32
     group scales, the activations (u8, or f32 for B5), two f32 [N] vectors
     (mult and zpb, or the bias for B5) and the output (u8, or f32 for B5),
-    each moved once; 2MNK operations, int8 tensor-core ones for B6, true
-    f32 ones for B5 and B7."""
+    each moved once; the operations: 2MNK int8 tensor-core ones for B6 and
+    B7 (their products are integers), three bf16 passes (3 x 2MNK at the
+    bf16 peak) for B5.  ``simt``: the first port's bound for B5 and B7,
+    2MNK true f32 operations at the non-tensor-core peak."""
     g = min(group, k)
     x_bytes, out_bytes = (4, 4) if kernel == "w4_gemm" else (1, 1)
     vectors = 1 if kernel == "w4_gemm" else 2
     nbytes = (n * k // 2 + 4 * n * -(-k // g) + x_bytes * m * k
               + 4 * vectors * n + out_bytes * m * n)
-    peak = PEAK_INT8_OPS if kernel == "w4a8_v2_gemm" else PEAK_FP32_OPS
-    return bound(nbytes, 2.0 * m * n * k, peak)
+    ops = 2.0 * m * n * k
+    if simt:
+        return bound(nbytes, ops, PEAK_FP32_OPS)
+    if kernel == "w4_gemm":
+        return bound(nbytes, 3 * ops, PEAK_BF16_OPS)
+    return bound(nbytes, ops, PEAK_INT8_OPS)
 
 
 def contract(torch, got, want):
@@ -483,16 +501,20 @@ def check_decoder_kernels(torch, G, A, gen, dev):
 # -- phase 7: the 4-bit kernels against their plain versions ----------------
 
 def w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=False,
-            weight_only=False):
+            weight_only=False, wide=False):
     """Random operands of a 4-bit GEMM: N(0, 0.02) weights packed with the
     MSE scale search (the config's default), f32 N(0, 1) activations for B5
-    or u8 codes whose output grid puts the results mid-range for B6/B7
-    (``vector_mult``: one mult per column, as a merged call has)."""
+    (``wide``: magnitudes 2^U(-60, 60), random signs) or u8 codes whose
+    output grid puts the results mid-range for B6/B7 (``vector_mult``: one
+    mult per column, as a merged call has)."""
     w = torch.randn((n, k), generator=gen, device=dev) * 0.02
     packed, scales = W.pack_w4(w, group, optimize=True)
     bias = torch.randn((n,), generator=gen, device=dev) * 0.01
     if weight_only:
         x = torch.randn((m, k), generator=gen, device=dev)
+        if wide:
+            e = torch.rand((m, k), generator=gen, device=dev) * 120 - 60
+            x = torch.sign(x) * torch.exp2(e)
         return dict(x=x, packed=packed, scales=scales, bias=bias, k=k,
                     group=group)
     x = torch.randint(0, 256, (m, k), generator=gen, dtype=torch.uint8,
@@ -528,10 +550,33 @@ def rel_err(torch, got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def check_b7(torch, W, b7, x, ops, rounding, what):
+    """B7 (the wrapper ``b7``) on the card, bit for bit B6's plain
+    arithmetic and within the code contract of its own plain version;
+    returns (codes, max, share) of the latter."""
+    got = b7(x, ops, rounding)
+    exact = v2_plain(W, x, ops, rounding)
+    mx, share = contract(torch, got, v1_plain(W, x, ops, rounding))
+    if not torch.equal(got, exact):
+        fail(f"B7 {what} {rounding}: {int((got != exact).sum())} codes "
+             f"differ from w4a8_v2_plain")
+    if mx > 1 or share > 0.002:
+        fail(f"B7 {what} {rounding}: max {mx}, share {share} against "
+             f"w4a8_v1_plain")
+    return got, mx, share
+
+
+# groups off the 32-value k-step (a boundary inside a chunk, several groups
+# in one chunk, a short last group), M = 1: B5 and B7 alike
+W4_EDGE = [("edge", 16, 96, 40, 48), ("edge", 5, 200, 40, 48),
+           ("edge", 3, 40, 24, 10), ("edge", 1, 768, 1024, 256)]
+
+
 def check_w4_kernels(torch, W, gen, dev):
-    """B6 exactly, B7 within the code contract, B5 within W4_RTOL of the
-    largest |output|, at every shape the llama legs launch and at ragged
-    ones; returns {kernel: max |difference|}."""
+    """B6 exactly, B7 exactly against B6's plain arithmetic and within the
+    code contract of its own, B5 within W4_RTOL of the largest |output|, at
+    every shape the llama legs launch and at ragged and edge ones; returns
+    {kernel: max |difference|}."""
     err = {"w4a8_v2_gemm": 0, "w4a8_v1_gemm": 0, "w4_gemm": 0.0}
     v2_cases = [(name, m, k, n, 256, name in ("qkv", "gate+up"))
                 for name, m, k, n, _ in W4_DECODE]
@@ -559,29 +604,32 @@ def check_w4_kernels(torch, W, gen, dev):
     v1_cases += [("ragged", 37, 200, 61, 128, True),
                  ("ragged", 1, 48, 130, 256, False),
                  ("ragged", 300, 768, 17, 256, True)]
+    v1_cases += [(*e, True) for e in W4_EDGE]
     for name, m, k, n, group, vec in v1_cases:
         c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec)
         worst = (0, 0.0)
         for rounding in ("trunc", "nearest"):
-            got = W.w4a8_v1(c["x"], c["ops"], rounding)
-            want = v1_plain(W, c["x"], c["ops"], rounding)
-            torch.cuda.synchronize()
-            mx, share = contract(torch, got, want)
+            got, mx, share = check_b7(
+                torch, W, W.w4a8_v1, c["x"], c["ops"], rounding,
+                f"at {name} M={m} K={k} N={n} group={group}")
             worst = max(worst, (mx, share))
-            if mx > 1 or share > 0.002:
-                fail(f"B7 kernel != plain at {name} M={m} K={k} N={n} "
-                     f"group={group} {rounding}: max {mx}, share {share}")
         err["w4a8_v1_gemm"] = max(err["w4a8_v1_gemm"], worst[0])
         log(json.dumps({"phase": "w4a8_v1_kernel_vs_plain", "layer": name,
                         "M": m, "K": k, "N": n, "group": group,
-                        "per_column_mult": vec, "max_abs_err": worst[0],
-                        "share_differing": worst[1],
-                        "distinct_codes": int(torch.unique(want).numel())}))
+                        "per_column_mult": vec, "equal_to_v2_plain": True,
+                        "max_abs_err_vs_v1_plain": worst[0],
+                        "share_differing_vs_v1_plain": worst[1],
+                        "distinct_codes": int(torch.unique(got).numel())}))
 
-    b5_cases = [(name, m, k, n, 128) for name, m, k, n, _ in W4_FORWARD]
-    b5_cases += [("ragged", 37, 200, 61, 128), ("ragged", 1, 48, 130, 128)]
-    for name, m, k, n, group in b5_cases:
-        c = w4_case(torch, W, gen, m, k, n, group, dev, weight_only=True)
+    b5_cases = [(name, m, k, n, 128, False)
+                for name, m, k, n, _ in W4_FORWARD]
+    b5_cases += [("ragged", 37, 200, 61, 128, False),
+                 ("ragged", 1, 48, 130, 128, False)]
+    b5_cases += [(*e, False) for e in W4_EDGE]
+    b5_cases += [("wide range", 512, 768, 768, 128, True)]
+    for name, m, k, n, group, wide in b5_cases:
+        c = w4_case(torch, W, gen, m, k, n, group, dev, weight_only=True,
+                    wide=wide)
         args = (c["x"], c["packed"], c["scales"], c["bias"], k, group)
         got, want = W.w4_gemm(*args), W.w4_gemm_plain(*args)
         torch.cuda.synchronize()
@@ -593,6 +641,7 @@ def check_w4_kernels(torch, W, gen, dev):
                  f"{rel} of the largest |output|")
         log(json.dumps({"phase": "w4_gemm_kernel_vs_plain", "layer": name,
                         "M": m, "K": k, "N": n, "group": group,
+                        "x": "2^-60..2^60" if wide else "N(0, 1)",
                         "max_err_rel_to_max": rel}))
     return err
 
@@ -638,12 +687,11 @@ def replaying(torch, W, stats):
         return got
 
     def r_v1(x, ops, rounding="trunc"):
-        got = v1(x, ops, rounding)
-        mx, share = contract(torch, got, v1_plain(W, x, ops, rounding))
+        got, mx, share = check_b7(
+            torch, W, v1, x, ops, rounding,
+            f"replayed launch at M={x.shape[0]} K={ops['k']} N="
+            f"{ops['packed'].shape[0]}")
         note("w4a8_v1_gemm", mx, share)
-        if mx > 1 or share > 0.002:
-            fail(f"replayed B7 launch at M={x.shape[0]} K={ops['k']} N="
-                 f"{got.shape[1]}: max {mx}, share {share}")
         return got
 
     def r_b5(x, packed, scales, bias, k, group=128):
@@ -971,7 +1019,8 @@ def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
         fail(f"replayed {stats}, want {replayed} launches")
     log(json.dumps({"phase": "llama_w4a8_replayed_launches", "stats": stats,
                     "contract": {"w4a8_v2_gemm": "exact",
-                                 "w4a8_v1_gemm": "<=1 code on <=0.2%"}}))
+                                 "w4a8_v1_gemm": "equal to w4a8_v2_plain; "
+                                 "<=1 code on <=0.2% of w4a8_v1_plain"}}))
 
     # (c) one shared prefill cache, 128 teacher-forced decode steps on the
     # kernel path and on the plain path (harness swap, same model)
@@ -996,8 +1045,9 @@ def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
     if mx:
         fail(f"llama W4A8 teacher-forced codes, kernel path vs plain path: "
              f"max {mx}, share {share}")
-    # (d) the prefill run apart on each path: B7's free f32 sum order may
-    # move a code, which the plain path's cache would carry on (recorded)
+    # (d) the prefill run apart on each path: B7 sums in another order than
+    # its f32 plain version and may move a code, which the plain path's
+    # cache would carry on (recorded)
     with torch.no_grad():
         prefill_kernel = model.forward(Tensor(prompt)).data
     mx, share = contract(torch, prefill_kernel, prefill_plain)
@@ -1057,6 +1107,30 @@ def llama_w4_timing(torch, q, model, ids, profile):
                         "llama_w4_weight_only_forward")
 
 
+def full_context_timing(torch, q, model, label, kernel_fns):
+    """One forward over FULL_CONTEXT tokens (the model's max_len): its
+    launches by kernel and its ms (CUDA events, 3 runs); recorded, not
+    gated."""
+    ids = np.random.default_rng(1).integers(
+        0, model.vocab_size, FULL_CONTEXT).astype(np.int32)
+    xt = q.tensor(ids)
+    reset_counts(kernel_fns)
+    out = model(xt).data
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(kernel_fns).items() if v}
+    if tuple(out.shape) != (*FULL_CONTEXT, model.vocab_size) or \
+            not bool(torch.isfinite(out.to(torch.float32)).all()):
+        fail(f"{label}: output {out.dtype} {tuple(out.shape)} or "
+             f"non-finite values")
+    del out
+    ms = time_cuda(torch, lambda: model(xt), iters=3)
+    tokens = FULL_CONTEXT[0] * FULL_CONTEXT[1]
+    log(json.dumps({"model": label, "batch": FULL_CONTEXT[0],
+                    "tokens_per_sequence": FULL_CONTEXT[1],
+                    "ms_per_forward": ms, "tokens_per_s": tokens * 1e3 / ms,
+                    "launches_per_forward": launches, "gated": False}))
+
+
 def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
     """Decode ms/step by bench.py's protocol, the prefill, and under
     ``profile`` the device time of decode steps by kernel."""
@@ -1101,9 +1175,9 @@ def kernel_of(name: str):
         return "qgemm_u8s8_vzp" if vzp else "qgemm_u8s8"
     if "w4a8_v2_kernel" in name:
         return "w4a8_v2_gemm"
-    if "w4_f32_kernel" in name:
-        # the template argument is true for B7 (W4A8), false for B5
-        b7 = re.search(r"w4_f32_kernel<(true|\(bool\)1)>", name)
+    if "w4_tc_kernel" in name:
+        # the first template argument is true for B7 (W4A8), false for B5
+        b7 = re.search(r"w4_tc_kernel<(true|\(bool\)1)", name)
         return "w4a8_v1_gemm" if b7 else "w4_gemm"
     return None
 
@@ -1347,10 +1421,25 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
     for kernel, path, name, m, k, n, group, per, vec in shapes:
         c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec,
                     weight_only=kernel == "w4_gemm")
+        library_ms = None
         if kernel == "w4_gemm":
             args = (c["x"], c["packed"], c["scales"], c["bias"], k, group)
             fn, plain = (lambda: W.w4_gemm(*args),
                          lambda: W.w4_gemm_plain(*args))
+            # the yardstick: one f32 GEMM (TF32 off) on the weight
+            # dequantized before the timed window
+            w_deq = W.dequant_w4(c["packed"], c["scales"], k, group)
+
+            def library():
+                return torch.addmm(c["bias"], c["x"], w_deq.t())
+
+            if torch.backends.cuda.matmul.allow_tf32:
+                fail("TF32 is on: the B5 yardstick must be true f32")
+            rel = rel_err(torch, library(), fn())
+            if not rel <= W4_RTOL:
+                fail(f"B5 yardstick torch.addmm differs from the kernel at "
+                     f"{name}: {rel} of the largest |output|")
+            library_ms = time_cuda(torch, library, iters=10, flush=flush)
         elif kernel == "w4a8_v2_gemm":
             fn, plain = (lambda: W.w4a8_v2(c["x"], c["ops"], "nearest"),
                          lambda: v2_plain(W, c["x"], c["ops"], "nearest"))
@@ -1360,10 +1449,14 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
         ms = time_cuda(torch, fn, iters=20, flush=flush)
         plain_ms = time_cuda(torch, plain, iters=3, flush=flush)
         b_ms, b_by, t_ops, t_bytes = w4_bound_ms(kernel, m, k, n, group)
-        rows.append(dict(kernel=kernel, path=path, layer=name, M=m, K=k, N=n,
-                         group=group, launches_per_unit=per, ms=ms,
-                         bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
-                         library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+        row = dict(kernel=kernel, path=path, layer=name, M=m, K=k, N=n,
+                   group=group, launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                   bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
+                   t_ops=t_ops, t_bytes=t_bytes)
+        if kernel != "w4a8_v2_gemm":
+            row["bound_f32_simt_ms"] = w4_bound_ms(kernel, m, k, n, group,
+                                                   simt=True)[0]
+        rows.append(row)
         del c
 
     cfg = LLAMA_ATTN
@@ -1393,9 +1486,13 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
     for path in ("llama_w4a8_decode_step", "llama_w4a8_prefill",
                  "llama_w4_forward"):
         mine = [r for r in rows if r["path"] == path]
-        log(json.dumps({"kernels_per_unit": path} | {
-            key: sum(r[key] * r["launches_per_unit"] for r in mine)
-            for key in ("ms", "bound_ms", "plain_ms")}))
+        keys = [key for key in ("ms", "bound_ms", "bound_f32_simt_ms",
+                                "plain_ms", "library_ms")
+                if all(r.get(key) is not None for r in mine)]
+        tot = {key: sum(r[key] * r["launches_per_unit"] for r in mine)
+               for key in keys}
+        log(json.dumps({"kernels_per_unit": path} | tot
+                       | {"share_of_bound": tot["bound_ms"] / tot["ms"]}))
     return rows
 
 
@@ -1425,6 +1522,10 @@ def kernels_line(rows, counts_by_path, max_err):
             library_ms=(None if any(x is None for x in libs) else
                         sum(r["library_ms"] * r["launches_per_unit"]
                             for r in mine)),
+            **({"bound_f32_simt_ms": sum(r["bound_f32_simt_ms"]
+                                         * r["launches_per_unit"]
+                                         for r in mine)}
+               if all("bound_f32_simt_ms" in r for r in mine) else {}),
             work=" + ".join(f"one {p.replace('_', ' ')}" for p in paths)))
     return out
 
@@ -1541,6 +1642,8 @@ def main(argv=None) -> int:
     dec, ids, state, counts_by_path["llama_w4a8_generate"] = \
         llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile, label="llama_w4a8_decode")
+    full_context_timing(torch, q, dec,
+                        "llama_w4a8_causal_forward_full_context", kernel_fns)
     del dec
     torch.cuda.empty_cache()
 
@@ -1548,6 +1651,9 @@ def main(argv=None) -> int:
     wo, counts_by_path["llama_w4_forward"] = llama_w4_forward_path(
         torch, q, zoo, W, kernel_fns, state, ids)
     llama_w4_timing(torch, q, wo, ids, args.profile)
+    full_context_timing(torch, q, wo,
+                        "llama_w4_weight_only_forward_full_context",
+                        kernel_fns)
     del wo, state
     torch.cuda.empty_cache()
 

@@ -26,28 +26,65 @@
 // fills half of the m16 tile; split-K, wgmma and TMA are later work.
 //
 // w4a8_v1_gemm (B7; replaces ::_w4a8_kernel, launched by _w4a8_pallas_impl)
-// and w4_gemm (B5; replaces ::_w4_kernel, launched by _w4_pallas_impl) share
-// one f32 SIMT main loop, the template's two instances:
+// and w4_gemm (B5; replaces ::_w4_kernel, launched by _w4_pallas_impl)
+// share one tensor-core main loop, the template's two instances.  Both
+// factor the group scale out of the dot product:
 //
-//   B7: acc = sum_k (f32(x[m, k]) - zp_x) * (code * s_g)     (u8 x)
-//       out = floor(clip(acc * mult[n] + zpb[n], 0, 255) + rb)          u8
-//   B5: acc = sum_k x[m, k] * (code * s_g);  out = acc + bias[n]        f32
+//   B7: I_g = sum_{k in g} (x[m, k] - 128) * code     exact s32, int8 MMAs
+//       acc = I_0 * s_0;  acc = acc + I_g * s_g       (B6's fold, any M)
+//       out = floor(clip(acc * mult[n] + zpb_eff[n], 0, 255) + rb)     u8
+//   B5: P_g = sum_{k in g} x[m, k] * code             bf16 MMAs, f32 sums
+//       acc = P_0 * s_0;  acc = acc + P_g * s_g;  out = acc + bias[n]  f32
 //
-// The weight dequantizes as __fmul_rn(code, s), the JAX package's f32
-// product; the dot accumulates with __fmaf_rn in true f32 (no TF32, no
-// bf16).  Its sum order is its own: against the plain versions B7 is held to
-// at most 1 code off on at most 0.2% of the outputs, B5 to 2e-5 of the
-// largest |output|.  Bound on an H100 at the prefill shapes (M = 512): the
-// f32 operations at the non-tensor-core peak.  Design: a 64 x 64 output tile
-// per block of 256 threads, each 4 x 4 in registers, K in 16-value stages
-// dequantized into shared memory; any M, N and even K, with a short last
-// group.  Tensor cores (TF32 would change the function), double buffering
-// and larger tiles are later work.
+// B7 is B6's arithmetic on every shape: equal bit for bit to
+// ops/w4.w4a8_v2_plain (generalised to any M and a short last group), and
+// within B7's contract (at most 1 code off on at most 0.2%) of the f32
+// function w4a8_v1_plain, which the CPU path runs.  B5 splits each f32 x
+// inside the kernel into three bf16 pieces, hi + mid + lo == x exactly (the
+// top 16 bits of x, then of each remainder; ops/w4.split_bf16x3 is the plain
+// twin), and a 4-bit code is exact in bf16, so the three MMAs per k-step (lo,
+// then mid, then hi, into one f32 accumulator per group) form every product
+// exactly; only the f32 sums round.  Held to 2e-5 of the largest |output|
+// of w4_gemm_plain.
+// Bound on an H100 at the prefill / forward shapes (M = 512): B7 sits at the
+// crossover of its bytes and its int8 operations at 1,979 TOP/s (N = 768:
+// the bytes; wider N: the operations); B5 is bound by its three bf16 passes
+// at 989 TFLOP/s.
+// Design: mma.sync (s8 m16n8k32 for B7, bf16 m16n8k16 for B5) on a 64 x 64
+// output tile per block of four warps (B7: 2 x 2 warps of 32 x 32; B5: 4 x 1
+// warps of 16 x 64, so that no two warps split the same x), K through a
+// cp.async ring in dynamic shared memory (B7: four stages of 128 k values;
+// B5: three of 64; 61,440 bytes, three blocks an SM), one barrier a stage.
+// The packed stage is unpacked in registers, straight into the B fragments
+// (an OR, a SUB and an XOR a word for s8; a 0x4300 | nibble bias and one
+// bf16x2 FMA for bf16), in a k order that lets each thread read one packed
+// word and one 8- or 16-byte x run per row.  Each group's scales and the
+// epilogue's vectors are loaded a group ahead, off the critical path; B7's
+// u8 tile leaves through shared memory in 16-byte row runs.  A 64 x 64 tile
+// gives 96 blocks at N = 768 and M = 512.  B5 splits K over its groups
+// where a grid has fewer tiles than SMs (wq, wk, wv, proj and down at M =
+// 512): up to 8 slices of a tile run as one thread block cluster, and slice
+// 0 adds the others' partials, read from their shared memory, in slice
+// order (deterministic, no atomics, no second launch).  B7 never splits:
+// its exact fold runs over the groups in order.  Groups: a chunk of 32 k
+// values that a group boundary splits (a group not a multiple of 32 and
+// smaller than K) runs once per group it touches, with the B lanes of the
+// other groups zeroed, so every partial stays exact; group 128 and 256
+// never take that path, and a whole stage then runs branch-free.  Any M, N
+// and even K: K % 32 != 0 or an unaligned base takes an element loader
+// instead of 16-byte cp.async.  Not wgmma: a B7 path on m64n64k32 wgmma
+// (A from registers, the codes unpacked once a stage into the no-swizzle
+// core-matrix layout) was exact but slower, because the per-stage unpack
+// and its barrier sit on the critical path and ptxas then retires every
+// wgmma before the loop's back-edge; overlapping them needs producer and
+// consumer warps, which is later work (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -240,125 +277,560 @@ w4a8_v2_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ pk,
 }  // namespace v2
 
 // ---------------------------------------------------------------------------
-// B5 and B7: one f32 SIMT main loop
+// B5 and B7: one tensor-core main loop
 // ---------------------------------------------------------------------------
 
-namespace f32k {
+namespace tc {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int NT = 256;              // 16 x 16 threads, each 4 x 4 outputs
-constexpr int TM = 4;
-constexpr int TN = 4;
+constexpr int BM = 64;               // block tile rows
+constexpr int BN = 64;               // block tile columns
+constexpr int NT = 128;              // four warps
+constexpr int KC = 32;               // k values per chunk: one s8 k-step, two bf16 k-steps
+
+// A kernel's warps over the 64 x 64 output tile and its cp.async ring of x
+// and packed-weight stages.  B7: warps of 32 x 32, four stages of 128 k
+// values.  B5: four warps of 16 x 64 (along M, so that no two warps split
+// the same x), three stages of 64.  A row of x is padded so that a warp's
+// 8-byte (u8) or 16-byte (f32) fragment reads hit distinct banks; a packed
+// row to an odd multiple of 16 bytes, so that its 4-byte reads do.
+template <bool kW4A8>
+struct Ring {
+  using X = typename std::conditional<kW4A8, uint8_t, float>::type;
+  static constexpr int WM = kW4A8 ? 2 : 4;           // warps along M
+  static constexpr int WN = 4 / WM;                  // warps along N
+  static constexpr int MI = BM / (16 * WM);          // m16 fragments per warp
+  static constexpr int NI = BN / (8 * WN);           // n8 fragments per warp
+  static constexpr int BK = kW4A8 ? 128 : 64;
+  static constexpr int STAGES = kW4A8 ? 4 : 3;
+  static constexpr int LDX = kW4A8 ? BK + 32 : BK + 4;
+  static constexpr int LDP = BK / 2 % 32 == 16 ? BK / 2 : BK / 2 + 16;
+  X x[STAGES][BM][LDX];
+  uint8_t p[STAGES][BN][LDP];
+};
 
 struct Params {
   const void* x;                     // u8 (B7) or f32 (B5) [M, K]
   const uint8_t* pk;                 // [N, K/2]
-  const float* scales;               // [N, G], row-major
-  const float* vec;                  // mult (B7) or bias (B5), [N]
-  const float* zpb;                  // B7 only, [N]
+  const float* scales;               // B7: scales_t [G, N]; B5: scales [N, G]
+  const float* vec;                  // B7: mult [N]; B5: bias [N]
+  const float* zpb;                  // B7: zpb_eff [N]; B5: unused
   void* out;                         // u8 (B7) or f32 (B5) [M, N]
   int M, N, K, g, G;                 // g: the effective group, min(group, K)
-  float zp_x;
+  int gps;                           // groups per K slice (blockIdx.z); G unsplit
   float rb;
 };
 
-template <bool kW4A8>
-__global__ void __launch_bounds__(NT) w4_f32_kernel(Params p) {
-  __shared__ __align__(16) float as[BK][BM];     // (x - zp_x), k-major
-  __shared__ __align__(16) float bs[BK][BN];     // dequantized weight, k-major
+// Stage `s` <- x rows m0.., packed rows n0.., k values k0.. .  kVec: K % 32
+// == 0 and 16-byte aligned bases, so every 16-byte chunk is wholly inside or
+// outside the matrix and cp.async zero-fills the outside (the main loop
+// never reads past K).  Otherwise a plain element loader fills x past K with
+// the value whose product is 0 (u8 128, f32 0) and packed bytes with 0x88
+// (two zero codes).
+template <bool kW4A8, bool kVec>
+__device__ __forceinline__ void load_stage(Ring<kW4A8>& sm, int s, const Params& p, int m0,
+                                           int n0, int k0, int tid) {
+  using R = Ring<kW4A8>;
+  using X = typename R::X;
+  const X* x = static_cast<const X*>(p.x);
+  if (kVec) {
+    constexpr int XV = 16 / static_cast<int>(sizeof(X));   // x values per chunk
+    constexpr int XC = R::BK / XV;                         // chunks per x row
+#pragma unroll
+    for (int i = 0; i < BM * XC / NT; ++i) {
+      const int c = tid + i * NT;
+      const int r = c / XC;
+      const int col = (c % XC) * XV;
+      const bool ok = m0 + r < p.M && k0 + col < p.K;
+      const X* src = ok ? x + static_cast<size_t>(m0 + r) * p.K + k0 + col : x;
+      cp_async16(&sm.x[s][r][col], src, ok ? 16 : 0);
+    }
+    constexpr int PC = R::BK / 32;                         // chunks per packed row
+    for (int c = tid; c < BN * PC; c += NT) {
+      const int r = c / PC;
+      const int col = (c % PC) * 16;
+      const bool ok = n0 + r < p.N && k0 + 2 * col < p.K;
+      const uint8_t* src =
+          ok ? p.pk + static_cast<size_t>(n0 + r) * (p.K / 2) + k0 / 2 + col : p.pk;
+      cp_async16(&sm.p[s][r][col], src, ok ? 16 : 0);
+    }
+  } else {
+    const X pad = kW4A8 ? X(128) : X(0);
+    for (int i = tid; i < BM * R::BK; i += NT) {
+      const int m = m0 + i / R::BK;
+      const int k = k0 + i % R::BK;
+      sm.x[s][i / R::BK][i % R::BK] =
+          m < p.M && k < p.K ? x[static_cast<size_t>(m) * p.K + k] : pad;
+    }
+    for (int i = tid; i < BN * R::BK / 2; i += NT) {
+      const int n = n0 + i / (R::BK / 2);
+      const int k = k0 + 2 * (i % (R::BK / 2));
+      sm.p[s][i / (R::BK / 2)][i % (R::BK / 2)] =
+          n < p.N && k < p.K ? p.pk[static_cast<size_t>(n) * (p.K / 2) + k / 2] : uint8_t(0x88);
+    }
+  }
+}
+
+// four packed bytes (eight k values) -> two words of s8 codes in k order:
+// (nibble | 0x80) - 8 borrows nothing from the next byte, and ^ 0x80 then
+// leaves nibble - 8
+__device__ __forceinline__ void unpack_s8(uint32_t v, uint32_t& lo_word, uint32_t& hi_word) {
+  const uint32_t h = (((v >> 4) & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;   // even k
+  const uint32_t l = ((v & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;          // odd k
+  lo_word = __byte_perm(h, l, 0x5140) ^ 0x80808080u;
+  hi_word = __byte_perm(h, l, 0x7362) ^ 0x80808080u;
+}
+
+// The k order inside a 32-value chunk.  Thread t (lane % 4) reads one
+// packed word, bytes 4t..4t+3 of the chunk's 16, i.e. k values 8t..8t+7, and
+// feeds them to the MMA in the B-fragment slots the hardware gives it; its
+// A fragment takes x at the same k values.  The MMA sums over k, so the
+// permutation changes nothing: the integer sums are exact and the bf16
+// products are exact.
+//   s8 m16n8k32: b0 = k 8t..8t+3, b1 = k 8t+4..8t+7; A row r: one 8-byte
+//     read at x[r][8t], its words in a0/a2 (rows g) and a1/a3 (rows g + 8).
+//   bf16 m16n8k16, k-step s of the chunk: b0 = k 8t+4s, +1, b1 = k 8t+4s+2,
+//     +3; A row r: one 16-byte read at x[r][8t + 4s].
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x0, x1 -> bf16x2 words hi, mid, lo with hi + mid + lo == x exactly: each
+// piece is the top 16 bits of what is left (a truncating split: no
+// conversion instructions, and the two subtractions are exact).  The plain
+// twin is ops/w4.split_bf16x3.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const uint32_t h0 = __float_as_uint(x0) & 0xFFFF0000u;
+  const uint32_t h1 = __float_as_uint(x1) & 0xFFFF0000u;
+  const float r0 = __fsub_rn(x0, __uint_as_float(h0));
+  const float r1 = __fsub_rn(x1, __uint_as_float(h1));
+  const uint32_t m0 = __float_as_uint(r0) & 0xFFFF0000u;
+  const uint32_t m1 = __float_as_uint(r1) & 0xFFFF0000u;
+  const float l0 = __fsub_rn(r0, __uint_as_float(m0));
+  const float l1 = __fsub_rn(r1, __uint_as_float(m1));
+  hi = __byte_perm(h0, h1, 0x7632);
+  mid = __byte_perm(m0, m1, 0x7632);
+  lo = __byte_perm(__float_as_uint(l0), __float_as_uint(l1), 0x7632);
+}
+
+// four packed bytes (eight k values) -> four bf16x2 words of codes in k
+// order: bf16(128 + nibble) is 0x4300 | nibble, and 1 * it - 136 is the code
+// nibble - 8, exactly
+__device__ __forceinline__ void unpack_bf16(uint32_t v, uint32_t (&w)[4]) {
+  const uint32_t h = (v >> 4) & 0x0F0F0F0Fu;    // even k
+  const uint32_t l = v & 0x0F0F0F0Fu;           // odd k
+  const uint32_t p01 = __byte_perm(h, l, 0x5140);
+  const uint32_t p23 = __byte_perm(h, l, 0x7362);
+  const uint32_t biased[4] = {__byte_perm(p01, 0x43434343u, 0x4140),
+                              __byte_perm(p01, 0x43434343u, 0x4342),
+                              __byte_perm(p23, 0x43434343u, 0x4140),
+                              __byte_perm(p23, 0x43434343u, 0x4342)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+        : "=r"(w[i]) : "r"(biased[i]), "r"(0x3F803F80u), "r"(0xC308C308u));
+}
+
+// the lanes (kLanes = 4: bytes of an s8 word; 2: halves of a bf16x2 word)
+// of a B register, holding k, k + 1, ..., whose chunk-local k lies in
+// [lo, hi)
+template <int kLanes>
+__device__ __forceinline__ uint32_t lane_mask(int k, int lo, int hi) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j)
+    if (k + j >= lo && k + j < hi) m |= (kLanes == 4 ? 0xFFu : 0xFFFFu) << (j * 32 / kLanes);
+  return m;
+}
+
+// One chunk's MMAs for this warp.  `xw`/`pw` point at the warp's first A row
+// and first B column at the chunk's start, offset for lane (g, t).  kMasked:
+// only the k in [lo, hi) of the chunk count (a group boundary inside it); the
+// B lanes outside are zeroed, so each group's partial stays exact.
+template <bool kMasked, int MI, int NI>
+__device__ __forceinline__ void chunk(int32_t (&acc)[MI][NI][4], const uint8_t* xw,
+                                      const uint8_t* pw, int t, int lo, int hi) {
+  using R = Ring<true>;
+  uint32_t af[MI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    const uint2 r0 = *reinterpret_cast<const uint2*>(xw + mi * 16 * R::LDX);
+    const uint2 r8 = *reinterpret_cast<const uint2*>(xw + (mi * 16 + 8) * R::LDX);
+    // XOR 0x80 maps each u8 byte to the s8 value x - 128
+    af[mi][0] = r0.x ^ 0x80808080u;
+    af[mi][1] = r8.x ^ 0x80808080u;
+    af[mi][2] = r0.y ^ 0x80808080u;
+    af[mi][3] = r8.y ^ 0x80808080u;
+  }
+  const uint32_t mk0 = kMasked ? lane_mask<4>(8 * t, lo, hi) : ~0u;
+  const uint32_t mk1 = kMasked ? lane_mask<4>(8 * t + 4, lo, hi) : ~0u;
+  uint32_t bf[NI][2];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    unpack_s8(*reinterpret_cast<const uint32_t*>(pw + ni * 8 * R::LDP), bf[ni][0],
+              bf[ni][1]);
+    bf[ni][0] &= mk0;
+    bf[ni][1] &= mk1;
+  }
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+}
+
+template <bool kMasked, int MI, int NI>
+__device__ __forceinline__ void chunk(float (&acc)[MI][NI][4], const float* xw,
+                                      const uint8_t* pw, int t, int lo, int hi) {
+  using R = Ring<false>;
+  uint32_t codes[NI][4];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+    unpack_bf16(*reinterpret_cast<const uint32_t*>(pw + ni * 8 * R::LDP), codes[ni]);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    uint32_t ah[MI][4], am[MI][4], al[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float4 u = *reinterpret_cast<const float4*>(xw + mi * 16 * R::LDX + 4 * s);
+      const float4 v = *reinterpret_cast<const float4*>(xw + (mi * 16 + 8) * R::LDX + 4 * s);
+      split3(u.x, u.y, ah[mi][0], am[mi][0], al[mi][0]);
+      split3(v.x, v.y, ah[mi][1], am[mi][1], al[mi][1]);
+      split3(u.z, u.w, ah[mi][2], am[mi][2], al[mi][2]);
+      split3(v.z, v.w, ah[mi][3], am[mi][3], al[mi][3]);
+    }
+    const uint32_t mk0 = kMasked ? lane_mask<2>(8 * t + 4 * s, lo, hi) : ~0u;
+    const uint32_t mk1 = kMasked ? lane_mask<2>(8 * t + 4 * s + 2, lo, hi) : ~0u;
+    uint32_t b[NI][2];
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      b[ni][0] = codes[ni][2 * s] & mk0;
+      b[ni][1] = codes[ni][2 * s + 1] & mk1;
+    }
+    // lo, then mid, then hi into each accumulator; the eight accumulators
+    // interleave so that back-to-back MMAs are independent
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], al[mi], b[ni][0], b[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], am[mi], b[ni][0], b[ni][1]);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], ah[mi], b[ni][0], b[ni][1]);
+  }
+}
+
+__device__ __forceinline__ float as_f32(int32_t v) { return __int2float_rn(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+
+// Accumulator element j of fragment (mi, ni): row g + 8 * (j / 2) of the
+// m16 tile, column nw + ni * 8 + 2t + j % 2.  A thread's per-column values
+// are v[ni][j % 2].
+
+// group gi's scales of this thread's columns (0 past N and past the last
+// group), loaded a group ahead of the fold that reads them
+template <bool kW4A8, int NI>
+__device__ __forceinline__ void group_scales(float (&sc)[NI][2], const Params& p, int nw, int t,
+                                             int gi) {
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int n = nw + ni * 8 + 2 * t + jn;
+      sc[ni][jn] = n >= p.N || gi >= p.G ? 0.0f
+                   : kW4A8               ? p.scales[static_cast<size_t>(gi) * p.N + n]
+                                         : p.scales[static_cast<size_t>(n) * p.G + gi];
+    }
+}
+
+// a group's partial into the f32 sum (acc = P_0 * s_0, then acc + P_g *
+// s_g), and the partial cleared
+template <typename Acc, int MI, int NI>
+__device__ __forceinline__ void fold(Acc (&acc)[MI][NI][4], float (&accf)[MI][NI][4],
+                                     const float (&sc)[NI][2], bool first) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float term = __fmul_rn(as_f32(acc[mi][ni][j]), sc[ni][j & 1]);
+        accf[mi][ni][j] = first ? term : __fadd_rn(accf[mi][ni][j], term);
+        acc[mi][ni][j] = Acc(0);
+      }
+}
+
+template <bool kW4A8, bool kVec>
+__global__ void __launch_bounds__(NT, 3) w4_tc_kernel(Params p) {
+  using R = Ring<kW4A8>;
+  using Acc = typename std::conditional<kW4A8, int32_t, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  R& sm = *reinterpret_cast<R*>(smem);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int M = p.M, N = p.N, K = p.K;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  constexpr int MI = R::MI, NI = R::NI;
+  const int wm = warp / R::WN * (BM / R::WM);
+  const int wn = warp % R::WN * (BN / R::WN);
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
 
-  float acc[TM][TN];
+  Acc acc[MI][NI][4];
+  float accf[MI][NI][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[mi][ni][j] = Acc(0);
+        accf[mi][ni][j] = 0.0f;
+      }
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  // the epilogue's vectors (B7: mult, zpb_eff; B5: bias) and the first
+  // group's scales, loaded while the ring fills
+  float ev[2][NI][2];
 #pragma unroll
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int r = idx / BK;
-      const int kk = idx % BK;
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int jn = 0; jn < 2; ++jn) {
+      const int n = n0 + wn + ni * 8 + 2 * t + jn;
+      ev[0][ni][jn] = n < p.N ? p.vec[n] : 0.0f;
+      ev[1][ni][jn] = kW4A8 && n < p.N ? p.zpb[n] : 0.0f;
+    }
+  // this block's K slice: groups gi0 .. gi0 + gps - 1
+  const int gi0 = blockIdx.z * p.gps;
+  const int kbeg = gi0 * p.g;
+  const int kend = p.K - kbeg > p.gps * p.g ? kbeg + p.gps * p.g : p.K;
+  float sc[NI][2];
+  group_scales<kW4A8>(sc, p, n0 + wn, t, gi0);
+
+  const int nk = (kend - kbeg + R::BK - 1) / R::BK;
+#pragma unroll
+  for (int s = 0; s < R::STAGES - 1; ++s) {
+    if (s < nk) load_stage<kW4A8, kVec>(sm, s, p, m0, n0, kbeg + s * R::BK, tid);
+    if (kVec) cp_async_commit();
+  }
+
+  // every group boundary on a stage boundary: whole stages run unmasked
+  // and straight-line, the fold after them
+  const bool aligned = kVec && (p.g % R::BK == 0 || p.g >= p.K);
+  int gi = gi0;                      // the group being summed
+  int gend = p.K - kbeg > p.g ? kbeg + p.g : p.K;   // where it ends
+  auto end_group = [&]() {
+    fold(acc, accf, sc, gi == gi0);
+    ++gi;
+    group_scales<kW4A8>(sc, p, n0 + wn, t, gi);
+    gend = p.K - gend > p.g ? gend + p.g : p.K;
+  };
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kVec) cp_async_wait<R::STAGES - 2>();
+    // stage kt has landed for every thread, and every thread is done with
+    // stage kt - 1, whose slot the prefetch below overwrites
+    __syncthreads();
+    const int pf = kt + R::STAGES - 1;
+    if (pf < nk)
+      load_stage<kW4A8, kVec>(sm, pf % R::STAGES, p, m0, n0, kbeg + pf * R::BK, tid);
+    if (kVec) cp_async_commit();
+
+    const int s = kt % R::STAGES;
+    const int k0 = kbeg + kt * R::BK;
+    const auto* xs = &sm.x[s][wm + g][8 * t];
+    const uint8_t* ps = &sm.p[s][wn + g][4 * t];
+    if (aligned && k0 + R::BK <= kend) {
+#pragma unroll
+      for (int c = 0; c < R::BK / KC; ++c)
+        chunk<false>(acc, xs + c * KC, ps + c * KC / 2, t, 0, KC);
+      if (k0 + R::BK == gend) end_group();
+      continue;
+    }
+    for (int c = 0; c < R::BK / KC; ++c) {
+      const int kk = k0 + c * KC;
+      if (kk >= kend) break;
+      const int cend = min(kk + KC, kend);
+      // the chunk's segments, one per group it touches
+      int c0 = kk;
+      do {
+        const int seg = min(gend, cend);
+        if (c0 == kk && seg == cend) {
+          chunk<false>(acc, xs + c * KC, ps + c * KC / 2, t, 0, KC);
+        } else {
+          chunk<true>(acc, xs + c * KC, ps + c * KC / 2, t, c0 - kk, seg - kk);
+        }
+        if (seg == gend) end_group();
+        c0 = seg;
+      } while (c0 < cend);
+    }
+  }
+
+  if constexpr (!kW4A8) {
+    if (gridDim.z > 1) {
+      // B5 split over K: the slices of a tile are one thread block cluster;
+      // each leaves its partial in its own shared memory (the ring is free
+      // now), and slice 0 adds the others to its own in slice order, so the
+      // sum does not depend on which slice finished first
+      namespace cg = cooperative_groups;
+      cg::cluster_group cluster = cg::this_cluster();
+      cp_async_wait<0>();
+      __syncthreads();
+      float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+      for (int i = 0; i < MI * NI * 4; ++i)
+        part[i * NT + tid] = accf[i / (NI * 4)][i / 4 % NI][i % 4];
+      cluster.sync();
+      if (cluster.block_rank() == 0) {
+        for (unsigned r = 1; r < gridDim.z; ++r) {
+          const float* other = cluster.map_shared_rank(part, r);
+#pragma unroll
+          for (int i = 0; i < MI * NI * 4; ++i) {
+            float& a = accf[i / (NI * 4)][i / 4 % NI][i % 4];
+            a = __fadd_rn(a, other[i * NT + tid]);
+          }
+        }
+      }
+      // the other slices' shared memory stays readable until slice 0 is done
+      cluster.sync();
+      if (cluster.block_rank() != 0) return;
+    }
+  }
+
+  if constexpr (kW4A8) {
+    // the u8 tile through shared memory (the ring is free now), then out in
+    // 16-byte row runs
+    constexpr int LDO = BN + 16;       // a warp's 2-byte writes hit distinct banks
+    cp_async_wait<0>();
+    __syncthreads();
+    uint8_t* tile = smem;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int jm = 0; jm < 2; ++jm) {
+          uint32_t q[2];
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn)
+            q[jn] = clip_floor(__fadd_rn(__fmul_rn(accf[mi][ni][2 * jm + jn], ev[0][ni][jn]),
+                                         ev[1][ni][jn]), p.rb);
+          const int r = wm + mi * 16 + g + 8 * jm;
+          *reinterpret_cast<uint16_t*>(&tile[r * LDO + wn + ni * 8 + 2 * t]) =
+              static_cast<uint16_t>(q[0] | q[1] << 8);
+        }
+    __syncthreads();
+    auto* out = static_cast<uint8_t*>(p.out);
+    const bool vec16 = p.N % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    for (int i = tid; i < BM * BN / 16; i += NT) {
+      const int r = i / (BN / 16);
+      const int c = i % (BN / 16) * 16;
       const int m = m0 + r;
-      const int k = k0 + kk;
-      float v = 0.0f;
-      if (m < M && k < K) {
-        const size_t off = static_cast<size_t>(m) * K + k;
-        v = kW4A8 ? __fsub_rn(__uint2float_rn(static_cast<const uint8_t*>(p.x)[off]), p.zp_x)
-                  : static_cast<const float*>(p.x)[off];
-      }
-      as[kk][r] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < BN * BK / 2 / NT; ++i) {
-      const int idx = tid + i * NT;
-      const int r = idx / (BK / 2);
-      const int j = idx % (BK / 2);
-      const int n = n0 + r;
-      const int k = k0 + 2 * j;                  // even; K even, so k + 1 < K
-      float hi = 0.0f, lo = 0.0f;
-      if (n < N && k < K) {
-        const uint32_t b = p.pk[static_cast<size_t>(n) * (K / 2) + k / 2];
-        const float* srow = p.scales + static_cast<size_t>(n) * p.G;
-        hi = __fmul_rn(static_cast<float>(static_cast<int>(b >> 4) - 8), srow[k / p.g]);
-        lo = __fmul_rn(static_cast<float>(static_cast<int>(b & 15u) - 8), srow[(k + 1) / p.g]);
-      }
-      bs[2 * j][r] = hi;
-      bs[2 * j + 1][r] = lo;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * TM]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      const size_t o = static_cast<size_t>(m) * N + n;
-      if (kW4A8) {
-        const float q = __fadd_rn(__fmul_rn(acc[i][j], p.vec[n]), p.zpb[n]);
-        static_cast<uint8_t*>(p.out)[o] = clip_floor(q, p.rb);
+      if (m >= p.M) continue;
+      const size_t o = static_cast<size_t>(m) * p.N + n0 + c;
+      if (vec16 && n0 + c + 16 <= p.N) {
+        *reinterpret_cast<uint4*>(out + o) =
+            *reinterpret_cast<const uint4*>(&tile[r * LDO + c]);
       } else {
-        static_cast<float*>(p.out)[o] = __fadd_rn(acc[i][j], p.vec[n]);
+        for (int j = 0; j < 16 && n0 + c + j < p.N; ++j) out[o + j] = tile[r * LDO + c + j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = n0 + wn + ni * 8 + 2 * t;
+      if (n >= p.N) continue;
+      const bool pair = n + 1 < p.N;
+      const bool vec2 = pair && p.N % 2 == 0;      // an 8-byte aligned f32 pair
+      auto* out = static_cast<float*>(p.out);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int jm = 0; jm < 2; ++jm) {
+          const int m = m0 + wm + mi * 16 + g + 8 * jm;
+          if (m >= p.M) continue;
+          const size_t o = static_cast<size_t>(m) * p.N + n;
+          const float v0 = __fadd_rn(accf[mi][ni][2 * jm], ev[0][ni][0]);
+          const float v1 = __fadd_rn(accf[mi][ni][2 * jm + 1], ev[0][ni][1]);
+          if (vec2) {
+            *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+          } else {
+            out[o] = v0;
+            if (pair) out[o + 1] = v1;
+          }
+        }
       }
     }
   }
+}
+
+// B5's K slices for a launch: a grid of fewer tiles than SMs waits on one
+// block's pass over K, so its groups are cut into up to 8 slices (a
+// portable cluster), as many as keep tiles x slices within two blocks an SM
+// and divide the groups evenly.  B7 never splits: its exact fold runs
+// over the groups in order.
+int b5_splits(const Params& p, const dim3& grid, bool vec) {
+  if (!vec || p.g % Ring<false>::BK != 0) return 1;
+  int dev = 0, nsm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 1;
+  const long long tiles = static_cast<long long>(grid.x) * grid.y;
+  if (tiles >= nsm) return 1;
+  for (int s = 8; s > 1; --s)
+    if (p.G % s == 0 && tiles * s <= 2LL * nsm) return s;
+  return 1;
 }
 
 template <bool kW4A8>
-int launch(const Params& p, void* stream) {
-  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 2 || p.g <= 0)
+int launch(Params p, void* stream) {
+  using R = Ring<kW4A8>;
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.K % 2 || p.g <= 0 ||
+      (p.N + BN - 1) / BN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  w4_f32_kernel<kW4A8><<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  const bool vec = p.K % 32 == 0 && reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(p.pk) % 16 == 0;
+  auto* kernel = vec ? w4_tc_kernel<kW4A8, true> : w4_tc_kernel<kW4A8, false>;
+  constexpr int bytes = static_cast<int>(sizeof(R));
+  // above 48 KB a kernel opts in to dynamic shared memory (on the current
+  // device, so at every launch)
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int splits = kW4A8 ? 1 : b5_splits(p, grid, vec);
+  p.gps = p.G / splits;
+  if (splits == 1) {
+    kernel<<<grid, NT, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  grid.z = splits;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-}  // namespace f32k
+}  // namespace tc
 
 }  // namespace
 
@@ -381,20 +853,20 @@ extern "C" int w4a8_v2_gemm(const void* x, const void* packed, const void* scale
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int w4a8_v1_gemm(const void* x, const void* packed, const void* scales,
-                            const void* mult, const void* zpb, void* out, int M, int N, int K,
-                            int g, int zp_x, int nearest, void* stream) {
+extern "C" int w4a8_v1_gemm(const void* x, const void* packed, const void* scales_t,
+                            const void* mult, const void* zpb_eff, void* out, int M, int N,
+                            int K, int g, int nearest, void* stream) {
   const int G = g > 0 ? (K + g - 1) / g : 0;
-  const f32k::Params p{x, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
-                       static_cast<const float*>(mult), static_cast<const float*>(zpb), out,
-                       M, N, K, g, G, static_cast<float>(zp_x), nearest ? 0.5f : 0.0f};
-  return f32k::launch<true>(p, stream);
+  const tc::Params p{x, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales_t),
+                     static_cast<const float*>(mult), static_cast<const float*>(zpb_eff), out,
+                     M, N, K, g, G, G, nearest ? 0.5f : 0.0f};
+  return tc::launch<true>(p, stream);
 }
 
 extern "C" int w4_gemm(const void* x, const void* packed, const void* scales, const void* bias,
                        void* out, int M, int N, int K, int g, void* stream) {
   const int G = g > 0 ? (K + g - 1) / g : 0;
-  const f32k::Params p{x, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
-                       static_cast<const float*>(bias), nullptr, out, M, N, K, g, G, 0.0f, 0.0f};
-  return f32k::launch<false>(p, stream);
+  const tc::Params p{x, static_cast<const uint8_t*>(packed), static_cast<const float*>(scales),
+                     static_cast<const float*>(bias), nullptr, out, M, N, K, g, G, G, 0.0f};
+  return tc::launch<false>(p, stream);
 }

@@ -50,10 +50,9 @@ SIGNATURES = {
         # x, packed, scales_t, mult, zpb_eff, out, M, N, K, group, nearest,
         # stream
         "w4a8_v2_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        # x, packed, scales, mult, zpb, out, M, N, K, g, zp_x, nearest,
+        # x, packed, scales_t, mult, zpb_eff, out, M, N, K, g, nearest,
         # stream
-        "w4a8_v1_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P],
+        "w4a8_v1_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # x, packed, scales, bias, out, M, N, K, g, stream
         "w4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },

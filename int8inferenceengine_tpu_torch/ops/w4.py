@@ -15,12 +15,17 @@ Three functions, each with a plain PyTorch version and a hand-written CUDA
 kernel (``csrc/w4_gemm.cu``) behind one wrapper:
 
 * **B5** ``w4_gemm`` (plain: ``w4_gemm_plain`` = ``w4_matmul_xla``): f32
-  ``x @ dequant(W)^T + bias``, the weight-only Linear.
+  ``x @ dequant(W)^T + bias``, the weight-only Linear.  The kernel factors
+  the group scale out, ``sum_g s_g * (sum_{k in g} x * code) + bias``, and
+  forms every product exactly on bf16 tensor cores from three bf16 pieces
+  of x (``split_bf16x3``); held to 2e-5 of the largest |output|.
 * **B7** ``w4a8_v1`` (plain: ``w4a8_v1_plain`` = ``w4a8_matmul_xla``):
   ``acc = (x - zp_x) @ dequant(W)^T`` in f32, then
   ``floor(clip(acc * mult[n] + zpb[n], 0, 255) + rb)``.  The f32 sum order
   is free (the JAX package's kernel and its XLA twin differ in it): against
-  its plain version it is held to at most 1 code off on at most 0.2%.
+  its plain version it is held to at most 1 code off on at most 0.2%.  The
+  kernel computes B6's arithmetic below on every shape, so it also equals
+  ``w4a8_v2_plain`` bit for bit.
 * **B6** ``w4a8_v2`` (plain: ``w4a8_v2_plain``): exact per-group integer
   partials ``I_g = sum_{k in g} (x - 128) * code``, folded in group order
   ``acc = I_0 * s_0; acc = acc + I_g * s_g`` in f32 (no FMA), then
@@ -50,10 +55,11 @@ import torch
 
 from .quant import f32
 
-__all__ = ["pack_w4", "dequant_w4", "unpack_codes", "w4_gemm_plain",
-           "w4_gemm", "w4a8_v1_plain", "w4a8_v1", "w4a8_v2_plain",
-           "w4a8_v2", "w4a8_operands", "merge_operands", "w4a8_apply",
-           "w4a8_matmul", "w4a8_matmul_multi", "w4_matmul", "use_v2"]
+__all__ = ["pack_w4", "dequant_w4", "unpack_codes", "split_bf16x3",
+           "w4_gemm_plain", "w4_gemm", "w4a8_v1_plain", "w4a8_v1",
+           "w4a8_v2_plain", "w4a8_v2", "w4a8_operands", "merge_operands",
+           "w4a8_apply", "w4a8_matmul", "w4a8_matmul_multi", "w4_matmul",
+           "use_v2"]
 
 BACKENDS = ("auto", "pallas", "xla")
 
@@ -127,6 +133,22 @@ def weight_rowsum(packed, scales, k: int, group: int) -> torch.Tensor:
 
 # -- B5: W4 weight-only -------------------------------------------------------
 
+def split_bf16x3(x: torch.Tensor):
+    """f32 -> bf16 (hi, mid, lo) with ``hi + mid + lo == x`` exactly, B5's
+    in-kernel split: each piece is the top 16 bits of what is left of x.
+    Both subtractions are exact, and the last remainder has at most 8
+    significant bits, so it is a bf16 too.  Exact wherever the remainders
+    stay normal floats (|x| >= 2^-110 or x a bf16); FLT_MAX included."""
+    # 0xFFFF0000 as an int32
+    top = torch.tensor(-65536, dtype=torch.int32, device=x.device)
+    x = x.to(torch.float32).contiguous()
+    hi = (x.view(torch.int32) & top).view(torch.float32)
+    rest = x - hi
+    mid = (rest.view(torch.int32) & top).view(torch.float32)
+    lo = rest - mid
+    return tuple(p.to(torch.bfloat16) for p in (hi, mid, lo))
+
+
 def w4_gemm_plain(x, packed, scales, bias, k: int, group: int = 128):
     """f32 ``x [M, K] @ dequant(W)^T + bias`` (``w4_matmul_xla``)."""
     w = dequant_w4(packed, scales, k, group)
@@ -156,11 +178,16 @@ def w4a8_v1_plain(x_u8, packed, scales, zpb, k: int, group: int = 128, *,
 def w4a8_v2_plain(x_u8, packed, scales_t, mult_v, zpb_eff, k: int,
                   group: int, rounding: str = "trunc"):
     """B6's function: ``scales_t`` f32 [G, N] (the group scales transposed),
-    ``mult_v`` and ``zpb_eff`` f32 [N]; K % group == 0."""
+    ``mult_v`` and ``zpb_eff`` f32 [N].  Any M, any group g = min(group,
+    K): a short last group is zero-padded (padding adds nothing)."""
     m, n = x_u8.shape[0], packed.shape[0]
-    n_groups = k // group
-    xg = (x_u8.to(torch.float64) - 128.0).reshape(m, n_groups, group)
-    cg = unpack_codes(packed, k).to(torch.float64).reshape(n, n_groups, group)
+    g = min(group, k)
+    n_groups = -(-k // g)
+    pad = (0, n_groups * g - k)
+    xg = torch.nn.functional.pad(x_u8.to(torch.float64) - 128.0,
+                                 pad).reshape(m, n_groups, g)
+    cg = torch.nn.functional.pad(unpack_codes(packed, k).to(torch.float64),
+                                 pad).reshape(n, n_groups, g)
     # exact integers in float64: |I_g| <= 128 * 8 * group
     ints = torch.bmm(xg.permute(1, 0, 2), cg.permute(1, 2, 0)).to(
         torch.float32)                                       # [G, M, N]
@@ -299,27 +326,33 @@ w4_gemm.launches = 0
 
 def w4a8_v1(x_u8, ops: dict, rounding: str = "trunc"):
     """B7 on the operands ``ops`` (``w4a8_operands``): u8 [M, K] -> u8
-    [M, N].  On CUDA tensors this launches ``w4a8_v1_gemm`` and adds one to
-    ``w4a8_v1.launches`` (and to ``w4a8_v1.merged_launches`` for a merged
-    call); on CPU tensors it is ``w4a8_v1_plain``."""
+    [M, N].  On CUDA tensors this launches ``w4a8_v1_gemm``, which computes
+    ``w4a8_v2_plain``'s arithmetic on ``scales_t``, ``mult_v`` and
+    ``zpb_eff``, and adds one to ``w4a8_v1.launches`` (and to
+    ``w4a8_v1.merged_launches`` for a merged call); on CPU tensors it is
+    ``w4a8_v1_plain``."""
     k, group = ops["k"], ops["group"]
-    packed, scales = ops["packed"], ops["scales"]
+    packed, scales, scales_t = ops["packed"], ops["scales"], ops["scales_t"]
     g = _check_w4("w4a8_v1", x_u8, packed, scales, k, group, torch.uint8)
-    dev = _card("w4a8_v1", x_u8, packed, scales, ops["mult_v"], ops["zpb"])
+    dev = _card("w4a8_v1", x_u8, packed, scales_t, ops["mult_v"],
+                ops["zpb_eff"])
     if dev is None:
         return w4a8_v1_plain(x_u8, packed, scales, ops["zpb"], k, group,
                              zp_x=ops["zp_x"], mult=ops["mult_v"],
                              rounding=rounding)
     n = packed.shape[0]
+    if tuple(scales_t.shape) != (scales.shape[1], n):
+        raise ValueError(f"w4a8_v1: scales_t {tuple(scales_t.shape)} is "
+                         f"not the transpose of scales "
+                         f"{tuple(scales.shape)}")
     out = torch.empty((x_u8.shape[0], n), dtype=torch.uint8, device=dev)
     if x_u8.shape[0] == 0 or n == 0:
         return out
     with torch.cuda.device(dev):
         _launch("w4a8_v1_gemm", x_u8.data_ptr(), packed.data_ptr(),
-                scales.data_ptr(), ops["mult_v"].data_ptr(),
-                ops["zpb"].data_ptr(), out.data_ptr(), x_u8.shape[0], n, k,
-                g, int(ops["zp_x"]), int(rounding == "nearest"),
-                _stream(dev))
+                scales_t.data_ptr(), ops["mult_v"].data_ptr(),
+                ops["zpb_eff"].data_ptr(), out.data_ptr(), x_u8.shape[0], n,
+                k, g, int(rounding == "nearest"), _stream(dev))
     w4a8_v1.launches += 1
     if len(ops["widths"]) > 1:
         w4a8_v1.merged_launches += 1

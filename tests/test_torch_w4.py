@@ -9,16 +9,21 @@ the port:
 * B5's plain version (``w4_gemm_plain``) against ``w4_matmul_xla`` and the
   Pallas kernel in interpret mode: rtol 2e-5 of the largest |output|
   (float32 sums in other orders).
+* ``split_bf16x3`` (B5's in-kernel split of x into three bf16 pieces)
+  rebuilds every f32 input exactly.
 * B6's plain version against the Pallas v2 kernel (``w4a8_matmul_pallas``,
   interpret mode) at v2 shapes: exact, since both sum exact integer group
-  partials and fold them in group order.
+  partials and fold them in group order.  Generalised to any M and group (the
+  arithmetic of B7's CUDA kernel), it stays within the code contract of
+  ``w4a8_matmul_xla``.
 * B7's plain version against the Pallas v1 kernel and ``w4a8_matmul_xla``:
   the repo's contract, at most one code off on at most 0.2% of the outputs.
 * ``w4a8_matmul_multi`` equals the per-layer calls, on both dispatch
   branches.
 
 The ``cuda``-marked tests hold the three CUDA kernels against their plain
-versions on the card; they skip without one.
+versions on the card (B7 also bit for bit against ``w4a8_v2_plain``); they
+skip without one.
 """
 
 import jax.numpy as jnp
@@ -91,6 +96,34 @@ def test_dequant_w4_matches_jax(k, group):
 
 
 # -- B5: W4 weight-only ----------------------------------------------------------
+
+def _split_inputs(kind):
+    """Random f32 at exponents -90 ... 100 with random signs, or edge values
+    (signed zeros, powers of two down to 2^-120, the smallest normal,
+    FLT_MAX)."""
+    if kind == "random":
+        rng = np.random.default_rng(11)
+        n = 1 << 16
+        return (rng.uniform(1, 2, n) * rng.choice([-1.0, 1.0], n)
+                * np.exp2(rng.integers(-90, 101, n))).astype(np.float32)
+    f = np.finfo(np.float32)
+    edges = [0.0, -0.0, 2.0 ** -100, 2.0 ** -110, 2.0 ** -120, f.tiny, f.max,
+             1.0 + 2.0 ** -23, -(1.0 + 2.0 ** -23), 3.1415927]
+    return np.array(edges + [-e for e in edges], dtype=np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "edges"])
+def test_split_bf16x3_rebuilds_f32(kind):
+    x = _split_inputs(kind)
+    pieces = TW.split_bf16x3(torch.tensor(x))
+    assert all(p.dtype == torch.bfloat16 for p in pieces)
+    hi, mid, lo = (p.to(torch.float64).numpy() for p in pieces)
+    # exact in float64, and in the f32 order the pieces are added in
+    np.testing.assert_array_equal(hi + mid + lo, x.astype(np.float64))
+    f32 = (torch.tensor(hi, dtype=torch.float32) + torch.tensor(
+        mid, dtype=torch.float32)) + torch.tensor(lo, dtype=torch.float32)
+    np.testing.assert_array_equal(f32.numpy().view(np.uint32) & 0x7FFFFFFF,
+                                  x.view(np.uint32) & 0x7FFFFFFF)
 
 def _b5_case(m, k, n, group, seed=6):
     rng = np.random.default_rng(seed)
@@ -183,6 +216,37 @@ def test_b6_plain_matches_pallas_v2(m, k, n, group, vec, rounding):
     got = _port(c, rounding)
     assert len(np.unique(want)) > 16
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_v2_plain(c, rounding), want)
+
+
+def _v2_plain(c, rounding):
+    """The generalised ``w4a8_v2_plain`` on the case's operands."""
+    mult = torch.tensor(c["mult"]) if np.ndim(c["mult"]) else \
+        float(c["mult"])
+    ops = TW.w4a8_operands(torch.tensor(c["packed"]),
+                           torch.tensor(c["scales"]), torch.tensor(c["zpb"]),
+                           c["k"], c["group"], zp_x=c["zp_x"], mult=mult,
+                           wsum=torch.tensor(c["wsum"]))
+    return TW.w4a8_v2_plain(torch.tensor(c["x"]), ops["packed"],
+                            ops["scales_t"], ops["mult_v"], ops["zpb_eff"],
+                            c["k"], c["group"], rounding).numpy()
+
+
+# a short last group, a group off the 32-value k-step, M > 512 and not a
+# multiple of 8: the shapes B6's envelope leaves to B7
+V2_GENERAL_SHAPES = [(5, 200, 40, 64, False), (16, 96, 40, 48, True),
+                     (520, 256, 24, 128, True)]
+
+
+@pytest.mark.parametrize("rounding", ["trunc", "nearest"])
+@pytest.mark.parametrize("m,k,n,group,vec", V2_GENERAL_SHAPES)
+def test_v2_plain_generalised_within_contract_of_xla(m, k, n, group, vec,
+                                                    rounding):
+    c = _w4a8_case(m, k, n, group, seed=m + k, vector_mult=vec)
+    assert not TW.use_v2(m, k, group, -(-k // min(group, k)))
+    got = _v2_plain(c, rounding)
+    assert len(np.unique(got)) > 16
+    assert_contract(got, _jax(JW.w4a8_matmul_xla, c, rounding), "xla")
 
 
 V1_SHAPES = [(5, 256, 96, 128), (37, 512, 70, 128), (8 * 65, 256, 40, 64)]
@@ -276,8 +340,13 @@ def test_b6_kernel_matches_plain_on_card(cuda_device, m, k, n, group, vec):
         assert torch.equal(got, want)
 
 
+# B7's and B5's edge shapes on the card: a group off the k-step and smaller
+# than K, several groups in one chunk, M = 1
+EDGE_SHAPES = [(16, 96, 40, 48), (3, 40, 24, 10), (1, 768, 1024, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,group", V1_SHAPES)
+@pytest.mark.parametrize("m,k,n,group", V1_SHAPES + EDGE_SHAPES)
 def test_b7_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
     c = _w4a8_case(m, k, n, group, seed=m, vector_mult=True)
     ops = TW.w4a8_operands(*(torch.tensor(c[key]).to(cuda_device)
@@ -290,13 +359,18 @@ def test_b7_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
         want = TW.w4a8_v1_plain(x, ops["packed"], ops["scales"], ops["zpb"],
                                 k, group, zp_x=c["zp_x"], mult=ops["mult_v"],
                                 rounding=rounding)
+        exact = TW.w4a8_v2_plain(x, ops["packed"], ops["scales_t"],
+                                 ops["mult_v"], ops["zpb_eff"], k, group,
+                                 rounding)
         torch.cuda.synchronize()
+        assert torch.equal(got, exact)
         assert_contract(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,group", [(8, 256, 96, 64), (37, 200, 61, 128),
-                                         (512, 768, 2048, 128)])
+                                         (512, 768, 2048, 128)]
+                         + EDGE_SHAPES)
 def test_b5_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
     x, bias, packed, scales = _b5_case(m, k, n, group)
     args = [torch.tensor(a).to(cuda_device) for a in (x, packed, scales,
