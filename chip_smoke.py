@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile   # also print torch.profiler breakdowns
                                       # of the AlexNet forwards, of decode
                                       # steps and of the llama prefill
+    python3 chip_smoke.py --sweep     # only time B1/B2 under every candidate
+                                      # plan (the planner's tuning data)
 
 Phases, in order (any failure exits non-zero):
 
@@ -13,9 +15,12 @@ Phases, in order (any failure exits non-zero):
    per source, all started together (timed);
 3. on-card numerics: ``quantize_u8`` and the epilogue vectors equal the CPU's
    bit for bit; the quantized GEMM kernel (B1) equals ``qgemm_plain``
-   exactly on the eight AlexNet batch-100 GEMM shapes and on ragged shapes,
-   over both epilogue orders, both roundings, relu on/off, per-tensor and
-   per-channel weight scales;
+   exactly on the eight AlexNet batch-100 GEMM shapes, on ragged shapes and
+   on the narrow-grid shapes (M = 1, 8, 16, 100: the small tiles and the K
+   split over a cluster), over both epilogue orders, both roundings, relu
+   on/off, per-tensor and per-channel weight scales; B1's gathered conv
+   equals im2col + ``qgemm_plain`` exactly over the same sixteen cases at
+   the five AlexNet batch-100 geometries and eight ragged ones;
 4. the decoder's kernels against their plain versions at its shapes: B1's
    act epilogue with each of its seven activations (exact for the
    piecewise-linear ones, the 1-code/0.2% contract for sigmoid, silu,
@@ -63,8 +68,11 @@ Phases, in order (any failure exits non-zero):
    the prefill for both decoders, the weight-only forward, the full-context
    forwards (8 x 512 tokens: the weight-only model, and the W4A8 model's
    causal forward, B7 at M = 4096; recorded, not gated), and per kernel
-   and shape the kernel, its plain version, the bound and a library
-   yardstick: for the int8 GEMMs ``torch._int_mm`` + the eager epilogue,
+   and shape the kernel (with B1's and B2's plan), its plain version, the
+   bound and a library yardstick; for the convs the gathered kernel beside
+   im2col + B1 and the conv's own bound beside the im2col operand's
+   (``bound_im2col_ms``); the yardstick for the int8 GEMMs is
+   ``torch._int_mm`` (on the patch matrix, for a conv) + the eager epilogue,
    for B5 ``torch.addmm`` on the weight dequantized beforehand (f32, TF32
    off).  B3, B6 and B7 have none: no single PyTorch call computes
    attention over the u8 cache or a packed 4-bit GEMM with a requantizing
@@ -100,7 +108,8 @@ PEAK_BYTES = 3.35e12
 # outlasted the 256 MB flush alone)
 HOST_LEAD_CYCLES = 400_000
 
-# AlexNet-224 batch-100 GEMMs: (layer, M, K, N); convs through im2col.
+# AlexNet-224 batch-100 GEMMs: (layer, M, K, N); a conv as the GEMM over its
+# patch matrix, which the kernel gathers from the NHWC input (ALEXNET_CONVS)
 ALEXNET_B100 = [
     ("conv1", 302_500, 363, 96),
     ("conv2", 72_900, 2_400, 256),
@@ -111,9 +120,26 @@ ALEXNET_B100 = [
     ("fc2", 100, 4_096, 4_096),
     ("fc3", 100, 4_096, 10),
 ]
-CONV_LAYERS = {"conv1", "conv2", "conv3", "conv4", "conv5"}
+# the convs' geometries: (batch, h, w, c_in, kernel, stride, padding)
+ALEXNET_CONVS = {"conv1": (100, 224, 224, 3, 11, 4, 2),
+                 "conv2": (100, 27, 27, 96, 5, 1, 2),
+                 "conv3": (100, 13, 13, 256, 3, 1, 1),
+                 "conv4": (100, 13, 13, 384, 3, 1, 1),
+                 "conv5": (100, 13, 13, 384, 3, 1, 1)}
 RAGGED = [(7, 33, 5), (1, 16, 1), (129, 48, 130), (300, 100, 17),
           (255, 257, 129), (64, 4096, 8), (1000, 64, 1)]
+# ragged conv geometries, (batch, h, w, c_in, kernel, stride, padding,
+# c_out): batch 1-3, C = 3/16/48/96, odd H and W, stride 1/2/4, padding
+# 0/1/2, kernel 1/3/5/11
+RAGGED_CONVS = [(1, 9, 7, 16, 3, 2, 1, 20), (2, 11, 13, 3, 5, 2, 2, 33),
+                (3, 10, 9, 48, 1, 1, 0, 40), (1, 35, 33, 3, 11, 4, 2, 16),
+                (2, 15, 15, 96, 5, 1, 2, 64), (3, 7, 11, 16, 3, 1, 0, 24),
+                (1, 5, 5, 96, 5, 1, 2, 8), (2, 31, 29, 48, 3, 2, 1, 130)]
+# the narrow-grid path (16- and 64-row tiles, K split over a cluster):
+# (M, K, N) at M = 1, 8, 16, 100
+NARROW = [(1, 768, 50_257), (1, 4_096, 10), (8, 3_072, 768),
+          (8, 768, 3_072), (16, 9_216, 4_096), (16, 768, 768),
+          (100, 4_096, 10), (100, 9_216, 4_096), (100, 4_096, 4_096)]
 
 # gpt2-small-ish decode (bench.py's decode leg): the geometry, the batch,
 # the prompt and the two generate lengths of the ms/step protocol
@@ -356,10 +382,19 @@ def profile_rows(torch, prof):
 
 # -- phase 3: B1 against its plain version at the AlexNet shapes -------------
 
+def plan_of(G, m, n, k, dev, conv=None):
+    """The kernel's plan for a launch, as printed in the per-shape lines."""
+    p = G.plan_qgemm(m, n, k, conv=conv, sms=G.sm_count(dev))
+    return dict(variant=p.variant, tile=list(p.tile), slices=p.slices,
+                k_slice=p.k_slice, loader=p.loader)
+
+
 def check_alexnet_kernel(torch, G, gen, dev):
+    """B1 (the GEMM variant) at the AlexNet shapes, ragged shapes and the
+    narrow-grid shapes (M = 1, 8, 16, 100, split over K)."""
     max_err = 0
     n_cases = 0
-    for shape in [s[1:] for s in ALEXNET_B100] + RAGGED:
+    for shape in [s[1:] for s in ALEXNET_B100] + RAGGED + NARROW:
         m, k, n = shape
         c = gemm_case(torch, gen, m, k, n, dev)
         oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
@@ -390,11 +425,73 @@ def check_alexnet_kernel(torch, G, gen, dev):
                         if spread is None:
                             spread = int(torch.unique(want).numel())
         log(json.dumps({"phase": "kernel_vs_plain", "M": m, "K": k, "N": n,
-                        "cases": 16, "distinct_codes": spread,
-                        "max_abs_err": 0}))
+                        "plan": plan_of(G, m, n, k, dev), "cases": 16,
+                        "distinct_codes": spread, "max_abs_err": 0}))
     log(json.dumps({"phase": "kernel_vs_plain", "cases": n_cases,
                     "max_abs_err": max_err}))
     return max_err
+
+
+def conv_case(torch, gen, geom, c_out, dev):
+    """A u8 NHWC input and the conv's operands as for ``gemm_case``."""
+    b, h, w, c, k = geom[:5]
+    x = torch.randint(0, 256, (b, h, w, c), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    return x, gemm_case(torch, gen, 1, k * k * c, c_out, dev)
+
+
+def check_gathered_conv(torch, G, C, gen, dev):
+    """The gathered conv (B1's conv variant, through ``conv2d_int8_gemm`` on
+    the card) against im2col + ``qgemm_plain``, bit for bit, at the five
+    AlexNet b100 geometries and ragged ones, over both orders, both
+    roundings, relu on/off and per-tensor and per-channel s_w."""
+    geoms = [(ALEXNET_CONVS[layer], n) for layer, _, _, n in ALEXNET_B100
+             if layer in ALEXNET_CONVS]
+    geoms += [(g[:7], g[7]) for g in RAGGED_CONVS]
+    n_cases = 0
+    for geom, n in geoms:
+        b, h, w, c, k, stride, pad = geom
+        x, cs = conv_case(torch, gen, geom, n, dev)
+        oc = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]),
+                              cs["s_a"], cs["zp_a"], recentered=True)
+        g = G.ConvGeom(b, h, w, c, k, k, stride, pad)
+        m, kk = g.gemm_shape
+        plan = plan_of(G, m, n, kk, dev, conv=g)
+        if plan["variant"] != "conv":
+            fail(f"conv {geom} is not planned as a gathered conv: {plan}")
+        spread = None
+        for order in G.ORDERS:
+            for per_channel in (False, True):
+                s_w = cs["s_w_pc"] if per_channel else 0.01
+                ep = G.epilogue_vector(cs["s_a"], s_w, cs["s_c"], n, dev,
+                                       order)
+                for rounding in ("trunc", "nearest"):
+                    for relu in (False, True):
+                        kw = dict(kh=k, kw=k, stride=stride, padding=pad,
+                                  scale_a=cs["s_a"], zp_a=cs["zp_a"],
+                                  scale_c=cs["s_c"], zp_c=cs["zp_c"],
+                                  relu=relu, rounding=rounding, order=order)
+                        before = G.qgemm.launches
+                        got = C.conv2d_int8_gemm(x, cs["w"], oc, ep, **kw)
+                        launched = G.qgemm.launches - before
+                        want = C.conv2d_int8_gemm(x, cs["w"], oc, ep,
+                                                  gemm=G.qgemm_plain, **kw)
+                        torch.cuda.synchronize()
+                        n_cases += 1
+                        if launched != 1 or not torch.equal(got, want):
+                            fail(f"gathered conv != im2col + plain at {geom} "
+                                 f"N={n} order={order} per_channel="
+                                 f"{per_channel} rounding={rounding} relu="
+                                 f"{relu}: {int((got != want).sum())} codes "
+                                 f"differ, {launched} launches")
+                        if spread is None:
+                            spread = int(torch.unique(want).numel())
+        log(json.dumps({"phase": "gathered_conv_vs_plain", "geometry": geom,
+                        "N": n, "M": m, "K": kk, "plan": plan, "cases": 16,
+                        "distinct_codes": spread, "max_abs_err": 0}))
+        del x, cs
+    log(json.dumps({"phase": "gathered_conv_vs_plain", "cases": n_cases,
+                    "max_abs_err": 0}))
 
 
 # -- phase 4: the decoder's kernels against their plain versions ------------
@@ -425,6 +522,7 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                          f"N={n} {rounding}: max {mx}, share {share}")
         err["qgemm_u8s8"] = max(err["qgemm_u8s8"], worst[0])
         log(json.dumps({"phase": "act_kernel_vs_plain", "act": fn,
+                        "plan_at_M8": plan_of(G, 8, 3072, 768, dev),
                         "max_abs_err": worst[0], "share_differing": worst[1],
                         "contract": "exact" if fn in PIECEWISE
                         else "<=1 code on <=0.2%"}))
@@ -452,6 +550,7 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                      f"{int((got != want).sum())} codes differ")
         log(json.dumps({"phase": "vzp_kernel_vs_plain", "M": m, "K": k,
                         "N": list(widths), "max_abs_err": 0,
+                        "plan": plan_of(G, m, sum(widths), k, dev),
                         "distinct_codes": int(torch.unique(got).numel())}))
 
     b, t, d = DEC_ATTN["b"], DEC_ATTN["t"], DEC_ATTN["d"]
@@ -1169,9 +1268,9 @@ def kernel_of(name: str):
     """The port's kernel a profiler row belongs to, or None."""
     if "decode_attn_kernel" in name:
         return "decode_attn_flat"
-    if "qgemm_u8s8_kernel" in name:
-        # the template's second argument is the epilogue mode; 2 is B2's
-        vzp = re.search(r"qgemm_u8s8_kernel<\w+, 2>", name)
+    if "qgemm_kernel<" in name:
+        # the template's last argument is the epilogue mode; 2 is B2's
+        vzp = re.search(r"qgemm_kernel<[^>]*,\s*2>", name)
         return "qgemm_u8s8_vzp" if vzp else "qgemm_u8s8"
     if "w4a8_v2_kernel" in name:
         return "w4a8_v2_gemm"
@@ -1267,41 +1366,103 @@ def int_mm_operands(torch, a_u8, w_s8_nk):
     return a, w
 
 
-def time_alexnet_gemms(torch, G, gen, dev, flush):
+def conv_bound_ms(geom, n: int):
+    """A conv's own bound: the NHWC input, the weights and two 4-byte [N]
+    epilogue vectors read once, the output written once, 2MNK operations."""
+    b, h, w, c, k, stride, pad = geom
+    oh = (h + 2 * pad - k) // stride + 1
+    ow = (w + 2 * pad - k) // stride + 1
+    m, kk = b * oh * ow, k * k * c
+    return bound(b * h * w * c + n * kk + 8 * n + m * n, 2.0 * m * n * kk)
+
+
+def time_alexnet_gemms(torch, G, C, gen, dev, flush):
+    """B1 at one AlexNet b100 forward's shapes: the Linears as GEMMs, the
+    convs through the gathered kernel (the forward's route) and, beside it,
+    through im2col + B1's GEMM variant (the parent's route)."""
     rows = []
     for layer, m, k, n in ALEXNET_B100:
         c = gemm_case(torch, gen, m, k, n, dev)
-        order = "conv" if layer in CONV_LAYERS else "gemm"
+        conv = ALEXNET_CONVS.get(layer)
+        order = "conv" if conv else "gemm"
         oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
                               c["zp_a"], recentered=True)
         ep = G.epilogue_vector(c["s_a"], 0.01, c["s_c"], n, dev, order)
         kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
                   relu=layer != "fc3", rounding="trunc", order=order)
-        ms = time_cuda(torch, lambda: G.qgemm(c["a"], c["w"], oc, ep, **kw),
-                       iters=10, flush=flush)
-        plain_ms = time_cuda(
-            torch, lambda: G.qgemm_plain(c["a"], c["w"], oc, ep, **kw),
-            iters=3, flush=flush)
+        row = dict(kernel="qgemm_u8s8", path="alexnet_b100", layer=layer,
+                   M=m, K=k, N=n, launches_per_unit=1)
+        if conv:
+            b, h, w, ci, kk, stride, pad = conv
+            g = G.ConvGeom(b, h, w, ci, kk, kk, stride, pad)
+            x = torch.randint(0, 256, (b, h, w, ci), generator=gen,
+                              dtype=torch.uint8, device=dev)
+            ckw = dict(kw, kh=kk, kw=kk, stride=stride, padding=pad,
+                       zp_a=c["zp_a"])
+            a = C.im2col_nhwc(x, kk, kk, stride, pad,
+                              pad_value=c["zp_a"]).reshape(m, k)
+            c["a"] = a
+
+            def fn():
+                return C.qgemm_conv(x, c["w"], oc, ep, **ckw)
+
+            def plain():
+                return C.conv2d_int8_gemm(x, c["w"], oc, ep,
+                                          gemm=G.qgemm_plain, **ckw)
+
+            def im2col_b1():
+                return G.qgemm(C.im2col_nhwc(x, kk, kk, stride, pad,
+                                             pad_value=c["zp_a"]
+                                             ).reshape(m, k), c["w"], oc,
+                               ep, **kw)
+
+            if not torch.equal(fn().reshape(m, n), im2col_b1()):
+                fail(f"{layer}: the gathered conv and im2col + B1 disagree")
+            row["im2col_b1_ms"] = time_cuda(torch, im2col_b1, iters=10,
+                                            flush=flush)
+            row["plan"] = plan_of(G, m, n, k, dev, conv=g)
+            row["plan_im2col"] = plan_of(G, m, n, k, dev)
+            b_ms, b_by, t_ops, t_bytes = conv_bound_ms(conv, n)
+            row["bound_im2col_ms"] = bound_ms(m, k, n)[0]
+        else:
+            def fn():
+                return G.qgemm(c["a"], c["w"], oc, ep, **kw)
+
+            def plain():
+                return G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
+
+            row["plan"] = plan_of(G, m, n, k, dev)
+            b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
+            row["bound_im2col_ms"] = b_ms
+        ms = time_cuda(torch, fn, iters=10, flush=flush)
+        plain_ms = time_cuda(torch, plain, iters=3, flush=flush)
+        # the yardstick: cuBLAS int8 on the GEMM operand (for a conv, the
+        # patch matrix written beforehand) and the eager epilogue
         a_s8, w_p = int_mm_operands(torch, c["a"], c["w"])
 
         def library():
             acc = torch._int_mm(a_s8, w_p.t())[:m, :n]
             return G._requant_epilogue(acc + oc.reshape(1, -1), ep, **kw)
 
-        if not torch.equal(library(), G.qgemm(c["a"], c["w"], oc, ep, **kw)):
+        if not torch.equal(library(), fn().reshape(m, n)):
             fail(f"{layer}: torch._int_mm + epilogue disagrees with the "
                  f"kernel")
         library_ms = time_cuda(torch, library, iters=5, flush=flush)
-        b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
-        rows.append(dict(kernel="qgemm_u8s8", path="alexnet_b100",
-                         layer=layer, M=m, K=k, N=n, launches_per_unit=1,
-                         ms=ms, bound_ms=b_ms, bound_by=b_by,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         t_ops=t_ops, t_bytes=t_bytes))
-        log(json.dumps({k_: v for k_, v in rows[-1].items()
+        row.update(ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
+                   library_ms=library_ms, t_ops=t_ops, t_bytes=t_bytes)
+        rows.append(row)
+        log(json.dumps({k_: v for k_, v in row.items()
                         if k_ not in ("t_ops", "t_bytes")}
-                       | {"share_of_bound": b_ms / ms}))
+                       | {"share_of_bound": b_ms / ms,
+                          "vs_library": ms / library_ms}))
         del c, a_s8, w_p
+    tot = {key: sum(r[key] for r in rows)
+           for key in ("ms", "bound_ms", "bound_im2col_ms", "plain_ms",
+                       "library_ms")}
+    tot["im2col_route_ms"] = sum(r.get("im2col_b1_ms", r["ms"])
+                                 for r in rows)
+    log(json.dumps({"kernels_per_unit": "alexnet_b100"} | tot
+                   | {"share_of_bound": tot["bound_ms"] / tot["ms"]}))
     return rows
 
 
@@ -1336,10 +1497,11 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
         b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
         rows.append(dict(kernel="qgemm_u8s8", path="decode_step",
                          layer=layer, M=m, K=k, N=n,
+                         plan=plan_of(G, m, n, k, dev),
                          launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
-                         bound_by=b_by, plain_ms=plain_ms,
-                         library_ms=library_ms, t_ops=t_ops,
-                         t_bytes=t_bytes))
+                         bound_im2col_ms=b_ms, bound_by=b_by,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         t_ops=t_ops, t_bytes=t_bytes))
         del c, a_s8, w_p
 
     m, k, n, per_step = DEC_QKV
@@ -1370,6 +1532,7 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
     b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, 3 * n, vectors=3)
     rows.append(dict(kernel="qgemm_u8s8_vzp", path="decode_step",
                      layer="qkv", M=m, K=k, N=3 * n,
+                     plan=plan_of(G, m, 3 * n, k, dev),
                      launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
                      bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
                      t_ops=t_ops, t_bytes=t_bytes))
@@ -1396,9 +1559,16 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
     for r in rows:
         log(json.dumps({k_: v for k_, v in r.items()
                         if k_ not in ("t_ops", "t_bytes")}
-                       | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+                       | {"share_of_bound": r["bound_ms"] / r["ms"]}
+                       | ({"vs_library": r["ms"] / r["library_ms"]}
+                          if r["library_ms"] else {})))
     step = {key: sum(r[key] * r["launches_per_unit"] for r in rows)
             for key in ("ms", "bound_ms", "plain_ms")}
+    for kernel in ("qgemm_u8s8", "qgemm_u8s8_vzp"):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        step[kernel] = {key: sum(r[key] * r["launches_per_unit"]
+                                 for r in mine)
+                        for key in ("ms", "bound_ms", "library_ms")}
     log(json.dumps({"decode_step_kernels": step,
                     "launches_per_step": {
                         "qgemm_u8s8": 37, "qgemm_u8s8_vzp": 12,
@@ -1496,6 +1666,80 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
     return rows
 
 
+def sweep_plans(torch, G, C, gen, dev, flush):
+    """``--sweep``: B1 and B2 at the main paths' shapes under every
+    candidate plan (tile x K slices), one line per shape and plan; the
+    numbers ``plan_qgemm`` is tuned from."""
+    def plans(chosen, m, k):
+        """The chosen plan and each tile at 1, 2, 4 and 8 K slices (one
+        slice only for large M)."""
+        out = [chosen]
+        for tile in G.QGEMM_TILES:
+            if tile[0] == 16 and m > 100:
+                continue
+            for want in (1, 2, 4, 8):
+                k_slice = -(-(-(-k // want)) // G.QGEMM_KSTEP) * G.QGEMM_KSTEP
+                slices = -(-k // k_slice)
+                plan = chosen._replace(tile=tile, slices=slices,
+                                       k_slice=k if slices == 1 else k_slice)
+                if plan not in out and (slices == 1 or m <= 512):
+                    out.append(plan)
+        return out
+
+    def report(what, shape, plan, fn):
+        ms = time_cuda(torch, fn, iters=10, flush=flush)
+        log(json.dumps({"sweep": what, "shape": shape, "tile": plan.tile,
+                        "slices": plan.slices, "ms": ms,
+                        "chosen": plan == chosen}))
+
+    for layer, m, k, n in ALEXNET_B100:
+        c = gemm_case(torch, gen, 1 if layer in ALEXNET_CONVS else m, k, n,
+                      dev)
+        order = "conv" if layer in ALEXNET_CONVS else "gemm"
+        oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                              c["zp_a"], recentered=True)
+        ep = G.epilogue_vector(c["s_a"], 0.01, c["s_c"], n, dev, order)
+        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
+                  relu=True, order=order)
+        if layer in ALEXNET_CONVS:
+            b, h, w, ci, kk, stride, pad = ALEXNET_CONVS[layer]
+            g = G.ConvGeom(b, h, w, ci, kk, kk, stride, pad)
+            x = torch.randint(0, 256, (b, h, w, ci), generator=gen,
+                              dtype=torch.uint8, device=dev)
+            chosen = G.plan_qgemm(m, n, k, conv=g, sms=G.sm_count(dev))
+            for plan in plans(chosen, m, chosen.k_slice):
+                if plan.slices == 1:
+                    report(layer, [m, k, n], plan, lambda: C.qgemm_conv(
+                        x, c["w"], oc, ep, kh=kk, kw=kk, stride=stride,
+                        padding=pad, zp_a=c["zp_a"], plan=plan, **kw))
+            continue
+        chosen = G.plan_qgemm(m, n, k, sms=G.sm_count(dev))
+        for plan in plans(chosen, m, k):
+            report(layer, [m, k, n], plan,
+                   lambda: G.qgemm(c["a"], c["w"], oc, ep, plan=plan, **kw))
+    for layer, m, k, n, _, act_name in DEC_GEMMS:
+        c = gemm_case(torch, gen, m, k, n, dev)
+        oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                              c["zp_a"], recentered=True)
+        ep = G.epilogue_vector(c["s_a"], c["s_w_pc"], c["s_c"], n, dev)
+        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
+                  act=act_grid(act_name) if act_name else None)
+        chosen = G.plan_qgemm(m, n, k, sms=G.sm_count(dev))
+        for plan in plans(chosen, m, k):
+            report(f"decode {layer}", [m, k, n], plan,
+                   lambda: G.qgemm(c["a"], c["w"], oc, ep, plan=plan, **kw))
+    m, k, n, _ = DEC_QKV
+    c = gemm_case(torch, gen, m, k, 3 * n, dev)
+    merged = G.merge_parts([dict(w_s8_nk=c["w"], q_bias=c["q_bias"],
+                                 rowsum=rowsum(torch, c["w"]), scale_w=0.01,
+                                 scale_c=c["s_c"], zp_c=110)],
+                           scale_a=c["s_a"], zp_a=c["zp_a"])
+    chosen = G.plan_qgemm(m, 3 * n, k, sms=G.sm_count(dev))
+    for plan in plans(chosen, m, k):
+        report("decode qkv (B2)", [m, k, 3 * n], plan,
+               lambda: G.qgemm_multi(c["a"], merged, plan=plan))
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -1522,10 +1766,9 @@ def kernels_line(rows, counts_by_path, max_err):
             library_ms=(None if any(x is None for x in libs) else
                         sum(r["library_ms"] * r["launches_per_unit"]
                             for r in mine)),
-            **({"bound_f32_simt_ms": sum(r["bound_f32_simt_ms"]
-                                         * r["launches_per_unit"]
-                                         for r in mine)}
-               if all("bound_f32_simt_ms" in r for r in mine) else {}),
+            **({key: sum(r[key] * r["launches_per_unit"] for r in mine)
+                for key in ("bound_f32_simt_ms", "bound_im2col_ms")
+                if all(key in r for r in mine)}),
             work=" + ".join(f"one {p.replace('_', ' ')}" for p in paths)))
     return out
 
@@ -1546,6 +1789,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler breakdowns of the AlexNet "
                          "forwards and of decode steps")
+    ap.add_argument("--sweep", action="store_true",
+                    help="only build and time B1/B2 under every candidate "
+                         "plan at the main paths' shapes (no checks, no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1558,6 +1805,7 @@ def main(argv=None) -> int:
     from int8inferenceengine_tpu_torch.models import text_decoder as TD
     from int8inferenceengine_tpu_torch.models import zoo
     from int8inferenceengine_tpu_torch.ops import attention as A
+    from int8inferenceengine_tpu_torch.ops import conv as C
     from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
     from int8inferenceengine_tpu_torch.ops import w4 as W
     from int8inferenceengine_tpu_torch.ops.quant import quantize_u8
@@ -1586,6 +1834,12 @@ def main(argv=None) -> int:
             for line in text.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"ptxas {name}: {line.strip()}")
+
+    if args.sweep:
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        sweep_plans(torch, G, C, torch.Generator(device=dev).manual_seed(0),
+                    dev, flush_buf.zero_)
+        return 0
 
     # -- 3. on-card numerics ---------------------------------------------------
     rng = np.random.default_rng(1)
@@ -1616,6 +1870,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     max_err = {"qgemm_u8s8": check_alexnet_kernel(torch, G, gen, dev)}
+    check_gathered_conv(torch, G, C, gen, dev)
 
     # -- 4. the decoder's kernels against their plain versions ----------------
     for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
@@ -1660,7 +1915,7 @@ def main(argv=None) -> int:
     # -- 10. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
-    rows = time_alexnet_gemms(torch, G, gen, dev, flush)
+    rows = time_alexnet_gemms(torch, G, C, gen, dev, flush)
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))

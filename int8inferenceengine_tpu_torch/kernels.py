@@ -31,11 +31,20 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "qgemm_int8": {
         # a, w, oc, ep, out, M, N, K, s_a, s_c, zp_c, conv_order, relu,
-        # nearest, act, act_scale, act_zp, stream
+        # nearest, act, act_scale, act_zp, tile, slices, kslice, loader,
+        # stream
         "qgemm_u8s8": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
-                       _I, _I, _F, _F, _P],
-        # a, w, oc, mult, zp, out, M, N, K, nearest, stream
-        "qgemm_u8s8_vzp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                       _I, _I, _F, _F, _I, _I, _I, _I, _P],
+        # a, w, oc, mult, zp, out, M, N, K, nearest, tile, slices, kslice,
+        # loader, stream
+        "qgemm_u8s8_vzp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
+        # x, w, oc, ep, out, B, H, W, C, kh, kw, stride, pad, N, zp_a, s_a,
+        # s_c, zp_c, conv_order, relu, nearest, tile, slices, kslice, loader,
+        # stream
+        "qgemm_u8s8_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
     },
     "decode_attn": {
         # q, k, v, valid, out, B, T, H, Hkv, D, mq, q_sb, q_sj,

@@ -34,19 +34,154 @@ weight, with a per-column zero point: ``q = f32(acc + oc)*mult[n] + zp[n]``,
 no relu, no act.  ``merge_parts`` builds its operands once.
 
 ``qgemm`` and ``qgemm_multi`` wrap the hand-written CUDA kernels
-(``csrc/qgemm_int8.cu``: ``qgemm_u8s8`` and ``qgemm_u8s8_vzp``);
-``qgemm_plain`` and ``qgemm_multi_plain`` are the plain PyTorch versions of
-the same functions.  A wrapper takes the plain version for a CPU tensor
-only; for a CUDA tensor it launches its kernel or raises.
+(``csrc/qgemm_int8.cu``: ``qgemm_u8s8`` and ``qgemm_u8s8_vzp``; its third
+entry point, the gathered conv ``qgemm_u8s8_conv``, is wrapped by
+``ops/conv.qgemm_conv``); ``qgemm_plain`` and ``qgemm_multi_plain`` are the
+plain PyTorch versions of the same functions.  A wrapper takes the plain
+version for a CPU tensor only; for a CUDA tensor it launches its kernel or
+raises.  ``plan_qgemm`` decides each launch's tile and K split; the
+launcher runs that plan or refuses it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from .quant import down_scale, f32, quantize_u8
 
 ORDERS = ("gemm", "conv")
+
+# The kernel's output tiles (rows, columns), by the index the launcher takes
+# (csrc/qgemm_int8.cu Tile<0..2>)
+QGEMM_TILES = ((128, 128), (64, 64), (16, 64))
+QGEMM_KSTEP = 32          # the MMA's k: every K slice is a multiple of it
+QGEMM_MAX_SLICES = 8      # the slices of one tile form a portable cluster
+# K values a slice keeps at least (three stages): shorter slices lose more
+# to the cluster's reduction than they win (PERF.md)
+QGEMM_MIN_SLICE = 384
+H100_SMS = 132
+# The loaders by the index the launcher takes, and the bytes each moves at
+# once: a launch takes the widest that divides K (for a gathered conv also
+# C) and every operand's base address
+QGEMM_LOADERS = ("byte", "word", "cp.async")
+_LOADER_BYTES = (1, 4, 16)
+
+
+class ConvGeom(NamedTuple):
+    """A convolution's u8 NHWC input [batch, h, w, c] and its kh x kw
+    window, stride and padding."""
+    batch: int
+    h: int
+    w: int
+    c: int
+    kh: int
+    kw: int
+    stride: int
+    padding: int
+
+    @property
+    def out_hw(self) -> tuple[int, int]:
+        return ((self.h + 2 * self.padding - self.kh) // self.stride + 1,
+                (self.w + 2 * self.padding - self.kw) // self.stride + 1)
+
+    @property
+    def gemm_shape(self) -> tuple[int, int]:
+        """(M, K) of the conv's patch GEMM."""
+        oh, ow = self.out_hw
+        return self.batch * oh * ow, self.kh * self.kw * self.c
+
+
+def conv_gathered(geom: ConvGeom) -> bool:
+    """Whether a conv's kernel launch gathers its patches from the NHWC
+    input (the kernel's conv variant) rather than through im2col: every
+    geometry, AlexNet conv1 (C = 3, padded to 4 channels) included, which
+    the gathered kernel runs in half the time of im2col + B1 (PERF.md)."""
+    return geom.c > 0
+
+
+class QgemmPlan(NamedTuple):
+    """One launch of the quantized GEMM kernel: ``variant`` 'gemm' (A is a
+    u8 [M, K] matrix) or 'conv' (A gathered from the NHWC input); ``tile``
+    one of ``QGEMM_TILES``; ``slices`` K slices of ``k_slice`` values each
+    (the last one shorter), run as one thread block cluster; ``loader`` one
+    of ``QGEMM_LOADERS``."""
+    variant: str
+    tile: tuple
+    slices: int
+    k_slice: int
+    loader: str
+
+
+def _loader(*units: int) -> int:
+    """The index of the widest loader whose width divides all ``units``."""
+    return max(i for i, width in enumerate(_LOADER_BYTES)
+               if all(u % width == 0 for u in units))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_qgemm(m: int, n: int, k: int, conv: ConvGeom | None = None,
+               sms: int = H100_SMS) -> QgemmPlan:
+    """The kernel's plan for an [M, K] x [N, K] launch on a card of ``sms``
+    SMs.  The 16 x 64 tile (one m16 fragment) where M <= 16, or where even
+    8 K slices of 64 x 64 tiles would not fill the SMs (M = 100, N = 10);
+    the 128 x 128 tile where its grid fills the SMs; the 64 x 64 tile
+    between.  A grid of fewer tiles than SMs splits K into as many slices
+    as keep tiles x slices within two blocks an SM, at most
+    ``QGEMM_MAX_SLICES``, each at least ``QGEMM_MIN_SLICE`` values and a
+    multiple of ``QGEMM_KSTEP``.  ``conv``: the geometry whose patch matrix
+    A is, gathered in the kernel where ``conv_gathered`` says so (planned
+    with C padded to a multiple of 4, as ``ops/conv.qgemm_conv`` launches
+    it)."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"plan_qgemm: empty GEMM M={m} N={n} K={k}")
+    variant = "conv" if conv is not None and conv_gathered(conv) else "gemm"
+    if variant == "conv":
+        # the launch qgemm_conv makes: C padded to a multiple of 4
+        conv = conv._replace(c=conv.c + -conv.c % 4)
+        k = conv.gemm_shape[1]
+    loader = _loader(k, conv.c) if variant == "conv" else _loader(k)
+    loader = QGEMM_LOADERS[loader]
+    if m <= 16 or _cdiv(m, 64) * _cdiv(n, 64) * QGEMM_MAX_SLICES < sms:
+        tile = QGEMM_TILES[2]
+    elif _cdiv(m, 128) * _cdiv(n, 128) >= sms:
+        tile = QGEMM_TILES[0]
+    else:
+        tile = QGEMM_TILES[1]
+    tiles = _cdiv(m, tile[0]) * _cdiv(n, tile[1])
+    want = 1
+    if tiles < sms:
+        want = max(1, min(QGEMM_MAX_SLICES, k // QGEMM_MIN_SLICE,
+                          2 * sms // tiles))
+    k_slice = _cdiv(_cdiv(k, want), QGEMM_KSTEP) * QGEMM_KSTEP
+    slices = _cdiv(k, k_slice)
+    return QgemmPlan(variant, tile, slices, k if slices == 1 else k_slice,
+                     loader)
+
+
+_SMS: dict = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def launch_plan(plan: QgemmPlan, *operands: torch.Tensor) -> tuple:
+    """The plan's launch arguments (tile index, slices, K per slice, loader
+    index).  The loader's width must also divide every operand's base
+    address (a view may start anywhere), so a narrower one may run."""
+    loader = min(QGEMM_LOADERS.index(plan.loader),
+                 _loader(*(t.data_ptr() for t in operands)))
+    return QGEMM_TILES.index(plan.tile), plan.slices, plan.k_slice, loader
+
 
 # Activations the kernel's act epilogue implements, with its ids
 # (csrc/qgemm_int8.cu apply_act); the formulas are ops/functional.ACTIVATIONS.
@@ -184,13 +319,14 @@ def _card_operands(fn: str, a_u8: torch.Tensor, *others):
 def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
           ep: torch.Tensor, *, scale_a, scale_c, zp_c, relu=False,
           rounding: str = "trunc", order: str = "gemm",
-          act=None) -> torch.Tensor:
+          act=None, plan: QgemmPlan | None = None) -> torch.Tensor:
     """u8[M,K] x s8[N,K] (+oc[N]) -> u8[M,N] requantized to (scale_c, zp_c),
     or to the act layer's grid under ``act=(name, act_scale, act_zp)``.
 
     On CUDA tensors this launches the hand-written kernel
-    (``csrc/qgemm_int8.cu``) on the current stream and adds one to
-    ``qgemm.launches``; on CPU tensors it is ``qgemm_plain``."""
+    (``csrc/qgemm_int8.cu``) on the current stream, with ``plan`` (by
+    default ``plan_qgemm``'s), and adds one to ``qgemm.launches``; on CPU
+    tensors it is ``qgemm_plain``."""
     _check_operands(a_u8, w_s8_nk, oc, ep, order)
     _check_act(act, relu, order)
     dev = _card_operands("qgemm", a_u8, w_s8_nk, oc, ep)
@@ -205,6 +341,7 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
     act_id, act_scale, act_zp = 0, 1.0, 0.0
     if act is not None:
         act_id, act_scale, act_zp = KERNEL_ACTS[act[0]], act[1], act[2]
+    plan = plan or plan_qgemm(m, n, k, sms=sm_count(dev))
     from ..kernels import load
     lib = load("qgemm_int8")
     with torch.cuda.device(dev):
@@ -214,9 +351,10 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
             out.data_ptr(), m, n, k, float(scale_a), float(scale_c),
             int(zp_c), int(order == "conv"), int(bool(relu)),
             int(rounding == "nearest"), act_id, float(act_scale),
-            float(act_zp), stream)
+            float(act_zp), *launch_plan(plan, a_u8, w_s8_nk), stream)
     if rc != 0:
-        raise RuntimeError(f"qgemm_u8s8 launch failed with CUDA error {rc}")
+        raise RuntimeError(f"qgemm_u8s8 launch failed with CUDA error {rc} "
+                           f"({plan})")
     qgemm.launches += 1
     return out
 
@@ -272,13 +410,15 @@ def qgemm_multi_plain(a_u8: torch.Tensor, merged: dict, *,
 
 
 def qgemm_multi(a_u8: torch.Tensor, merged: dict, *,
-                rounding: str = "trunc") -> list:
+                rounding: str = "trunc",
+                plan: QgemmPlan | None = None) -> list:
     """One GEMM over several heads sharing ``a_u8`` [M, K]; one u8 [M, N_i]
     output per part (column views of one [M, N_total] result), each equal
     to a ``qgemm`` call of that part alone.
 
-    On CUDA tensors this launches ``qgemm_u8s8_vzp`` and adds one to
-    ``qgemm_multi.launches``; on CPU tensors it is ``qgemm_multi_plain``."""
+    On CUDA tensors this launches ``qgemm_u8s8_vzp`` with ``plan`` (by
+    default ``plan_qgemm``'s) and adds one to ``qgemm_multi.launches``; on
+    CPU tensors it is ``qgemm_multi_plain``."""
     w, oc, mult, zp = merged["w"], merged["oc"], merged["mult"], merged["zp"]
     if a_u8.dtype != torch.uint8 or w.dtype != torch.int8:
         raise TypeError("qgemm_multi takes u8 activations and s8 weights")
@@ -294,6 +434,7 @@ def qgemm_multi(a_u8: torch.Tensor, merged: dict, *,
     out = torch.empty((m, n), dtype=torch.uint8, device=dev)
     if m == 0:
         return _split(out, merged["widths"])
+    plan = plan or plan_qgemm(m, n, k, sms=sm_count(dev))
     from ..kernels import load
     lib = load("qgemm_int8")
     with torch.cuda.device(dev):
@@ -301,10 +442,10 @@ def qgemm_multi(a_u8: torch.Tensor, merged: dict, *,
         rc = lib.qgemm_u8s8_vzp(
             a_u8.data_ptr(), w.data_ptr(), oc.data_ptr(), mult.data_ptr(),
             zp.data_ptr(), out.data_ptr(), m, n, k,
-            int(rounding == "nearest"), stream)
+            int(rounding == "nearest"), *launch_plan(plan, a_u8, w), stream)
     if rc != 0:
         raise RuntimeError(f"qgemm_u8s8_vzp launch failed with CUDA error "
-                           f"{rc}")
+                           f"{rc} ({plan})")
     qgemm_multi.launches += 1
     return _split(out, merged["widths"])
 

@@ -23,6 +23,7 @@ import torch
 
 from int8inferenceengine_tpu.ops import attention as JA
 from int8inferenceengine_tpu_torch.ops import attention as TA
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PARAMS = dict(scale_q=0.021, zp_q=117, scale_k=0.034, zp_k=131,
               scale_v=0.027, zp_v=125, scale_s=0.19, zp_s=140,

@@ -23,6 +23,7 @@ import torch
 
 import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.models import zoo
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -41,6 +41,7 @@ from int8inferenceengine_tpu_torch.models.llama import (LlamaDecoder,
 from int8inferenceengine_tpu_torch.ops import functional as TF
 from int8inferenceengine_tpu_torch.ops import rope as TR
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=128, max_len=64, dim=128, depth=2, heads=4, kv_heads=2)
 WEIGHT_ONLY = dict(weight_only=True, weight_bits=4)

@@ -33,6 +33,7 @@ from int8inferenceengine_tpu_torch.tensor import Tensor as TT
 from test_torch_llama import (assert_contract, assert_round_trip,  # noqa: F401
                               carried, jax_reference, jax_state, recompute,
                               weights)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 W4A8 = dict(weight_bits=4, rounding="nearest", w4_kernel="pallas")
 

@@ -24,6 +24,7 @@ from int8inferenceengine_tpu.models import zoo as jzoo
 import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.carry import export_state, load_jax_state
 from int8inferenceengine_tpu_torch.models import zoo as tzoo
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BATCH = {"fc_mnist": 8, "lenet": 8, "simple_conv": 8, "alexnet": 1}
 

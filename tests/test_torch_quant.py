@@ -14,6 +14,7 @@ from int8inferenceengine_tpu import calibrator as jcal
 from int8inferenceengine_tpu.ops import quant as jq
 from int8inferenceengine_tpu_torch import calibrator as tcal
 from int8inferenceengine_tpu_torch.ops import quant as tq
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROUNDINGS = ("trunc", "nearest")
 

@@ -25,6 +25,7 @@ import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.carry import export_state, load_jax_state
 from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.tensor import Tensor
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _ids(b, t, seed=0, vocab=1000):

@@ -35,6 +35,7 @@ import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.ops import gemm_int8 as TG
 from int8inferenceengine_tpu_torch.ops.qmatmul import qmatmul_act
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PIECEWISE = ("relu", "relu6", "hardsigmoid", "hardswish")
 

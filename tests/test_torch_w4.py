@@ -34,6 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from int8inferenceengine_tpu.ops import w4 as JW
 from int8inferenceengine_tpu_torch.ops import w4 as TW
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def assert_contract(got, want, what=""):
@@ -50,6 +51,15 @@ def _weights(n, k, seed=0, scale=0.1):
 
 
 # -- pack / dequant ------------------------------------------------------------
+
+def _packed(n, k, group, seed):
+    """Packed weights and scales of ``_weights(n, k, seed)`` (max/7
+    scales).  The port's ``pack_w4`` gives the JAX package's bytes and
+    scales bit for bit (``test_pack_w4_matches_jax``), in a fraction of the
+    time eager JAX takes to compile it for every new shape."""
+    tp, ts = TW.pack_w4(torch.tensor(_weights(n, k, seed)), group)
+    return tp.numpy(), ts.numpy()
+
 
 @pytest.mark.parametrize("optimize", [False, True])
 @pytest.mark.parametrize("n,k,group", [(48, 256, 64), (8, 96, 64),
@@ -88,10 +98,11 @@ def test_pack_w4_odd_k_raises():
 
 @pytest.mark.parametrize("k,group", [(256, 64), (96, 64), (200, 128)])
 def test_dequant_w4_matches_jax(k, group):
-    jp, js = JW.pack_w4(jnp.asarray(_weights(32, k, seed=3)), group)
-    want = np.asarray(JW.dequant_w4(jp, js, k, group))
-    got = TW.dequant_w4(torch.tensor(np.asarray(jp)),
-                        torch.tensor(np.asarray(js)), k, group).numpy()
+    packed, scales = _packed(32, k, group, seed=3)
+    want = np.asarray(JW.dequant_w4(jnp.asarray(packed), jnp.asarray(scales),
+                                    k, group))
+    got = TW.dequant_w4(torch.tensor(packed), torch.tensor(scales), k,
+                        group).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -129,8 +140,8 @@ def _b5_case(m, k, n, group, seed=6):
     rng = np.random.default_rng(seed)
     x = rng.normal(0, 1, (m, k)).astype(np.float32)
     bias = rng.normal(0, 0.1, n).astype(np.float32)
-    jp, js = JW.pack_w4(jnp.asarray(_weights(n, k, seed)), group)
-    return x, bias, np.asarray(jp), np.asarray(js)
+    packed, scales = _packed(n, k, group, seed)
+    return x, bias, packed, scales
 
 
 def _b5_port(x, bias, packed, scales, k, group):
@@ -169,7 +180,7 @@ def _w4a8_case(m, k, n, group, seed=0, vector_mult=False):
     """u8 codes, packed weights, zpb, mult (scalar or per column) and the
     weight's f32 row sums (JAX's ``w4_wsum``), the output mid-range."""
     rng = np.random.default_rng(seed)
-    jp, js = JW.pack_w4(jnp.asarray(_weights(n, k, seed)), group)
+    packed, scales = _packed(n, k, group, seed)
     x = rng.integers(0, 256, (m, k)).astype(np.uint8)
     bias = rng.normal(0, 0.1, n).astype(np.float32)
     s_x, zp_x = np.float32(0.05), 117
@@ -178,8 +189,11 @@ def _w4a8_case(m, k, n, group, seed=0, vector_mult=False):
     mult = s_x / s_out
     if vector_mult:
         mult = (mult * rng.uniform(0.7, 1.3, n)).astype(np.float32)
-    wsum = np.asarray(jnp.sum(JW.dequant_w4(jp, js, k, group), axis=1))
-    return dict(x=x, packed=np.asarray(jp), scales=np.asarray(js), zpb=zpb,
+    # JAX's row sums of the dequantized weight (the port's dequant_w4 is
+    # exact against JAX's, test_dequant_w4_matches_jax)
+    deq = TW.dequant_w4(torch.tensor(packed), torch.tensor(scales), k, group)
+    wsum = np.asarray(jnp.sum(jnp.asarray(deq.numpy()), axis=1))
+    return dict(x=x, packed=packed, scales=scales, zpb=zpb,
                 mult=mult, zp_x=zp_x, wsum=wsum, k=k, group=group)
 
 
