@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile   # also print torch.profiler breakdowns
                                       # of the AlexNet forwards, of decode
                                       # steps and of the llama prefill
-    python3 chip_smoke.py --sweep     # only time B1/B2 under every candidate
-                                      # plan (the planner's tuning data)
+    python3 chip_smoke.py --sweep     # only time B1/B2, B6 and B3 under every
+                                      # candidate plan (the planners' tuning
+                                      # data)
 
 Phases, in order (any failure exits non-zero):
 
@@ -26,29 +27,43 @@ Phases, in order (any failure exits non-zero):
    piecewise-linear ones, the 1-code/0.2% contract for sigmoid, silu,
    gelu), the merged QKV GEMM (B2) exactly at M = 8, 512 and ragged
    shapes, and the decode attention kernel (B3/B4) within the contract at
-   B=8, H=12, D=64, T=512 over several live lengths, a per-sequence length
-   vector, GQA, four query positions, a window and a softcap;
+   B=8, H=12, D=64, T=512 and 4,096 (``ATTN_CASES``) over live lengths 1,
+   77, 128, 511 and 4,000 where they fit, a full cache and a per-sequence
+   length vector, GQA 12/2 and 12/4, four query positions, a window and a
+   softcap, under ``plan_decode_attn``'s split and, for four cases, under
+   every split count;
 5. the AlexNet main path at full width: AlexNet-224 with seeded random
    weights — FP32 forward against its ``torch.nn`` twin (rtol 1e-4),
    prepare, calibrate on one batch of 100, convert, INT8 forward with
    exactly 8 kernel launches, the first two images' codes equal to a CPU
    copy's;
-6. the decoder main path at full width (gpt2-small-ish: 768d, 12 layers, 12
+6. the decoders' card codes against a CPU copy: a small gpt2-style and a
+   small llama W4A8 decoder (depth 2, dim 256, 4 heads, llama 2 kv heads,
+   vocab 4096, max_len 128; batch 4, a 16-token prompt; the main paths'
+   QuantConfigs; and the legs of ``CPU_GATE_LEGS``) calibrated and
+   converted on the card and carried to the CPU (``export_state`` ->
+   ``load_jax_state``): the prefill's logit codes, 16 greedy steps
+   teacher-forced on the card's tokens and the greedy tokens themselves,
+   each leg within the reference's contract (at most 1 code off on at most
+   0.2%; equal tokens);
+7. the decoder main path at full width (gpt2-small-ish: 768d, 12 layers, 12
    heads, vocab 50257, max_len 512) with seeded random weights, batch 8, a
    64-token prompt: FP32 forward against its twin (rtol 1e-4), prepare,
    calibrate, convert, greedy ``generate(ids, 128)`` with exactly 12 B2, 37
    B1 and 12 B3 launches per decode step, then the kernel path's logit codes
    against the plain path's on the card, teacher-forced on its tokens;
-7. the 4-bit kernels against their plain versions at every shape the llama
+8. the 4-bit kernels against their plain versions at every shape the llama
    legs launch: B6 (W4A8 with exact per-group integer partials) exactly at
-   the decode shapes under both roundings; B7 (W4A8 at every other shape)
+   the decode shapes, at M = 16, 64 and 128 and at ragged shapes, under
+   both roundings, ``plan_w4a8_v2``'s plan and every K split it runs; B7
+   (W4A8 at every other shape)
    at the prefill shapes with scalar and per-column ``mult``, at ragged
    shapes and at groups off the 32-value k-step, bit for bit equal to B6's
    plain arithmetic (``w4a8_v2_plain``, any M) and within 1 code on 0.2%
    of its own f32 plain version; B5 (W4 weight-only) within 2e-5 of the
    largest |output| at the weight-only shapes, the same edge shapes and an
    input whose magnitudes span 2^-60 ... 2^60;
-8. the llama W4A8 main path at full width (bench.py's W4A8 leg: 768d, 12
+9. the llama W4A8 main path at full width (bench.py's W4A8 leg: 768d, 12
    layers, 12 heads over 2 kv heads, vocab 32000, max_len 512, group 256,
    nearest rounding) with seeded random weights, batch 8, a 64-token prompt:
    FP32 forward against its twin (1e-4 of the largest logit), prepare,
@@ -60,16 +75,18 @@ Phases, in order (any failure exits non-zero):
    must equal those of the same model with its W4 and B3 wrappers swapped
    for their plain versions; the prefill's codes against the plain path's
    (recorded, not gated);
-9. the llama W4 weight-only forward (group 128) on the same weights and
+10. the llama W4 weight-only forward (group 128) on the same weights and
    prompt: exactly 85 B5 launches, every launch replayed, logits within
    1e-4 of the largest |logit| of the plain path's;
-10. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
+11. timing with CUDA events: the AlexNet INT8 and FP32 batch-100 forwards,
    decode ms/step as ``(t(128 steps) - t(16 steps)) / 112`` (best of 3) and
    the prefill for both decoders, the weight-only forward, the full-context
    forwards (8 x 512 tokens: the weight-only model, and the W4A8 model's
    causal forward, B7 at M = 4096; recorded, not gated), and per kernel
-   and shape the kernel (with B1's and B2's plan), its plain version, the
-   bound and a library yardstick; for the convs the gathered kernel beside
+   and shape the kernel (with B1's, B2's, B6's and B3's plan), its plain
+   version, the bound and a library yardstick; B3 also at a full cache
+   (recorded beside the step's); an empty launch through the same timer
+   (the event floor); for the convs the gathered kernel beside
    im2col + B1 and the conv's own bound beside the im2col operand's
    (``bound_im2col_ms``); the yardstick for the int8 GEMMs is
    ``torch._int_mm`` (on the patch matrix, for a conv) + the eager epilogue,
@@ -155,6 +172,21 @@ DEC_QKV = (8, 768, 768, 12)
 # its B3 launches; the live length is the mean over generate(ids, 128)
 # after a 64-token prompt (65 ... 191)
 DEC_ATTN = dict(b=8, t=512, h=12, d=64, valid=128, launches=12)
+# B3's checks: (T, H, Hkv, mq, window, softcap, every split count) at B=8,
+# D=64, over the live lengths that fit (and T - mq + 1) and a per-sequence
+# vector; GQA 12/2 with 4 query positions at T = 4096 needs the split's
+# shared memory (one share's scores, not all of T's)
+ATTN_CASES = [(512, 12, 12, 1, None, None, True),
+              (512, 12, 2, 1, None, None, True),
+              (512, 12, 4, 1, None, None, False),
+              (512, 12, 12, 4, None, None, False),
+              (512, 12, 12, 1, 128, None, False),
+              (512, 12, 12, 1, None, 30.0, False),
+              (512, 12, 2, 4, 128, 30.0, True),
+              (4096, 12, 2, 4, None, None, True),
+              (4096, 12, 12, 1, None, None, False),
+              (4096, 12, 2, 1, 1000, 30.0, False)]
+ATTN_LIVE = (1, 77, 128, 511, 4000)
 PIECEWISE = ("relu", "relu6", "hardsigmoid", "hardswish")
 # output range of each activation over inputs in [-5, 5]: the act grid
 ACT_RANGE = {"relu": (0.0, 5.0), "relu6": (0.0, 6.0),
@@ -178,6 +210,8 @@ LLAMA_W4 = dict(weight_only=True, weight_bits=4)          # group 128
 W4_DECODE = [("qkv", 8, 768, 1024, 12), ("proj", 8, 768, 768, 12),
              ("gate+up", 8, 768, 4096, 12), ("down", 8, 2048, 768, 12),
              ("head", 8, 768, 32000, 1)]
+# B6 over the rest of its envelope's batch sizes (checked and swept)
+W4_DECODE_M = [(f"proj M={m}", m, 768, 768, 0) for m in (16, 64, 128)]
 # the prefill's B7 launches at M = 8 x 64: (layer, M, K, N, launches,
 # per-column mult), the merged calls carry one mult per column
 W4_PREFILL = [("qkv", 512, 768, 1024, 12, True),
@@ -194,6 +228,24 @@ W4_FORWARD = [("wq", 512, 768, 768, 12), ("wk", 512, 768, 128, 12),
 LLAMA_ATTN = dict(b=8, t=512, h=12, hkv=2, d=64, valid=128, launches=12)
 # B5's contract against its plain version, relative to the largest |output|
 W4_RTOL = 2e-5
+# the decoders on the card against a CPU copy: small models of both
+# families (the llama W4A8 one with 2 kv heads), batch, prompt and steps,
+# and the reference's contract (at most 1 code off on at most 0.2%)
+SMALL_DEC = dict(vocab_size=4096, max_len=128, dim=256, depth=2, heads=4)
+SMALL_BATCH, SMALL_PROMPT, SMALL_STEPS = 4, 16, 16
+CPU_MAX_CODE, CPU_MAX_SHARE = 1, 0.002
+# the legs: (family, batch, extra geometry, gated).  Batch 4 is the gate's
+# own size; gpt2 at batch 8 is where a float32 LayerNorm mean and the
+# card's rsqrt once moved a code (repaired: the norms' means and rsqrt, and
+# every exp and erfc, run in float64 and round once); the llama at batch 8
+# with a 768-wide MLP runs every W4A8 GEMM through B6 (exact on both
+# sides).  At batch 4 a 768-wide MLP's decode runs B7, whose CPU path
+# is its float32 plain version (B7's contract exception, not the glue's):
+# recorded, not gated.
+CPU_GATE_LEGS = [("gpt2", 4, {}, True), ("llama_w4a8", 4, {}, True),
+                 ("gpt2", 8, {}, True),
+                 ("llama_w4a8", 8, {"mlp_hidden": 768}, True),
+                 ("llama_w4a8", 4, {"mlp_hidden": 768}, False)]
 # the full-context forwards: the batch at the model's max_len
 FULL_CONTEXT = (DEC_BATCH, LLAMA["max_len"])
 
@@ -553,12 +605,8 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                         "plan": plan_of(G, m, sum(widths), k, dev),
                         "distinct_codes": int(torch.unique(got).numel())}))
 
-    b, t, d = DEC_ATTN["b"], DEC_ATTN["t"], DEC_ATTN["d"]
-    cases = [(12, 12, 1, None, None), (12, 2, 1, None, None),
-             (12, 4, 1, None, None), (12, 12, 4, None, None),
-             (12, 12, 1, 128, None), (12, 12, 1, None, 30.0),
-             (12, 2, 4, 128, 30.0)]
-    for h, kv, mq, window, softcap in cases:
+    b, d = DEC_ATTN["b"], DEC_ATTN["d"]
+    for t, h, kv, mq, window, softcap, every_split in ATTN_CASES:
         qshape = (b, mq, h * d) if mq > 1 else (b, h * d)
         q = torch.randint(0, 256, qshape, generator=gen, dtype=torch.uint8,
                           device=dev)
@@ -570,34 +618,46 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                                 dtype=torch.int32, device=dev)
         kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv, window=window,
                   softcap=softcap)
+        chosen = A.plan_decode_attn(b, t, h, kv, d, mq)
+        rows = mq * (h // kv)
+        plans = [chosen] + ([A.decode_attn_plan(sp, rows, t, d)
+                             for sp in range(1, A.MAX_SPLITS + 1)
+                             if sp != chosen.splits] if every_split else [])
+        plans = [p for p in plans if p.smem <= A.SMEM_LIMIT]
+        lives = [x for x in ATTN_LIVE if x <= t - mq + 1] + [t - mq + 1]
         worst = (0, 0.0)
-        for valid in (1, 77, 128, t - mq + 1, per_seq):
-            for rounding, merged in (("trunc", True), ("nearest", False)):
-                got = A.decode_attention_flat(q, k, v, valid,
-                                              rounding=rounding,
-                                              merged=merged, **kw)
-                want = A.decode_attention_flat(q, k, v, valid, backend="xla",
-                                               rounding=rounding, **kw)
-                torch.cuda.synchronize()
-                mx, share = contract(torch, got, want)
-                worst = max(worst, (mx, share))
-                if mx > 1 or share > 0.002:
-                    fail(f"decode attention kernel != plain at H={h} "
-                         f"Hkv={kv} mq={mq} window={window} "
-                         f"softcap={softcap} valid="
-                         f"{valid if isinstance(valid, int) else 'per-seq'}"
-                         f" {rounding}: max {mx}, share {share}")
+        for plan in plans:
+            for valid in lives + [per_seq]:
+                for rounding, merged in (("trunc", True), ("nearest", False)):
+                    got = A.decode_attention_flat(q, k, v, valid,
+                                                  rounding=rounding,
+                                                  merged=merged, plan=plan,
+                                                  **kw)
+                    want = A.decode_attention_flat(q, k, v, valid,
+                                                   backend="xla",
+                                                   rounding=rounding, **kw)
+                    torch.cuda.synchronize()
+                    mx, share = contract(torch, got, want)
+                    worst = max(worst, (mx, share))
+                    if mx > 1 or share > 0.002:
+                        fail(f"decode attention kernel != plain at T={t} "
+                             f"H={h} Hkv={kv} mq={mq} window={window} "
+                             f"softcap={softcap} {plan} valid="
+                             f"{valid if isinstance(valid, int) else 'per-seq'}"
+                             f" {rounding}: max {mx}, share {share}")
         err["decode_attn_flat"] = max(err["decode_attn_flat"], worst[0])
         log(json.dumps({"phase": "attn_kernel_vs_plain", "B": b, "T": t,
                         "H": h, "Hkv": kv, "D": d, "mq": mq,
                         "window": window, "softcap": softcap,
-                        "valid": [1, 77, 128, t - mq + 1, "per-seq"],
+                        "valid": lives + ["per-seq"],
+                        "plan": chosen._asdict(),
+                        "splits_checked": [p.splits for p in plans],
                         "max_abs_err": worst[0],
                         "share_differing": worst[1]}))
     return err
 
 
-# -- phase 7: the 4-bit kernels against their plain versions ----------------
+# -- phase 8: the 4-bit kernels against their plain versions ----------------
 
 def w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=False,
             weight_only=False, wide=False):
@@ -665,6 +725,12 @@ def check_b7(torch, W, b7, x, ops, rounding, what):
     return got, mx, share
 
 
+def w4_plan(plan):
+    """B6's plan, as printed in the per-shape lines."""
+    return dict(tile=list(plan.tile), orientation=plan.orientation,
+                slices=plan.slices, k_slice=plan.k_slice)
+
+
 # groups off the 32-value k-step (a boundary inside a chunk, several groups
 # in one chunk, a short last group), M = 1: B5 and B7 alike
 W4_EDGE = [("edge", 16, 96, 40, 48), ("edge", 5, 200, 40, 48),
@@ -678,22 +744,31 @@ def check_w4_kernels(torch, W, gen, dev):
     {kernel: max |difference|}."""
     err = {"w4a8_v2_gemm": 0, "w4a8_v1_gemm": 0, "w4_gemm": 0.0}
     v2_cases = [(name, m, k, n, 256, name in ("qkv", "gate+up"))
-                for name, m, k, n, _ in W4_DECODE]
+                for name, m, k, n, _ in W4_DECODE + W4_DECODE_M]
     v2_cases += [("ragged", 16, 96, 70, 32, False),
-                 ("ragged", 64, 768, 768, 128, True)]
+                 ("ragged", 64, 768, 768, 128, True),
+                 ("ragged", 24, 256, 200, 32, True)]
     for name, m, k, n, group, vec in v2_cases:
         c = w4_case(torch, W, gen, m, k, n, group, dev, vector_mult=vec)
-        for rounding in ("trunc", "nearest"):
-            got = W.w4a8_v2(c["x"], c["ops"], rounding)
-            want = v2_plain(W, c["x"], c["ops"], rounding)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"B6 kernel != plain at {name} M={m} K={k} N={n} "
-                     f"group={group} {rounding}: "
-                     f"{int((got != want).sum())} codes differ")
+        chosen = W.plan_w4a8_v2(m, n, k, group, sms=W.sm_count(dev))
+        # the planner's plan, and its tile at every K split the kernel runs
+        plans = [chosen] + [chosen._replace(slices=sl, k_slice=k // sl)
+                            for sl in W.v2_slice_counts(k, group)
+                            if sl != chosen.slices]
+        for plan in plans:
+            for rounding in ("trunc", "nearest"):
+                got = W.w4a8_v2(c["x"], c["ops"], rounding, plan=plan)
+                want = v2_plain(W, c["x"], c["ops"], rounding)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"B6 kernel != plain at {name} M={m} K={k} N={n} "
+                         f"group={group} {plan} {rounding}: "
+                         f"{int((got != want).sum())} codes differ")
         log(json.dumps({"phase": "w4a8_v2_kernel_vs_plain", "layer": name,
                         "M": m, "K": k, "N": n, "group": group,
-                        "per_column_mult": vec, "max_abs_err": 0,
+                        "per_column_mult": vec, "plan": w4_plan(chosen),
+                        "slices_checked": sorted(p.slices for p in plans),
+                        "max_abs_err": 0,
                         "distinct_codes": int(torch.unique(want).numel())}))
 
     v1_cases = [(name, m, k, n, 256, vec)
@@ -928,7 +1003,90 @@ def alexnet_timing(torch, q, zoo, model, x_test, state, profile):
                             for e in rows[:30]]}))
 
 
-# -- phase 6: the decoder main path -----------------------------------------
+# -- phase 6: the decoders on the card against a CPU copy --------------------
+
+def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
+                   **geo):
+    """One small decoder of ``family`` ('gpt2' or 'llama_w4a8', with its
+    main path's QuantConfig) calibrated and converted on ``dev``, and a CPU
+    copy of its converted state (``export_state`` -> ``load_jax_state``):
+    the prefill's logit codes at every prompt position, greedy tokens, and
+    ``SMALL_STEPS`` decode steps teacher-forced on the card's tokens.
+    Returns one result dict per leg, each with ``ok`` under the contract
+    (at most CPU_MAX_CODE codes off on at most CPU_MAX_SHARE of them)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    geo = dict(SMALL_DEC, **geo)
+    if family == "gpt2":
+        name, cfg, residual = "gpt_tiny", {}, ("proj", "fc2")
+        twin = TD.torch_text_decoder(**geo, seed=0)
+    else:
+        geo.setdefault("kv_heads", 2)
+        name, cfg, residual = "llama_tiny", LLAMA_W4A8, ("proj", "down")
+        twin = LL.torch_llama(**geo, seed=0)
+    state = decoder_state(torch, twin, geo["depth"], seed=2,
+                          residual=residual)
+    ids = np.random.default_rng(2).integers(
+        0, geo["vocab_size"], (batch, SMALL_PROMPT)).astype(np.int32)
+    model = zoo.build(name, config=q.QuantConfig(**cfg), device=dev, **geo)
+    model.load(state)
+    model.prepare()
+    model(q.tensor(ids, device=dev))
+    model.convert()
+    cpu = zoo.build(name, config=q.QuantConfig(**cfg), device="cpu", **geo)
+    load_jax_state(cpu, export_state(model))
+
+    legs = []
+
+    def leg(what, got, want):
+        mx, share = contract(torch, got.cpu(), want.cpu())
+        legs.append({"phase": "decoder_card_vs_cpu", "family": family,
+                     "leg": what, "batch": batch, **geo,
+                     "codes": int(want.numel()), "max_abs_err": mx,
+                     "share_differing": share,
+                     "ok": mx <= CPU_MAX_CODE and share <= CPU_MAX_SHARE})
+
+    prompt = torch.tensor(ids, dtype=torch.int64)
+    with torch.no_grad():
+        leg("prefill", model.forward(Tensor(prompt.to(dev))).data,
+            cpu.forward(Tensor(prompt)).data)
+    tokens = model.generate(ids, SMALL_STEPS)
+    tokens_cpu = cpu.generate(ids, SMALL_STEPS)
+    toks = torch.tensor(tokens, dtype=torch.int64)
+    leg("teacher_forced_decode",
+        teacher_forced(torch, model, prompt.to(dev), toks.to(dev)),
+        teacher_forced(torch, cpu, prompt, toks))
+    same = bool(np.array_equal(tokens, tokens_cpu))
+    legs.append({"phase": "decoder_card_vs_cpu", "family": family,
+                 "leg": "greedy_tokens", "batch": batch,
+                 "steps": SMALL_STEPS, "equal": same,
+                 "first_step_apart": None if same else int(
+                     np.argwhere((tokens != tokens_cpu).any(0))[0, 0]),
+                 "ok": same})
+    return legs
+
+
+def decoders_vs_cpu(torch, q, zoo, TD, LL, dev):
+    """The gate of the decoders' card codes against the CPU: both families
+    at their small size (``CPU_GATE_LEGS``); every leg is printed before any
+    failure."""
+    legs = []
+    for family, batch, extra, gated in CPU_GATE_LEGS:
+        for r in decoder_vs_cpu(torch, q, zoo, TD, LL, family, dev,
+                                batch=batch, **extra):
+            legs.append(dict(r, gated=gated))
+    for r in legs:
+        log(json.dumps(r))
+    bad = [f"{r['family']} b{r['batch']} {r['leg']}" for r in legs
+           if r["gated"] and not r["ok"]]
+    if bad:
+        fail(f"decoder codes on the card differ from a CPU copy's beyond "
+             f"the contract: {bad}")
+    return legs
+
+
+# -- phase 7: the decoder main path -----------------------------------------
 
 def decode_from(torch, model, cache, t0: int, tokens):
     """The u8 logit codes [B, S, V] of decode steps fed ``tokens`` [B, S] one
@@ -1041,7 +1199,7 @@ def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
     return model, ids, counts
 
 
-# -- phases 8 and 9: the llama legs ------------------------------------------
+# -- phases 9 and 10: the llama legs ------------------------------------------
 
 def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
     """bench.py's W4A8 llama lifecycle and greedy generate; returns (INT8
@@ -1351,7 +1509,7 @@ def profile_decode(torch, model, prompt, step_us, label):
                              for e in rows[:30]]}))
 
 
-# -- phase 10: per-kernel times -----------------------------------------------
+# -- phase 11: per-kernel times -----------------------------------------------
 
 def int_mm_operands(torch, a_u8, w_s8_nk):
     """cuBLAS int8 operands: a recentered to s8, M padded to 32 and K, N to
@@ -1537,25 +1695,8 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
                      bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
                      t_ops=t_ops, t_bytes=t_bytes))
 
-    b, t, h, d = (DEC_ATTN[x] for x in ("b", "t", "h", "d"))
-    valid = DEC_ATTN["valid"]
-    q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
-                      device=dev)
-    k_, v_ = (torch.randint(0, 256, (b, t, h * d), generator=gen,
-                            dtype=torch.uint8, device=dev) for _ in range(2))
-    valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
-    kw = dict(ATTN_PARAMS, n_heads=h)
-    ms = time_cuda(torch, lambda: A.decode_attention_flat(q, k_, v_, valid_t,
-                                                          **kw),
-                   iters=20, flush=flush)
-    plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
-        q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
-    b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, h, d, valid)
-    rows.append(dict(kernel="decode_attn_flat", path="decode_step",
-                     layer=f"attention (live length {valid} of {t})", B=b,
-                     T=t, H=h, D=d, launches_per_unit=DEC_ATTN["launches"],
-                     ms=ms, bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
-                     library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+    rows += time_attention(torch, A, gen, dev, flush, DEC_ATTN,
+                           "decode_step", "attention")
     for r in rows:
         log(json.dumps({k_: v for k_, v in r.items()
                         if k_ not in ("t_ops", "t_bytes")}
@@ -1574,6 +1715,44 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
                         "qgemm_u8s8": 37, "qgemm_u8s8_vzp": 12,
                         "decode_attn_flat": 12}}))
     return rows
+
+
+def time_attention(torch, A, gen, dev, flush, cfg, path, label,
+                   rounding="trunc"):
+    """B3 at one decode step's shapes under its plan: at the step's mean
+    live length (``cfg['valid']``, counted per step) and at T - 1 (a full
+    cache, recorded beside it)."""
+    b, t, h, d = (cfg[x] for x in ("b", "t", "h", "d"))
+    hkv = cfg.get("hkv", h)
+    q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    k_, v_ = (torch.randint(0, 256, (b, t, hkv * d), generator=gen,
+                            dtype=torch.uint8, device=dev) for _ in range(2))
+    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv, rounding=rounding)
+    plan = A.plan_decode_attn(b, t, h, hkv, d)
+    rows = []
+    for valid, per in ((cfg["valid"], cfg["launches"]), (t - 1, 0)):
+        valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
+        ms = time_cuda(torch, lambda: A.decode_attention_flat(
+            q, k_, v_, valid_t, **kw), iters=20, flush=flush)
+        plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
+            q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, hkv, d, valid)
+        rows.append(dict(kernel="decode_attn_flat", path=path,
+                         layer=f"{label} (live length {valid} of {t})", B=b,
+                         T=t, H=h, Hkv=hkv, D=d, plan=plan._asdict(),
+                         launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                         bound_by=b_by, plain_ms=plain_ms, library_ms=None,
+                         t_ops=t_ops, t_bytes=t_bytes))
+    return rows
+
+
+def time_launch_floor(torch, flush):
+    """An empty launch (``torch.cuda._sleep(1)``) through ``time_cuda``: the
+    event floor every per-launch time sits on."""
+    ms = time_cuda(torch, lambda: torch.cuda._sleep(1), iters=50, flush=flush)
+    log(json.dumps({"launch_floor": "torch.cuda._sleep(1)", "ms": ms}))
+    return ms
 
 
 def time_w4_kernels(torch, W, A, gen, dev, flush):
@@ -1613,6 +1792,8 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
         elif kernel == "w4a8_v2_gemm":
             fn, plain = (lambda: W.w4a8_v2(c["x"], c["ops"], "nearest"),
                          lambda: v2_plain(W, c["x"], c["ops"], "nearest"))
+            plan = w4_plan(W.plan_w4a8_v2(m, n, k, group,
+                                          sms=W.sm_count(dev)))
         else:
             fn, plain = (lambda: W.w4a8_v1(c["x"], c["ops"], "nearest"),
                          lambda: v1_plain(W, c["x"], c["ops"], "nearest"))
@@ -1620,7 +1801,9 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
         plain_ms = time_cuda(torch, plain, iters=3, flush=flush)
         b_ms, b_by, t_ops, t_bytes = w4_bound_ms(kernel, m, k, n, group)
         row = dict(kernel=kernel, path=path, layer=name, M=m, K=k, N=n,
-                   group=group, launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                   group=group, **({"plan": plan} if kernel == "w4a8_v2_gemm"
+                                   else {}),
+                   launches_per_unit=per, ms=ms, bound_ms=b_ms,
                    bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
                    t_ops=t_ops, t_bytes=t_bytes)
         if kernel != "w4a8_v2_gemm":
@@ -1629,26 +1812,9 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
         rows.append(row)
         del c
 
-    cfg = LLAMA_ATTN
-    b, t, h, hkv, d = (cfg[x] for x in ("b", "t", "h", "hkv", "d"))
-    q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
-                      device=dev)
-    k_, v_ = (torch.randint(0, 256, (b, t, hkv * d), generator=gen,
-                            dtype=torch.uint8, device=dev) for _ in range(2))
-    valid_t = torch.full((), cfg["valid"], dtype=torch.int32, device=dev)
-    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv, rounding="nearest")
-    ms = time_cuda(torch, lambda: A.decode_attention_flat(q, k_, v_, valid_t,
-                                                          **kw),
-                   iters=20, flush=flush)
-    plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
-        q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
-    b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, hkv, d, cfg["valid"])
-    rows.append(dict(kernel="decode_attn_flat", path="llama_w4a8_decode_step",
-                     layer=f"attention GQA {h}/{hkv} (live length "
-                           f"{cfg['valid']} of {t})", B=b, T=t, H=h, Hkv=hkv,
-                     D=d, launches_per_unit=cfg["launches"], ms=ms,
-                     bound_ms=b_ms, bound_by=b_by, plain_ms=plain_ms,
-                     library_ms=None, t_ops=t_ops, t_bytes=t_bytes))
+    rows += time_attention(torch, A, gen, dev, flush, LLAMA_ATTN,
+                           "llama_w4a8_decode_step", "attention GQA 12/2",
+                           rounding="nearest")
     for r in rows:
         log(json.dumps({k_: v for k_, v in r.items()
                         if k_ not in ("t_ops", "t_bytes")}
@@ -1666,10 +1832,14 @@ def time_w4_kernels(torch, W, A, gen, dev, flush):
     return rows
 
 
-def sweep_plans(torch, G, C, gen, dev, flush):
+def sweep_plans(torch, G, C, W, A, gen, dev, flush):
     """``--sweep``: B1 and B2 at the main paths' shapes under every
-    candidate plan (tile x K slices), one line per shape and plan; the
-    numbers ``plan_qgemm`` is tuned from."""
+    candidate plan (tile x K slices), B6 at the llama decode shapes and at
+    M = 16, 64 and 128 under every K split it runs, and B3 at both
+    decoders' shapes under every split count, at the step's mean live
+    length and at a full cache; one line per shape and plan, the numbers
+    ``plan_qgemm``, ``plan_w4a8_v2`` and ``plan_decode_attn`` are tuned
+    from."""
     def plans(chosen, m, k):
         """The chosen plan and each tile at 1, 2, 4 and 8 K slices (one
         slice only for large M)."""
@@ -1739,6 +1909,41 @@ def sweep_plans(torch, G, C, gen, dev, flush):
         report("decode qkv (B2)", [m, k, 3 * n], plan,
                lambda: G.qgemm_multi(c["a"], merged, plan=plan))
 
+    sms = G.sm_count(dev)
+    for name, m, k, n, _ in W4_DECODE + W4_DECODE_M:
+        c = w4_case(torch, W, gen, m, k, n, 256, dev)
+        chosen = W.plan_w4a8_v2(m, n, k, 256, sms=sms)
+        for sl in W.v2_slice_counts(k, 256):
+            plan = chosen._replace(slices=sl, k_slice=k // sl)
+            if W.v2_smem_bytes(plan, 256) > W.SMEM_LIMIT:
+                continue
+            ms = time_cuda(torch, lambda: W.w4a8_v2(
+                c["x"], c["ops"], "nearest", plan=plan), iters=20,
+                flush=flush)
+            log(json.dumps({"sweep": f"B6 {name}", "shape": [m, k, n],
+                            "slices": sl, "ms": ms,
+                            "chosen": plan == chosen}))
+    for cfg, label in ((DEC_ATTN, "B3 gpt2"), (LLAMA_ATTN, "B3 llama")):
+        b, t, h, d = (cfg[x] for x in ("b", "t", "h", "d"))
+        hkv = cfg.get("hkv", h)
+        q = torch.randint(0, 256, (b, h * d), generator=gen,
+                          dtype=torch.uint8, device=dev)
+        k_, v_ = (torch.randint(0, 256, (b, t, hkv * d), generator=gen,
+                                dtype=torch.uint8, device=dev)
+                  for _ in range(2))
+        kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv)
+        chosen = A.plan_decode_attn(b, t, h, hkv, d)
+        for valid in (cfg["valid"], t - 1):
+            valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
+            for sp in range(1, A.MAX_SPLITS + 1):
+                plan = A.decode_attn_plan(sp, h // hkv, t, d)
+                ms = time_cuda(torch, lambda: A.decode_attention_flat(
+                    q, k_, v_, valid_t, plan=plan, **kw), iters=20,
+                    flush=flush)
+                log(json.dumps({"sweep": label, "shape": [b, t, h, hkv, d],
+                                "live": valid, "splits": sp, "ms": ms,
+                                "chosen": plan == chosen}))
+
 
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
@@ -1790,9 +1995,9 @@ def main(argv=None) -> int:
                     help="print torch.profiler breakdowns of the AlexNet "
                          "forwards and of decode steps")
     ap.add_argument("--sweep", action="store_true",
-                    help="only build and time B1/B2 under every candidate "
-                         "plan at the main paths' shapes (no checks, no "
-                         "result line)")
+                    help="only build and time B1/B2, B6 and B3 under every "
+                         "candidate plan at the main paths' shapes (no "
+                         "checks, no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1837,8 +2042,9 @@ def main(argv=None) -> int:
 
     if args.sweep:
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-        sweep_plans(torch, G, C, torch.Generator(device=dev).manual_seed(0),
-                    dev, flush_buf.zero_)
+        sweep_plans(torch, G, C, W, A,
+                    torch.Generator(device=dev).manual_seed(0), dev,
+                    flush_buf.zero_)
         return 0
 
     # -- 3. on-card numerics ---------------------------------------------------
@@ -1876,7 +2082,7 @@ def main(argv=None) -> int:
     for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
         max_err[name] = max(max_err.get(name, 0), err)
 
-    # -- 7. the 4-bit kernels against their plain versions --------------------
+    # -- 8. the 4-bit kernels against their plain versions --------------------
     max_err.update(check_w4_kernels(torch, W, gen, dev))
 
     # -- 5. the AlexNet main path ---------------------------------------------
@@ -1886,14 +2092,17 @@ def main(argv=None) -> int:
     alexnet_timing(torch, q, zoo, model, x_test, state, args.profile)
     del model, state
 
-    # -- 6. the decoder main path ---------------------------------------------
+    # -- 6. the decoders on the card against a CPU copy ----------------------
+    decoders_vs_cpu(torch, q, zoo, TD, LL, dev)
+
+    # -- 7. the decoder main path ---------------------------------------------
     dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
         torch, q, zoo, TD, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile)
     del dec
     torch.cuda.empty_cache()
 
-    # -- 8. the llama W4A8 main path ------------------------------------------
+    # -- 9. the llama W4A8 main path ------------------------------------------
     dec, ids, state, counts_by_path["llama_w4a8_generate"] = \
         llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile, label="llama_w4a8_decode")
@@ -1902,7 +2111,7 @@ def main(argv=None) -> int:
     del dec
     torch.cuda.empty_cache()
 
-    # -- 9. the llama W4 weight-only forward ----------------------------------
+    # -- 10. the llama W4 weight-only forward ----------------------------------
     wo, counts_by_path["llama_w4_forward"] = llama_w4_forward_path(
         torch, q, zoo, W, kernel_fns, state, ids)
     llama_w4_timing(torch, q, wo, ids, args.profile)
@@ -1912,9 +2121,10 @@ def main(argv=None) -> int:
     del wo, state
     torch.cuda.empty_cache()
 
-    # -- 10. per-kernel times --------------------------------------------------
+    # -- 11. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
+    time_launch_floor(torch, flush)
     rows = time_alexnet_gemms(torch, G, C, gen, dev, flush)
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)

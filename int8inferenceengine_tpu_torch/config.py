@@ -46,10 +46,12 @@ class QuantConfig:
     # Fold the expected weight-quantization error into the bias.
     bias_correction: bool = False
 
-    # INT8 conv lowering: 'auto' runs im2col + the quantized GEMM with the
+    # INT8 conv lowering: 'auto' runs the quantized GEMM kernel with the
     # reference's conv epilogue order (bit-identical to the JAX package's
-    # native integer conv); 'gemm' uses the GEMM epilogue order (the JAX
-    # package's conv2d_int8_gemm); 'xla_conv' has no counterpart here.
+    # native integer conv): on the card as the gathered conv, which reads
+    # each patch from the NHWC input; on the CPU through im2col.  'gemm'
+    # uses the GEMM epilogue order (the JAX package's conv2d_int8_gemm);
+    # 'xla_conv' has no counterpart here.
     conv_backend: str = "auto"
 
     # Quantized GEMM backend.  'auto' and 'pallas': the hand-written kernel
@@ -133,7 +135,8 @@ def check_supported(config: QuantConfig) -> None:
     if config.conv_backend == "xla_conv":
         raise NotImplementedError(
             "QuantConfig.conv_backend='xla_conv' is not implemented by the "
-            "PyTorch port ('auto' gives the same codes through im2col)")
+            "PyTorch port ('auto' gives the same codes: the gathered conv "
+            "on the card, im2col on the CPU)")
     if config.conv_backend not in ("auto", "gemm"):
         raise ValueError(f"unknown conv_backend {config.conv_backend!r}")
     if config.rounding not in ("trunc", "nearest"):

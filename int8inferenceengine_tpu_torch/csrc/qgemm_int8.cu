@@ -18,7 +18,7 @@
 // max(., zp_c) under relu, or the fused activation epilogue (gemm order): the
 // code is dequantized, x = (code - zp_c) * s_c, the activation applied (the
 // formulas of ops/functional.ACTIVATIONS: relu, relu6, hardsigmoid,
-// hardswish, sigmoid and silu with expf, gelu as 0.5*x*erfcf(-x*sqrt(1/2)))
+// hardswish, sigmoid and silu with exp, gelu as 0.5*x*erfc(-x*sqrt(1/2)))
 // and requantized, q = y / act_scale + act_zp (a true division), clip,
 // +0.5 under 'nearest', truncate.
 //
@@ -36,8 +36,10 @@
 // (__fmul_rn / __fdiv_rn / __fadd_rn), and the file is built with
 // --fmad=false, so no FMA contraction can move a code: the integer and
 // ordered-float epilogues are bit-identical to the plain PyTorch versions
-// and to the JAX reference.  erfcf and expf may differ from the CPU's libm
-// by an ULP, which can move a code that sits on a truncation boundary.
+// and to the JAX reference.  The act epilogue's exp and erfc run in double
+// and round once to float, as ops/functional.rounded64 does: the correctly
+// rounded float, where the card's and the CPU's float libms differ by an
+// ULP, which moved a code on a truncation boundary.
 //
 // Replaces the TPU kernels int8inferenceengine_tpu/ops/gemm_int8.py
 // ::_qgemm_kernel (launched by _qgemm_pallas_impl), held to qgemm_xla's exact
@@ -351,8 +353,16 @@ __device__ __forceinline__ float hard_sigmoid(float x) {
   return __fdiv_rn(fminf(fmaxf(__fadd_rn(x, 3.0f), 0.0f), 6.0f), 6.0f);
 }
 
+// exp and erfc of a float in double, rounded once (ops/functional.rounded64)
+__device__ __forceinline__ float exp64(float x) {
+  return static_cast<float>(exp(static_cast<double>(x)));
+}
+__device__ __forceinline__ float erfc64(float x) {
+  return static_cast<float>(erfc(static_cast<double>(x)));
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, exp64(-x)));
 }
 
 // ops/gemm_int8.KERNEL_ACTS ids; formulas of ops/functional.ACTIVATIONS
@@ -364,7 +374,7 @@ __device__ __forceinline__ float apply_act(int act, float x) {
     case 4: return __fmul_rn(x, hard_sigmoid(x));
     case 5: return sigmoid(x);
     case 6: return __fmul_rn(x, sigmoid(x));
-    default: return __fmul_rn(__fmul_rn(0.5f, x), erfcf(__fmul_rn(-x, 0.707106781186547524f)));
+    default: return __fmul_rn(__fmul_rn(0.5f, x), erfc64(__fmul_rn(-x, 0.707106781186547524f)));
   }
 }
 

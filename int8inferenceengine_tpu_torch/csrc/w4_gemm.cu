@@ -17,13 +17,31 @@
 // own, so the result equals ops/w4.w4a8_v2_plain bit for bit.  The TPU
 // kernel's three-dot packed-byte identity, its block-diagonal activation
 // operand and its XOR bitcasts are MXU workarounds and are not carried over.
-// Bound on an H100 at the decode shapes (M = 8): the packed weight bytes.
-// Design: a 16 x 64 output tile per block of four warps (each 16 x 16), K in
-// 64-value stages through a two-stage cp.async ring (x rows and packed rows,
-// 16-byte chunks); the packed stage is unpacked to s8 codes in shared memory
-// (two __byte_perm and a per-byte __vsub4 per word) before the MMAs.  A group
-// is a multiple of 32 values (the MMA's k), K a multiple of the group.  M = 8
-// fills half of the m16 tile; split-K, wgmma and TMA are later work.
+// Bound on an H100 at the decode shapes (M = 8): the packed weight bytes,
+// a fraction of a microsecond to 4 us, so a launch's time is its dependent
+// chain (load, MMAs, fold, store) and the number of blocks that share it.
+// Design, from what held B6 back at M = 8 (16 blocks of 16 x 64 walking all
+// of K in 64-value stages, three barriers a stage, half of each m16 MMA
+// padding): the operands are swapped, out^T = W x^T on mma.sync m16n8k32,
+// so the unpacked weight codes are the A operand (16 output columns a warp)
+// and the batch rows the n8 B operand: a block's tile is 16 rows (two n8
+// fragments, the second empty at M = 8, which the sweep still found
+// faster than 8-row tiles at every decode shape) by 64 columns.  The packed codes are unpacked in registers, straight into the
+// A fragments, in B7's k order; a four-stage cp.async ring of 256 k values
+// (a whole 128-byte line of each packed row; K = 768 is in flight at once)
+// with one barrier a stage; the group scales and the epilogue's vectors are
+// loaded while the ring fills (a group ahead of each fold; for a K split,
+// all of them into slice 0's shared memory, so that no global load follows
+// the cluster's barrier); the u8 tile leaves through shared memory in
+// 16-byte row runs.  Where the tiles are fewer than the SMs, K is split over up to 8
+// blocks of a thread block cluster, each slice a whole number of groups or
+// a whole fraction of one: every slice keeps its s32 per-group partials in
+// its shared memory, and slice 0 adds a group's partials over the slices in
+// s32 (exact in any order) through distributed shared memory and runs the
+// f32 fold alone, in group order; no f32 value is summed across slices, so
+// the codes are the same at every split.  ops/w4.plan_w4a8_v2 chooses the
+// tile and the slices; the launcher runs that plan or refuses it.  A group
+// is a multiple of 32 values (the MMA's k), K a multiple of the group.
 //
 // w4a8_v1_gemm (B7; replaces ::_w4a8_kernel, launched by _w4a8_pallas_impl)
 // and w4_gemm (B5; replaces ::_w4_kernel, launched by _w4_pallas_impl)
@@ -118,160 +136,317 @@ __device__ __forceinline__ uint8_t clip_floor(float q, float rb) {
   return static_cast<uint8_t>(__float2int_rd(__fadd_rn(q, rb)));
 }
 
+// four packed bytes (eight k values) -> two words of s8 codes in k order:
+// (nibble | 0x80) - 8 borrows nothing from the next byte, and ^ 0x80 then
+// leaves nibble - 8
+__device__ __forceinline__ void unpack_s8(uint32_t v, uint32_t& lo_word, uint32_t& hi_word) {
+  const uint32_t h = (((v >> 4) & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;   // even k
+  const uint32_t l = ((v & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;          // odd k
+  lo_word = __byte_perm(h, l, 0x5140) ^ 0x80808080u;
+  hi_word = __byte_perm(h, l, 0x7362) ^ 0x80808080u;
+}
+
 // ---------------------------------------------------------------------------
 // B6
 // ---------------------------------------------------------------------------
 
 namespace v2 {
 
-constexpr int BM = 16;               // block tile rows (one m16 fragment)
-constexpr int BN = 64;               // block tile columns
-constexpr int BK = 64;               // k values per pipeline stage
-constexpr int NT = 128;              // 4 warps, each 16 columns
-constexpr int LD = BK + 16;          // padded x / code row, bytes
-constexpr int PK = BK / 2;           // packed bytes per row and stage
+constexpr int BM = 16;               // block tile: batch rows, two n8 fragments (out^T = W x^T)
+constexpr int MI = BM / 8;
+constexpr int BN = 64;               // block tile: output columns (four warps of 16)
+constexpr int BK = 256;              // k values per ring stage (a 128-byte packed row run)
+constexpr int STAGES = 4;            // ring stages
+constexpr int NT = 128;
+constexpr int LDX = BK + 32;         // x row: a quarter-warp's 8-byte reads on distinct banks
+constexpr int LDP = BK / 2 + 16;     // packed row: an odd multiple of 16 bytes
+constexpr int MAX_SLICES = 8;        // a portable cluster
 
-__device__ __forceinline__ void load_stage(uint8_t (*xs)[LD], uint8_t (*ps)[PK],
-                                           const uint8_t* __restrict__ x,
-                                           const uint8_t* __restrict__ pk, int M, int N,
-                                           int K, int m0, int n0, int k0, int tid) {
-  // x: BM rows x 64 bytes = 64 chunks of 16 bytes
-  if (tid < BM * BK / 16) {
-    const int r = tid / (BK / 16);
-    const int c = (tid % (BK / 16)) * 16;
-    const bool ok = m0 + r < M && k0 + c < K;
-    const uint8_t* p = ok ? x + static_cast<size_t>(m0 + r) * K + k0 + c : x;
-    cp_async16(&xs[r][c], p, ok ? 16 : 0);
+struct Ring {
+  uint8_t x[STAGES][BM][LDX];
+  uint8_t p[STAGES][BN][LDP];
+};
+
+struct Params {
+  const uint8_t* x;                  // u8 [M, K]
+  const uint8_t* pk;                 // [N, K/2]
+  const float* sct;                  // scales_t [G, N]
+  const float* mult;                 // [N]
+  const float* zpb;                  // zpb_eff [N]
+  uint8_t* out;                      // u8 [M, N]
+  int M, N, K, group, G;
+  int kslice;                        // K values of each slice (blockIdx.z)
+  int part_groups;                   // groups one slice touches (its partials)
+  float rb;
+};
+
+// Dynamic shared memory: the ring and, for a K split, the tile's columns'
+// f32 mult, zpb_eff and every group's scale ([2 + G][BN], which slice 0
+// folds and requantizes with after the cluster's barrier) and each slice's
+// s32 partials.
+constexpr int RING_BYTES = static_cast<int>(sizeof(Ring));
+int smem_bytes(int slices, int G, int part_groups) {
+  return RING_BYTES + (slices > 1 ? (2 + G) * BN * 4 + part_groups * BM * BN * 4 : 0);
+}
+
+// Stage `s` <- x rows m0.., packed rows n0.., k values [k0, k0 + BK), zero
+// past `kend` (the slice's end: the next slice's values are never summed
+// here) and past M and N.  K % 32 == 0 and 16-byte aligned bases, so every
+// 16-byte chunk is wholly inside or outside.
+__device__ __forceinline__ void load_stage(Ring& sm, int s, const Params& p, int m0, int n0,
+                                           int k0, int kend, int tid) {
+  constexpr int XC = BK / 16;                          // chunks per x row
+#pragma unroll
+  for (int i = 0; i < (BM * XC + NT - 1) / NT; ++i) {
+    const int c = tid + i * NT;
+    if (c < BM * XC) {
+      const int r = c / XC;
+      const int col = (c % XC) * 16;
+      const bool ok = m0 + r < p.M && k0 + col < kend;
+      const uint8_t* src = ok ? p.x + static_cast<size_t>(m0 + r) * p.K + k0 + col : p.x;
+      cp_async16(&sm.x[s][r][col], src, ok ? 16 : 0);
+    }
   }
-  // packed weights: BN rows x 32 bytes = 128 chunks, one per thread; a chunk
-  // holds 32 k values, and K % 32 == 0, so it is wholly inside or outside K
-  {
-    const int r = tid / 2;
-    const int c = (tid % 2) * 16;
-    const bool ok = n0 + r < N && k0 + 2 * c < K;
-    const uint8_t* p = ok ? pk + static_cast<size_t>(n0 + r) * (K / 2) + k0 / 2 + c : pk;
-    cp_async16(&ps[r][c], p, ok ? 16 : 0);
+  constexpr int PC = BK / 32;                          // chunks per packed row
+#pragma unroll
+  for (int i = 0; i < BN * PC / NT; ++i) {
+    const int c = tid + i * NT;
+    const int r = c / PC;
+    const int col = (c % PC) * 16;
+    const bool ok = n0 + r < p.N && k0 + 2 * col < kend;
+    const uint8_t* src = ok ? p.pk + static_cast<size_t>(n0 + r) * (p.K / 2) + k0 / 2 + col : p.pk;
+    cp_async16(&sm.p[s][r][col], src, ok ? 16 : 0);
   }
 }
 
-// four packed bytes (eight k values) -> two words of s8 codes in k order
-__device__ __forceinline__ void unpack8(uint32_t v, uint32_t& lo_word, uint32_t& hi_word) {
-  const uint32_t h = (v >> 4) & 0x0F0F0F0Fu;    // even k
-  const uint32_t l = v & 0x0F0F0F0Fu;           // odd k
-  lo_word = __vsub4(__byte_perm(h, l, 0x5140), 0x08080808u);
-  hi_word = __vsub4(__byte_perm(h, l, 0x7362), 0x08080808u);
+// group gi's scales of this thread's two columns n and n + 8 (0 past N and
+// past the last group), loaded a group ahead of the fold that reads them
+__device__ __forceinline__ void group_scales(float (&sc)[2], const Params& p, int n, int gi) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    sc[h] = n + 8 * h < p.N && gi < p.G ? p.sct[static_cast<size_t>(gi) * p.N + n + 8 * h] : 0.0f;
 }
 
-__global__ void __launch_bounds__(NT)
-w4a8_v2_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ pk,
-               const float* __restrict__ sct, const float* __restrict__ mult,
-               const float* __restrict__ zpb, uint8_t* __restrict__ out, int M, int N, int K,
-               int group, float rb) {
-  __shared__ __align__(16) uint8_t xs[2][BM][LD];
-  __shared__ __align__(16) uint8_t ps[2][BN][PK];
-  __shared__ __align__(16) uint8_t wc[BN][LD];
+// Accumulator element j of m-fragment mi: column (n) wn + g + 8 * (j / 2),
+// row (m) mi * 8 + 2t + j % 2.
+__device__ __forceinline__ void fold(const int32_t (&ints)[MI][4], float (&accf)[MI][4],
+                                     const float (&sc)[2], bool first) {
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float term = __fmul_rn(__int2float_rn(ints[mi][j]), sc[j >> 1]);
+      accf[mi][j] = first ? term : __fadd_rn(accf[mi][j], term);
+    }
+}
+
+__global__ void __launch_bounds__(NT) w4a8_v2_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ring& sm = *reinterpret_cast<Ring*>(smem);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wn = warp * 16;
+  const int wn = (tid >> 5) * 16;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
+  const int slices = gridDim.z;
+  const int kbeg = blockIdx.z * p.kslice;
+  const int kend = kbeg + p.kslice;
 
-  int32_t acc[2][4];
-  float accf[2][4];
+  int32_t acc[MI][4];
+  float accf[MI][4];
 #pragma unroll
-  for (int ni = 0; ni < 2; ++ni)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      acc[ni][j] = 0;
-      accf[ni][j] = 0.0f;
+      acc[mi][j] = 0;
+      accf[mi][j] = 0.0f;
     }
+  const int nk = (p.kslice + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(sm, s, p, m0, n0, kbeg + s * BK, kend, tid);
+    cp_async_commit();
+  }
+  const int cn = wn + g;             // this thread's columns: cn and cn + 8 of the tile
+  // The epilogue's vectors and the group scales, loaded while the ring
+  // fills: in registers, the next group's a group ahead of its fold, or,
+  // for a K split, slice 0's copy of all of them in shared memory, read
+  // after the cluster's barrier.
+  float ev[2][2], sc[2];
+  float* vec = reinterpret_cast<float*>(smem + RING_BYTES);   // [2 + G][BN]
+  if (slices == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + cn + 8 * h;
+      ev[0][h] = n < p.N ? p.mult[n] : 0.0f;
+      ev[1][h] = n < p.N ? p.zpb[n] : 0.0f;
+    }
+    group_scales(sc, p, n0 + cn, 0);
+  } else if (blockIdx.z == 0) {
+    for (int i = tid; i < (2 + p.G) * BN; i += NT) {
+      const int row = i / BN;
+      const int n = n0 + i % BN;
+      const float* src =
+          row == 0 ? p.mult : row == 1 ? p.zpb : p.sct + static_cast<size_t>(row - 2) * p.N;
+      vec[i] = n < p.N ? src[n] : 0.0f;
+    }
+  }
 
-  const int nk = (K + BK - 1) / BK;
-  load_stage(xs[0], ps[0], x, pk, M, N, K, m0, n0, 0, tid);
-  cp_async_commit();
-
+  // a K split keeps each group's exact partial (slice-local index l)
+  int32_t* part = reinterpret_cast<int32_t*>(vec + (2 + p.G) * BN);
+  int gi = kbeg / p.group;           // the group being summed
+  int l = 0;
   for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage(xs[cur ^ 1], ps[cur ^ 1], x, pk, M, N, K, m0, n0, (kt + 1) * BK, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<STAGES - 2>();
+    // stage kt has landed for every thread, and every thread is done with
+    // stage kt - 1, whose slot the prefetch below overwrites
     __syncthreads();
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage(sm, pf % STAGES, p, m0, n0, kbeg + pf * BK, kend, tid);
+    cp_async_commit();
 
-    {
-      // each thread unpacks one 16-byte chunk: row tid/2, 32 k values
-      const int r = tid / 2;
-      const int c = (tid % 2) * 16;
-      const uint4 v = *reinterpret_cast<const uint4*>(&ps[cur][r][c]);
-      uint32_t w[8];
-      unpack8(v.x, w[0], w[1]);
-      unpack8(v.y, w[2], w[3]);
-      unpack8(v.z, w[4], w[5]);
-      unpack8(v.w, w[6], w[7]);
-      uint4* dst = reinterpret_cast<uint4*>(&wc[r][2 * c]);
-      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-    }
-    __syncthreads();
-
+    const int s = kt % STAGES;
+    const int k0 = kbeg + kt * BK;
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      const int kk = kt * BK + ks;
-      if (kk >= K) break;
-      uint32_t af[4];
-      const uint8_t* ra = &xs[cur][g][ks + 4 * t];
-      af[0] = *reinterpret_cast<const uint32_t*>(ra) ^ 0x80808080u;
-      af[1] = *reinterpret_cast<const uint32_t*>(ra + 8 * LD) ^ 0x80808080u;
-      af[2] = *reinterpret_cast<const uint32_t*>(ra + 16) ^ 0x80808080u;
-      af[3] = *reinterpret_cast<const uint32_t*>(ra + 8 * LD + 16) ^ 0x80808080u;
+    for (int c = 0; c < BK / 32; ++c) {
+      const int kk = k0 + c * 32;
+      if (kk >= kend) break;
+      // A: the weight codes of columns nt and nt + 8, k 8t..8t+7 of the
+      // chunk, unpacked in registers (B7's k order, the MMA's slots 4t..
+      // 4t+3 and 16+4t.. carry k 8t..8t+3 and 8t+4..8t+7)
+      uint32_t a[4];
+      unpack_s8(*reinterpret_cast<const uint32_t*>(&sm.p[s][wn + g][c * 16 + 4 * t]), a[0],
+                     a[2]);
+      unpack_s8(*reinterpret_cast<const uint32_t*>(&sm.p[s][wn + g + 8][c * 16 + 4 * t]),
+                     a[1], a[3]);
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const uint8_t* rb_ = &wc[wn + ni * 8 + g][ks + 4 * t];
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(rb_);
-        bf[1] = *reinterpret_cast<const uint32_t*>(rb_ + 16);
-        mma_s8(acc[ni], af, bf);
+      for (int mi = 0; mi < MI; ++mi) {
+        // B: batch row mi * 8 + g at the same k, recentred (x ^ 0x80 = x - 128)
+        const uint2 xv = *reinterpret_cast<const uint2*>(&sm.x[s][mi * 8 + g][c * 32 + 8 * t]);
+        const uint32_t b[2] = {xv.x ^ 0x80808080u, xv.y ^ 0x80808080u};
+        mma_s8(acc[mi], a, b);
       }
-      if ((kk + 32) % group == 0) {
-        // the group ends here: fold its exact partial into the f32 sum
-        const int gi = (kk + 32) / group - 1;
+      if ((kk + 32) % p.group == 0 || kk + 32 == kend) {
+        if (slices == 1) {
+          // the group ends here: its exact partial into the f32 sum
+          fold(acc, accf, sc, gi == 0);
+          ++gi;
+          group_scales(sc, p, n0 + cn, gi);
+        } else {
+          // a K split: slice 0 adds the partials of a group over the slices
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int n = n0 + wn + ni * 8 + 2 * t + (j & 1);
-            const float s = n < N ? sct[static_cast<size_t>(gi) * N + n] : 0.0f;
-            const float term = __fmul_rn(__int2float_rn(acc[ni][j]), s);
-            accf[ni][j] = gi == 0 ? term : __fadd_rn(accf[ni][j], term);
-            acc[ni][j] = 0;
-          }
+          for (int i = 0; i < MI * 4; ++i) part[(l * MI * 4 + i) * NT + tid] = acc[i / 4][i % 4];
+          ++l;
         }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mi][j] = 0;
       }
     }
-    // the stage read above is the one the next iteration's prefetch writes
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  if (slices > 1) {
+    // Slice 0 reads every slice's partials through distributed shared
+    // memory: a group's partials add in s32 (exact in any order), and the
+    // f32 fold then runs over the groups in order in slice 0 alone, so no
+    // f32 value is ever summed across slices.
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (cluster.block_rank() == 0) {
+      for (int g2 = 0; g2 < p.G; ++g2) {
+        int32_t ints[MI][4] = {};
+        const int r0 = g2 * p.group / p.kslice;
+        const int r1 = ((g2 + 1) * p.group - 1) / p.kslice;
+        for (int r = r0; r <= r1; ++r) {
+          const int32_t* other = cluster.map_shared_rank(part, r);
+          const int lr = g2 - r * p.kslice / p.group;
+#pragma unroll
+          for (int i = 0; i < MI * 4; ++i) ints[i / 4][i % 4] += other[(lr * MI * 4 + i) * NT + tid];
+        }
+        const float* s2 = vec + (2 + g2) * BN + cn;
+        const float pair[2] = {s2[0], s2[8]};
+        fold(ints, accf, pair, g2 == 0);
+      }
+    }
+    // the other slices' shared memory stays readable until slice 0 is done
+    cluster.sync();
+    if (cluster.block_rank() != 0) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ev[0][h] = vec[cn + 8 * h];
+      ev[1][h] = vec[BN + cn + 8 * h];
+    }
   }
 
-  // accumulator element j: row g + 8 * (j / 2), column 2t + j % 2
+  // the u8 tile [BM][BN] through shared memory (the ring is free now), then
+  // out in 16-byte row runs
+  constexpr int LDO = BN + 16;
+  __syncthreads();
+  uint8_t* tile = smem;
 #pragma unroll
-  for (int ni = 0; ni < 2; ++ni) {
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + g + 8 * (j >> 1);
-      const int n = n0 + wn + ni * 8 + 2 * t + (j & 1);
-      if (m < M && n < N) {
-        const float q = __fadd_rn(__fmul_rn(accf[ni][j], mult[n]), zpb[n]);
-        out[static_cast<size_t>(m) * N + n] = clip_floor(q, rb);
-      }
+    for (int j = 0; j < 4; ++j)
+      tile[(mi * 8 + 2 * t + (j & 1)) * LDO + cn + 8 * (j >> 1)] =
+          clip_floor(__fadd_rn(__fmul_rn(accf[mi][j], ev[0][j >> 1]), ev[1][j >> 1]), p.rb);
+  __syncthreads();
+  const bool vec16 = p.N % 16 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  for (int i = tid; i < BM * BN / 16; i += NT) {
+    const int r = i / (BN / 16);
+    const int c = i % (BN / 16) * 16;
+    const int m = m0 + r;
+    if (m >= p.M || n0 + c >= p.N) continue;
+    const size_t o = static_cast<size_t>(m) * p.N + n0 + c;
+    if (vec16) {
+      *reinterpret_cast<uint4*>(p.out + o) = *reinterpret_cast<const uint4*>(&tile[r * LDO + c]);
+    } else {
+      for (int j = 0; j < 16 && n0 + c + j < p.N; ++j) p.out[o + j] = tile[r * LDO + c + j];
     }
   }
+}
+
+// The plan (ops/w4.plan_w4a8_v2) is checked, never adjusted: a plan this
+// file cannot run is refused with cudaErrorInvalidValue.
+int launch(Params p, int slices, int kslice, cudaStream_t stream) {
+  if (p.M <= 0 || p.N <= 0 || p.K <= 0 || p.group <= 0 || p.group % 32 || p.K % p.group ||
+      reinterpret_cast<uintptr_t>(p.x) % 16 || reinterpret_cast<uintptr_t>(p.pk) % 16 ||
+      slices < 1 || slices > MAX_SLICES || kslice <= 0 || kslice % 32 ||
+      static_cast<long long>(kslice) * slices != p.K ||
+      (p.group % kslice != 0 && kslice % p.group != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.G = p.K / p.group;
+  p.kslice = kslice;
+  p.part_groups = kslice > p.group ? kslice / p.group : 1;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, slices);
+  const int bytes = smem_bytes(slices, p.G, p.part_groups);
+  if (grid.y > 65535 || bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(w4a8_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (slices == 1) {
+    w4a8_v2_kernel<<<grid, NT, bytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = slices;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, w4a8_v2_kernel, p);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace v2
@@ -368,16 +543,6 @@ __device__ __forceinline__ void load_stage(Ring<kW4A8>& sm, int s, const Params&
           n < p.N && k < p.K ? p.pk[static_cast<size_t>(n) * (p.K / 2) + k / 2] : uint8_t(0x88);
     }
   }
-}
-
-// four packed bytes (eight k values) -> two words of s8 codes in k order:
-// (nibble | 0x80) - 8 borrows nothing from the next byte, and ^ 0x80 then
-// leaves nibble - 8
-__device__ __forceinline__ void unpack_s8(uint32_t v, uint32_t& lo_word, uint32_t& hi_word) {
-  const uint32_t h = (((v >> 4) & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;   // even k
-  const uint32_t l = ((v & 0x0F0F0F0Fu) | 0x80808080u) - 0x08080808u;          // odd k
-  lo_word = __byte_perm(h, l, 0x5140) ^ 0x80808080u;
-  hi_word = __byte_perm(h, l, 0x7362) ^ 0x80808080u;
 }
 
 // The k order inside a 32-value chunk.  Thread t (lane % 4) reads one
@@ -838,19 +1003,25 @@ int launch(Params p, void* stream) {
 // was accepted).  Pointers are device pointers; the caller (ops/w4.py) checks
 // shapes, dtypes, contiguity and alignment.
 
+// B6 runs the plan of ops/w4.plan_w4a8_v2: the K slices (one cluster) and
+// the K values of each.
 extern "C" int w4a8_v2_gemm(const void* x, const void* packed, const void* scales_t,
                             const void* mult, const void* zpb_eff, void* out, int M, int N,
-                            int K, int group, int nearest, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || group <= 0 || group % 32 || K % group ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(packed) % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + v2::BN - 1) / v2::BN, (M + v2::BM - 1) / v2::BM);
-  v2::w4a8_v2_kernel<<<grid, v2::NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales_t), static_cast<const float*>(mult),
-      static_cast<const float*>(zpb_eff), static_cast<uint8_t*>(out), M, N, K, group,
-      nearest ? 0.5f : 0.0f);
-  return static_cast<int>(cudaGetLastError());
+                            int K, int group, int nearest, int slices, int kslice,
+                            void* stream) {
+  v2::Params p{};
+  p.x = static_cast<const uint8_t*>(x);
+  p.pk = static_cast<const uint8_t*>(packed);
+  p.sct = static_cast<const float*>(scales_t);
+  p.mult = static_cast<const float*>(mult);
+  p.zpb = static_cast<const float*>(zpb_eff);
+  p.out = static_cast<uint8_t*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.group = group;
+  p.rb = nearest ? 0.5f : 0.0f;
+  return v2::launch(p, slices, kslice, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int w4a8_v1_gemm(const void* x, const void* packed, const void* scales_t,

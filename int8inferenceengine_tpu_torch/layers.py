@@ -595,10 +595,27 @@ class QuantSoftmax(_Weightless):
         return Tensor(self._requant(out), self.scale, self.zero_point)
 
 
+def _mean64(f: torch.Tensor) -> torch.Tensor:
+    """The float32 mean over the last axis, accumulated in float64 and
+    rounded once: the same on the card and the CPU whatever order their
+    reductions add in."""
+    return f.to(torch.float64).mean(dim=-1, keepdim=True).to(torch.float32)
+
+
+def _rsqrt64(x: torch.Tensor) -> torch.Tensor:
+    """``rsqrt`` of float32 ``x`` in float64, rounded once to float32 (the
+    card's float32 rsqrt is an approximation)."""
+    return torch.rsqrt(x.to(torch.float64)).to(torch.float32)
+
+
 class QuantLayerNorm(Layer):
     """LayerNorm over the last axis with a calibrated u8 output; gamma/beta
     stay float32.  ``mean``, ``mean((f - mean)^2)`` and ``rsqrt(var +
-    eps)`` are taken in the JAX package's order."""
+    eps)`` are taken in the JAX package's order, each in float64 and rounded
+    once to float32: a float32 mean adds in another order on the card than
+    on the CPU, and the card's rsqrt is not correctly rounded, so either
+    moved a code on a truncation boundary (a gpt2 decode at batch 8 on the
+    card against its CPU copy; ``QuantRMSNorm`` likewise in a llama)."""
 
     def __init__(self, dim: int, eps: float = 1e-5,
                  config: QuantConfig = DEFAULT_CONFIG, device=None):
@@ -618,9 +635,9 @@ class QuantLayerNorm(Layer):
         pass                         # gamma/beta stay float32
 
     def _ln(self, f: torch.Tensor) -> torch.Tensor:
-        mean = f.mean(dim=-1, keepdim=True)
-        var = torch.square(f - mean).mean(dim=-1, keepdim=True)
-        norm = (f - mean) * torch.rsqrt(var + f32(self.eps, f.device))
+        mean = _mean64(f)
+        var = _mean64(torch.square(f - mean))
+        norm = (f - mean) * _rsqrt64(var + f32(self.eps, f.device))
         return norm * self.weight + self.bias
 
     def forward(self, x: Tensor) -> Tensor:
@@ -642,7 +659,8 @@ class QuantRMSNorm(Layer):
     """RMSNorm over the last axis with a calibrated u8 output (the llama
     family): ``y = x * rsqrt(mean(x^2) + eps) * g`` with ``g = weight``, or
     ``1 + weight`` under ``unit_offset`` (gemma checkpoints store the
-    delta).  The gain stays float32."""
+    delta).  The gain stays float32.  The mean and the rsqrt run in
+    float64 and round once, as ``QuantLayerNorm``'s do."""
 
     def __init__(self, dim: int, eps: float = 1e-6,
                  config: QuantConfig = DEFAULT_CONFIG,
@@ -664,11 +682,11 @@ class QuantRMSNorm(Layer):
         pass                         # the gain stays float32
 
     def _norm(self, f: torch.Tensor) -> torch.Tensor:
-        ms = torch.square(f).mean(dim=-1, keepdim=True)
+        ms = _mean64(torch.square(f))
         g = self.weight
         if self.unit_offset:
             g = f32(1.0, g.device) + g
-        return f * torch.rsqrt(ms + f32(self.eps, f.device)) * g
+        return f * _rsqrt64(ms + f32(self.eps, f.device)) * g
 
     def forward(self, x: Tensor) -> Tensor:
         if x.shape[-1] != self.dim:

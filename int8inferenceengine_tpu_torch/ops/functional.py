@@ -36,16 +36,25 @@ def _hardsigmoid(x):
     return _relu6(x + f32(3.0, x.device)) / f32(6.0, x.device)
 
 
+def rounded64(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (``torch.exp``, ``torch.erfc``) of float32 ``x`` evaluated in
+    float64 and rounded once to float32: the correctly rounded result, the
+    same on the card and on the CPU, whose float32 libms differ by an ULP.
+    That ULP moved a code on a truncation boundary and a decoder's logits
+    on the card then differed from its CPU copy's (``chip_smoke.py``)."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
 def _sigmoid(x):
     one = f32(1.0, x.device)
-    return one / (one + torch.exp(-x))
+    return one / (one + rounded64(torch.exp, -x))
 
 
 def _gelu(x):
     # 0.5*x*erfc(-x*sqrt(1/2)): the exact form jax.nn.gelu(approximate=
     # False) evaluates, in its order, not x*0.5*(1+erf(x/sqrt(2)))
-    return (f32(0.5, x.device) * x) * torch.erfc(-x * f32(_SQRT_HALF,
-                                                          x.device))
+    return (f32(0.5, x.device) * x) * rounded64(
+        torch.erfc, -x * f32(_SQRT_HALF, x.device))
 
 
 def _gelu_tanh(x):

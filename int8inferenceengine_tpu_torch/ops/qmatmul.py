@@ -48,8 +48,16 @@ def qmatmul_act(a_u8: torch.Tensor, b_u8: torch.Tensor, *, scale_a, zp_a,
     b = b_u8.to(torch.float64) - float(int(zp_b))
     if transpose_b:
         b = b.transpose(-1, -2)
-    acc = torch.matmul(a, b).to(torch.int32)
-    dev = a_u8.device
+    return requant_act(torch.matmul(a, b).to(torch.int32), scale_a=scale_a,
+                       scale_b=scale_b, scale_c=scale_c, zp_c=zp_c,
+                       alpha=alpha, rounding=rounding)
+
+
+def requant_act(acc: torch.Tensor, *, scale_a, scale_b, scale_c, zp_c,
+                alpha: float = 1.0, rounding: str = "trunc") -> torch.Tensor:
+    """The int32 accumulator ``acc`` requantized to (scale_c, zp_c) in the
+    reference's float32 order."""
+    dev = acc.device
     q = (acc.to(torch.float32) * act_mult(scale_a, scale_b, alpha, scale_c,
                                           dev) + f32(zp_c, dev))
     q = torch.clamp(q, 0.0, 255.0)

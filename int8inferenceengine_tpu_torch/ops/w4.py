@@ -31,7 +31,10 @@ kernel (``csrc/w4_gemm.cu``) behind one wrapper:
   ``acc = I_0 * s_0; acc = acc + I_g * s_g`` in f32 (no FMA), then
   ``floor(clip(acc * mult[n] + zpb_eff[n], 0, 255) + rb)`` with
   ``zpb_eff = zpb + (mult * f32(128 - zp_x)) * wsum``.  Exact against its
-  plain version.
+  plain version.  ``plan_w4a8_v2`` decides each launch's K split over a
+  thread block cluster, whose slice 0 adds a group's s32 partials over the
+  slices before the fold; ``w4a8_v2_split_plain`` is the split's plain
+  twin.
 
 A wrapper takes the plain version for a CPU tensor only; for a CUDA tensor
 it launches its kernel or raises, and adds one to its ``launches`` count.
@@ -50,14 +53,18 @@ device, as the JAX package's twin.  Weight-only ``w4_matmul`` runs B5
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .gemm_int8 import H100_SMS, sm_count
 from .quant import f32
 
 __all__ = ["pack_w4", "dequant_w4", "unpack_codes", "split_bf16x3",
            "w4_gemm_plain", "w4_gemm", "w4a8_v1_plain", "w4a8_v1",
-           "w4a8_v2_plain", "w4a8_v2", "w4a8_operands", "merge_operands",
+           "w4a8_v2_plain", "w4a8_v2_split_plain", "w4a8_v2",
+           "plan_w4a8_v2", "W4A8Plan", "w4a8_operands", "merge_operands",
            "w4a8_apply", "w4a8_matmul", "w4a8_matmul_multi", "w4_matmul",
            "use_v2"]
 
@@ -72,6 +79,17 @@ _MSE_CANDIDATES = np.array(
 
 # B6's k-step (csrc/w4_gemm.cu): a group boundary must fall on one
 V2_GROUP_MULTIPLE = 32
+# B6's block tile (rows of M, columns of N; csrc/w4_gemm.cu BM x BN), its
+# ring (stages of V2_BK k values) and its K split: at most 8 slices (a
+# portable cluster)
+V2_TILE = (16, 64)
+V2_BK, V2_STAGES = 256, 4
+V2_MAX_SLICES = 8
+# K values a block walks at most before K is split: a cluster's barriers
+# cost about as much as a block's walk over 768 (PERF.md, the sweep), so
+# K = 768 runs unsplit and K = 2,048 in 8 slices of 256
+V2_SPLIT_K = 1024
+SMEM_LIMIT = 227 * 1024
 
 
 def pack_w4(w: torch.Tensor, group: int = 128, optimize: bool = False):
@@ -191,13 +209,117 @@ def w4a8_v2_plain(x_u8, packed, scales_t, mult_v, zpb_eff, k: int,
     # exact integers in float64: |I_g| <= 128 * 8 * group
     ints = torch.bmm(xg.permute(1, 0, 2), cg.permute(1, 2, 0)).to(
         torch.float32)                                       # [G, M, N]
+    return _v2_epilogue(ints, scales_t, mult_v, zpb_eff, rounding)
+
+
+def _v2_epilogue(ints, scales_t, mult_v, zpb_eff, rounding):
+    """B6's fold of the exact group partials ``ints`` f32 [G, M, N] in group
+    order, then its requantization."""
     acc = ints[0] * scales_t[0].reshape(1, -1)
-    for gi in range(1, n_groups):
+    for gi in range(1, ints.shape[0]):
         acc = acc + ints[gi] * scales_t[gi].reshape(1, -1)
     codes = torch.clamp(acc * mult_v.reshape(1, -1) + zpb_eff.reshape(1, -1),
                         0.0, 255.0)
-    rb = f32(0.5 if rounding == "nearest" else 0.0, x_u8.device)
+    rb = f32(0.5 if rounding == "nearest" else 0.0, ints.device)
     return torch.floor(codes + rb).to(torch.uint8)
+
+
+class W4A8Plan(NamedTuple):
+    """One launch of B6: ``tile`` the kernel's block tile ``V2_TILE`` (rows of
+    M, columns of N); ``orientation`` 'swapped', the kernel's one: out^T =
+    W x^T, the weight codes the MMA's 16-row A operand and the batch rows
+    its n8 B operand; ``slices`` K slices of ``k_slice`` values each, run
+    as one thread block cluster."""
+    tile: tuple
+    orientation: str
+    slices: int
+    k_slice: int
+
+
+def v2_slice_counts(k: int, group: int) -> list:
+    """The K splits B6 can run: the slices divide K evenly, each a multiple
+    of the k-step and either a whole number of groups or a whole fraction of
+    one, so that every slice keeps exact partials of whole groups or of one
+    group's part."""
+    out = []
+    for s in range(1, V2_MAX_SLICES + 1):
+        ks = k // s
+        if k % s == 0 and ks % V2_GROUP_MULTIPLE == 0 and (
+                group % ks == 0 or ks % group == 0):
+            out.append(s)
+    return out
+
+
+def v2_smem_bytes(plan: W4A8Plan, group: int) -> int:
+    """B6's dynamic shared memory (``csrc/w4_gemm.cu`` ``smem_bytes``): the
+    ring (x rows padded to BK + 32 bytes, packed rows to BK/2 + 16) and,
+    for a K split, the tile's mult, zpb_eff and every group's scales and
+    each slice's s32 partials of the groups it touches."""
+    rows, cols = plan.tile
+    ring = V2_STAGES * (rows * (V2_BK + 32) + cols * (V2_BK // 2 + 16))
+    if plan.slices == 1:
+        return ring
+    n_groups = plan.k_slice * plan.slices // group
+    part_groups = max(1, plan.k_slice // group)
+    return ring + (2 + n_groups) * cols * 4 + part_groups * rows * cols * 4
+
+
+def check_w4a8_plan(plan: W4A8Plan, m: int, n: int, k: int, group: int):
+    """Raise ValueError for a plan the kernel cannot run."""
+    if plan.tile != V2_TILE or plan.orientation != "swapped" or \
+            plan.slices not in v2_slice_counts(k, group) or \
+            plan.k_slice * plan.slices != k or \
+            v2_smem_bytes(plan, group) > SMEM_LIMIT:
+        raise ValueError(f"B6 cannot run {plan} at M={m} N={n} K={k} "
+                         f"group={group}")
+
+
+def plan_w4a8_v2(m: int, n: int, k: int, group: int,
+                 sms: int = H100_SMS) -> W4A8Plan:
+    """B6's plan for an [M, K] x [N, K] launch on a card of ``sms`` SMs:
+    K unsplit up to ``V2_SPLIT_K``, longer K split into the most slices
+    ``v2_slice_counts`` allows that keep tiles x slices within two blocks
+    an SM."""
+    if min(m, n, k) <= 0 or k % group or group % V2_GROUP_MULTIPLE:
+        raise ValueError(f"plan_w4a8_v2: M={m} N={n} K={k} group={group} "
+                         f"is outside B6's envelope")
+    tile = V2_TILE
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    slices = 1
+    if k > V2_SPLIT_K:
+        for s in v2_slice_counts(k, group):
+            plan = W4A8Plan(tile, "swapped", s, k // s)
+            if tiles * s <= 2 * sms and \
+                    v2_smem_bytes(plan, group) <= SMEM_LIMIT:
+                slices = s
+    return W4A8Plan(tile, "swapped", slices, k // slices)
+
+
+def w4a8_v2_split_plain(x_u8, packed, scales_t, mult_v, zpb_eff, k: int,
+                        group: int, rounding: str = "trunc",
+                        slices: int = 1):
+    """The plain twin of B6's K split: each of ``slices`` equal K slices
+    forms the exact s32 partials of the groups it touches, a group's
+    partials add over the slices in s32, and the f32 fold runs over the
+    groups in order (``_v2_epilogue``).  Equal bit for bit to
+    ``w4a8_v2_plain`` at every split ``v2_slice_counts`` allows."""
+    if slices not in v2_slice_counts(k, group):
+        raise ValueError(f"no B6 split of K={k} into {slices} slices at "
+                         f"group {group}")
+    m, n = x_u8.shape[0], packed.shape[0]
+    ks = k // slices
+    xs = x_u8.to(torch.float64) - 128.0
+    codes = unpack_codes(packed, k).to(torch.float64)
+    ints = torch.zeros((k // group, m, n), dtype=torch.int64,
+                       device=x_u8.device)
+    for r in range(slices):
+        for lo in range(r * ks, (r + 1) * ks, min(ks, group)):
+            hi = lo + min(ks, group)
+            # exact in float64: |partial| <= 128 * 8 * group
+            part = torch.matmul(xs[:, lo:hi], codes[:, lo:hi].t())
+            ints[lo // group] += part.to(torch.int64)
+    return _v2_epilogue(ints.to(torch.float32), scales_t, mult_v, zpb_eff,
+                        rounding)
 
 
 # -- operands -----------------------------------------------------------------
@@ -363,10 +485,12 @@ w4a8_v1.launches = 0
 w4a8_v1.merged_launches = 0
 
 
-def w4a8_v2(x_u8, ops: dict, rounding: str = "trunc"):
+def w4a8_v2(x_u8, ops: dict, rounding: str = "trunc",
+            plan: W4A8Plan | None = None):
     """B6 on the operands ``ops``: u8 [M, K] -> u8 [M, N], K % group == 0
-    and group % 32 == 0.  On CUDA tensors this launches ``w4a8_v2_gemm`` and
-    adds one to ``w4a8_v2.launches``; on CPU tensors it is
+    and group % 32 == 0.  On CUDA tensors this launches ``w4a8_v2_gemm``
+    with ``plan`` (by default ``plan_w4a8_v2``'s; one it cannot run raises)
+    and adds one to ``w4a8_v2.launches``; on CPU tensors it is
     ``w4a8_v2_plain``."""
     k, group = ops["k"], ops["group"]
     packed, scales_t = ops["packed"], ops["scales_t"]
@@ -385,21 +509,25 @@ def w4a8_v2(x_u8, ops: dict, rounding: str = "trunc"):
     if dev is None:
         return w4a8_v2_plain(x_u8, packed, scales_t, ops["mult_v"],
                              ops["zpb_eff"], k, group, rounding)
-    if x_u8.shape[0] * k >= 2 ** 31 or n * k >= 2 ** 31:
+    m = x_u8.shape[0]
+    if m * k >= 2 ** 31 or n * k >= 2 ** 31:
         raise ValueError("w4a8_v2: shape too large for int32 offsets")
     # 16-byte cp.async rows
     if x_u8.data_ptr() % 16:
         x_u8 = x_u8.clone()
     if packed.data_ptr() % 16:
         packed = packed.clone()
-    out = torch.empty((x_u8.shape[0], n), dtype=torch.uint8, device=dev)
-    if x_u8.shape[0] == 0 or n == 0:
+    out = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    if m == 0 or n == 0:
         return out
+    plan = plan or plan_w4a8_v2(m, n, k, group, sms=sm_count(dev))
+    check_w4a8_plan(plan, m, n, k, group)
     with torch.cuda.device(dev):
         _launch("w4a8_v2_gemm", x_u8.data_ptr(), packed.data_ptr(),
                 scales_t.data_ptr(), ops["mult_v"].data_ptr(),
-                ops["zpb_eff"].data_ptr(), out.data_ptr(), x_u8.shape[0], n,
-                k, group, int(rounding == "nearest"), _stream(dev))
+                ops["zpb_eff"].data_ptr(), out.data_ptr(), m, n, k, group,
+                int(rounding == "nearest"), plan.slices, plan.k_slice,
+                _stream(dev))
     w4a8_v2.launches += 1
     return out
 

@@ -395,3 +395,123 @@ def test_b5_kernel_matches_plain_on_card(cuda_device, m, k, n, group):
     torch.cuda.synchronize()
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= 2e-5, err
+
+
+# -- B6's plan and its K split --------------------------------------------------
+
+# (M, K, N, group) -> (tile, slices): the five llama decode shapes, then B6's
+# envelope edges (M = 8, 16, 128; K = 768 and 2,048; group 128 and 256)
+PLANS = [((8, 768, 1024, 256), ((16, 64), 1)),
+         ((8, 768, 768, 256), ((16, 64), 1)),
+         ((8, 768, 4096, 256), ((16, 64), 1)),
+         ((8, 2048, 768, 256), ((16, 64), 8)),
+         ((8, 768, 32000, 256), ((16, 64), 1)),
+         ((16, 768, 768, 128), ((16, 64), 1)),
+         ((16, 2048, 4096, 256), ((16, 64), 4)),
+         ((128, 768, 768, 256), ((16, 64), 1)),
+         ((128, 2048, 768, 128), ((16, 64), 2)),
+         ((8, 2048, 32000, 128), ((16, 64), 1))]
+
+
+@pytest.mark.parametrize("shape,want", PLANS)
+def test_plan_w4a8_v2_is_pinned_and_runnable(shape, want):
+    m, k, n, group = shape
+    plan = TW.plan_w4a8_v2(m, n, k, group)
+    assert (plan.tile, plan.slices) == want
+    assert plan.orientation == "swapped"
+    assert plan.tile == (16, 64)
+    # at most 8 slices of whole groups or of whole fractions of one
+    assert 1 <= plan.slices <= 8 and plan.k_slice * plan.slices == k
+    assert plan.k_slice % 32 == 0
+    assert group % plan.k_slice == 0 or plan.k_slice % group == 0
+    assert TW.v2_smem_bytes(plan, group) <= 227 * 1024
+    TW.check_w4a8_plan(plan, m, n, k, group)
+    for s in TW.v2_slice_counts(k, group):
+        TW.check_w4a8_plan(plan._replace(slices=s, k_slice=k // s), m, n, k,
+                           group)
+
+
+def test_w4a8_plan_refusals():
+    plan = TW.plan_w4a8_v2(8, 768, 768, 256)
+    for bad in (plan._replace(slices=8, k_slice=96),      # 96 splits a group
+                plan._replace(slices=2, k_slice=384),
+                plan._replace(tile=(8, 64)),
+                plan._replace(orientation="direct")):
+        with pytest.raises(ValueError, match="cannot run"):
+            TW.check_w4a8_plan(bad, 8, 768, 768, 256)
+    with pytest.raises(ValueError, match="envelope"):
+        TW.plan_w4a8_v2(8, 768, 700, 256)
+    with pytest.raises(ValueError, match="no B6 split"):
+        c = _w4a8_case(8, 256, 16, 128)
+        TW.w4a8_v2_split_plain(torch.tensor(c["x"]), None, None, None, None,
+                               256, 128, slices=3)
+
+
+@pytest.mark.parametrize("m,k,n,group,vec", [(8, 768, 96, 256, True),
+                                             (16, 2048, 40, 256, False),
+                                             (24, 256, 70, 32, True),
+                                             (8, 512, 33, 128, False)])
+def test_b6_split_plain_equals_plain_at_every_split(m, k, n, group, vec):
+    """The plain twin of B6's K split (per-slice s32 partials, added per
+    group, folded in group order) equals ``w4a8_v2_plain`` bit for bit at
+    every split the kernel runs."""
+    c = _w4a8_case(m, k, n, group, seed=m + k, vector_mult=vec)
+    mult = torch.tensor(c["mult"]) if vec else float(c["mult"])
+    ops = TW.w4a8_operands(torch.tensor(c["packed"]),
+                           torch.tensor(c["scales"]), torch.tensor(c["zpb"]),
+                           k, group, zp_x=c["zp_x"], mult=mult,
+                           wsum=torch.tensor(c["wsum"]))
+    x = torch.tensor(c["x"])
+    args = (x, ops["packed"], ops["scales_t"], ops["mult_v"], ops["zpb_eff"],
+            k, group)
+    for rounding in ("trunc", "nearest"):
+        want = TW.w4a8_v2_plain(*args, rounding)
+        assert len(torch.unique(want)) > 16
+        for s in TW.v2_slice_counts(k, group):
+            got = TW.w4a8_v2_split_plain(*args, rounding, slices=s)
+            assert torch.equal(got, want), (s, rounding)
+
+
+@pytest.mark.parametrize("m,k,n,group,slices", [(8, 768, 96, 256, 6),
+                                                (16, 512, 64, 128, 8)])
+def test_b6_split_plain_matches_pallas_v2(m, k, n, group, slices):
+    """Through ``w4a8_v2_plain``, the split twin equals the JAX package's
+    ``_w4a8_kernel_v2`` (interpret mode) bit for bit."""
+    c = _w4a8_case(m, k, n, group, seed=k + slices, vector_mult=True)
+    want = _jax(JW.w4a8_matmul_pallas, c, "nearest", wsum=c["wsum"],
+                interpret=True)
+    ops = TW.w4a8_operands(torch.tensor(c["packed"]),
+                           torch.tensor(c["scales"]), torch.tensor(c["zpb"]),
+                           k, group, zp_x=c["zp_x"],
+                           mult=torch.tensor(c["mult"]),
+                           wsum=torch.tensor(c["wsum"]))
+    got = TW.w4a8_v2_split_plain(torch.tensor(c["x"]), ops["packed"],
+                                 ops["scales_t"], ops["mult_v"],
+                                 ops["zpb_eff"], k, group, "nearest",
+                                 slices=slices)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", [(8, 768, 1024, 256),
+                                         (8, 2048, 768, 256),
+                                         (64, 768, 768, 128),
+                                         (24, 256, 70, 32)])
+def test_b6_kernel_equals_plain_at_every_split_on_card(cuda_device, m, k, n,
+                                                       group):
+    c = _w4a8_case(m, k, n, group, seed=m + k, vector_mult=True)
+    ops = TW.w4a8_operands(*(torch.tensor(c[key]).to(cuda_device)
+                             for key in ("packed", "scales", "zpb")),
+                           k, group, zp_x=c["zp_x"],
+                           mult=torch.tensor(c["mult"]).to(cuda_device))
+    x = torch.tensor(c["x"]).to(cuda_device)
+    chosen = TW.plan_w4a8_v2(m, n, k, group)
+    for s in TW.v2_slice_counts(k, group):
+        plan = chosen._replace(slices=s, k_slice=k // s)
+        for rounding in ("trunc", "nearest"):
+            got = TW.w4a8_v2(x, ops, rounding, plan=plan)
+            want = TW.w4a8_v2_plain(x, ops["packed"], ops["scales_t"],
+                                    ops["mult_v"], ops["zpb_eff"], k, group,
+                                    rounding)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (plan, rounding)
