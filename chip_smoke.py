@@ -49,9 +49,16 @@ Phases, in order (any failure exits non-zero):
 7. the decoder main path at full width (gpt2-small-ish: 768d, 12 layers, 12
    heads, vocab 50257, max_len 512) with seeded random weights, batch 8, a
    64-token prompt: FP32 forward against its twin (rtol 1e-4), prepare,
-   calibrate, convert, greedy ``generate(ids, 128)`` with exactly 12 B2, 37
-   B1 and 12 B3 launches per decode step, then the kernel path's logit codes
-   against the plain path's on the card, teacher-forced on its tokens;
+   calibrate, convert, greedy ``generate(ids, 128)`` (the first decode step
+   eager, the others replaying it as a captured CUDA graph) with exactly 12
+   B2, 37 B1 and 12 B3 per decode step (the wrappers count the prefill and
+   the eager step, each replay adds the kernels that the capture recorded,
+   and the capture adds nothing; in a profile of 4 replays of a step
+   captured the same way each replay runs what it counts), then the kernel
+   path's logit codes against the
+   plain path's on the card, teacher-forced on its tokens, and the captured
+   decode against the eager step loop: the tokens, and 128 teacher-forced
+   steps' codes through a captured step, equal;
 8. the 4-bit kernels against their plain versions at every shape the llama
    legs launch: B6 (W4A8 with exact per-group integer partials) exactly at
    the decode shapes, at M = 16, 64 and 128 and at ragged shapes, under
@@ -62,14 +69,18 @@ Phases, in order (any failure exits non-zero):
    plain arithmetic (``w4a8_v2_plain``, any M) and within 1 code on 0.2%
    of its own f32 plain version; B5 (W4 weight-only) within 2e-5 of the
    largest |output| at the weight-only shapes, the same edge shapes and an
-   input whose magnitudes span 2^-60 ... 2^60;
+   input whose magnitudes span 2^-60 ... 2^60; and at the engines' batched
+   prefill shapes (M = n x bucket for the prompt lengths of 12, n up to 8
+   slots: 32 to 1,024 rows) B1 and B2 at the gpt2 Linears and B6 or B7, as
+   the W4A8 dispatch picks, at the llama's, under the same contracts;
 9. the llama W4A8 main path at full width (bench.py's W4A8 leg: 768d, 12
    layers, 12 heads over 2 kv heads, vocab 32000, max_len 512, group 256,
    nearest rounding) with seeded random weights, batch 8, a 64-token prompt:
    FP32 forward against its twin (1e-4 of the largest logit), prepare,
-   calibrate, convert, greedy ``generate(ids, 128)`` with exactly 49 B6 and
-   12 B3 launches per decode step and 25 single-layer + 24 merged B7
-   launches in the prefill; every W4 launch of the prefill and of 16 decode
+   calibrate, convert, greedy ``generate(ids, 128)`` (captured, counted as
+   in 7) with exactly 49 B6 and 12 B3 per decode step and 25 single-layer +
+   24 merged B7 launches in the prefill, the captured decode equal to the
+   eager step loop as in 7; every W4 launch of the prefill and of 16 decode
    steps replayed through its plain versions on its own operands; from one
    shared prefill cache, 128 teacher-forced decode steps whose logit codes
    must equal those of the same model with its W4 and B3 wrappers swapped
@@ -85,7 +96,8 @@ Phases, in order (any failure exits non-zero):
    causal forward, B7 at M = 4096; recorded, not gated), and per kernel
    and shape the kernel (with B1's, B2's, B6's and B3's plan), its plain
    version, the bound and a library yardstick; B3 also at a full cache
-   (recorded beside the step's); an empty launch through the same timer
+   (recorded beside the step's); beside each captured decode ms/step the
+   eager step loop's by the same protocol; an empty launch through the same timer
    (the event floor); for the convs the gathered kernel beside
    im2col + B1 and the conv's own bound beside the im2col operand's
    (``bound_im2col_ms``); the yardstick for the int8 GEMMs is
@@ -93,7 +105,29 @@ Phases, in order (any failure exits non-zero):
    for B5 ``torch.addmm`` on the weight dequantized beforehand (f32, TF32
    off).  B3, B6 and B7 have none: no single PyTorch call computes
    attention over the u8 cache or a packed 4-bit GEMM with a requantizing
-   epilogue.
+   epilogue;
+12. serving the decoders (``serve.GenerationEngine``: 8 slots, chunks of
+   32 captured steps, 4 chunks a host sync): the gpt2-small-ish engine
+   takes 16 requests (prompts of 17-100 tokens, 64-128 new tokens; 10
+   greedy, 4 sampled at temperature 0.8, top_p 0.9, top_k 40 with fixed
+   seeds, 2 with an eos that their greedy run emits) twice: each greedy
+   request equals ``generate()`` of its prompt alone, an eos request ends
+   where that run first emits it, and the sampled ones repeat in the second
+   pass; the llama W4A8 engine takes 8 greedy requests, the same gate.  Each
+   then serves a saturated load (32 requests x 64 prompt tokens x 128 new
+   tokens, greedy): tokens/s, time to first token p50/p99, mean slot fill;
+   and a profiled replay of its greedy chunk graph must run the kernels
+   that a replay counts.  The gpt2 engine also runs bench.py's engine leg
+   (8 slots, 8 chunks a sync, 16 requests x 24 prompt tokens x 256 new
+   tokens; tokens/s best of 2 after a warm round), the serving yardstick;
+13. the small decoders of 6 served by an engine on the card and one on the
+   CPU (gpt2 at 4 slots, llama W4A8 at 8 slots with a 768-wide MLP, every
+   GEMM on B6): greedy tokens equal, sampled tokens recorded;
+14. AlexNet-224's ``serve.InferenceEngine`` (max_batch 100, the forward
+   captured per tile): requests of 1, 7, 33, 64 and 100 images equal the
+   direct call exactly, and their counted launches equal the kernels that
+   a profile of them saw run; images/s at a saturated load beside the
+   direct call's.
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -820,6 +854,100 @@ def check_w4_kernels(torch, W, gen, dev):
     return err
 
 
+def engine_prefill_ms():
+    """M = n x bucket of every batched prefill that the engine phases'
+    GenerationEngines (8 slots) can run for their prompt lengths: each
+    prompt's power-of-two bucket (``serve.generation._bucket``), n a power
+    of two up to the slots (the engine's grouping)."""
+    from int8inferenceengine_tpu_torch.serve.generation import _bucket
+    lens = set(SERVE_PROMPTS) | {SERVE_LOAD[1], BENCH_ENGINE_LOAD[1]}
+    buckets = {min(_bucket(t), GPT["max_len"]) for t in lens}
+    slots = max(SERVE["slots"], BENCH_ENGINE["slots"])
+    ns = [1 << i for i in range(slots.bit_length())]
+    return sorted({n * b for b in buckets for n in ns})
+
+
+def check_engine_prefill_kernels(torch, G, W, gen, dev):
+    """The kernels at the engines' batched prefill shapes (M from
+    ``engine_prefill_ms``): B1 at the gpt2 Linears (exact; the gelu
+    epilogue within 1 code on 0.2%) and B2 at its merged QKV (exact); at
+    the llama W4A8 Linears (group 256) the kernel that the W4A8 dispatch
+    picks, B6 exactly or B7 as ``check_b7`` holds it; both roundings.
+    Returns {kernel: max |code difference|}."""
+    err = dict.fromkeys(("qgemm_u8s8", "qgemm_u8s8_vzp", "w4a8_v2_gemm",
+                         "w4a8_v1_gemm"), 0)
+    group = LLAMA_W4A8["w4_group"]
+    for m in engine_prefill_ms():
+        on = {"b6": [], "b7": []}
+        for name, _, k, n, _, act in DEC_GEMMS:
+            c = gemm_case(torch, gen, m, k, n, dev)
+            oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]),
+                                  c["s_a"], c["zp_a"], recentered=True)
+            # an act epilogue: scale s_w and s_c alike (act_kernel_vs_plain)
+            f = 5.0 / (110 * c["s_c"]) if act else 1.0
+            ep = G.epilogue_vector(c["s_a"], c["s_w_pc"] * f, c["s_c"] * f,
+                                   n, dev, "gemm")
+            for rounding in ("trunc", "nearest"):
+                kw = dict(scale_a=c["s_a"], scale_c=c["s_c"] * f,
+                          zp_c=c["zp_c"], rounding=rounding,
+                          act=act_grid(act) if act else None)
+                got = G.qgemm(c["a"], c["w"], oc, ep, **kw)
+                want = G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
+                torch.cuda.synchronize()
+                mx, share = contract(torch, got, want)
+                err["qgemm_u8s8"] = max(err["qgemm_u8s8"], mx)
+                if (act is None and mx) or mx > 1 or share > 0.002:
+                    fail(f"engine prefill B1 {name} kernel != plain at M={m} "
+                         f"K={k} N={n} {rounding}: max {mx}, share {share}")
+        _, k, n, _ = DEC_QKV
+        parts = []
+        for i in range(3):
+            c = gemm_case(torch, gen, m, k, n, dev)
+            parts.append(dict(w_s8_nk=c["w"], q_bias=c["q_bias"],
+                              rowsum=rowsum(torch, c["w"]),
+                              scale_w=c["s_w_pc"] if i == 1 else 0.01,
+                              scale_c=c["s_c"] * (1 + 0.3 * i),
+                              zp_c=100 + 20 * i))
+        merged = G.merge_parts(parts, scale_a=c["s_a"], zp_a=c["zp_a"])
+        for rounding in ("trunc", "nearest"):
+            got = torch.cat(G.qgemm_multi(c["a"], merged, rounding=rounding),
+                            1)
+            want = torch.cat(G.qgemm_multi_plain(c["a"], merged,
+                                                 rounding=rounding), 1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"engine prefill B2 kernel != plain at M={m}: "
+                     f"{int((got != want).sum())} codes differ")
+        for name, _, k, n, _ in W4_DECODE:
+            c = w4_case(torch, W, gen, m, k, n, group, dev,
+                        vector_mult=name in ("qkv", "gate+up"))
+            b6 = W.use_v2(m, k, group, k // group)
+            on["b6" if b6 else "b7"].append(name)
+            for rounding in ("trunc", "nearest"):
+                if b6:
+                    got = W.w4a8_v2(c["x"], c["ops"], rounding)
+                    want = v2_plain(W, c["x"], c["ops"], rounding)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"engine prefill B6 {name} kernel != plain at "
+                             f"M={m} K={k} N={n} {rounding}: "
+                             f"{int((got != want).sum())} codes differ")
+                else:
+                    _, mx, _ = check_b7(
+                        torch, W, W.w4a8_v1, c["x"], c["ops"], rounding,
+                        f"engine prefill {name} at M={m} K={k} N={n}")
+                    err["w4a8_v1_gemm"] = max(err["w4a8_v1_gemm"], mx)
+        log(json.dumps({"phase": "engine_prefill_kernels_vs_plain", "M": m,
+                        "gpt2": {"b1": [g[0] for g in DEC_GEMMS],
+                                 "b2": "qkv",
+                                 "b1_plans": {g[0]: plan_of(G, m, g[3], g[2],
+                                                            dev)
+                                              for g in DEC_GEMMS}},
+                        "llama_w4a8": on,
+                        "max_abs_err_so_far": dict(err)}))
+    return err
+
+
 @contextlib.contextmanager
 def swapped(module, **fns):
     """Replace module-level functions while the block runs (a harness swap:
@@ -1157,16 +1285,15 @@ def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
         "qgemm_u8s8": 3 * depth + 1, "qgemm_u8s8_vzp": depth,
         "decode_attn_flat": depth}
     prefill = dict(per_step, decode_attn_flat=0)
-    want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
-    if counts != want:
-        fail(f"decoder launches {counts}, want {want} (per decode step "
-             f"{per_step})")
+    check_captured_launches(torch, "decoder", counts, model, ids, prefill,
+                            per_step, kernel_fns)
     if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.dtype != np.int32 \
             or tokens.min() < 0 or tokens.max() >= GPT["vocab_size"]:
         fail(f"generate returned {tokens.dtype} {tokens.shape} in "
              f"[{tokens.min()}, {tokens.max()}]")
     log(json.dumps({"phase": "decoder_generate", "steps": DEC_STEPS,
-                    "launches": counts, "launches_per_decode_step": per_step,
+                    "launches": counts,
+                    "launches_per_decode_step": per_step,
                     "prepare_calibrate_convert_s": round(lifecycle_s, 3),
                     "distinct_tokens": int(np.unique(tokens).size)}))
 
@@ -1196,6 +1323,7 @@ def decoder_main_path(torch, q, zoo, TD, kernel_fns, dev):
         fail(f"decoder codes, kernel path vs plain path: max {mx}, share "
              f"{share}")
     del plain, got, want_codes
+    captured_vs_eager(torch, model, ids, tokens, "decoder")
     return model, ids, counts
 
 
@@ -1246,10 +1374,10 @@ def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
     per_step = dict.fromkeys(kernel_fns, 0) | {
         "w4a8_v2_gemm": 4 * depth + 1, "decode_attn_flat": depth}
     prefill = dict.fromkeys(kernel_fns, 0) | {"w4a8_v1_gemm": 4 * depth + 1}
-    want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
-    if counts != want or merged != 2 * depth:
-        fail(f"llama W4A8 launches {counts} ({merged} merged B7), want "
-             f"{want} ({2 * depth} merged B7)")
+    check_captured_launches(torch, "llama W4A8", counts, model, ids,
+                            prefill, per_step, kernel_fns)
+    if merged != 2 * depth:
+        fail(f"llama W4A8 prefill: {merged} merged B7, want {2 * depth}")
     if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.dtype != np.int32 \
             or tokens.min() < 0 or tokens.max() >= LLAMA["vocab_size"]:
         fail(f"generate returned {tokens.dtype} {tokens.shape} in "
@@ -1312,6 +1440,7 @@ def llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev):
                     "codes": int(prefill_kernel.numel()), "max_abs_err": mx,
                     "share_differing": share, "gated": False}))
     del got, want_codes, prefill_plain, prefill_kernel, cache, cache_plain
+    captured_vs_eager(torch, model, ids, tokens, "llama_w4a8")
     return model, ids, state, counts
 
 
@@ -1408,15 +1537,20 @@ def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
     prompt = Tensor(torch.tensor(ids, dtype=torch.int64, device=model.device))
     with torch.no_grad():
         prefill_ms = time_cuda(torch, lambda: model._prefill(prompt), iters=5)
+    eager_ms = time_eager_steps(torch, model, ids)
     res = {"model": label, "batch": DEC_BATCH,
            "prompt": DEC_PROMPT, "decode_ms_per_step": per_step * 1e3,
            "tokens_per_s": DEC_BATCH / per_step, "prefill_ms": prefill_ms,
+           "eager_step_loop_ms_per_step": eager_ms,
            "generate_s": {str(k): v for k, v in times.items()},
            "protocol": f"(t(generate {DEC_STEPS}) - t(generate {DEC_SHORT}))"
-                       f" / {DEC_STEPS - DEC_SHORT}, best of 3"}
+                       f" / {DEC_STEPS - DEC_SHORT}, best of 3; generate() "
+                       f"replays a captured step, the eager loop launches "
+                       f"every kernel from Python"}
     log(json.dumps(res))
     if profile:
-        profile_decode(torch, model, prompt, per_step * 1e6, label)
+        profile_captured(torch, model, ids, label)
+        profile_decode(torch, model, prompt, eager_ms * 1e3, label)
         profile_forward(torch, lambda: model._prefill(prompt),
                         f"{label}: prefill")
     return res
@@ -1507,6 +1641,566 @@ def profile_decode(torch, model, prompt, step_us, label):
                               "us_per_step": e.self_device_time_total / reps,
                               "calls_per_step": e.count / reps}
                              for e in rows[:30]]}))
+
+
+# -- captured steps and serving on the card --------------------------------
+
+# the serving engines' defaults (the JAX package's): slots, decode steps a
+# chunk, chunks a host sync
+SERVE = dict(slots=8, chunk_steps=32, sync_chunks=4)
+# the gpt2 engine's 16 requests: prompt lengths cycle through these, 64-128
+# new tokens each; 10 greedy, 4 sampled with these knobs and fixed seeds, 2
+# with an eos that the greedy run of their prompt emits
+SERVE_PROMPTS = (17, 24, 40, 64, 100)
+SERVE_SAMPLED = dict(temperature=0.8, top_p=0.9, top_k=40)
+# saturated load: requests x prompt tokens x new tokens, greedy
+SERVE_LOAD = (32, 64, 128)
+# bench.py's engine leg (bench.py:295-323), the serving yardstick that the
+# JAX package's own benchmark pins: the gpt2-small-ish engine at 8 slots,
+# chunks of 32 steps, 8 chunks a sync; 16 greedy requests x 24 prompt
+# tokens x 256 new tokens (prompts from default_rng(7)); one warm round,
+# then tokens/s best of 2
+BENCH_ENGINE = dict(slots=8, chunk_steps=32, sync_chunks=8)
+BENCH_ENGINE_LOAD = (16, 24, 256)
+# the small decoders' engines on the card and on the CPU: (family, slots,
+# extra geometry); 8 requests of up to 30 prompt tokens, 16 new tokens
+SMALL_SERVE = [("gpt2", 4, {}), ("llama_w4a8", 8, {"mlp_hidden": 768})]
+SMALL_SERVE_PROMPTS = (5, 9, 16, 30)
+# the AlexNet engine's requests (images each) and its saturated load
+# (batches of 100)
+ALEX_REQUESTS = (1, 7, 33, 64, 100)
+ALEX_LOAD = 30
+WAIT_S = 600
+
+
+# replays profiled to check a captured step's kernels
+REPLAYS_PROFILED = 4
+
+
+def per_replay(program, kernel_fns):
+    """{kernel: launches} that each replay of a ``graphs.Captured`` program
+    adds to the counts: what its capture recorded."""
+    return {name: program.launches.get((fn, "launches"), 0)
+            for name, fn in kernel_fns.items()}
+
+
+def check_replays(label, program, kernel_fns, ran, reps, want=None):
+    """A captured program's kernels, two ways: ``ran`` ({kernel:
+    executions} of ``reps`` profiled replays) must equal ``reps`` times
+    what each replay adds to the counts, and that must equal ``want`` (a
+    step's kernels, where it is known)."""
+    adds = per_replay(program, kernel_fns)
+    got = {k: n // reps for k, n in ran.items()}
+    if any(n % reps for n in ran.values()) or \
+            got != {k: n for k, n in adds.items() if n} or \
+            (want is not None and adds != want):
+        fail(f"{label}: {reps} profiled replays ran {ran}; each replay "
+             f"counts {adds}" + (f", want {want}" if want else ""))
+    return adds
+
+
+def check_captured_launches(torch, label, counts, model, ids, prefill,
+                            per_step, kernel_fns):
+    """The launch gate of a captured ``generate(ids, DEC_STEPS)``: the
+    counts (the wrappers' for the prefill and the eager first decode step,
+    ``graphs.Captured``'s for each of the DEC_STEPS - 2 replays) equal
+    ``prefill`` plus DEC_STEPS - 1 steps of ``per_step`` exactly; and a
+    step captured the same way (``replay_profile``) runs, in each of
+    REPLAYS_PROFILED profiled replays, the kernels that a replay counts."""
+    want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
+    if counts != want:
+        fail(f"{label} launches {counts}, want {want}")
+    rows, _, program = replay_profile(torch, model, ids, REPLAYS_PROFILED)
+    check_replays(f"{label} captured step", program, kernel_fns,
+                  executions(rows), REPLAYS_PROFILED, per_step)
+
+
+def executions(rows):
+    """{kernel: executions} of the port's kernels in a profile's device
+    rows (eager launches and graph replays alike)."""
+    out = {}
+    for e in rows:
+        k = kernel_of(e.key)
+        if k is not None:
+            out[k] = out.get(k, 0) + e.count
+    return out
+
+
+@contextlib.contextmanager
+def kernel_profile(torch):
+    """Profile the card while the block runs; yields a dict that holds
+    ``executions`` when the block ends."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    res = {}
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        yield res
+        torch.cuda.synchronize()
+    res.update(executions(profile_rows(torch, prof)))
+
+
+def eager_generate(torch, model, ids, steps):
+    """Greedy decoding as a Python loop of eager ``_decode_step`` calls (the
+    parent's ``generate()``): int32 [B, steps]."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(torch.tensor(
+            ids.astype(np.int64), device=dev)))
+        tok = codes.argmax(-1)
+        out = [tok]
+        pos = torch.full((), ids.shape[1], dtype=torch.int64, device=dev)
+        for _ in range(1, steps):
+            codes, cache = model._decode_step(cache, pos, tok)
+            tok = codes.argmax(-1)
+            out.append(tok)
+            pos = pos + 1
+    return torch.stack(out, 1).cpu().numpy().astype(np.int32)
+
+
+def teacher_forced_captured(torch, model, prompt, tokens):
+    """``teacher_forced`` with the decode step captured as a CUDA graph
+    (``graphs.run_steps``, as ``generate()`` runs it): the step reads its
+    token from ``tokens`` at a column held on the card."""
+    from int8inferenceengine_tpu_torch import graphs
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    b, steps = tokens.shape
+    with torch.no_grad():
+        codes0, cache = model._prefill(Tensor(prompt))
+        out = torch.empty((b, steps, codes0.shape[-1]), dtype=torch.uint8,
+                          device=prompt.device)
+        out[:, 0] = codes0
+        pos = torch.full((), prompt.shape[1], dtype=torch.int64,
+                         device=prompt.device)
+        col = torch.ones((1,), dtype=torch.int64, device=prompt.device)
+        tok = tokens[:, 0].clone()
+
+        def step():
+            codes, _ = model._decode_step(cache, pos, tok)
+            out.index_copy_(1, col, codes[:, None])
+            tok.copy_(tokens.index_select(1, col).reshape(-1))
+            pos.add_(1)
+            col.add_(1)
+
+        program = graphs.run_steps(step, steps - 1, prompt.device)
+        torch.cuda.synchronize()
+    del program
+    return out
+
+
+def captured_vs_eager(torch, model, ids, tokens, label):
+    """The captured ``generate()``'s tokens against the eager step loop's,
+    and DEC_STEPS teacher-forced steps' codes through a captured step
+    against the eager step's: both equal."""
+    eager = eager_generate(torch, model, ids, DEC_STEPS)
+    prompt = torch.tensor(ids, dtype=torch.int64, device=model.device)
+    toks = torch.tensor(tokens, dtype=torch.int64, device=model.device)
+    got = teacher_forced_captured(torch, model, prompt, toks)
+    want = teacher_forced(torch, model, prompt, toks)
+    mx, share = contract(torch, got, want)
+    same = bool(np.array_equal(tokens, eager))
+    log(json.dumps({"phase": f"{label}_captured_vs_eager",
+                    "tokens_equal": same, "teacher_forced_steps": DEC_STEPS,
+                    "codes": int(got.numel()), "max_abs_err": mx,
+                    "share_differing": share, "limit": "equal"}))
+    if not same or mx:
+        fail(f"{label}: the captured decode differs from the eager step "
+             f"loop (tokens equal: {same}; codes max {mx}, share {share})")
+
+
+def time_eager_steps(torch, model, ids):
+    """The eager step loop's ms/step by the decoders' protocol (best of
+    3)."""
+    times = {}
+    for steps in (DEC_SHORT, DEC_STEPS):
+        best = float("inf")
+        for trial in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager_generate(torch, model, (ids + trial + 1) % model.vocab_size,
+                           steps)
+            best = min(best, time.perf_counter() - t0)
+        times[steps] = best
+    return 1e3 * (times[DEC_STEPS] - times[DEC_SHORT]) / (DEC_STEPS
+                                                          - DEC_SHORT)
+
+
+def replay_profile(torch, model, ids, reps):
+    """A decode step of ``ids`` captured as ``generate()`` captures it (one
+    eager step, then the capture), and ``reps`` replays profiled: (device
+    rows, wall µs a replay, the ``graphs.Captured`` program)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from int8inferenceengine_tpu_torch import graphs
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(torch.tensor(
+            ids.astype(np.int64), device=dev)))
+        tok = codes.argmax(-1)
+        pos = torch.full((), ids.shape[1], dtype=torch.int64, device=dev)
+
+        def step():
+            codes, _ = model._decode_step(cache, pos, tok)
+            tok.copy_(codes.argmax(-1))
+            pos.add_(1)
+
+        program = graphs.run_steps(step, 1, dev)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                program()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    return profile_rows(torch, prof), wall_us, program
+
+
+def profile_captured(torch, model, ids, label, reps=16):
+    """Device time and idle share while a captured decode step replays."""
+    rows, wall_us, _ = replay_profile(torch, model, ids, reps)
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    log(json.dumps({"profile": f"{label}: captured decode_step replay",
+                    "batch": ids.shape[0], "wall_us_per_step": wall_us,
+                    "device_busy_us_per_step": busy,
+                    "device_idle_share": 1 - busy / wall_us,
+                    "by_kernel": by_kernel(rows, reps),
+                    "rows": [{"name": e.key[:90],
+                              "us_per_step": e.self_device_time_total / reps,
+                              "calls_per_step": e.count / reps}
+                             for e in rows[:20]]}))
+
+
+def results(futs):
+    return [f.result(timeout=WAIT_S) for f in futs]
+
+
+def first_new(full, lo):
+    """The first index from ``lo`` whose token does not occur before it."""
+    return next(j for j in range(lo, len(full))
+                if int(full[j]) not in full[:j].tolist())
+
+
+def saturated_load(torch, eng, vocab, label):
+    """SERVE_LOAD greedy requests submitted at once to a warm engine, each
+    through ``submit_stream`` on its own thread: tokens/s over the whole
+    load, time to first token (TTFT) p50/p99 and the mean slot fill."""
+    import threading
+    from int8inferenceengine_tpu_torch.serve import GenerationStats
+    n, t_prompt, new = SERVE_LOAD
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, vocab, t_prompt).astype(np.int32)
+               for _ in range(n)]
+    first = [None] * n
+    counts = [0] * n
+
+    def consume(i, it, t0):
+        for tok in it:
+            if counts[i] == 0:
+                first[i] = time.perf_counter() - t0
+            counts[i] += 1
+
+    eng.stats = GenerationStats()
+    t0 = time.perf_counter()
+    streams = [(eng.submit_stream(p, new), time.perf_counter())
+               for p in prompts]
+    threads = [threading.Thread(target=consume, args=(i, it, ts))
+               for i, (it, ts) in enumerate(streams)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    wall = time.perf_counter() - t0
+    if any(c != new for c in counts):
+        fail(f"{label}: saturated load delivered {counts}, want {new} each")
+    res = {"phase": f"{label}_saturated_load", "requests": n,
+           "prompt_tokens": t_prompt, "new_tokens": new, **SERVE,
+           "wall_s": wall, "tokens_per_s": n * new / wall,
+           "ttft_ms_p50": float(np.percentile(first, 50) * 1e3),
+           "ttft_ms_p99": float(np.percentile(first, 99) * 1e3),
+           "mean_slot_fill": eng.stats.mean_slot_fill,
+           "chunks": eng.stats.chunks, "prefills": eng.stats.prefills,
+           "latency_ms": eng.stats.latency_percentiles()}
+    log(json.dumps(res))
+    return res
+
+
+def bench_engine_load(torch, model):
+    """bench.py's engine leg (BENCH_ENGINE, BENCH_ENGINE_LOAD) on a new
+    engine: delivered tokens / wall seconds of a round of requests
+    submitted at once, best of 2 after one warm round."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    n, t_prompt, new = BENCH_ENGINE_LOAD
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, model.vocab_size, (t_prompt,)).astype(np.int32)
+               for _ in range(n)]
+    eng = GenerationEngine(model, **BENCH_ENGINE)
+    try:
+        def round_once():
+            t0 = time.perf_counter()
+            futs = [eng.submit(p, new) for p in prompts]
+            ntok = sum(len(x) for x in results(futs))
+            return ntok / (time.perf_counter() - t0)
+
+        warm = round_once()
+        rates = [round_once() for _ in range(2)]
+    finally:
+        eng.shutdown()
+    log(json.dumps({"phase": "gpt2_engine_bench_protocol", "requests": n,
+                    "prompt_tokens": t_prompt, "new_tokens": new,
+                    **BENCH_ENGINE, "warm_round_tokens_per_s": warm,
+                    "rounds_tokens_per_s": rates,
+                    "tokens_per_s": max(rates)}))
+
+
+def serve_decoder(torch, model, label, kernel_fns, sampled_and_eos=True,
+                  profile=False):
+    """A decoder's GenerationEngine at SERVE: 16 requests (gpt2: 10 greedy,
+    4 sampled, 2 with an eos) or 8 greedy ones, twice through one engine
+    (the second pass replays the captured chunks).  Gates: each greedy
+    request equals ``generate()`` of its prompt alone; an eos request ends
+    where that greedy run first emits its eos; sampled requests give the
+    same tokens in both passes.  Then the saturated load, and the greedy
+    chunk graph's kernels checked in a profiled replay (``check_replays``).
+    Returns the launches of the first pass: its prefills, each variant's
+    eager first chunk and every chunk replay (``graphs.Captured`` adds a
+    replay's kernels to the counts)."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    vocab = model.vocab_size
+    rng = np.random.default_rng(7)
+    n_req = 16 if sampled_and_eos else 8
+    reqs = []
+    for i in range(n_req):
+        p = rng.integers(0, vocab, SERVE_PROMPTS[i % len(SERVE_PROMPTS)])
+        reqs.append(dict(prompt=p.astype(np.int32),
+                         new=int(rng.integers(64, 129)), kw={}))
+    if sampled_and_eos:
+        for i in range(10, 14):
+            reqs[i]["kw"] = dict(SERVE_SAMPLED, seed=100 + i)
+        for i in (14, 15):
+            full = model.generate(reqs[i]["prompt"][None], reqs[i]["new"])[0]
+            j = first_new(full, 12)
+            reqs[i]["kw"] = dict(eos_id=int(full[j]))
+            reqs[i]["want"] = full[:j + 1]
+    for r in reqs:
+        if "want" not in r and not r["kw"]:
+            r["want"] = model.generate(r["prompt"][None], r["new"])[0]
+    eng = GenerationEngine(model, **SERVE)
+    try:
+        reset_counts(kernel_fns)
+        t0 = time.perf_counter()
+        passes = [results([eng.submit(r["prompt"], r["new"], **r["kw"])
+                           for r in reqs])]
+        first_s = time.perf_counter() - t0
+        counts = read_counts(kernel_fns)
+        stats1 = dataclass_stats(eng.stats)
+        t0 = time.perf_counter()
+        passes.append(results([eng.submit(r["prompt"], r["new"], **r["kw"])
+                               for r in reqs]))
+        second_s = time.perf_counter() - t0
+        bad = []
+        for i, r in enumerate(reqs):
+            a, b = passes[0][i], passes[1][i]
+            if not np.array_equal(a, b):
+                bad.append(f"request {i} differs between passes")
+            if "want" in r and not np.array_equal(a, r["want"]):
+                bad.append(f"request {i} ({r['kw'] or 'greedy'}) differs "
+                           f"from generate()")
+        sampled_vs_generate = [
+            bool(np.array_equal(passes[0][i], model.generate(
+                r["prompt"][None], r["new"], **r["kw"])[0]))
+            for i, r in enumerate(reqs) if "temperature" in r["kw"]]
+        log(json.dumps({"phase": f"{label}_engine", "requests": n_req,
+                        **SERVE, "greedy": sum("want" in r and not r["kw"]
+                                               for r in reqs),
+                        "sampled": sum("temperature" in r["kw"]
+                                       for r in reqs),
+                        "eos": sum("eos_id" in r["kw"] for r in reqs),
+                        "tokens": int(sum(len(x) for x in passes[0])),
+                        "first_pass_s": first_s, "second_pass_s": second_s,
+                        "first_pass_stats": stats1,
+                        "launches_first_pass": counts,
+                        "sampled_equal_to_generate_row0":
+                            sampled_vs_generate,
+                        "problems": bad}))
+        if bad:
+            fail(f"{label} engine: {bad}")
+        saturated_load(torch, eng, vocab, label)
+        profile_engine_chunk(torch, eng, label, kernel_fns, 1, show=False)
+        if profile:
+            profile_engine_chunk(torch, eng, label, kernel_fns)
+    finally:
+        eng.shutdown()
+    return counts
+
+
+def profile_engine_chunk(torch, eng, label, kernel_fns, reps=4, show=True):
+    """Device time and idle share while the engine's greedy chunk graph
+    replays with every slot active (run after the engine's last request:
+    the replays only move its idle state); the kernels that the replays
+    ran must be what each replay counts (``check_replays``)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    chunk = eng._chunk_fns[(False, False, False)]
+    with torch.cuda.stream(eng._stream):
+        eng._act.fill_(True)
+        eng._rem.fill_(1 << 30)
+        eng._pos.fill_(SERVE_LOAD[1])
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                eng._col.zero_()
+                chunk()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    rows = profile_rows(torch, prof)
+    adds = check_replays(f"{label} engine chunk", chunk, kernel_fns,
+                         executions(rows), reps)
+    if not show:
+        log(json.dumps({"phase": f"{label}_engine_chunk_replay",
+                        "replays_profiled": reps, "kernels_each": adds}))
+        return
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    steps = eng.chunk_steps
+    log(json.dumps({"profile": f"{label}: engine chunk replay",
+                    "slots": eng.slots, "chunk_steps": steps,
+                    "wall_us_per_step": wall_us / steps,
+                    "device_busy_us_per_step": busy / steps,
+                    "device_idle_share": 1 - busy / wall_us,
+                    "by_kernel": by_kernel(rows, reps * steps),
+                    "rows": [{"name": e.key[:90],
+                              "us_per_step": e.self_device_time_total
+                              / (reps * steps),
+                              "calls_per_step": e.count / (reps * steps)}
+                             for e in rows[:20]]}))
+
+
+def dataclass_stats(stats):
+    return {"requests": stats.requests, "tokens": stats.tokens,
+            "prefills": stats.prefills, "chunks": stats.chunks,
+            "mean_slot_fill": stats.mean_slot_fill}
+
+
+def small_engines_vs_cpu(torch, q, zoo, TD, LL, dev):
+    """The small decoders of the card-vs-CPU gate served by an engine on
+    the card and by one on the CPU (its copy of the converted state): the
+    greedy tokens equal (gated where every prefill dispatches as on the
+    card), the sampled ones recorded."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.ops.w4 import use_v2
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    bad = []
+    for family, slots, extra in SMALL_SERVE:
+        geo = dict(SMALL_DEC, **extra)
+        if family == "gpt2":
+            name, cfg, residual = "gpt_tiny", {}, ("proj", "fc2")
+            twin = TD.torch_text_decoder(**geo, seed=0)
+        else:
+            geo.setdefault("kv_heads", 2)
+            name, cfg, residual = "llama_tiny", LLAMA_W4A8, ("proj", "down")
+            twin = LL.torch_llama(**geo, seed=0)
+        state = decoder_state(torch, twin, geo["depth"], seed=2,
+                              residual=residual)
+        ids = np.random.default_rng(2).integers(
+            0, geo["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(np.int32)
+        model = zoo.build(name, config=q.QuantConfig(**cfg), device=dev,
+                          **geo)
+        model.load(state)
+        model.prepare()
+        model(q.tensor(ids, device=dev))
+        model.convert()
+        cpu = zoo.build(name, config=q.QuantConfig(**cfg), device="cpu",
+                        **geo)
+        load_jax_state(cpu, export_state(model))
+        rng = np.random.default_rng(5)
+        reqs = [(rng.integers(0, geo["vocab_size"], SMALL_SERVE_PROMPTS[
+            i % len(SMALL_SERVE_PROMPTS)]).astype(np.int32),
+            {} if i < 6 else dict(SERVE_SAMPLED, seed=i)) for i in range(8)]
+        outs = {}
+        for where, m in (("card", model), ("cpu", cpu)):
+            eng = GenerationEngine(m, slots=slots, chunk_steps=8,
+                                   sync_chunks=2)
+            try:
+                outs[where] = results([eng.submit(p, SMALL_STEPS, **kw)
+                                       for p, kw in reqs])
+            finally:
+                eng.shutdown()
+        # the W4A8 prefill dispatches B6's function (exact on both sides)
+        # where M = n x bucket is in its envelope at every K
+        ks = {geo["dim"], model.mlp_hidden}
+        group = cfg.get("w4_group", 128)
+        on_b6 = family == "gpt2" or all(
+            use_v2(n * bucket, k, group, -(-k // group))
+            for k in ks for bucket in {8, 16, 32}
+            for n in (1, 2, 4, 8) if n <= slots)
+        greedy = [bool(np.array_equal(outs["card"][i], outs["cpu"][i]))
+                  for i in range(6)]
+        sampled = [bool(np.array_equal(outs["card"][i], outs["cpu"][i]))
+                   for i in range(6, 8)]
+        log(json.dumps({"phase": "engine_card_vs_cpu", "family": family,
+                        "slots": slots, **geo, "new_tokens": SMALL_STEPS,
+                        "greedy_equal": greedy, "sampled_equal": sampled,
+                        "prefill_on_b6_only": on_b6, "gated": on_b6,
+                        "sampled_gated": False}))
+        if on_b6 and not all(greedy):
+            bad.append(family)
+    if bad:
+        fail(f"engine greedy tokens on the card differ from the CPU's: {bad}")
+
+
+def serve_alexnet(torch, q, model, kernel_fns):
+    """AlexNet-224's InferenceEngine (max_batch 100, one captured forward
+    per tile): requests of ALEX_REQUESTS images equal the direct call on
+    the same images exactly, and their launches (eager first batches and
+    replays) equal the kernels that a profile of them saw run; then
+    ALEX_LOAD batches of 100 at once, images/s beside the direct calls'
+    (host input and output both ways).  Returns the requests' launches."""
+    from int8inferenceengine_tpu_torch.serve import InferenceEngine
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal((n, 3, 224, 224)).astype(np.float32)
+          for n in ALEX_REQUESTS]
+    eng = InferenceEngine(model, max_batch=100)
+    try:
+        reset_counts(kernel_fns)
+        with kernel_profile(torch) as executed:
+            got = results([eng.submit(x) for x in xs])
+        counts = read_counts(kernel_fns)
+        if counts != {k: executed.get(k, 0) for k in counts}:
+            fail(f"AlexNet engine: the counts {counts} differ from the "
+                 f"kernels that the profile saw run {executed}")
+        equal = [bool(np.array_equal(g, model(q.tensor(x)).numpy()))
+                 for g, x in zip(got, xs)]
+        log(json.dumps({"phase": "alexnet_engine", "requests":
+                        list(ALEX_REQUESTS), "equal_to_direct": equal,
+                        "steps": eng.stats.steps,
+                        "padded_rows": eng.stats.padded_rows,
+                        "launches": counts, "kernel_executions": executed}))
+        if not all(equal):
+            fail(f"AlexNet engine results differ from the direct call: "
+                 f"{equal}")
+        batch = xs[-1]
+        rates = {}
+        for trial in range(2):
+            t0 = time.perf_counter()
+            results([eng.submit(batch) for _ in range(ALEX_LOAD)])
+            rates.setdefault("engine", []).append(
+                ALEX_LOAD * 100 / (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ALEX_LOAD):
+                model(q.tensor(batch)).numpy()
+            rates.setdefault("direct", []).append(
+                ALEX_LOAD * 100 / (time.perf_counter() - t0))
+        log(json.dumps({"phase": "alexnet_engine_saturated_load",
+                        "batches": ALEX_LOAD, "images_per_batch": 100,
+                        "engine_images_per_s": rates["engine"],
+                        "direct_images_per_s": rates["direct"],
+                        "latency_ms": eng.stats.latency_percentiles()}))
+    finally:
+        eng.shutdown()
+    return counts
 
 
 # -- phase 11: per-kernel times -----------------------------------------------
@@ -1949,7 +2643,10 @@ def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
     launch of one AlexNet b100 forward and of one decode step, at their
-    shapes."""
+    shapes.  ``launches`` adds each path's counts, read just after the
+    path ran with the counts set to 0 just before it: the wrappers' eager
+    launches and, for every replay of a captured graph, the kernels that
+    its capture recorded (``graphs.Captured``)."""
     out = []
     for name, info in KERNEL_INFO.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -2084,28 +2781,47 @@ def main(argv=None) -> int:
 
     # -- 8. the 4-bit kernels against their plain versions --------------------
     max_err.update(check_w4_kernels(torch, W, gen, dev))
+    for name, err in check_engine_prefill_kernels(torch, G, W, gen,
+                                                  dev).items():
+        max_err[name] = max(max_err.get(name, 0), err)
 
     # -- 5. the AlexNet main path ---------------------------------------------
     counts_by_path = {}
     model, x_test, state, counts_by_path["alexnet_b100"] = alexnet_main_path(
         torch, q, zoo, kernel_fns, dev)
     alexnet_timing(torch, q, zoo, model, x_test, state, args.profile)
+
+    # -- 14. the AlexNet engine -----------------------------------------------
+    counts_by_path["alexnet_engine"] = serve_alexnet(torch, q, model,
+                                                     kernel_fns)
     del model, state
 
     # -- 6. the decoders on the card against a CPU copy ----------------------
     decoders_vs_cpu(torch, q, zoo, TD, LL, dev)
 
+    # -- 13. the small decoders' engines, card against CPU ---------------------
+    small_engines_vs_cpu(torch, q, zoo, TD, LL, dev)
+
     # -- 7. the decoder main path ---------------------------------------------
     dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
         torch, q, zoo, TD, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile)
+
+    # -- 12. the gpt2 engine ---------------------------------------------------
+    counts_by_path["gpt2_engine"] = serve_decoder(
+        torch, dec, "gpt2", kernel_fns, profile=args.profile)
+    bench_engine_load(torch, dec)
     del dec
     torch.cuda.empty_cache()
 
     # -- 9. the llama W4A8 main path ------------------------------------------
-    dec, ids, state, counts_by_path["llama_w4a8_generate"] = \
-        llama_w4a8_main_path(torch, q, zoo, LL, W, A, kernel_fns, dev)
+    (dec, ids, state,
+     counts_by_path["llama_w4a8_generate"]) = llama_w4a8_main_path(
+        torch, q, zoo, LL, W, A, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile, label="llama_w4a8_decode")
+    counts_by_path["llama_w4a8_engine"] = serve_decoder(
+        torch, dec, "llama_w4a8", kernel_fns, sampled_and_eos=False,
+        profile=args.profile)
     full_context_timing(torch, q, dec,
                         "llama_w4a8_causal_forward_full_context", kernel_fns)
     del dec
@@ -2131,7 +2847,8 @@ def main(argv=None) -> int:
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)
-    log(json.dumps({"kernels": kernels_line(rows, counts_by_path, max_err)}))
+    log(json.dumps({"kernels": kernels_line(rows, counts_by_path,
+                                            max_err)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -12,10 +12,19 @@
   exactly zero, so cached decode gives the same tokens as re-running the
   full causal forward at every step.
 
-``generate()`` is greedy: the prefill fills the cache for the whole prompt
-in one causal forward, then a Python loop runs the cached decode steps.  The
-loop never waits for the card: the position and the tokens stay on the
-device, and the tokens come to the host once, at the end.
+``generate()`` fills the cache for the whole prompt in one causal forward,
+then runs the cached decode steps.  On the CPU they are a Python loop; on
+the card the first step runs eagerly and the rest replay it as a captured
+CUDA graph (``graphs.run_steps``), the port's counterpart of the JAX
+package's one jitted ``lax.scan``.  The position, the step's column and
+the tokens stay on the device, and the tokens come to the host once, at
+the end.
+
+Sampling works on the u8 logit codes (``code_histogram``,
+``nucleus_code_floor``, ``topk_code_floor``, ``pick_u8``): top-k and top-p
+are code thresholds found from one 256-bin histogram per row, and the draw
+is a Gumbel-max over a counter-based hash (``uniform_hash``), so every
+step is free of host syncs and can be captured.
 """
 
 from __future__ import annotations
@@ -23,15 +32,177 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import (Linear, QuantAct, QuantAdd, QuantEmbed, QuantLayerNorm,
                       QuantMatmul, QuantPosEmbed, QuantSoftmax,
                       fused_decode_attention, fused_linear_act, fused_qkv)
 from ..module import Module
 from ..ops import functional as F
+from ..ops.quant import f32
 from ..tensor import Tensor
 
-__all__ = ["TextDecoder", "torch_text_decoder"]
+__all__ = ["TextDecoder", "torch_text_decoder", "code_histogram",
+           "nucleus_code_floor", "topk_code_floor", "uniform_hash",
+           "fold_seed", "row_seeds", "pick_u8"]
+
+
+# -- sampling on the u8 logit grid -----------------------------------------
+
+def code_histogram(codes: torch.Tensor, weight=None) -> torch.Tensor:
+    """Per-row 256-bin count histogram of u8 codes [B, V] -> float32
+    [B, 256] (exact for V < 2^24), one ``scatter_add_`` (``bincount``
+    would sync with the host).  ``weight`` (float32 [B, V]) counts each
+    token with its weight instead of 1."""
+    if weight is None:
+        weight = torch.ones(codes.shape, dtype=torch.float32,
+                            device=codes.device)
+    hist = torch.zeros((codes.shape[0], 256), dtype=torch.float32,
+                       device=codes.device)
+    return hist.scatter_add_(1, codes.to(torch.int64), weight)
+
+
+def _revcum256(w: torch.Tensor) -> torch.Tensor:
+    """``cumsum(w[:, ::-1])[:, ::-1]`` over 256 float32 classes, added in
+    the JAX package's order: XLA:CPU computes a 256-long cumsum in blocks
+    of 16, each summed left to right, plus the left-to-right exclusive sum
+    of the block totals.  ``torch.cumsum`` adds in float64 on the CPU and
+    in another order on the card, which moves the nucleus floor on a
+    boundary."""
+    blk = torch.flip(w, [-1]).reshape(w.shape[0], 16, 16).clone()
+    for j in range(1, 16):
+        blk[:, :, j] = blk[:, :, j - 1] + blk[:, :, j]
+    tot = blk[:, :, 15]
+    ex = torch.zeros_like(tot)
+    for j in range(1, 16):
+        ex[:, j] = ex[:, j - 1] + tot[:, j - 1]
+    return torch.flip((blk + ex[:, :, None]).reshape(w.shape), [-1])
+
+
+def _floor_of(ok: torch.Tensor) -> torch.Tensor:
+    """The largest class v with ``ok[:, v]`` (0 where none) as u8 [B]."""
+    v = torch.arange(256, dtype=torch.int64, device=ok.device)
+    return torch.where(ok, v, torch.zeros_like(v)).amax(-1).to(torch.uint8)
+
+
+def nucleus_code_floor(codes, s_over_t, p, keep=None, hist=None):
+    """Smallest u8 logit code inside the nucleus (top-p) set, per row.
+
+    ``codes`` [B, V] u8, ``s_over_t`` float32 [B] (head scale /
+    temperature), ``p`` float32 [B] in (0, 1]; returns u8 [B]: keep tokens
+    with ``code >= floor``.  On the 8-bit grid every token of a code class
+    has the same probability, so the nucleus is a code threshold: class v
+    weighs ``n_v * exp((v - 255) * s/T)`` (float32, as the JAX package
+    computes it), and the floor is the largest v whose suffix mass still
+    reaches ``p`` of the total.  ``keep`` (bool [B, V]) measures the mass
+    over the kept tokens only (top-k then top-p, HF's order); ``hist`` is
+    a precomputed (possibly class-masked) count histogram."""
+    if hist is None:
+        hist = code_histogram(
+            codes, None if keep is None else keep.to(torch.float32))
+    dev = hist.device
+    v = torch.arange(256, dtype=torch.float32, device=dev)
+    w = hist * torch.exp((v[None, :] - f32(255.0, dev)) * s_over_t[:, None])
+    revcum = _revcum256(w)
+    return _floor_of(revcum >= p[:, None] * revcum[:, :1])
+
+
+def topk_code_floor(codes, k, hist=None):
+    """Smallest u8 logit code inside the top-k set, per row: ``k`` [B]
+    integer; keep tokens with ``code >= floor``.  The k-th largest value
+    on the 8-bit grid is a code class, the largest v whose suffix count
+    reaches k, so ties at the k-th value keep the whole class (the static
+    ``top_k`` threshold's semantics) and k may differ per row.  k >= V
+    keeps every token; k <= 0 is the callers' "off" and must be gated."""
+    if hist is None:
+        hist = code_histogram(codes)
+    return _floor_of(_revcum256(hist) >= k[:, None].to(torch.float32))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche of int64 tensors holding 32-bit values (the
+    murmur3 finalizer's shifts, multipliers below 2^31 so that every
+    product fits in int64): the same bits on the CPU and the card."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def uniform_hash(seeds: torch.Tensor, pos: torch.Tensor, vocab: int
+                 ) -> torch.Tensor:
+    """float32 [B, vocab] uniforms in [1e-7, 1), a counter-based hash of
+    (seed, position, vocabulary index): stateless, identical on the CPU and
+    the card, and free of host syncs, so a captured graph replays a fresh
+    draw at every position.  The 23 high bits of each hash fill a float
+    mantissa in [1, 2), mapped as the JAX package's ``uniform(minval=1e-7,
+    maxval=1)`` maps its bits.  The stream differs from JAX's threefry
+    stream by construction."""
+    dev = seeds.device
+    key = _mix32(_mix32(seeds.to(torch.int64)) ^ (pos.to(torch.int64) & _M32))
+    col = torch.arange(vocab, dtype=torch.int64, device=dev) * 0x9E3779B1
+    bits = _mix32(key[:, None] + col[None, :])
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    lo, hi = f32(1e-7, dev), f32(1.0, dev)
+    return torch.maximum(lo, (one - hi) * (hi - lo) + lo)
+
+
+def fold_seed(seed: int) -> int:
+    """A seed folded to the 32 bits the draw hashes."""
+    return (int(seed) & _M32) ^ ((int(seed) >> 32) & _M32)
+
+
+def row_seeds(seed: int, rows: int, device) -> torch.Tensor:
+    """int64 [rows] stream keys of ``generate(seed=)``'s rows: row 0 keys
+    with ``seed`` itself (as a serving request with that seed does), row r
+    with ``seed`` xor a hash of r."""
+    s = fold_seed(seed)
+    r = torch.arange(rows, dtype=torch.int64)
+    mixed = torch.where(r == 0, torch.zeros_like(r), _mix32(r))
+    return (s ^ mixed).to(device)
+
+
+def pick_u8(codes, scale, zp, temps, seeds, pos, topps=None, topks=None):
+    """Per-row next token from u8 logit codes [B, V] (the composition of
+    the JAX package's ``GenerationEngine._pick``): greedy argmax on the
+    codes where ``temps`` <= 0, else a Gumbel-max draw of
+    ``logits / temperature`` with logits ``(code - zp) * scale``.
+    ``topks`` (int [B], 0 = off) keeps the codes at or above the top-k
+    floor; ``topps`` (float32 [B], 1 = off) keeps the nucleus, measured
+    over the top-k-kept classes (one histogram serves both).  ``seeds``
+    and ``pos`` [B] key the draw (``uniform_hash``).  None for
+    ``topps``/``topks`` leaves that filter's work out.  Returns int64
+    [B]."""
+    dev = codes.device
+    greedy = codes.argmax(-1)
+    logits = (codes.to(torch.float32) - f32(zp, dev)) * f32(scale, dev)
+    ninf = f32(float("-inf"), dev)
+    keepk = hist = fl = None
+    if topks is not None:
+        hist = code_histogram(codes)
+        fl = topk_code_floor(codes, topks, hist=hist)
+        keepk = (codes >= fl[:, None]) | (topks <= 0)[:, None]
+        logits = torch.where(keepk, logits, ninf)
+    t_safe = torch.maximum(temps, f32(1e-6, dev))
+    if topps is not None:
+        hm = None
+        if hist is not None:
+            vcls = torch.arange(256, dtype=torch.uint8, device=dev)
+            hm = torch.where((topks > 0)[:, None],
+                             hist * (vcls[None, :] >= fl[:, None]), hist)
+        floor = nucleus_code_floor(codes, f32(scale, dev) / t_safe, topps,
+                                   hist=hm)
+        keep = codes >= floor[:, None]
+        if keepk is not None:
+            keep = keep & keepk
+        keep = keep | (topps >= f32(1.0, dev))[:, None]
+        logits = torch.where(keep, logits, ninf)
+    u = uniform_hash(seeds, pos, codes.shape[-1])
+    sampled = (logits / t_safe[:, None] - torch.log(-torch.log(u))).argmax(-1)
+    return torch.where(temps > 0, sampled, greedy)
 
 
 class TextDecoder(Module):
@@ -138,10 +309,13 @@ class TextDecoder(Module):
         wk, wv = self._l("wk", i), self._l("wv", i)
         return (wk.scale, wk.zero_point), (wv.scale, wv.zero_point)
 
-    def _prefill(self, ids: Tensor):
-        """Full causal forward over the prompt ids [B, T0]; returns (the last
-        position's u8 logit codes [B, V], cache) with each layer's k/v codes
-        in rows [0, T0) of full-length buffers [B, max_len, C]."""
+    def _prefill(self, ids: Tensor, last=None):
+        """Full causal forward over the prompt ids [B, T0]; returns (u8
+        logit codes [B, V], cache) with each layer's k/v codes in rows [0,
+        T0) of full-length buffers [B, max_len, C].  The codes are the last
+        position's, or with ``last`` (int64 [B], the true lengths of
+        right-padded prompts) row ``last - 1``'s of each prompt: the causal
+        mask keeps the padding out of every earlier row."""
         if getattr(self, "ring_cache", False):
             raise NotImplementedError(
                 "ring KV caches (sliding-window layers) are not implemented "
@@ -167,17 +341,28 @@ class TextDecoder(Module):
         # u8 logit codes: argmax over codes == argmax over the dequantized
         # logits (one positive scale), so greedy decoding never dequantizes
         codes = self.head(x).data.reshape(b, t0, self.vocab_size)
-        return codes[:, -1, :], cache
+        if last is None:
+            return codes[:, -1, :], cache
+        idx = (last.to(device=codes.device, dtype=torch.int64) - 1)
+        return codes.gather(1, idx.reshape(b, 1, 1).expand(
+            b, 1, self.vocab_size))[:, 0, :], cache
 
     def _decode_step(self, cache, pos, tok):
         """One cached decode step: tokens ``tok`` [B] at position ``pos``
         (an int, a 0-dim tensor, or a [B] tensor of per-row positions).
         Appends each layer's k/v row to ``cache`` in place and returns (u8
-        logit codes [B, V], cache)."""
+        logit codes [B, V], cache).
+
+        A position at or past ``max_len`` is clamped to the last row, as
+        the JAX package's ``dynamic_update_slice``/``dynamic_slice`` clamp
+        it, so the live length seen by attention is at most the cache's T:
+        a serving slot that has finished keeps decoding until the host
+        drops its tokens, and its writes stay inside its own last row."""
         b = tok.shape[0]
         dev = self.device
         pos = (pos if isinstance(pos, torch.Tensor) else torch.tensor(pos))
-        pos = pos.to(device=dev, dtype=torch.int64)
+        pos = pos.to(device=dev, dtype=torch.int64).clamp(
+            max=self.max_len - 1)
         valid = (pos + 1).to(torch.int32)
         x = self._stem(Tensor(tok.reshape(b, 1)), start=pos)
         x = x.reshape(b, self.dim)
@@ -208,17 +393,30 @@ class TextDecoder(Module):
         o = self._l("proj", i)(o)
         return self._mlp(i, self._l("add1_", i)(x, o))
 
+    def _head_scale_zp(self):
+        """The head's output grid (scale, zp): the u8 logit codes'."""
+        return float(self.head.scale), int(self.head.zero_point)
+
+    def _pick(self, codes, temps, seeds, pos, topps=None, topks=None):
+        """Per-row next token from the u8 logit codes (``pick_u8`` on the
+        head's grid)."""
+        scale, zp = self._head_scale_zp()
+        return pick_u8(codes, scale, zp, temps, seeds, pos, topps, topks)
+
     def generate(self, ids, steps: int, temperature: float = 0.0,
                  top_k: int | None = None, top_p: float | None = None,
                  seed: int = 0) -> np.ndarray:
-        """Greedily decode ``steps`` tokens after the prompt ``ids`` [B, T0];
-        returns int32 [B, steps] on the host.  INT8 only (call after
-        ``convert()``).  Sampling (temperature > 0, top_k, top_p) is not
-        ported yet."""
-        if temperature != 0 or top_k is not None or top_p is not None:
-            raise NotImplementedError(
-                "sampling (temperature > 0, top_k, top_p) is not implemented "
-                "by the PyTorch port yet; temperature=0 is greedy")
+        """Decode ``steps`` tokens after the prompt ``ids`` [B, T0]; returns
+        int32 [B, steps] on the host.  INT8 only (call after
+        ``convert()``).  ``temperature`` 0 is greedy; above 0 each token is
+        drawn from softmax(logits / temperature), optionally over the
+        top_k codes and then the top_p nucleus (HF's order), with the
+        draw keyed by (seed, row, position) (``row_seeds``,
+        ``uniform_hash``): the port's stream, not the JAX package's.
+
+        On the card the first decode step runs eagerly and the others
+        replay it as a CUDA graph (``graphs.run_steps``); on the CPU they
+        run as a loop.  Both give the same tokens."""
         if not self.is_quant:
             raise RuntimeError("generate() requires a converted model")
         if self.config.weight_only:
@@ -233,20 +431,46 @@ class TextDecoder(Module):
         if t0 + steps > self.max_len:
             raise ValueError(f"prompt {t0} + steps {steps} exceeds max_len "
                              f"{self.max_len}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
         dev = self.device
         with torch.no_grad():
             prompt = torch.tensor(ids.astype(np.int64), device=dev)
             codes, cache = self._prefill(Tensor(prompt))
-            tok = codes.argmax(-1)
+            pos = torch.full((), t0 - 1, dtype=torch.int64, device=dev)
+            if temperature == 0:
+                pick = None
+            else:
+                temps = f32(temperature, dev).expand(b).contiguous()
+                seeds = row_seeds(seed, b, dev)
+                topps = (None if top_p is None or top_p >= 1.0 else
+                         f32(top_p, dev).expand(b).contiguous())
+                topks = (None if top_k is None else torch.full(
+                    (b,), int(top_k), dtype=torch.int64, device=dev))
+
+                def pick(codes, pos):
+                    return self._pick(codes, temps, seeds, pos.expand(b),
+                                      topps, topks)
+            tok = codes.argmax(-1) if pick is None else pick(codes, pos)
             out = torch.empty((b, steps), dtype=torch.int64, device=dev)
             out[:, 0] = tok
-            pos = torch.full((), t0, dtype=torch.int64, device=dev)
-            for s in range(1, steps):
-                codes, cache = self._decode_step(cache, pos, tok)
-                tok = codes.argmax(-1)
-                out[:, s] = tok
-                pos = pos + 1
-        return out.cpu().numpy().astype(np.int32)
+            pos += 1
+            col = torch.ones((1,), dtype=torch.int64, device=dev)
+
+            def step():
+                codes, _ = self._decode_step(cache, pos, tok)
+                nxt = codes.argmax(-1) if pick is None else pick(codes, pos)
+                out.index_copy_(1, col, nxt[:, None])
+                tok.copy_(nxt)
+                pos.add_(1)
+                col.add_(1)
+
+            program = graphs.run_steps(step, steps - 1, dev)
+            toks = out.cpu().numpy().astype(np.int32)
+        del program
+        return toks
 
     def generate_speculative(self, draft, ids, steps: int, k: int = 4):
         raise NotImplementedError(

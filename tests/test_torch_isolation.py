@@ -49,7 +49,7 @@ import chip_smoke
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "int8inferenceengine_tpu")]
 assert not leaked, leaked
-print("OK", len(names))
+print("OK", len(names), " ".join(names))
 """
 
 
@@ -60,6 +60,9 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("OK")
     assert int(out.stdout.split()[1]) >= 12      # every module was imported
+    names = set(out.stdout.split()[2:])
+    for mod in ("graphs", "serve", "serve.engine", "serve.generation"):
+        assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 
 def test_default_device_is_the_card(monkeypatch):

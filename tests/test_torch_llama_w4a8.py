@@ -14,7 +14,11 @@ packages dispatch alike: B6's function where M % 8 == 0 (and M * groups <=
   not bitwise equal across the frameworks), greedy tokens equal, and the
   port's cached decode equal to its own full recompute;
 * the carry round trip of the W4A8 Linears (``w4_wsum`` carried as it is)
-  and ``QuantRMSNorm``.
+  and ``QuantRMSNorm``;
+* the serving engine (``GenerationEngine``, two slots) on the batch-2
+  prompts: its greedy tokens equal the JAX package's ``generate()``
+  exactly (the prefill and the decode dispatch as JAX's batch-2 generate
+  does: B6's function at M = 16, B7's at M = 2).
 """
 
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ from int8inferenceengine_tpu import layers as JL
 from int8inferenceengine_tpu.tensor import Tensor as JT
 import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.carry import load_jax_state
+from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
 # ``weights`` is the shared module-scoped fixture of the same weights
 from test_torch_llama import (assert_contract, assert_round_trip,  # noqa: F401
@@ -102,3 +107,13 @@ def test_carry_round_trip_w4a8(ref):
     np.testing.assert_array_equal(m.wq1.w4_wsum.numpy(),
                                   state["wq1"]["params"]["w4_wsum"])
     assert_round_trip(m, state)
+
+
+def test_engine_tokens_match_jax_generate(ref):
+    eng = GenerationEngine(carried(ref), slots=2, chunk_steps=4)
+    try:
+        futs = [eng.submit(p, 6) for p in ref["prompt"][2]]
+        for fut, want in zip(futs, ref["tokens"][2]):
+            np.testing.assert_array_equal(fut.result(timeout=120), want)
+    finally:
+        eng.shutdown()

@@ -164,7 +164,7 @@ def test_decoder_guards():
     m = _own(heads=2)
     with pytest.raises(ValueError, match="max_len"):
         m.generate(_ids(2, 60), 10)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        m.generate(_ids(2, 4), 3, temperature=0.7)
+    with pytest.raises(ValueError, match="top_p"):
+        m.generate(_ids(2, 4), 3, temperature=0.7, top_p=0.0)
     with pytest.raises(NotImplementedError, match="speculative"):
         m.generate_speculative(m, _ids(2, 4), 3)
