@@ -129,6 +129,33 @@ Phases, in order (any failure exits non-zero):
    a profile of them saw run; images/s at a saturated load beside the
    direct call's.
 
+15. B3 at the extend shapes (``EXT_MQ`` = 2-128 query positions x T =
+   512 and 4,096 x MHA 12/12 and GQA 12/2, batch 2, D = 64): bit for bit
+   against its plain twin (which must equal the composed version) under
+   the planner's plan and every legal row tile, at live lengths 1 and T -
+   mq + 1, a per-sequence vector and the vector with a window; timed per
+   shape under the planner's plan beside its bound and the bytes its row
+   tiles read;
+16. the cached multi-token extend of both decoders (gpt2-small-ish and
+   llama W4A8, from one shared prefill cache of the 8 x 64 prompt): m = 5
+   at batch 8 and m = 64 at batch 1 give the logit codes and caches of m
+   decode steps, as many kernels as a decode step; one m = 5 extend timed
+   against 5 decode steps, both captured;
+17. speculative decoding (k = 4, 128 tokens after the 8 x 64 prompt): the
+   gpt2-small-ish target with itself as draft and with a 2-layer dim-256
+   gpt_tiny draft (weights from default_rng(1)), the llama W4A8 target with
+   itself: tokens equal to ``generate()``'s; tokens/s beside
+   ``generate()``'s in the same call, the mean tokens per row and
+   macro-step, the launches per macro-step;
+18. chunked prefill and the prefix cache (``GenerationEngine`` at SERVE
+   with ``prefill_chunk=64``): gpt2's 8 greedy (100-448 prompt tokens,
+   equal to ``generate()``) and 4 sampled (equal to a bucketed engine's)
+   requests, then a registered 256-token prefix with 16 requests of 16-64
+   more tokens, each equal to the same prompt submitted cold: TTFT p50
+   prefixed against cold, and of a 448-token prompt chunked against
+   bucketed; the llama W4A8 engine's 8 greedy requests, equal to
+   ``generate()``.
+
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
 JAX or of the JAX package.
@@ -653,8 +680,7 @@ def check_decoder_kernels(torch, G, A, gen, dev):
         kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv, window=window,
                   softcap=softcap)
         chosen = A.plan_decode_attn(b, t, h, kv, d, mq)
-        rows = mq * (h // kv)
-        plans = [chosen] + ([A.decode_attn_plan(sp, rows, t, d)
+        plans = [chosen] + ([A.decode_attn_plan(sp, mq, h // kv, t, d)
                              for sp in range(1, A.MAX_SPLITS + 1)
                              if sp != chosen.splits] if every_split else [])
         plans = [p for p in plans if p.smem <= A.SMEM_LIMIT]
@@ -1673,6 +1699,38 @@ ALEX_LOAD = 30
 WAIT_S = 600
 
 
+# B3 at the extend shapes: query positions, T and (H, Hkv), D = 64; batch
+# EXT_B in the checks, 1 in the per-shape times
+EXT_MQ = (2, 5, 9, 16, 64, 128)
+EXT_T = (512, 4096)
+EXT_HEADS = ((12, 12), (12, 2))
+EXT_B = 2
+# speculative decoding's draft depth, and the engine's prefill chunk
+SPEC_K = 4
+PREFILL_CHUNK = 64
+# B3 at the main path's two extends (T = 512, gpt2's 12 heads), for the
+# kernels line: (unit, batch, query rows, live length of the first row,
+# launches per unit).  A verify at batch 8 over k + 1 rows, at the decode
+# leg's mean live length; a prefill chunk of one slot over 64 rows, at the
+# mean first position of a 448-token prompt's chunks (0, 64, ..., 384)
+EXT_UNITS = [("speculative_verify", 8, SPEC_K + 1, 128, 12),
+             ("prefill_chunk", 1, PREFILL_CHUNK, 193, 12)]
+# the gpt2-small-ish target's draft: 2 layers at dim 256 over its vocabulary
+SPEC_DRAFT = dict(vocab_size=50257, max_len=512, dim=256, depth=2, heads=4)
+SPEC_STEPS = 128
+# the chunked engine: SERVE with 64-token prefill chunks; greedy and
+# sampled prompt lengths (100-448 tokens) and new tokens; a prefix of
+# PREFIX_LEN tokens and PREFIX_SUFFIXES requests extending it by 16-64
+# tokens; the 448-token prompt's TTFT over TTFT_REPS requests
+CHUNK_ENGINE = dict(SERVE, prefill_chunk=PREFILL_CHUNK)
+CHUNK_GREEDY = (100, 150, 200, 256, 300, 350, 400, 448)
+CHUNK_SAMPLED = (120, 230, 333, 448)
+CHUNK_NEW = 32
+PREFIX_LEN = 256
+PREFIX_SUFFIXES = 16
+TTFT_REPS = 5
+
+
 # replays profiled to check a captured step's kernels
 REPLAYS_PROFILED = 4
 
@@ -2034,29 +2092,51 @@ def serve_decoder(torch, model, label, kernel_fns, sampled_and_eos=True,
     return counts
 
 
+# a profile of a long graph's replay can lose kernel records (3 of the
+# 1,568 B6 launches of one llama chunk replay on an H100), never add any:
+# a profile short of the counts is taken again, up to this many times
+PROFILE_ATTEMPTS = 3
+
+
 def profile_engine_chunk(torch, eng, label, kernel_fns, reps=4, show=True):
     """Device time and idle share while the engine's greedy chunk graph
     replays with every slot active (run after the engine's last request:
     the replays only move its idle state); the kernels that the replays
-    ran must be what each replay counts (``check_replays``)."""
+    ran must be what each replay counts (``check_replays``).  A profile
+    that saw fewer kernels than that, and none more, is taken again, up to
+    PROFILE_ATTEMPTS times."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
     chunk = eng._chunk_fns[(False, False, False)]
-    with torch.cuda.stream(eng._stream):
-        eng._act.fill_(True)
-        eng._rem.fill_(1 << 30)
-        eng._pos.fill_(SERVE_LOAD[1])
-        torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                eng._col.zero_()
-                chunk()
+    adds = per_replay(chunk, kernel_fns)
+    short = []
+    for attempt in range(PROFILE_ATTEMPTS):
+        with torch.cuda.stream(eng._stream):
+            eng._act.fill_(True)
+            eng._rem.fill_(1 << 30)
+            eng._pos.fill_(SERVE_LOAD[1])
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    rows = profile_rows(torch, prof)
-    adds = check_replays(f"{label} engine chunk", chunk, kernel_fns,
-                         executions(rows), reps)
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    eng._col.zero_()
+                    chunk()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        rows = profile_rows(torch, prof)
+        ran = executions(rows)
+        lost = any(ran.get(k, 0) < reps * n for k, n in adds.items()) and \
+            all(ran.get(k, 0) <= reps * n for k, n in adds.items()) and \
+            set(ran) <= {k for k, n in adds.items() if n}
+        if not lost or attempt == PROFILE_ATTEMPTS - 1:
+            break
+        short.append(ran)
+    if short:
+        log(json.dumps({"phase": f"{label}_engine_chunk_profile_retaken",
+                        "profiles_short_of_the_counts": short,
+                        "each_replay_counts": adds, "replays": reps}))
+    adds = check_replays(f"{label} engine chunk", chunk, kernel_fns, ran,
+                         reps)
     if not show:
         log(json.dumps({"phase": f"{label}_engine_chunk_replay",
                         "replays_profiled": reps, "kernels_each": adds}))
@@ -2204,6 +2284,395 @@ def serve_alexnet(torch, q, model, kernel_fns):
 
 
 # -- phase 11: per-kernel times -----------------------------------------------
+
+# -- phases 15-18: the cached multi-token extend -----------------------------
+
+def captured(torch, fn, dev):
+    """``fn`` as a ``graphs.Captured`` program, its first (eager) call on a
+    side stream as ``graphs.run_steps`` makes it; later calls replay."""
+    from int8inferenceengine_tpu_torch import graphs
+    side = torch.cuda.Stream(dev)
+    program = graphs.Captured(fn, side)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        program()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return program
+
+
+def extend_attn_bound_ms(b, t, h, hkv, d, valid, mq, plan=None):
+    """The bound of B3 over mq query rows whose first position sees
+    ``valid`` columns: q and the output moved once, each live K and V row
+    read once (the span of the last row), QK^T and P@V over each row's own
+    causal horizon as int8 operations.  With ``plan``, also the bytes its
+    row tiles read (each tile reads its own span)."""
+    live = min(valid + mq - 1, t)
+    cols = sum(min(valid + j, t) for j in range(mq))
+    res = bound(2 * b * mq * h * d + 2 * b * live * hkv * d + 4 * b,
+                4.0 * b * h * d * cols)
+    if plan is None:
+        return res
+    tile_rows = sum(min(valid + min(j0 + plan.mq_tile, mq) - 1, t)
+                    for j0 in range(0, mq, plan.mq_tile))
+    return res + (2 * b * tile_rows * hkv * d,)
+
+
+def check_extend_attention(torch, A, gen, dev):
+    """B3 at the extend shapes (EXT_MQ x EXT_T x EXT_HEADS, batch EXT_B)
+    against its plain version, bit for bit: live lengths 1 and T - mq + 1,
+    a per-sequence vector, the same with a window; under the planner's plan
+    and under every legal row tile (``split_plan`` at each mq_tile that
+    fits).  The plain twin at the planner's plan must equal the composed
+    version, and the kernel at every tiling the plain twin.  Returns the
+    largest |code difference| (0, or the run fails)."""
+    b, d = EXT_B, 64
+    for t in EXT_T:
+        for h, kv in EXT_HEADS:
+            grp = h // kv
+            for mq in EXT_MQ:
+                q = torch.randint(0, 256, (b, mq, h * d), generator=gen,
+                                  dtype=torch.uint8, device=dev)
+                k, v = (torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                                      dtype=torch.uint8, device=dev)
+                        for _ in range(2))
+                per_seq = torch.randint(1, t - mq + 2, (b,), generator=gen,
+                                        dtype=torch.int32, device=dev)
+                chosen = A.plan_decode_attn(b, t, h, kv, d, mq)
+                plans = [A.split_plan(x, grp, t, d) for x in range(1, mq + 1)]
+                plans = [p for p in plans if p.smem <= A.SMEM_LIMIT]
+                if chosen not in plans:
+                    fail(f"B3 extend: the planner's {chosen} is not a legal "
+                         f"tiling at T={t} H={h} Hkv={kv} mq={mq}")
+                for valid, window in ((1, None), (t - mq + 1, None),
+                                      (per_seq, None), (per_seq, t // 4)):
+                    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv,
+                              window=window)
+                    want = A.decode_attention_split_plain(
+                        q, k, v, valid, splits=chosen.splits,
+                        mq_tile=chosen.mq_tile, **kw)
+                    composed = A.decode_attention_flat(q, k, v, valid,
+                                                       backend="xla", **kw)
+                    if not torch.equal(want, composed):
+                        fail(f"B3 extend: the plain twin differs from the "
+                             f"composed version at T={t} H={h} Hkv={kv} "
+                             f"mq={mq} {chosen}")
+                    for plan in plans:
+                        got = A.decode_attention_flat(q, k, v, valid,
+                                                      plan=plan, **kw)
+                        if not torch.equal(got, want):
+                            fail(f"B3 extend kernel != plain at T={t} H={h} "
+                                 f"Hkv={kv} mq={mq} window={window} {plan} "
+                                 f"valid={valid if isinstance(valid, int) else 'per-seq'}: "
+                                 f"{int((got != want).sum())} codes differ")
+                log(json.dumps({"phase": "attn_extend_kernel_vs_plain",
+                                "B": b, "T": t, "H": h, "Hkv": kv, "D": d,
+                                "mq": mq, "plan": chosen._asdict(),
+                                "mq_tiles_checked": len(plans),
+                                "valid": [1, t - mq + 1, "per-seq",
+                                          f"per-seq, window {t // 4}"],
+                                "max_abs_err": 0, "limit": "equal"}))
+    return 0
+
+
+def time_extend_attention(torch, A, gen, dev, flush):
+    """B3's ms a launch at every extend shape (batch 1, the last row at the
+    cache's end) under the planner's plan, with its bound and the bytes its
+    row tiles read; then rows for the kernels line at the main path's two
+    extends (EXT_UNITS), with the plain version's time."""
+    d = 64
+    table = []
+    for t in EXT_T:
+        for h, kv in EXT_HEADS:
+            for mq in EXT_MQ:
+                q = torch.randint(0, 256, (1, mq, h * d), generator=gen,
+                                  dtype=torch.uint8, device=dev)
+                k, v = (torch.randint(0, 256, (1, t, kv * d), generator=gen,
+                                      dtype=torch.uint8, device=dev)
+                        for _ in range(2))
+                valid = torch.full((), t - mq + 1, dtype=torch.int32,
+                                   device=dev)
+                kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv)
+                plan = A.plan_decode_attn(1, t, h, kv, d, mq)
+                ms = time_cuda(torch, lambda: A.decode_attention_flat(
+                    q, k, v, valid, **kw), iters=10, flush=flush)
+                b_ms, b_by, _, _, tile_bytes = extend_attn_bound_ms(
+                    1, t, h, kv, d, t - mq + 1, mq, plan)
+                table.append(dict(T=t, H=h, Hkv=kv, mq=mq,
+                                  plan=plan._asdict(), ms=ms, bound_ms=b_ms,
+                                  bound_by=b_by,
+                                  tile_read_bytes=tile_bytes,
+                                  tile_read_bound_ms=1e3 * (
+                                      tile_bytes + 4 * mq * h * d)
+                                  / PEAK_BYTES))
+    log(json.dumps({"phase": "attn_extend_times", "B": 1, "D": d,
+                    "live": "the last row sees all T", "shapes": table}))
+    rows = []
+    for label, b, mq, valid, per in EXT_UNITS:
+        t, h, kv = DEC_ATTN["t"], DEC_ATTN["h"], DEC_ATTN["h"]
+        q = torch.randint(0, 256, (b, mq, h * d), generator=gen,
+                          dtype=torch.uint8, device=dev)
+        k, v = (torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                              dtype=torch.uint8, device=dev)
+                for _ in range(2))
+        valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
+        kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv)
+        plan = A.plan_decode_attn(b, t, h, kv, d, mq)
+        ms = time_cuda(torch, lambda: A.decode_attention_flat(
+            q, k, v, valid_t, **kw), iters=20, flush=flush)
+        plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
+            q, k, v, valid_t, backend="xla", **kw), iters=5, flush=flush)
+        b_ms, b_by, t_ops, t_bytes, tile_bytes = extend_attn_bound_ms(
+            b, t, h, kv, d, valid, mq, plan)
+        rows.append(dict(kernel="decode_attn_flat", path=label,
+                         layer=f"attention, {mq} query rows (live length "
+                               f"{valid} of {t})", B=b, T=t, H=h, Hkv=kv,
+                         D=d, mq=mq, plan=plan._asdict(),
+                         launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                         bound_by=b_by, plain_ms=plain_ms, library_ms=None,
+                         tile_read_bytes=tile_bytes, t_ops=t_ops,
+                         t_bytes=t_bytes))
+        log(json.dumps({k_: v_ for k_, v_ in rows[-1].items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": b_ms / ms}))
+    return rows
+
+
+def extend_vs_decode(torch, model, ids, label, kernel_fns):
+    """From one prefill cache of ``ids``, ``_extend_step`` at m = 5 (the
+    batch of ``ids``) and at m = 64 (its first row) against m
+    ``_decode_step`` calls: the logit codes and every layer's cache equal.
+    The m = 5 extend launches as many kernels as a decode step, B3 as
+    often (one a layer).  Then the ms of one m = 5 extend against 5 decode
+    steps, both captured.  Returns the m = 5 extend's launches."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    rng = np.random.default_rng(5)
+    t0 = ids.shape[1]
+    with torch.no_grad():
+        _, cache0 = model._prefill(Tensor(torch.tensor(
+            ids.astype(np.int64), device=dev)))
+    res = {"phase": f"{label}_extend_vs_decode", "prompt": t0}
+    scratch = {i: (kc.clone(), vc.clone()) for i, (kc, vc) in cache0.items()}
+    reset_counts(kernel_fns)
+    with torch.no_grad():
+        model._decode_step(scratch, t0, torch.zeros(
+            ids.shape[0], dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    per_step = read_counts(kernel_fns)
+    del scratch
+    counts = None
+    for b, m in ((ids.shape[0], SPEC_K + 1), (1, PREFILL_CHUNK)):
+        toks = torch.tensor(rng.integers(0, model.vocab_size, (b, m)),
+                            dtype=torch.int64, device=dev)
+        ext = {i: (kc[:b].clone(), vc[:b].clone())
+               for i, (kc, vc) in cache0.items()}
+        seq = {i: (kc[:b].clone(), vc[:b].clone())
+               for i, (kc, vc) in cache0.items()}
+        reset_counts(kernel_fns)
+        with torch.no_grad():
+            got, _ = model._extend_step(ext, t0, toks)
+        torch.cuda.synchronize()
+        if counts is None:
+            counts = read_counts(kernel_fns)
+        want = decode_from(torch, model, seq, t0, toks)
+        same_cache = all(torch.equal(ext[i][0], seq[i][0])
+                         and torch.equal(ext[i][1], seq[i][1]) for i in ext)
+        mx, share = contract(torch, got, want)
+        res[f"b{b}_m{m}"] = {"codes": int(got.numel()), "max_abs_err": mx,
+                             "caches_equal": same_cache}
+        if mx or not same_cache:
+            fail(f"{label}: an extend of {m} rows at batch {b} differs from "
+                 f"{m} decode steps (codes max {mx}, share {share}; caches "
+                 f"equal: {same_cache})")
+        del ext, seq
+    if counts["decode_attn_flat"] != per_step["decode_attn_flat"] or \
+            sum(counts.values()) != sum(per_step.values()):
+        fail(f"{label}: an extend ran {counts}, a decode step {per_step}")
+    # one m = 5 extend and 5 decode steps, each a captured program
+    b, m = ids.shape[0], SPEC_K + 1
+    cache = {i: (kc.clone(), vc.clone()) for i, (kc, vc) in cache0.items()}
+    toks = torch.tensor(rng.integers(0, model.vocab_size, (b, m)),
+                        dtype=torch.int64, device=dev)
+    pos = torch.full((), t0, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        ext_prog = captured(torch, lambda: model._extend_step(cache, pos,
+                                                              toks), dev)
+        tok = toks[:, 0].clone()
+        step_prog = captured(torch, lambda: model._decode_step(cache, pos,
+                                                               tok), dev)
+        res["extend_m5_ms"] = min(time_cuda(torch, ext_prog, iters=20)
+                                  for _ in range(2))
+        res["decode_5_steps_ms"] = min(
+            time_cuda(torch, lambda: [step_prog() for _ in range(m)],
+                      iters=20) for _ in range(2))
+    res["launches_per_extend"] = counts
+    res["launches_per_decode_step"] = per_step
+    log(json.dumps(res))
+    del cache, cache0, ext_prog, step_prog
+    return counts
+
+
+def speculative_path(torch, target, draft, ids, label, kernel_fns, k=SPEC_K,
+                     steps=SPEC_STEPS):
+    """``generate_speculative`` of ``ids`` with ``draft`` equal to
+    ``generate()`` token for token; tokens/s of both (best of 2, the same
+    call), the mean tokens emitted per row and macro-step, and the
+    launches per macro-step (past the two prefills).  Returns the
+    launches of the first speculative run."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    b = ids.shape[0]
+    walls = {"generate": [], "speculative": []}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = target.generate(ids, steps)
+        walls["generate"].append(time.perf_counter() - t0)
+    counts = None
+    for _ in range(2):
+        reset_counts(kernel_fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = target.generate_speculative(draft, ids, steps, k=k)
+        walls["speculative"].append(time.perf_counter() - t0)
+        if counts is None:
+            counts = read_counts(kernel_fns)
+            stats = dict(target.speculative_stats)
+        if not np.array_equal(got, want):
+            fail(f"{label}: speculative decoding differs from generate() on "
+                 f"{int((got != want).sum())} of {got.size} tokens")
+    reset_counts(kernel_fns)
+    prompt = Tensor(torch.tensor(ids.astype(np.int64), device=target.device))
+    with torch.no_grad():
+        target._prefill(prompt)
+        draft._prefill(prompt)
+    torch.cuda.synchronize()
+    prefills = read_counts(kernel_fns)
+    n = stats["macro_steps"]
+    log(json.dumps({
+        "phase": f"{label}_speculative", "batch": b, "prompt": ids.shape[1],
+        "steps": steps, "k": k, "equal_to_generate": True,
+        "generate_s": walls["generate"], "speculative_s": walls["speculative"],
+        "generate_tokens_per_s": b * steps / min(walls["generate"]),
+        "speculative_tokens_per_s": b * steps / min(walls["speculative"]),
+        "macro_steps": n, "row_steps": stats["row_steps"],
+        "emitted": stats["emitted"],
+        "mean_tokens_per_row_step": stats["emitted"] / stats["row_steps"],
+        "acceptance": (stats["emitted"] / stats["row_steps"] - 1) / k,
+        "launches": counts,
+        "launches_per_macro_step": {
+            name: (counts[name] - prefills[name]) / n for name in counts}}))
+    return counts
+
+
+def build_draft(torch, q, zoo, TD, ids):
+    """The speculative gpt2 target's draft: a gpt_tiny over the same
+    vocabulary at SPEC_DRAFT, GPT-2-style weights from default_rng(1),
+    calibrated on ``ids``."""
+    twin = TD.torch_text_decoder(**SPEC_DRAFT, seed=1)
+    model = zoo.build("gpt_tiny", **SPEC_DRAFT)
+    model.load(decoder_state(torch, twin, SPEC_DRAFT["depth"], seed=1))
+    model.prepare()
+    model(q.tensor(ids))
+    model.convert()
+    return model
+
+
+def ttft_of(eng, prompt, new, **kw):
+    """One request alone on a warm engine: (ms to its first streamed token,
+    all of its tokens)."""
+    t0 = time.perf_counter()
+    it = eng.submit_stream(prompt, new, **kw)
+    first = next(it)
+    ttft = 1e3 * (time.perf_counter() - t0)
+    return ttft, np.asarray([first] + list(it), np.int32)
+
+
+def engine_chunked(torch, model, label, kernel_fns, full=True):
+    """The decoder's GenerationEngine with chunked prefill (CHUNK_ENGINE).
+    Gates: greedy requests of CHUNK_GREEDY prompt tokens equal
+    ``generate()``; with ``full``, sampled ones (CHUNK_SAMPLED) equal a
+    bucketed engine's (SERVE), and PREFIX_SUFFIXES requests of a registered
+    PREFIX_LEN-token prefix plus 16-64 tokens equal the same prompts
+    submitted cold, one at a time, recording TTFT p50 prefixed against
+    cold, and a 448-token prompt's TTFT chunked against bucketed.  Returns
+    the launches of the first round."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    vocab = model.vocab_size
+    rng = np.random.default_rng(17)
+    new = CHUNK_NEW
+    greedy = [rng.integers(0, vocab, n).astype(np.int32)
+              for n in CHUNK_GREEDY]
+    sampled = ([rng.integers(0, vocab, n).astype(np.int32)
+                for n in CHUNK_SAMPLED] if full else [])
+    skw = [dict(SERVE_SAMPLED, seed=200 + i) for i in range(len(sampled))]
+    want = [model.generate(p[None], new)[0] for p in greedy]
+    res = {"phase": f"{label}_engine_chunked", **CHUNK_ENGINE,
+           "greedy_prompts": list(CHUNK_GREEDY), "new_tokens": new}
+    bad = []
+    bucketed = GenerationEngine(model, **SERVE) if full else None
+    eng = GenerationEngine(model, **CHUNK_ENGINE)
+    try:
+        reset_counts(kernel_fns)
+        t0 = time.perf_counter()
+        got = results([eng.submit(p, new) for p in greedy]
+                      + [eng.submit(p, new, **kw)
+                         for p, kw in zip(sampled, skw)])
+        res["first_round_s"] = time.perf_counter() - t0
+        counts = read_counts(kernel_fns)
+        res["launches_first_round"] = counts
+        res["extend_program_replays"] = eng._extend_program.replays
+        for i, (a, w) in enumerate(zip(got, want)):
+            if not np.array_equal(a, w):
+                bad.append(f"greedy request {i} ({len(greedy[i])} tokens) "
+                           f"differs from generate()")
+        if full:
+            ref = results([bucketed.submit(p, new, **kw)
+                           for p, kw in zip(sampled, skw)])
+            for i, (a, w) in enumerate(zip(got[len(greedy):], ref)):
+                if not np.array_equal(a, w):
+                    bad.append(f"sampled request {i} differs from the "
+                               f"bucketed engine's")
+            prefix = rng.integers(0, vocab, PREFIX_LEN).astype(np.int32)
+            t0 = time.perf_counter()
+            pid = eng.register_prefix(prefix)
+            res["register_prefix_ms"] = 1e3 * (time.perf_counter() - t0)
+            fulls = [np.concatenate([prefix, rng.integers(
+                0, vocab, n).astype(np.int32)]) for n in rng.integers(
+                16, 65, PREFIX_SUFFIXES)]
+            ttft = {"prefixed": [], "cold": []}
+            for i, p in enumerate(fulls):
+                tp, a = ttft_of(eng, p, new, prefix_id=pid)
+                tc, c = ttft_of(eng, p, new)
+                ttft["prefixed"].append(tp)
+                ttft["cold"].append(tc)
+                if not np.array_equal(a, c):
+                    bad.append(f"prefixed request {i} differs from cold")
+            res["prefix_hits"] = eng.stats.prefix_hits
+            long = greedy[-1]
+            t448 = {"chunked": [], "bucketed": []}
+            for _ in range(TTFT_REPS):
+                t448["chunked"].append(ttft_of(eng, long, 4)[0])
+                t448["bucketed"].append(ttft_of(bucketed, long, 4)[0])
+            res.update({
+                "prefix_tokens": PREFIX_LEN, "prefixed_requests": len(fulls),
+                "ttft_ms_p50_prefixed": float(np.median(ttft["prefixed"])),
+                "ttft_ms_p50_cold": float(np.median(ttft["cold"])),
+                "ttft_ms": ttft,
+                f"ttft_ms_p50_{len(long)}_chunked":
+                    float(np.median(t448["chunked"])),
+                f"ttft_ms_p50_{len(long)}_bucketed":
+                    float(np.median(t448["bucketed"])),
+                f"ttft_ms_{len(long)}": t448})
+    finally:
+        eng.shutdown()
+        if bucketed is not None:
+            bucketed.shutdown()
+    res["problems"] = bad
+    log(json.dumps(res))
+    if bad:
+        fail(f"{label} chunked engine: {bad}")
+    return counts
+
 
 def int_mm_operands(torch, a_u8, w_s8_nk):
     """cuBLAS int8 operands: a recentered to s8, M padded to 32 and K, N to
@@ -2630,7 +3099,7 @@ def sweep_plans(torch, G, C, W, A, gen, dev, flush):
         for valid in (cfg["valid"], t - 1):
             valid_t = torch.full((), valid, dtype=torch.int32, device=dev)
             for sp in range(1, A.MAX_SPLITS + 1):
-                plan = A.decode_attn_plan(sp, h // hkv, t, d)
+                plan = A.decode_attn_plan(sp, 1, h // hkv, t, d)
                 ms = time_cuda(torch, lambda: A.decode_attention_flat(
                     q, k_, v_, valid_t, plan=plan, **kw), iters=20,
                     flush=flush)
@@ -2779,6 +3248,11 @@ def main(argv=None) -> int:
     for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
         max_err[name] = max(max_err.get(name, 0), err)
 
+    # -- 15. B3 at the extend shapes against its plain version ----------------
+    max_err["decode_attn_flat"] = max(max_err["decode_attn_flat"],
+                                      check_extend_attention(torch, A, gen,
+                                                             dev))
+
     # -- 8. the 4-bit kernels against their plain versions --------------------
     max_err.update(check_w4_kernels(torch, W, gen, dev))
     for name, err in check_engine_prefill_kernels(torch, G, W, gen,
@@ -2811,6 +3285,19 @@ def main(argv=None) -> int:
     counts_by_path["gpt2_engine"] = serve_decoder(
         torch, dec, "gpt2", kernel_fns, profile=args.profile)
     bench_engine_load(torch, dec)
+
+    # -- 16-18. gpt2: extend against decode, speculative decoding, chunked
+    # prefill and the prefix cache ---------------------------------------------
+    counts_by_path["gpt2_extend"] = extend_vs_decode(torch, dec, ids, "gpt2",
+                                                     kernel_fns)
+    counts_by_path["gpt2_speculative_self_draft"] = speculative_path(
+        torch, dec, dec, ids, "gpt2_self_draft", kernel_fns)
+    draft = build_draft(torch, q, zoo, TD, ids)
+    counts_by_path["gpt2_speculative_small_draft"] = speculative_path(
+        torch, dec, draft, ids, "gpt2_small_draft", kernel_fns)
+    del draft
+    counts_by_path["gpt2_engine_chunked"] = engine_chunked(torch, dec, "gpt2",
+                                                           kernel_fns)
     del dec
     torch.cuda.empty_cache()
 
@@ -2822,6 +3309,12 @@ def main(argv=None) -> int:
     counts_by_path["llama_w4a8_engine"] = serve_decoder(
         torch, dec, "llama_w4a8", kernel_fns, sampled_and_eos=False,
         profile=args.profile)
+    counts_by_path["llama_w4a8_extend"] = extend_vs_decode(
+        torch, dec, ids, "llama_w4a8", kernel_fns)
+    counts_by_path["llama_w4a8_speculative_self_draft"] = speculative_path(
+        torch, dec, dec, ids, "llama_w4a8_self_draft", kernel_fns)
+    counts_by_path["llama_w4a8_engine_chunked"] = engine_chunked(
+        torch, dec, "llama_w4a8", kernel_fns, full=False)
     full_context_timing(torch, q, dec,
                         "llama_w4a8_causal_forward_full_context", kernel_fns)
     del dec
@@ -2843,6 +3336,7 @@ def main(argv=None) -> int:
     time_launch_floor(torch, flush)
     rows = time_alexnet_gemms(torch, G, C, gen, dev, flush)
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
+    rows += time_extend_attention(torch, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 

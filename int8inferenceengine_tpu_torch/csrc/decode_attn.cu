@@ -36,11 +36,20 @@
 // What bounds it on an H100: the bytes of the live cache rows (2 * live * D
 // per (sequence, kv head)), a few MB per decode step, against the dependent
 // chain (K phase -> softmax -> V phase) of each (sequence, kv head).
-// Design: the live span of one (sequence, kv head) is split over T
-// (flash decoding) across a thread block cluster of `splits` blocks (at
-// most 8; ops/attention.plan_decode_attn chooses them from B, T and the row
-// count, never from the live length, which is a device value).  Each block
-// takes an equal share of the span, read on the device from valid; a share
+// Design: the query positions of one (sequence, kv head) are cut into
+// tiles of `mq_tile` consecutive positions (all grp heads of each: one
+// block's rows), and each tile's live span is split over T (flash
+// decoding) across a thread block cluster of `splits` blocks (at most 8;
+// ops/attention.plan_decode_attn chooses the tile and the splits from B, T
+// and the row count, never from the live length, which is a device value).
+// A decode step (mq = 1) and a short verify extend are one tile; a long
+// extend (a chunked prefill, mq = 64 or 128) has several, each holding only
+// its own rows' scores in shared memory.  A tile's span runs from its first
+// position's window edge to its last position's horizon, so an early tile
+// never reads the cache rows that causality hides from it.  Rows are
+// independent (each keeps its own exact sums, max and float64 sum), so the
+// codes do not depend on the tiling.  Each block of a cluster takes an
+// equal share of its tile's span, read on the device from valid; a share
 // that is empty still joins every cluster barrier.  The probabilities are
 // requantized codes that depend on the global max and sum, so the cross-split
 // reductions stay exact: (1) each split's scores of its share, in its shared
@@ -90,7 +99,8 @@ struct Params {
   int zp_q, zp_k, zp_p, zp_v;
   float mult_s, zp_s, s_s, s_p, zp_pf, mult_o, zp_c;
   int nearest;
-  int splits;                   // blocks of one (sequence, kv head): a cluster
+  int mq_tile;                  // query positions a block takes (all grp heads of each)
+  int splits;                   // blocks of one (sequence, kv head, tile): a cluster
   int share;                    // cache rows a split holds at most: ceil(T / splits)
   int tiles;                    // BLK-row K (and V) tile buffers: the whole share, or 2
   int wide;                     // 16-byte row copies (D, the row pitch and the bases aligned)
@@ -225,16 +235,21 @@ __device__ __forceinline__ void barrier(int splits) {
 __global__ void __launch_bounds__(NTHREADS) decode_attn_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int splits = p.splits;
+  const int ntiles = (p.mq + p.mq_tile - 1) / p.mq_tile;
   const int split = static_cast<int>(blockIdx.x) % splits;
-  const int head = static_cast<int>(blockIdx.x) / splits;
+  const int cell = static_cast<int>(blockIdx.x) / splits;
+  const int tile = cell % ntiles;
+  const int head = cell / ntiles;
   const int b = head / p.Hkv;
   const int kv = head - b * p.Hkv;
   const int grp = p.H / p.Hkv;
-  const int R = p.mq * grp;          // query rows: row r = position r / grp, head kv*grp + r % grp
+  const int j0 = tile * p.mq_tile;   // the tile's first query position
+  const int mqt = min(p.mq_tile, p.mq - j0);
+  const int R = mqt * grp;           // query rows: row r = position j0 + r / grp, head kv*grp + r % grp
   const int D = p.D;
   const int T = p.T;
   const int tid = threadIdx.x;
-  const Layout L = layout(R, p.share, D, p.tiles, splits);
+  const Layout L = layout(p.mq_tile * grp, p.share, D, p.tiles, splits);
 
   float* sc = reinterpret_cast<float*>(smem + L.sc);
   int32_t* pz = reinterpret_cast<int32_t*>(smem + L.sc);
@@ -246,9 +261,10 @@ __global__ void __launch_bounds__(NTHREADS) decode_attn_kernel(Params p) {
   int32_t* inbox = reinterpret_cast<int32_t*>(smem + L.inbox);
   uint8_t* tiles = smem + L.tiles;
 
-  const int valid = p.valid[p.valid_per_seq ? b : 0];
-  // the live span of all rows: [lo_min, hi_max); row j's is [lo_j, hi_j)
-  const int hi_max = min(valid + p.mq - 1, T);
+  // the live length of the tile's first position
+  const int valid = p.valid[p.valid_per_seq ? b : 0] + j0;
+  // the live span of the tile's rows: [lo_min, hi_max); row j's is [lo_j, hi_j)
+  const int hi_max = min(valid + mqt - 1, T);
   const int lo_min = p.window >= 0 ? max(valid - p.window, 0) : 0;
   // this split's equal share of the span, [tbeg, tend) (empty past its end)
   const int span = max(hi_max - lo_min, 0);
@@ -271,7 +287,7 @@ __global__ void __launch_bounds__(NTHREADS) decode_attn_kernel(Params p) {
     const int r = i / L.DP;
     const int d = i - r * L.DP;
     const int h = kv * grp + r % grp;
-    qw[i] = d < D ? p.q[b * p.q_sb + (r / grp) * p.q_sj + h * D + d] : 0;
+    qw[i] = d < D ? p.q[b * p.q_sb + (j0 + r / grp) * p.q_sj + h * D + d] : 0;
   }
   for (int i = tid; i < R * D; i += NTHREADS) acc[i] = 0;
   if (splits > 1)
@@ -458,7 +474,7 @@ __global__ void __launch_bounds__(NTHREADS) decode_attn_kernel(Params p) {
     const int h = kv * grp + r % grp;
     const int code = clip_trunc(__fadd_rn(__fmul_rn(__int2float_rn(s), p.mult_o), p.zp_c),
                                 p.nearest);
-    p.out[(static_cast<size_t>(b) * p.mq + r / grp) * (p.H * D) + h * D + d] =
+    p.out[(static_cast<size_t>(b) * p.mq + j0 + r / grp) * (p.H * D) + h * D + d] =
         static_cast<uint8_t>(code);
   }
 }
@@ -467,9 +483,10 @@ __global__ void __launch_bounds__(NTHREADS) decode_attn_kernel(Params p) {
 
 // Launches on `stream`; returns cudaGetLastError() (0 when the launch was
 // accepted).  Pointers are device pointers; the caller checks shapes,
-// dtypes, contiguity and 4-byte alignment.  `splits`, `share` and `tiles`
-// are the plan of ops/attention.plan_decode_attn (a cluster of `splits`
-// blocks per (sequence, kv head), each holding at most `share` = ceil(T /
+// dtypes, contiguity and 4-byte alignment.  `mq_tile`, `splits`, `share`
+// and `tiles` are the plan of ops/attention.plan_decode_attn (the query
+// positions in tiles of `mq_tile`; a cluster of `splits` blocks per
+// (sequence, kv head, tile), each holding at most `share` = ceil(T /
 // splits) cache rows, in `tiles` 64-row K and V buffers: the whole share,
 // or two to stream it); a plan this file cannot run is refused with
 // cudaErrorInvalidValue.
@@ -478,13 +495,16 @@ extern "C" int decode_attn_flat(const void* q, const void* k, const void* v, con
                                 long long q_sb, long long q_sj, int valid_per_seq, int window,
                                 float softcap, int zp_q, int zp_k, int zp_p, int zp_v,
                                 float mult_s, float zp_s, float s_s, float s_p, float zp_pf,
-                                float mult_o, float zp_c, int nearest, int splits, int share,
-                                int tiles, void* stream) {
-  if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || D % 4 || D <= 0 || mq <= 0 || splits < 1 ||
-      splits > MAX_SPLITS || share != (T + splits - 1) / splits || tiles < 1 ||
-      (tiles < 2 && share > BLK) || static_cast<long long>(B) * Hkv * splits >= (1LL << 31))
+                                float mult_o, float zp_c, int nearest, int mq_tile, int splits,
+                                int share, int tiles, void* stream) {
+  if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || D % 4 || D <= 0 || mq <= 0 || mq_tile < 1 ||
+      mq_tile > mq || splits < 1 || splits > MAX_SPLITS || share != (T + splits - 1) / splits ||
+      tiles < 1 || (tiles < 2 && share > BLK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int R = mq * (H / Hkv);
+  const long long ntiles = (mq + mq_tile - 1) / mq_tile;
+  if (static_cast<long long>(B) * Hkv * ntiles * splits >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int R = mq_tile * (H / Hkv);
   const Layout L = layout(R, share, D, tiles, splits);
   if (L.bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int C = Hkv * D;
@@ -497,9 +517,10 @@ extern "C" int decode_attn_flat(const void* q, const void* k, const void* v, con
                  static_cast<const uint8_t*>(v), static_cast<const int32_t*>(valid),
                  static_cast<uint8_t*>(out), T, H, Hkv, D, mq, q_sb, q_sj, valid_per_seq,
                  window, softcap, zp_q, zp_k, zp_p, zp_v, mult_s, zp_s, s_s, s_p, zp_pf,
-                 mult_o, zp_c, nearest, splits, share, tiles, wide};
+                 mult_o, zp_c, nearest, mq_tile, splits, share, tiles, wide};
+  const int blocks = static_cast<int>(B * Hkv * ntiles * splits);
   if (splits == 1) {
-    decode_attn_kernel<<<B * Hkv, NTHREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(p);
+    decode_attn_kernel<<<blocks, NTHREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchAttribute cluster;
@@ -508,7 +529,7 @@ extern "C" int decode_attn_flat(const void* q, const void* k, const void* v, con
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * Hkv * splits);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(NTHREADS);
   cfg.dynamicSmemBytes = L.bytes;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -20,6 +20,9 @@ chunk of steps, or a CNN forward) is captured once with stock
 * Nothing inside a program syncs with the host, and capture runs in
   ``thread_local`` error mode on its own stream, so an engine's thread may
   capture while other threads use the card.
+* A program that runs until a device value says it is done
+  (``run_until``: speculative decoding's macro-steps) replays a few times
+  between host reads of that value.
 * Launch counts follow the work: a kernel wrapper adds to its ``launches``
   when it is called, so capture (which runs nothing) would count once and
   a replay (which calls no wrapper) never.  ``Captured`` therefore takes
@@ -34,7 +37,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["capture", "Captured", "run_steps", "launch_counters"]
+__all__ = ["capture", "Captured", "run_steps", "run_until",
+           "launch_counters"]
 
 
 def launch_counters():
@@ -133,3 +137,35 @@ def run_steps(step, n: int, device):
     for _ in range(n - 1):
         program()
     return program
+
+
+def run_until(step, done, device, first: int = 1, every: int = 1):
+    """Run ``step()`` until ``done()`` (a host read of a device value) is
+    true; nothing runs if it is true at once.  On the CPU: a loop that
+    asks after every step.  On the card: the first call eagerly on a side
+    stream (the warm-up), captured after it, then replays on the current
+    stream; ``done()`` is read after ``first`` calls and then every
+    ``every`` replays, so ``step`` must be harmless once done.  Returns the
+    ``Captured`` program (None on the CPU or when nothing ran)."""
+    device = torch.device(device)
+    if done():
+        return None
+    if device.type != "cuda":
+        while True:
+            step()
+            if done():
+                return None
+    side = torch.cuda.Stream(device)
+    program = Captured(step, side)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        program()
+    torch.cuda.current_stream(device).wait_stream(side)
+    ran, budget = 1, max(1, first)
+    while True:
+        while ran < budget:
+            program()
+            ran += 1
+        if done():
+            return program
+        budget = ran + max(1, every)

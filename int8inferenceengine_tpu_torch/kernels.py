@@ -49,11 +49,11 @@ SIGNATURES = {
     "decode_attn": {
         # q, k, v, valid, out, B, T, H, Hkv, D, mq, q_sb, q_sj,
         # valid_per_seq, window, softcap, zp_q, zp_k, zp_p, zp_v, mult_s,
-        # zp_s, s_s, s_p, zp_p (float), mult_o, zp_c, nearest, splits,
-        # share, tiles, stream
+        # zp_s, s_s, s_p, zp_p (float), mult_o, zp_c, nearest, mq_tile,
+        # splits, share, tiles, stream
         "decode_attn_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L,
                              _L, _I, _I, _F, _I, _I, _I, _I, _F, _F, _F, _F,
-                             _F, _F, _F, _I, _I, _I, _I, _P],
+                             _F, _F, _F, _I, _I, _I, _I, _I, _P],
     },
     "w4_gemm": {
         # x, packed, scales_t, mult, zpb_eff, out, M, N, K, group, nearest,

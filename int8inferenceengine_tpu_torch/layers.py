@@ -995,3 +995,23 @@ def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
         alpha=attn.alpha, rounding=attn.config.rounding,
         window=smax.window, softcap=smax.softcap)
     return Tensor(out, av.scale, av.zero_point)
+
+
+def fused_extend_attention(attn: QuantMatmul, smax: QuantSoftmax,
+                           av: QuantMatmul, q3: Tensor, kc: Tensor,
+                           vc: Tensor, valid_base, head_dim: int) -> Tensor:
+    """The multi-position twin of ``fused_decode_attention``: the m query
+    rows ``q3`` [B, m, C] of positions pos..pos+m-1, whose k/v rows the
+    caller has already written into the flat caches ``kc``/``vc`` [B, T,
+    C_kv], with ``valid_base`` = pos + 1 (an int, a 0-dim or a [B]
+    tensor): row j sees ``valid_base + j`` cache columns, the causal mask
+    over the cache and this extend's own rows.  All B x m x H query rows
+    go through one call of B3 on the card, tiled over query rows where
+    they outgrow a block (``ops/attention.plan_decode_attn``);
+    ``decode_attention='off'``/``'xla'`` runs the composed plain version.
+    Returns [B, m, C] codes on ``av``'s grid."""
+    if len(q3.shape) != 3:
+        raise ValueError(f"fused_extend_attention expects q [B, m, C], got "
+                         f"{tuple(q3.shape)}")
+    return fused_decode_attention(attn, smax, av, q3, kc, vc, valid_base,
+                                  head_dim)

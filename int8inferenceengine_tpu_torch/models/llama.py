@@ -2,8 +2,9 @@
 (counterpart of ``int8inferenceengine_tpu.models.llama``).
 
 It subclasses ``TextDecoder`` and overrides only the block bodies; the
-prefill into the u8 T-major flat KV cache, the cached decode step and greedy
-``generate`` are inherited:
+prefill into the u8 T-major flat KV cache, the cached decode step, the
+cached multi-token extend, ``generate`` and ``generate_speculative`` are
+inherited:
 
 * **RoPE defines the KV-cache grid**: the cache holds post-rotation k codes
   at the k-side ``QuantRoPE``'s (scale, zp) (``_kv_scales``).  Prefill and
@@ -29,8 +30,8 @@ from __future__ import annotations
 from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import (Linear, QuantAct, QuantAdd, QuantEmbed, QuantMatmul,
                       QuantMul, QuantRMSNorm, QuantRoPE, QuantSoftmax,
-                      fused_decode_attention, fused_linear_act,
-                      fused_w4a8_multi)
+                      fused_decode_attention, fused_extend_attention,
+                      fused_linear_act, fused_w4a8_multi)
 from ..module import Module
 from ..ops import functional as F
 from ..tensor import Tensor
@@ -172,6 +173,27 @@ class LlamaDecoder(TextDecoder):
             Tensor(k_cache, ks, kzp), Tensor(v_cache, vs, vzp), valid,
             self.head_dim)
         o = self._l("proj", i)(o)
+        return self._mlp(i, self._l("add1_", i)(x, o))
+
+    def _block_extend(self, i, x, b, m, valid, pos, k_cache, v_cache):
+        """m-row cached block: RoPE at positions pos..pos+m-1 (per-row
+        starts broadcast through ``QuantRoPE``), the post-rotation k codes
+        appended, every query row of every head against the kv-compact
+        cache in one ``fused_extend_attention`` call."""
+        h = self._l("ln1_", i)(x)
+        q2, k2, v2 = self._qkv(i, h)
+        qh = F.split_heads(q2.reshape(b, m, -1), self.heads)
+        kh = F.split_heads(k2.reshape(b, m, -1), self.kv_heads)
+        qh = self._l("rq", i)(qh, start=pos)
+        kh = self._l("rk", i)(kh, start=pos)
+        self._append_rows(k_cache, F.merge_heads(kh).data, pos)
+        self._append_rows(v_cache, v2.data.reshape(b, m, -1), pos)
+        (ks, kzp), (vs, vzp) = self._kv_scales(i)
+        o = fused_extend_attention(
+            self._l("attn", i), self._l("smax", i), self._l("av", i),
+            F.merge_heads(qh), Tensor(k_cache, ks, kzp),
+            Tensor(v_cache, vs, vzp), valid, self.head_dim)
+        o = self._l("proj", i)(o.reshape(b * m, self.dim))
         return self._mlp(i, self._l("add1_", i)(x, o))
 
 

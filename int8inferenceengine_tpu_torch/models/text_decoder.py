@@ -20,6 +20,10 @@ package's one jitted ``lax.scan``.  The position, the step's column and
 the tokens stay on the device, and the tokens come to the host once, at
 the end.
 
+``_extend_step`` runs m tokens at once against the cache (row j of the
+extend sees the cache up to its own position): the verify pass of
+``generate_speculative`` and the serving engine's chunked prefill.
+
 Sampling works on the u8 logit codes (``code_histogram``,
 ``nucleus_code_floor``, ``topk_code_floor``, ``pick_u8``): top-k and top-p
 are code thresholds found from one 256-bin histogram per row, and the draw
@@ -36,7 +40,8 @@ from .. import graphs
 from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import (Linear, QuantAct, QuantAdd, QuantEmbed, QuantLayerNorm,
                       QuantMatmul, QuantPosEmbed, QuantSoftmax,
-                      fused_decode_attention, fused_linear_act, fused_qkv)
+                      fused_decode_attention, fused_extend_attention,
+                      fused_linear_act, fused_qkv)
 from ..module import Module
 from ..ops import functional as F
 from ..ops.quant import f32
@@ -380,6 +385,17 @@ class TextDecoder(Module):
         else:
             buf[rows, pos] = new
 
+    @staticmethod
+    def _append_rows(buf, new, pos):
+        """Write the [B, m, C] codes ``new`` into rows pos..pos+m-1 of
+        ``buf`` (``pos`` a 0-dim or [B] device tensor), in place."""
+        steps = torch.arange(new.shape[1], device=buf.device)
+        if pos.dim() == 0:
+            buf.index_copy_(1, pos + steps, new)
+        else:
+            rows = torch.arange(buf.shape[0], device=buf.device)
+            buf[rows[:, None], pos[:, None] + steps] = new
+
     def _block_decode(self, i, x, valid, pos, rows, k_cache, v_cache):
         h = self._l("ln1_", i)(x)
         q2, k2, v2 = self._qkv(i, h)
@@ -472,14 +488,176 @@ class TextDecoder(Module):
         del program
         return toks
 
-    def generate_speculative(self, draft, ids, steps: int, k: int = 4):
-        raise NotImplementedError(
-            "speculative decoding is not implemented by the PyTorch port yet")
-
+    # -- cached multi-token extend --------------------------------------------
     def _extend_step(self, cache, pos, toks):
-        raise NotImplementedError(
-            "multi-token cached extends are not implemented by the PyTorch "
-            "port yet")
+        """Tokens ``toks`` [B, m] (a device tensor) at positions
+        pos..pos+m-1 against the KV cache: the cached generalization of
+        ``_decode_step`` to m query rows.  ``pos`` is an int, a 0-dim or a
+        [B] tensor (per-row positions: per-slot serving, per-row
+        speculative acceptance).  Appends each layer's m k/v rows to
+        ``cache`` in place and returns (u8 logit codes [B, m, V], cache).
+
+        Row j's attention sees the cache columns < pos + j + 1: every
+        earlier position and rows 0..j of this extend, written before
+        attention runs.  The codes equal m ``_decode_step`` calls': the
+        same integer matmuls on the same codes, and masked columns add
+        exactly zero.  Where pos + m passes ``max_len`` the start is
+        clamped to ``max_len - m``, as the JAX package's
+        ``dynamic_update_slice`` clamps its write, so every write stays
+        inside the cache."""
+        b, m = toks.shape
+        for i in range(1, self.depth + 1):
+            if cache[i][0].shape[1] < self.max_len:
+                raise NotImplementedError(
+                    "multi-token extends over a RING cache would need "
+                    "mid-chunk compaction; spec decode / chunked prefill "
+                    "require full-length caches (ring_cache=False)")
+        dev = self.device
+        pos = pos if isinstance(pos, torch.Tensor) else torch.tensor(pos)
+        pos = pos.to(device=dev, dtype=torch.int64).clamp(
+            0, self.max_len - m)
+        x = self._stem(Tensor(toks.to(dev)), start=pos)
+        x = x.reshape(b * m, self.dim)
+        valid = (pos + 1).to(torch.int32)
+        for i in range(1, self.depth + 1):
+            x = self._block_extend(i, x, b, m, valid, pos, *cache[i])
+        x = self.ln_f(x)
+        return self.head(x).data.reshape(b, m, self.vocab_size), cache
+
+    def _block_extend(self, i, x, b, m, valid, pos, k_cache, v_cache):
+        """One block over the m rows [B*m, C]: the k/v rows written at
+        pos..pos+m-1, then every query row against the cache in one
+        ``fused_extend_attention`` call."""
+        h = self._l("ln1_", i)(x)
+        q2, k2, v2 = self._qkv(i, h)
+        self._append_rows(k_cache, k2.data.reshape(b, m, -1), pos)
+        self._append_rows(v_cache, v2.data.reshape(b, m, -1), pos)
+        (ks, kzp), (vs, vzp) = self._kv_scales(i)
+        o = fused_extend_attention(
+            self._l("attn", i), self._l("smax", i), self._l("av", i),
+            q2.reshape(b, m, -1), Tensor(k_cache, ks, kzp),
+            Tensor(v_cache, vs, vzp), valid, self.head_dim)
+        o = self._l("proj", i)(o.reshape(b * m, self.dim))
+        return self._mlp(i, self._l("add1_", i)(x, o))
+
+    def generate_speculative(self, draft, ids, steps: int, k: int = 4):
+        """Greedy speculative decoding: ``draft`` proposes ``k`` tokens per
+        macro-step, this model verifies all k+1 positions in one
+        ``_extend_step``, and each row accepts its longest matching prefix
+        plus the target's own correction token.  Every emitted token is
+        the target's greedy argmax given the accepted prefix, so the
+        output equals ``generate()`` token for token.  Returns int32 [B,
+        steps] on the host.
+
+        A rejected draft needs no rollback: rows past a sequence's live
+        length are masked, and the next macro-step overwrites them.  The
+        draft decodes k+1 steps (the extra one writes d_k's k/v row, for a
+        fully accepted round); rows that have all their tokens freeze
+        their position and park their output writes in the scratch tail
+        of the output buffer.  ``draft`` must be a converted decoder over
+        the same vocabulary on the same device (any family: a 2-layer gpt
+        may draft for a llama); both need ``t0 + steps + k + 1 <=
+        max_len``.
+
+        On the card the macro-step is one captured CUDA graph over device
+        buffers (position, token, emitted count, output), its first call
+        eager (``graphs.run_until``), replayed until every row has
+        ``steps`` tokens (the count is read every few replays; a replay
+        after the last row is done changes nothing that is returned).  On
+        the CPU the same body runs as a loop.
+
+        Afterwards ``speculative_stats`` holds the run's ``macro_steps``,
+        ``row_steps`` (a row's macro-steps while it still needed tokens)
+        and ``emitted`` tokens over those row-steps (accepted drafts plus
+        one correction each)."""
+        if not (self.is_quant and draft.is_quant):
+            raise RuntimeError(
+                "generate_speculative() requires converted target and "
+                "draft models")
+        if draft.vocab_size != self.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft.vocab_size} != target vocab "
+                f"{self.vocab_size}")
+        if getattr(draft, "_mesh", None) is not None:
+            raise NotImplementedError(
+                "speculative decoding needs an UNSHARDED draft (the "
+                "draft is small by construction — shard the target, "
+                "replicate the draft)")
+        if self.config.weight_only or draft.config.weight_only:
+            raise NotImplementedError(
+                "weight-only speculative decoding needs the float KV cache, "
+                "which the PyTorch port does not implement yet")
+        if draft.device != self.device:
+            raise ValueError(f"draft on {draft.device}, target on "
+                             f"{self.device}")
+        ids = np.asarray(ids)
+        b, t0 = ids.shape
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        need = t0 + steps + k + 1
+        if need > self.max_len or need > draft.max_len:
+            raise ValueError(
+                f"prompt {t0} + steps {steps} + draft depth {k} + 1 "
+                f"exceeds max_len (target {self.max_len}, draft "
+                f"{draft.max_len}) — speculative decoding needs k+1 "
+                f"rows of overshoot headroom")
+        dev = self.device
+        width = steps + k + 1
+        with torch.no_grad():
+            prompt = Tensor(torch.tensor(ids.astype(np.int64), device=dev))
+            codes0, tcache = self._prefill(prompt)
+            _, dcache = draft._prefill(prompt)
+            tok = codes0.argmax(-1)
+            out = torch.zeros((b, width), dtype=torch.int64, device=dev)
+            out[:, 0] = tok
+            n_out = torch.ones((b,), dtype=torch.int64, device=dev)
+            pos = torch.full((b,), t0, dtype=torch.int64, device=dev)
+            cols = torch.arange(k + 1, device=dev)
+            park = torch.full((b,), width - (k + 1), dtype=torch.int64,
+                              device=dev)
+            # macro-steps, active row-steps, tokens emitted
+            counts = torch.zeros((3,), dtype=torch.int64, device=dev)
+            one = torch.ones((), dtype=torch.int64, device=dev)
+
+            def macro():
+                # 1) the draft's k greedy tokens; step i writes the k/v of
+                # its input token at pos + i, the (k+1)-th d_k's
+                dtok, drafted = tok, []
+                for i in range(k + 1):
+                    dcodes, _ = draft._decode_step(dcache, pos + i, dtok)
+                    dtok = dcodes.argmax(-1)
+                    drafted.append(dtok)
+                dtoks = torch.stack(drafted[:k], 1)             # [B, k]
+                # 2) the target verifies [tok, d_1..d_k] in one extend
+                codes, _ = self._extend_step(
+                    tcache, pos, torch.cat([tok[:, None], dtoks], 1))
+                g = codes.argmax(-1)                            # [B, k+1]
+                # 3) the longest matching prefix plus the correction
+                a = (dtoks == g[:, :k]).to(torch.int64).cumprod(1).sum(1)
+                active = n_out < steps
+                na = torch.where(active, a + 1, torch.zeros_like(a))
+                # 4) all k+1 candidates at the row's offset (the first na
+                # survive); finished rows write into the scratch tail
+                off = torch.where(active, n_out, park)
+                out.scatter_(1, off[:, None] + cols, g)
+                tok.copy_(torch.where(active, g.gather(1, a[:, None])[:, 0],
+                                      tok))
+                pos.add_(na)
+                n_out.add_(na)
+                counts.add_(torch.stack([one, active.sum(), na.sum()]))
+
+            # at full acceptance a macro-step emits k + 1 tokens
+            program = graphs.run_until(
+                macro, lambda: bool(n_out.min() >= steps), dev,
+                first=-(-(steps - 1) // (k + 1)), every=4)
+            toks = out[:, :steps].cpu().numpy().astype(np.int32)
+            self.speculative_stats = dict(zip(
+                ("macro_steps", "row_steps", "emitted"),
+                (int(x) for x in counts.cpu())))
+        del program
+        return toks
 
 
 def torch_text_decoder(vocab_size: int = 1000, max_len: int = 64,

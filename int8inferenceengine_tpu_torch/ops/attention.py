@@ -31,14 +31,25 @@ The JAX package has two Pallas revisions of the kernel, the merged-dot one
 (``merged=False``).  They compute one function, and one CUDA kernel serves
 both flags here.
 
-The kernel splits each (sequence, kv head)'s live span over T across a
-thread block cluster; ``plan_decode_attn`` chooses the split count from the
-shapes alone, and ``decode_attention_split_plain`` is the plain twin of the
-split's exact reductions (equal bit for bit to the composed version).
+The kernel cuts each (sequence, kv head)'s query positions into tiles of
+``mq_tile`` consecutive positions (one for a decode step or a short verify
+extend, several for a long extend such as a chunked prefill), and splits
+each tile's live span over T across a thread block cluster;
+``plan_decode_attn`` chooses the tile and the split count from the shapes
+alone, and ``decode_attention_split_plain`` is the plain twin of the
+tiling and of the split's exact reductions (equal bit for bit to the
+composed version at every tiling and split: rows are independent).
+
+The JAX package sends a multi-position call to its composed path once the
+scores of all rows, ``mq * H * T * 4`` bytes, outgrow 4 MiB: a rule about
+the TPU's VMEM, which holds one kernel instance's rows.  The port does not
+follow it.  On the card the row tiles bound a block's shared memory
+whatever mq is, so every extend, however long, runs the kernel.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -131,26 +142,44 @@ def split_bounds(valid, t: int, mq: int, window, splits: int):
 
 def decode_attention_split_plain(q2_u8, k3_u8, v3_u8, valid, *,
                                  n_heads: int, n_kv_heads: int | None = None,
-                                 splits: int, window: int | None = None,
-                                 softcap: float | None = None,
-                                 scale_q, zp_q, scale_k, zp_k, scale_v, zp_v,
-                                 scale_s, zp_s, scale_p, zp_p, scale_c, zp_c,
-                                 alpha: float, rounding: str = "trunc"):
-    """The plain twin of the kernel's split over T (``decode_attention_flat``
-    arguments and ``splits``): each split's local max, the max over the
-    splits, the float64 partial sums of the exps added in split order and
-    rounded once, the probabilities requantized, each split's int32 P@V
-    partials added in s32, and the output requantized once.  Equal bit for
-    bit to ``decode_attention_xla`` on the same inputs."""
+                                 splits: int, mq_tile: int | None = None,
+                                 window: int | None = None,
+                                 softcap: float | None = None, **kw):
+    """The plain twin of the kernel's loop (``decode_attention_flat``
+    arguments, ``splits`` and ``mq_tile``, by default all positions in one
+    tile): the query positions in tiles of ``mq_tile``, tile j0.. seeing
+    the live length ``valid + j0``; in each tile each split's local max,
+    the max over the splits, the float64 partial sums of the exps added in
+    split order and rounded once, the probabilities requantized, each
+    split's int32 P@V partials added in s32, and the output requantized
+    once.  Equal bit for bit to ``decode_attention_xla`` on the same
+    inputs."""
+    bsz = k3_u8.shape[0]
+    mq = q2_u8.shape[1] if q2_u8.dim() == 3 else 1
+    q3 = q2_u8.reshape(bsz, mq, q2_u8.shape[-1])
+    v = _valid_tensor(valid, bsz, q2_u8.device).expand(bsz)
+    tile = mq if mq_tile is None else int(mq_tile)
+    outs = [_split_tile(q3[:, j0:j0 + tile], k3_u8, v3_u8, v + j0,
+                        n_heads=n_heads, n_kv_heads=n_kv_heads,
+                        splits=splits, window=window, softcap=softcap, **kw)
+            for j0 in range(0, mq, tile)]
+    return torch.cat(outs, 1).reshape(q2_u8.shape)
+
+
+def _split_tile(q3_u8, k3_u8, v3_u8, v, *, n_heads, n_kv_heads, splits,
+                window, softcap, scale_q, zp_q, scale_k, zp_k, scale_v, zp_v,
+                scale_s, zp_s, scale_p, zp_p, scale_c, zp_c, alpha,
+                rounding="trunc"):
+    """One tile of ``decode_attention_split_plain``: q3 [B, mq, H*D], its
+    first position's live length ``v`` int32 [B]."""
     bsz, t, c = k3_u8.shape
     n_kv = n_heads if n_kv_heads is None else int(n_kv_heads)
     d = c // n_kv
     grp = n_heads // n_kv
-    mq = q2_u8.shape[1] if q2_u8.dim() == 3 else 1
+    mq = q3_u8.shape[1]
     rows = mq * grp
-    dev = q2_u8.device
-    v = _valid_tensor(valid, bsz, dev).expand(bsz)
-    q4, k4, v4 = _head_major(q2_u8, k3_u8, v3_u8, n_kv, mq)
+    dev = q3_u8.device
+    q4, k4, v4 = _head_major(q3_u8, k3_u8, v3_u8, n_kv, mq)
     rowj = (torch.arange(rows, device=dev, dtype=torch.int32) // grp
             ).reshape(1, 1, rows, 1)
     f = _masked_scores(q4, k4, v.reshape(-1, 1, 1, 1) + rowj,
@@ -177,7 +206,7 @@ def decode_attention_split_plain(q2_u8, k3_u8, v3_u8, valid, *,
     out4 = requant_act(acc, scale_a=scale_p, scale_b=scale_v,
                        scale_c=scale_c, zp_c=zp_c, rounding=rounding)
     return out4.reshape(bsz, n_kv, mq, grp, d).permute(
-        0, 2, 1, 3, 4).reshape(q2_u8.shape)
+        0, 2, 1, 3, 4).reshape(q3_u8.shape)
 
 
 def _valid_tensor(valid, bsz: int, device) -> torch.Tensor:
@@ -292,11 +321,14 @@ decode_attention_flat.launches = 0
 
 
 class DecodeAttnPlan(NamedTuple):
-    """One launch of the decode attention kernel: ``splits`` blocks (one
-    thread block cluster) per (sequence, kv head), each holding the scores
-    of at most ``share`` = ceil(T / splits) cache rows, and ``tiles``
-    BLK-row K and V buffers (all of a share, loaded at once; or two, to
-    stream a longer one), in ``smem`` bytes of shared memory."""
+    """One launch of the decode attention kernel: the query positions in
+    tiles of ``mq_tile`` (a block's rows: ``mq_tile`` positions times the
+    grp query heads of a kv head), ``splits`` blocks (one thread block
+    cluster) per (sequence, kv head, tile), each holding the scores of at
+    most ``share`` = ceil(T / splits) cache rows, and ``tiles`` BLK-row K
+    and V buffers (all of a share, loaded at once; or two, to stream a
+    longer one), in ``smem`` bytes of shared memory."""
+    mq_tile: int
     splits: int
     share: int
     tiles: int
@@ -317,11 +349,12 @@ def _align16(x: int) -> int:
 def _smem_bytes(rows: int, share: int, d: int, tiles: int,
                 splits: int) -> int:
     """Dynamic shared memory of one block (``csrc/decode_attn.cu``
-    ``layout``): the scores of one share [rows, share] f32, the zero-padded
-    query [rows, DP] u8 and its sums, the P@V partials [rows, D] i32, the
-    local max and partial sum per row, the inbox [rows, D] i32 in which
-    split 0 receives the splits' sums, and ``tiles`` K and as many V tiles
-    of BLK rows padded to an odd multiple of 16 bytes."""
+    ``layout``) holding ``rows`` query rows: the scores of one share [rows,
+    share] f32, the zero-padded query [rows, DP] u8 and its sums, the P@V
+    partials [rows, D] i32, the local max and partial sum per row, the
+    inbox [rows, D] i32 in which split 0 receives the splits' sums, and
+    ``tiles`` K and as many V tiles of BLK rows padded to an odd multiple
+    of 16 bytes."""
     dp = _align16(d)
     ldt = dp + 16 if (dp // 16) % 2 == 0 else dp + 32
     inbox = _align16(4 * rows * d) if splits > 1 else 0
@@ -330,15 +363,17 @@ def _smem_bytes(rows: int, share: int, d: int, tiles: int,
             + inbox + 2 * tiles * _BLK * ldt)
 
 
-def decode_attn_plan(splits: int, rows: int, t: int, d: int
+def decode_attn_plan(splits: int, mq_tile: int, grp: int, t: int, d: int
                      ) -> DecodeAttnPlan:
-    """The plan at ``splits``: the tile buffers hold a whole share where
-    shared memory allows, else two stream it."""
+    """The plan at ``splits`` with tiles of ``mq_tile`` positions of
+    ``grp`` query heads: the tile buffers hold a whole share where shared
+    memory allows, else two stream it."""
+    rows = mq_tile * grp
     share = -(-t // splits)
     tiles = -(-share // _BLK)
     if _smem_bytes(rows, share, d, tiles, splits) > SMEM_LIMIT:
         tiles = 2
-    return DecodeAttnPlan(splits, share, tiles,
+    return DecodeAttnPlan(mq_tile, splits, share, tiles,
                           _smem_bytes(rows, share, d, tiles, splits))
 
 
@@ -348,29 +383,41 @@ def decode_attn_plan(splits: int, rows: int, t: int, d: int
 ROWS_PER_BLOCK = 512
 
 
-def plan_decode_attn(b: int, t: int, h: int, hkv: int, d: int, mq: int = 1
-                     ) -> DecodeAttnPlan:
-    """The kernel's plan from the shapes alone (never the live length, a
-    device value): the fewest splits, a power of two, that keep query rows
-    x cache rows a block holds within ``ROWS_PER_BLOCK`` (at most
-    ``MAX_SPLITS``), and more where one share's scores would not fit the
-    block's shared memory.  Raises where even 8 splits do not fit."""
-    if min(b, t, h, hkv, d, mq) <= 0 or h % hkv:
-        raise ValueError(f"plan_decode_attn: B={b} T={t} H={h} Hkv={hkv} "
-                         f"D={d} mq={mq}")
-    rows = mq * (h // hkv)
+def split_plan(mq_tile: int, grp: int, t: int, d: int) -> DecodeAttnPlan:
+    """The split rule at one tile: the fewest splits, a power of two, that
+    keep query rows x cache rows a block holds within ``ROWS_PER_BLOCK``
+    (at most ``MAX_SPLITS``), and more where one share's scores would not
+    fit the block's shared memory (the plan may still not fit)."""
+    rows = mq_tile * grp
     splits = 1
     while splits < MAX_SPLITS and rows * -(-t // splits) > ROWS_PER_BLOCK:
         splits *= 2
     while splits < MAX_SPLITS and \
-            decode_attn_plan(splits, rows, t, d).smem > SMEM_LIMIT:
+            decode_attn_plan(splits, mq_tile, grp, t, d).smem > SMEM_LIMIT:
         splits += 1
-    plan = decode_attn_plan(splits, rows, t, d)
-    if plan.smem > SMEM_LIMIT:
-        raise ValueError(f"decode attention: {rows} query rows over T={t} "
-                         f"need {plan.smem} bytes of shared memory at "
-                         f"{splits} splits, more than {SMEM_LIMIT}")
-    return plan
+    return decode_attn_plan(splits, mq_tile, grp, t, d)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_decode_attn(b: int, t: int, h: int, hkv: int, d: int, mq: int = 1
+                     ) -> DecodeAttnPlan:
+    """The kernel's plan from the shapes alone (never the live length, a
+    device value): all ``mq`` positions in one tile under ``split_plan``
+    wherever that fits the block's shared memory (every decode step and
+    short extend), else the largest ``mq_tile`` whose ``split_plan`` fits
+    (a long extend: each tile holds only its own rows' scores).  Raises
+    where even one position's rows do not fit at 8 splits."""
+    if min(b, t, h, hkv, d, mq) <= 0 or h % hkv:
+        raise ValueError(f"plan_decode_attn: B={b} T={t} H={h} Hkv={hkv} "
+                         f"D={d} mq={mq}")
+    grp = h // hkv
+    for mq_tile in range(mq, 0, -1):
+        plan = split_plan(mq_tile, grp, t, d)
+        if plan.smem <= SMEM_LIMIT:
+            return plan
+    raise ValueError(f"decode attention: {grp} query rows over T={t} "
+                     f"need {plan.smem} bytes of shared memory at "
+                     f"{plan.splits} splits, more than {SMEM_LIMIT}")
 
 
 def _launch(q3, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, scale_q,
@@ -395,13 +442,14 @@ def _launch(q3, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, scale_q,
     if max(bsz * t * c, t * 255 * 255) >= 2 ** 31:
         raise ValueError(f"decode attention: cache [B={bsz}, T={t}, C={c}] "
                          f"too large for int32 offsets and sums")
-    rows = mq * (n_heads // n_kv)
+    grp = n_heads // n_kv
     plan = plan or plan_decode_attn(bsz, t, n_heads, n_kv, d, mq)
     if not 1 <= plan.splits <= MAX_SPLITS or \
-            plan != decode_attn_plan(plan.splits, rows, t, d) or \
-            plan.smem > SMEM_LIMIT:
-        raise ValueError(f"decode attention cannot run {plan} for {rows} "
-                         f"query rows over T={t}, D={d}")
+            not 1 <= plan.mq_tile <= mq or \
+            plan != decode_attn_plan(plan.splits, plan.mq_tile, grp, t, d) \
+            or plan.smem > SMEM_LIMIT:
+        raise ValueError(f"decode attention cannot run {plan} for {mq} "
+                         f"positions of {grp} query heads over T={t}, D={d}")
     v = v.contiguous()
     out = torch.empty((bsz, mq, n_heads * d), dtype=torch.uint8, device=dev)
     f = np.float32
@@ -420,8 +468,8 @@ def _launch(q3, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, scale_q,
             0.0 if softcap is None else f(softcap),
             int(zp_q), int(zp_k), int(zp_p), int(zp_v),
             float(mult_s), f(zp_s), f(scale_s), f(scale_p), f(zp_p),
-            float(mult_o), f(zp_c), int(rounding == "nearest"), plan.splits,
-            plan.share, plan.tiles, stream)
+            float(mult_o), f(zp_c), int(rounding == "nearest"),
+            plan.mq_tile, plan.splits, plan.share, plan.tiles, stream)
     if rc != 0:
         raise RuntimeError(f"decode_attn_flat launch failed with CUDA error "
                            f"{rc} ({plan})")

@@ -24,6 +24,21 @@ stream in and out of slots:
   power-of-two bucket (the causal mask keeps the padding out), admissions
   grouped by bucket and split into power-of-two groups, each group's cache
   rows scattered into its slots.
+* **Chunked prefill** (``prefill_chunk=P``): a prompt longer than P, and
+  every prefixed request, prefills one slot through fixed [1, P] chunks of
+  the cached multi-token ``_extend_step``: one program per engine (on the
+  card captured after its first chunk) copies the slot's rows into a
+  one-row scratch cache by a device slot index, extends it and writes it
+  back, so one graph serves every slot and every prompt length.  The last
+  chunk slides back to end at ``max_len``; the rows it repeats are written
+  again with the same codes.
+* **Prefix cache** (``register_prefix``, ``submit(prefix_id=)``,
+  ``unregister_prefix``; at most ``max_prefixes``): a registered prefix's
+  KV rows are computed once, by the same chunked extend on a private
+  scratch cache, and a prefixed request seeds them into its slot (all
+  layers in one copy) and prefills only its suffix.  A position's cached
+  codes depend only on the tokens up to it, so a prefixed request gives
+  the tokens of the same prompt submitted cold.
 * **Exactness.**  Slots are batch rows, every layer is row-independent and
   dead cache rows add exactly zero, so a greedy request's tokens equal
   ``model.generate()`` of its prompt alone.
@@ -37,10 +52,8 @@ stream in and out of slots:
   each chunk's tokens leave the static output buffer through a
   stream-ordered copy into pinned host memory.
 
-Not ported, each refused with ``NotImplementedError``: chunked prefill
-(``prefill_chunk``) and the prefix cache (``register_prefix``,
-``prefix_id``), which need the multi-token ``_extend_step``; ring-cache
-models; weight-only models (the float head-split cache); meshes.
+Not ported, each refused with ``NotImplementedError``: ring-cache models;
+weight-only models (the float head-split cache); meshes.
 """
 
 from __future__ import annotations
@@ -69,7 +82,7 @@ class GenerationStats:
     prefills: int = 0
     chunks: int = 0            # decode chunks run on the device
     chunk_slots_active: int = 0   # sum of active slots across chunks
-    prefix_hits: int = 0       # always 0: the prefix cache is not ported
+    prefix_hits: int = 0       # admissions seeded from a registered prefix
     latencies_s: list = dataclasses.field(default_factory=list)
 
     @property
@@ -87,12 +100,13 @@ class GenerationStats:
 
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "future", "tokens", "t_submit",
-                 "temperature", "seed", "top_p", "top_k", "eos_id",
-                 "stream_q", "stop")
+                 "temperature", "seed", "top_p", "top_k", "prefix_id",
+                 "eos_id", "stream_q", "stop")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  temperature: float = 0.0, seed: int = 0,
                  top_p: float = 1.0, top_k: int = 0,
+                 prefix_id: int | None = None,
                  eos_id: int | None = None):
         self.prompt = prompt
         self.max_new = max_new
@@ -100,6 +114,7 @@ class _GenRequest:
         self.seed = int(seed)
         self.top_p = float(top_p)
         self.top_k = int(top_k)            # 0 = off
+        self.prefix_id = prefix_id
         self.eos_id = eos_id               # None = no eos
         self.stream_q = None               # set by submit_stream
         self.stop = ()                     # multi-token stop sequences
@@ -137,9 +152,14 @@ class GenerationEngine:
     >>> fut.result()                       # np.ndarray of generated ids
     """
 
+    # seed programs kept at once (one per prefix length), as the JAX
+    # package bounds its compiled ones
+    _SEED_FN_CAP = 8
+
     def __init__(self, model, slots: int = 8, chunk_steps: int = 32,
                  eos_id: int | None = None, overlap: bool = False,
-                 sync_chunks: int = 4, prefill_chunk: int | None = None):
+                 sync_chunks: int = 4, prefill_chunk: int | None = None,
+                 max_prefixes: int = 32):
         if not model.is_quant:
             raise RuntimeError("GenerationEngine requires a converted model")
         if getattr(model, "_mesh", None) is not None:
@@ -149,9 +169,10 @@ class GenerationEngine:
                             "cache)", "item 3")
         if getattr(model, "ring_cache", False):
             raise _unported("ring-cache serving", "item 2")
-        if prefill_chunk is not None:
-            raise _unported("chunked prefill (prefill_chunk), which needs "
-                            "_extend_step", "item 2")
+        if prefill_chunk is not None and not \
+                1 <= int(prefill_chunk) <= model.max_len:
+            raise ValueError(f"prefill_chunk must be in [1, max_len="
+                             f"{model.max_len}], got {prefill_chunk}")
         _check_eos(eos_id)
         self.model = model
         self.slots = int(slots)
@@ -159,13 +180,14 @@ class GenerationEngine:
         self.eos_id = None if eos_id is None else int(eos_id)
         self.overlap = bool(overlap)
         self.sync_chunks = max(1, int(sync_chunks))
+        self.prefill_chunk = (None if prefill_chunk is None
+                              else int(prefill_chunk))
         dev = self.device = model.device
         self._cuda = dev.type == "cuda"
-        shape = (self.slots, model.max_len, model.kv_heads * model.head_dim)
-        self._caches = {
-            i: (torch.zeros(shape, dtype=torch.uint8, device=dev),
-                torch.zeros(shape, dtype=torch.uint8, device=dev))
-            for i in range(1, model.depth + 1)}
+        # every layer's k and v slot caches are views of one buffer [depth,
+        # 2, slots, max_len, C]: a prefix seeds all of them in one copy
+        self._kv = self._kv_buffer(self.slots)
+        self._caches = self._views(self._kv)
 
         def zeros(dtype, fill=0):
             return torch.full((self.slots,), fill, dtype=dtype, device=dev)
@@ -189,14 +211,88 @@ class GenerationEngine:
         self._active = [None] * self.slots  # slot -> _GenRequest | None
         self.stats = GenerationStats()
         self._chunk_fns: dict[tuple, graphs.Captured] = {}
+        self._extend_program: graphs.Captured | None = None
+        # the prefix table: registered rows stay on the device until
+        # unregistered, so the table is bounded
+        self.max_prefixes = int(max_prefixes)
+        self._prefix_lock = threading.Lock()
+        self._next_pid = 1
+        self._prefixes: dict[int, tuple] = {}   # id -> (tokens, kv rows)
+        self._seed_fns: dict[int, object] = {}  # prefix length -> seed
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
+    def _kv_buffer(self, rows: int) -> torch.Tensor:
+        m = self.model
+        return torch.zeros((m.depth, 2, rows, m.max_len,
+                            m.kv_heads * m.head_dim), dtype=torch.uint8,
+                           device=self.device)
+
+    @staticmethod
+    def _views(kv: torch.Tensor) -> dict:
+        """Layer i's (k, v) caches as views of ``kv`` [depth, 2, ...]."""
+        return {i: (kv[i - 1, 0], kv[i - 1, 1])
+                for i in range(1, kv.shape[0] + 1)}
+
     # -- public API -----------------------------------------------------------
     def register_prefix(self, tokens) -> int:
-        raise _unported("the prefix cache (register_prefix), which needs "
-                        "_extend_step", "item 2")
+        """Compute a shared prompt prefix's KV rows once; a submission with
+        ``prefix_id=`` seeds them into its slot and prefills only the rest
+        of its prompt (a system prompt or few-shot context).
+
+        The cache holds u8 codes at fixed calibrated grids, and position
+        t's codes depend only on the tokens up to t, so the rows do not
+        depend on what follows them: a prefixed request gives the tokens
+        of the full prompt submitted cold.  The rows come from the chunked
+        extend (``prefill_chunk`` must be set), run eagerly in the caller's
+        thread on a private one-row cache, and are published under a lock.
+        Raises ``RuntimeError`` when the table holds ``max_prefixes``."""
+        if self.prefill_chunk is None:
+            raise ValueError(
+                "prefix caching rides the chunked-prefill program; "
+                "construct GenerationEngine(..., prefill_chunk=P)")
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        t0 = len(tokens)
+        m = self.model
+        if t0 == 0:
+            raise ValueError("empty prefix")
+        if t0 >= m.max_len:
+            raise ValueError(
+                f"prefix {t0} leaves no room under max_len {m.max_len}")
+        kv = self._kv_buffer(1)
+        caches = self._views(kv)
+        pad = np.zeros((m.max_len,), np.int64)
+        pad[:t0] = tokens
+        with torch.no_grad():
+            for c0 in self._chunk_starts(0, t0):
+                m._extend_step(caches, torch.tensor(
+                    [c0], dtype=torch.int64, device=self.device),
+                    torch.tensor(pad[None, c0:c0 + self.prefill_chunk],
+                                 device=self.device))
+            rows = kv[:, :, 0, :t0].clone()        # [depth, 2, t0, C]
+        if self._cuda:
+            # the engine's stream reads the rows: they must be written
+            torch.cuda.current_stream(self.device).synchronize()
+        with self._prefix_lock:
+            if len(self._prefixes) >= self.max_prefixes:
+                raise RuntimeError(
+                    f"prefix table full ({self.max_prefixes} registered "
+                    f"prefixes, each holding KV rows on device); "
+                    f"unregister_prefix() one first or raise max_prefixes")
+            pid = self._next_pid
+            self._next_pid += 1
+            self._prefixes[pid] = (tokens, rows)
+        return pid
+
+    def unregister_prefix(self, prefix_id: int) -> None:
+        """Drop a registered prefix (its device rows are freed when no
+        admission holds them).  A queued request that names it fails alone,
+        at admission."""
+        with self._prefix_lock:
+            if prefix_id not in self._prefixes:
+                raise ValueError(f"unknown prefix_id {prefix_id}")
+            del self._prefixes[prefix_id]
 
     def _build_request(self, prompt, max_new_tokens: int,
                        temperature: float = 0.0, seed: int = 0,
@@ -210,8 +306,19 @@ class GenerationEngine:
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         if prefix_id is not None:
-            raise _unported("the prefix cache (prefix_id), which needs "
-                            "_extend_step", "item 2")
+            with self._prefix_lock:
+                entry = self._prefixes.get(prefix_id)
+            if entry is None:
+                raise ValueError(f"unknown prefix_id {prefix_id}")
+            pre = entry[0]
+            if len(prompt) <= len(pre):
+                raise ValueError(
+                    f"prompt ({len(prompt)} tokens) must EXTEND the "
+                    f"{len(pre)}-token prefix by at least one token")
+            if not np.array_equal(prompt[:len(pre)], pre):
+                raise ValueError(
+                    f"prompt does not start with prefix {prefix_id}'s "
+                    "tokens")
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if not 0.0 < top_p <= 1.0:
@@ -225,7 +332,7 @@ class GenerationEngine:
                 f"max_len {self.model.max_len}")
         req = _GenRequest(
             prompt, max_new_tokens, temperature, seed,
-            top_p, 0 if top_k is None else int(top_k),
+            top_p, 0 if top_k is None else int(top_k), prefix_id,
             self.eos_id if eos_id is None else int(eos_id))
         if stop:
             # multi-token stop sequences are matched on the host, like
@@ -242,8 +349,9 @@ class GenerationEngine:
     def submit(self, prompt, max_new_tokens: int, **kw) -> Future:
         """Queue a request; the Future resolves to the generated ids
         (int32).  Per-request: ``temperature``/``seed``, ``top_p``,
-        ``top_k``, ``eos_id`` (overrides the engine's) and ``stop`` (a list
-        of token sequences; a match ends the output after it)."""
+        ``top_k``, ``prefix_id`` (a registered prefix that the prompt
+        starts with), ``eos_id`` (overrides the engine's) and ``stop`` (a
+        list of token sequences; a match ends the output after it)."""
         req = self._build_request(prompt, max_new_tokens, **kw)
         self._queue.put(req)
         return req.future
@@ -369,7 +477,18 @@ class GenerationEngine:
     def _admit_batch(self, pairs) -> None:
         """Prefill a burst of admissions in as few calls as possible: group
         by prompt bucket, split groups into power-of-two sizes, one batched
-        prefill (and one host sync) per sub-group."""
+        prefill (and one host sync) per sub-group.  With ``prefill_chunk``
+        set, prompts longer than it and prefixed requests take the chunked
+        one-slot path instead."""
+        if self.prefill_chunk is not None:
+            rest = []
+            for slot, req in pairs:
+                if (req.prefix_id is not None
+                        or len(req.prompt) > self.prefill_chunk):
+                    self._admit_chunked(slot, req)
+                else:
+                    rest.append((slot, req))
+            pairs = rest
         by_bucket: dict[int, list] = {}
         for slot, req in pairs:
             # power-of-two bucket, capped at max_len
@@ -394,34 +513,155 @@ class GenerationEngine:
             # handler must fail these requests' futures too
             self._active[slot] = req
         reqs = [req for _, req in part]
-        temps = self._h2d([r.temperature for r in reqs], torch.float32)
-        topps = self._h2d([r.top_p for r in reqs], torch.float32)
-        topks = self._h2d([r.top_k for r in reqs], torch.int64)
-        seeds = self._h2d([fold_seed(r.seed) for r in reqs], torch.int64)
-        eos = self._h2d([-1 if r.eos_id is None else r.eos_id
-                         for r in reqs], torch.int64)
         slots_d = self._h2d(slots, torch.int64)
         t0s_d = self._h2d(t0s, torch.int64)
-        for buf, val in ((self._temp, temps), (self._topp, topps),
-                         (self._topk, topks), (self._seed, seeds),
-                         (self._eos, eos)):
-            buf.index_copy_(0, slots_d, val)
+        temps, seeds, topps, topks = self._slot_vectors(slots_d, reqs)
         use_topp = any(r.top_p < 1.0 for r in reqs)
         use_topk = any(r.top_k > 0 for r in reqs)
         sampled = any(r.temperature > 0 for r in reqs)
         toks_d = self._prefill_into(
             slots_d, self._h2d(pad, torch.int64), t0s_d, temps, seeds,
             topps, topks, sampled, use_topp, use_topk)
+        self._started(part, slots_d, t0s_d, toks_d)
+
+    def _slot_vectors(self, slots_d, reqs):
+        """Write the requests' sampling and eos settings into their
+        slots' device vectors; returns (temps, seeds, topps, topks) of the
+        requests."""
+        temps = self._h2d([r.temperature for r in reqs], torch.float32)
+        topps = self._h2d([r.top_p for r in reqs], torch.float32)
+        topks = self._h2d([r.top_k for r in reqs], torch.int64)
+        seeds = self._h2d([fold_seed(r.seed) for r in reqs], torch.int64)
+        eos = self._h2d([-1 if r.eos_id is None else r.eos_id
+                         for r in reqs], torch.int64)
+        for buf, val in ((self._temp, temps), (self._topp, topps),
+                         (self._topk, topks), (self._seed, seeds),
+                         (self._eos, eos)):
+            buf.index_copy_(0, slots_d, val)
+        return temps, seeds, topps, topks
+
+    def _started(self, part, slots_d, t0s_d, toks_d) -> None:
+        """The admitted requests' first tokens ``toks_d`` (their prompts'
+        lengths ``t0s_d``) into their slots, then to the requests."""
         self._tok.index_copy_(0, slots_d, toks_d)
         self._pos.index_copy_(0, slots_d, t0s_d)
         toks = toks_d.cpu().numpy()
-        self.stats.prefills += n
+        self.stats.prefills += len(part)
         for j, (slot, req) in enumerate(part):
             tok0 = int(toks[j])
             req.tokens.append(tok0)
             self._stream_push(req, tok0)
             if self._done(req, tok0):
                 self._finish(slot)
+
+    # -- chunked prefill and the prefix cache -----------------------------------
+    def _chunk_starts(self, base: int, t0: int) -> list:
+        """The chunk starts over positions [base, t0): every
+        ``prefill_chunk``, the last one slid back to end at ``max_len``
+        (the rows it repeats are written again with the same codes)."""
+        p, max_len = self.prefill_chunk, self.model.max_len
+        starts = list(range(base, t0, p))
+        if starts[-1] + p > max_len:
+            starts[-1] = max_len - p
+        return starts
+
+    def _extend_body(self):
+        """The one-slot extend program: slot ``_xslot``'s rows into the
+        one-row scratch cache, ``_extend_step`` over the [1, P] chunk
+        ``_xtoks`` at position ``_xbase``, the rows written back; returns
+        the chunk's logit codes [P, V]."""
+        m = self.model
+        self._xkv = self._kv_buffer(1)
+        xcaches = self._views(self._xkv)
+        dev = self.device
+        self._xslot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._xbase = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._xtoks = torch.zeros((1, self.prefill_chunk), dtype=torch.int64,
+                                  device=dev)
+
+        def body():
+            self._xkv.copy_(self._kv.index_select(2, self._xslot))
+            codes, _ = m._extend_step(xcaches, self._xbase, self._xtoks)
+            self._kv.index_copy_(2, self._xslot, self._xkv)
+            return codes[0]
+
+        return body
+
+    def _extend(self, slot: int, chunk: np.ndarray, base: int):
+        """Run the extend program on one chunk of slot ``slot``'s prompt
+        at position ``base``; returns the chunk's codes [P, V] (the
+        program's output, valid until its next call)."""
+        if self._extend_program is None:
+            self._extend_program = graphs.Captured(self._extend_body(),
+                                                   self._stream)
+        self._xslot.copy_(self._h2d([slot], torch.int64))
+        self._xbase.copy_(self._h2d([base], torch.int64))
+        self._xtoks.copy_(self._h2d(chunk[None], torch.int64))
+        return self._extend_program()
+
+    def _seed_fn(self, base: int):
+        """The seed program of prefixes of ``base`` tokens: all layers'
+        rows [depth, 2, base, C] into one slot's first ``base`` rows, one
+        copy.  At most ``_SEED_FN_CAP`` are kept (the oldest goes)."""
+        fn = self._seed_fns.get(base)
+        if fn is None:
+            head = self._kv[:, :, :, :base]
+
+            def fn(rows, slot):
+                head[:, :, slot].copy_(rows)
+
+            if len(self._seed_fns) >= self._SEED_FN_CAP:
+                self._seed_fns.pop(next(iter(self._seed_fns)))
+            self._seed_fns[base] = fn
+        return fn
+
+    def _admit_chunked(self, slot: int, req: _GenRequest) -> None:
+        """Prefill one prompt through the extend program, chunk by chunk;
+        with ``req.prefix_id``, seed the prefix's rows into the slot first
+        and chunk only the suffix.  The first token is greedy or drawn with
+        the request's (seed, position t0 - 1) stream, as the bucketed
+        path's."""
+        t0 = len(req.prompt)
+        # registered before the device work: a failure below must fail
+        # this request's future through the crash handler
+        self._active[slot] = req
+        base = 0
+        if req.prefix_id is not None:
+            with self._prefix_lock:
+                entry = self._prefixes.get(req.prefix_id)
+            if entry is None:
+                # a stale prefix_id is the caller's mistake: fail only
+                # this request
+                self._active[slot] = None
+                req.future.set_exception(ValueError(
+                    f"prefix {req.prefix_id} was unregistered while the "
+                    "request was queued"))
+                self._stream_close(req)
+                return
+            pre_tokens, rows = entry
+            base = len(pre_tokens)
+            if self._cuda:
+                # rows made on another stream, read on this one: not freed
+                # for reuse before the seed has run
+                rows.record_stream(self._stream)
+            self._seed_fn(base)(rows, slot)
+            self.stats.prefix_hits += 1
+        pad = np.zeros((self.model.max_len,), np.int64)
+        pad[:t0] = req.prompt
+        starts = self._chunk_starts(base, t0)
+        for c0 in starts:
+            codes = self._extend(slot, pad[c0:c0 + self.prefill_chunk], c0)
+        row = codes[(t0 - 1) - starts[-1]][None]          # [1, V]
+        slots_d = self._h2d([slot], torch.int64)
+        t0s_d = self._h2d([t0], torch.int64)
+        temps, seeds, topps, topks = self._slot_vectors(slots_d, [req])
+        if req.temperature > 0:
+            tok = self.model._pick(row, temps, seeds, t0s_d - 1,
+                                   topps if req.top_p < 1.0 else None,
+                                   topks if req.top_k > 0 else None)
+        else:
+            tok = row.argmax(-1)
+        self._started([(slot, req)], slots_d, t0s_d, tok)
 
     @staticmethod
     def _stream_push(req: _GenRequest, tok: int) -> None:

@@ -150,7 +150,7 @@ def test_plan_decode_attn_is_pinned(shape, splits):
     assert plan.share == -(-t // plan.splits)
     # the scores of one share, not of all of T
     assert plan.smem <= 227 * 1024
-    assert plan == TA.decode_attn_plan(plan.splits, mq * (h // kv), t, d)
+    assert plan == TA.decode_attn_plan(plan.splits, mq, h // kv, t, d)
 
 
 def test_plan_decode_attn_refuses_what_no_split_fits():
@@ -254,7 +254,7 @@ def test_kernel_matches_plain_at_every_split_on_card(cuda_device, splits):
                for x in _case(b, t, h, kv, d, mq, seed=7))
     kw = dict(PARAMS, alpha=d ** -0.5, n_heads=h, n_kv_heads=kv, window=200,
               softcap=30.0)
-    plan = TA.decode_attn_plan(splits, mq * h // kv, t, d)
+    plan = TA.decode_attn_plan(splits, mq, h // kv, t, d)
     per_seq = torch.randint(1, t - mq + 2, (b,), dtype=torch.int32,
                             device=cuda_device)
     for valid in (1, 77, t - mq + 1, per_seq):

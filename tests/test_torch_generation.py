@@ -12,8 +12,8 @@ JAX package's converted state carried over.
   single-chunk), per-request eos and ``stop`` sequences, ``submit_stream``,
   a failing loop failing every future.
 * A negative ``eos_id`` raises; the options the port does not implement
-  (chunked prefill, the prefix cache, ring caches, weight-only models,
-  meshes) raise ``NotImplementedError``.
+  (ring caches, weight-only models, meshes) raise ``NotImplementedError``
+  (chunked prefill and the prefix cache: ``test_torch_prefix_cache``).
 * A slot decoding past ``max_len`` stays in its own last cache row and
   leaves the other slots' results unchanged.
 * On the card (``cuda``-marked): the captured ``generate()`` equals the
@@ -148,16 +148,6 @@ def test_negative_eos_id_raises(model):
 
 
 def test_unported_options_raise(model, monkeypatch):
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
-        GenerationEngine(model, prefill_chunk=8)
-    eng = GenerationEngine(model, slots=1)
-    try:
-        with pytest.raises(NotImplementedError, match="register_prefix"):
-            eng.register_prefix([1, 2, 3])
-        with pytest.raises(NotImplementedError, match="prefix_id"):
-            eng.submit([1, 2, 3], 2, prefix_id=1)
-    finally:
-        eng.shutdown()
     with monkeypatch.context() as mp:
         mp.setattr(model, "ring_cache", True, raising=False)
         with pytest.raises(NotImplementedError, match="ring"):

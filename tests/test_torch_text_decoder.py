@@ -12,7 +12,9 @@ depth 2, heads 2, max_len 64) and see the same numpy token ids:
   (batch 3, 7-token prompt, 9 steps);
 * the port's cached decode equals its own full recompute token for token,
   with the fused and the composed paths, and with per-row positions;
-* the state carries both ways unchanged.
+* the state carries both ways unchanged;
+* speculative decoding with the decoder as its own draft equals its
+  ``generate()`` (``test_torch_speculative`` holds it to the JAX package).
 """
 
 import numpy as np
@@ -166,5 +168,6 @@ def test_decoder_guards():
         m.generate(_ids(2, 60), 10)
     with pytest.raises(ValueError, match="top_p"):
         m.generate(_ids(2, 4), 3, temperature=0.7, top_p=0.0)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        m.generate_speculative(m, _ids(2, 4), 3)
+    ids = _ids(2, 4)
+    np.testing.assert_array_equal(m.generate_speculative(m, ids, 3),
+                                  m.generate(ids, 3))
