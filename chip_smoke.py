@@ -154,7 +154,30 @@ Phases, in order (any failure exits non-zero):
    more tokens, each equal to the same prompt submitted cold: TTFT p50
    prefixed against cold, and of a 448-token prompt chunked against
    bucketed; the llama W4A8 engine's 8 greedy requests, equal to
-   ``generate()``.
+   ``generate()``;
+19. kernel G1 (the grouped INT8 conv, ``csrc/conv_grouped.cu``) bit for bit
+   against its plain version at every grouped shape of MobileNet V1, V2,
+   V3-large, V3-small, EfficientNet-B0 and ShuffleNetV2 at 224 (batch 8)
+   and over a sweep (C = 3, 58, 96, 960; one or two channels a group; k 3
+   and 5; stride 1 and 2), per-tensor and per-channel s_w, both roundings,
+   relu on and off;
+20. B1 bit for bit against ``qgemm_plain`` at every conv and Linear shape
+   of ResNet-50 and MobileNetV2 at batch 100;
+21. ResNet-50-224 at batch 100 (the twin's torchvision-layout state with
+   BN folded at load, per-channel weight scales): FP32 forward against its
+   twin, calibrate on 100 images, convert, one INT8 forward with exactly
+   54 B1 launches, 4 images' codes equal to a CPU copy's; INT8 and FP32
+   ms/batch, a profiled forward split into B1, the pools, the input's
+   quantize and the rest of the glue; its ``InferenceEngine`` as in 14;
+22. MobileNetV2-224 at batch 100, the same protocol without the engine:
+   36 B1 and 17 G1 launches a forward;
+23. the other 15 zoo CNNs (ResNet-18/34/101/152, VGG-11/16/19, MobileNet
+   V1/V3, EfficientNet-B0, ShuffleNetV2, SqueezeNet, GoogLeNet,
+   DenseNet-121), each calibrated and run once at 224, batch 2, on the card
+   and against a CPU copy: equal codes.  In 11, B1 is timed at every
+   ResNet-50 and MobileNetV2 shape and G1 at MobileNetV2's (beside its
+   plain version, its bound, ``F.conv2d(groups=)`` in float32 + the eager
+   epilogue, and, at one shape, one B1 launch a group).
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -330,6 +353,12 @@ KERNEL_INFO = {
     "w4a8_v1_gemm": dict(
         source="int8inferenceengine_tpu_torch/csrc/w4_gemm.cu",
         replaces="int8inferenceengine_tpu/ops/w4.py:247"),
+    # a kernel of the port that the JAX package leaves to XLA: its native
+    # grouped integer conv, no pallas_call
+    "conv_grouped_u8s8": dict(
+        source="int8inferenceengine_tpu_torch/csrc/conv_grouped.cu",
+        replaces="int8inferenceengine_tpu/ops/conv.py:111",
+        tpu_kernel=None),
 }
 
 
@@ -446,8 +475,9 @@ def time_cuda(torch, fn, iters: int, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in spans) / iters
 
 
-def alexnet_state(torch, twin, seed: int):
-    """He-scaled random weights from numpy's default_rng(seed)."""
+def he_state(torch, twin, seed: int):
+    """He-scaled random weights from numpy's default_rng(seed) (AlexNet,
+    VGG and the BN-free CNN families)."""
     rng = np.random.default_rng(seed)
     state = {}
     for key, p in twin.state_dict().items():
@@ -1065,7 +1095,7 @@ def alexnet_main_path(torch, q, zoo, kernel_fns, dev):
                                                      load_jax_state)
     batch = 100
     twin = zoo.torch_twin("alexnet")
-    state = alexnet_state(torch, twin, seed=0)
+    state = he_state(torch, twin, seed=0)
     twin.load_state_dict(state)
     twin = twin.to(dev).eval()
     rng = np.random.default_rng(0)
@@ -1586,6 +1616,8 @@ def kernel_of(name: str):
     """The port's kernel a profiler row belongs to, or None."""
     if "decode_attn_kernel" in name:
         return "decode_attn_flat"
+    if "dw_word_kernel" in name or "grouped_kernel<" in name:
+        return "conv_grouped_u8s8"
     if "qgemm_kernel<" in name:
         # the template's last argument is the epilogue mode; 2 is B2's
         vzp = re.search(r"qgemm_kernel<[^>]*,\s*2>", name)
@@ -1625,13 +1657,15 @@ def profile_forward(torch, fn, label, reps=3):
             wall_us = (time.perf_counter() - t0) * 1e6 / reps
     rows = profile_rows(torch, prof)
     busy = sum(e.self_device_time_total for e in rows) / reps
+    split = by_kernel(rows, reps)
     log(json.dumps({"profile": label, "wall_us_profiled": wall_us,
                     "device_busy_us": busy,
                     "device_idle_share_profiled": 1 - busy / wall_us,
-                    "by_kernel": by_kernel(rows, reps),
+                    "by_kernel": split,
                     "rows": [{"name": e.key[:90],
                               "us": e.self_device_time_total / reps,
                               "calls": e.count / reps} for e in rows[:20]]}))
+    return busy, split
 
 
 def profile_decode(torch, model, prompt, step_us, label):
@@ -2230,13 +2264,14 @@ def small_engines_vs_cpu(torch, q, zoo, TD, LL, dev):
         fail(f"engine greedy tokens on the card differ from the CPU's: {bad}")
 
 
-def serve_alexnet(torch, q, model, kernel_fns):
-    """AlexNet-224's InferenceEngine (max_batch 100, one captured forward
-    per tile): requests of ALEX_REQUESTS images equal the direct call on
-    the same images exactly, and their launches (eager first batches and
-    replays) equal the kernels that a profile of them saw run; then
-    ALEX_LOAD batches of 100 at once, images/s beside the direct calls'
-    (host input and output both ways).  Returns the requests' launches."""
+def serve_cnn(torch, q, model, kernel_fns, label="alexnet"):
+    """A 224 x 224 CNN's InferenceEngine (max_batch 100, one captured
+    forward per tile; AlexNet's and ResNet-50's): requests of ALEX_REQUESTS
+    images equal the direct call on the same images exactly, and their
+    launches (eager first batches and replays) equal the kernels that a
+    profile of them saw run; then ALEX_LOAD batches of 100 at once,
+    images/s beside the direct calls' (host input and output both ways).
+    Returns the requests' launches."""
     from int8inferenceengine_tpu_torch.serve import InferenceEngine
     rng = np.random.default_rng(3)
     xs = [rng.standard_normal((n, 3, 224, 224)).astype(np.float32)
@@ -2248,17 +2283,17 @@ def serve_alexnet(torch, q, model, kernel_fns):
             got = results([eng.submit(x) for x in xs])
         counts = read_counts(kernel_fns)
         if counts != {k: executed.get(k, 0) for k in counts}:
-            fail(f"AlexNet engine: the counts {counts} differ from the "
+            fail(f"{label} engine: the counts {counts} differ from the "
                  f"kernels that the profile saw run {executed}")
         equal = [bool(np.array_equal(g, model(q.tensor(x)).numpy()))
                  for g, x in zip(got, xs)]
-        log(json.dumps({"phase": "alexnet_engine", "requests":
+        log(json.dumps({"phase": f"{label}_engine", "requests":
                         list(ALEX_REQUESTS), "equal_to_direct": equal,
                         "steps": eng.stats.steps,
                         "padded_rows": eng.stats.padded_rows,
                         "launches": counts, "kernel_executions": executed}))
         if not all(equal):
-            fail(f"AlexNet engine results differ from the direct call: "
+            fail(f"{label} engine results differ from the direct call: "
                  f"{equal}")
         batch = xs[-1]
         rates = {}
@@ -2273,7 +2308,7 @@ def serve_alexnet(torch, q, model, kernel_fns):
                 model(q.tensor(batch)).numpy()
             rates.setdefault("direct", []).append(
                 ALEX_LOAD * 100 / (time.perf_counter() - t0))
-        log(json.dumps({"phase": "alexnet_engine_saturated_load",
+        log(json.dumps({"phase": f"{label}_engine_saturated_load",
                         "batches": ALEX_LOAD, "images_per_batch": 100,
                         "engine_images_per_s": rates["engine"],
                         "direct_images_per_s": rates["direct"],
@@ -3108,6 +3143,574 @@ def sweep_plans(torch, G, C, W, A, gen, dev, flush):
                                 "chosen": plan == chosen}))
 
 
+# -- phases 19-23: the CNN zoo ------------------------------------------------
+
+# the families with grouped (depthwise) convs, whose every grouped shape G1
+# is checked at (batch 8, 224 x 224, published widths)
+ZOO_GROUPED = ("mobilenet_v1", "mobilenet_v2", "mobilenet_v3_large",
+               "mobilenet_v3_small", "efficientnet_b0", "shufflenet_v2")
+G1_CHECK_BATCH = 8
+# G1's sweep: channels, then both groupings (one channel a group and, for an
+# even C, two), k 3 and 5, stride 1 and 2, on a 17 x 15 input at batch 2
+G1_SWEEP_C = (3, 58, 96, 960)
+# the CNN main paths' batch, the CPU copy's batch, and the rest of the zoo
+# (one forward each on the card against a CPU copy at ZOO_BATCH: the CPU
+# copy's im2col runs in float64)
+CNN_BATCH, CNN_CPU_BATCH, ZOO_BATCH = 100, 4, 2
+ZOO_REST = ("resnet18", "resnet34", "resnet101", "resnet152", "vgg11",
+            "vgg16", "vgg19", "mobilenet_v1", "mobilenet_v3_large",
+            "mobilenet_v3_small", "efficientnet_b0", "shufflenet_v2",
+            "squeezenet", "googlenet", "densenet121")
+# the MobileNetV2 depthwise shape timed as one B1 launch per group
+PER_GROUP_LAYER = "dw2"
+# the FP32 forward against its torch twin: BN folded at load (ResNet) and
+# deep float32 chains, relative to the largest |logit|
+CNN_FP32_RTOL = 1e-3
+
+
+def cnn_config(q, name):
+    """The zoo's configurations: per-channel weight scales for the
+    ResNets (the family's recommended lever), the reference's defaults
+    for the others."""
+    return q.QuantConfig(weight_per_channel=name.startswith("resnet"))
+
+
+def cnn_state(torch, zoo, name, seed=0):
+    """(state dict, twin) for a zoo CNN: the ResNets take their twin's
+    torchvision-layout state (torch.manual_seed(seed) weights, BN running
+    statistics from one train-mode forward) with the BN gains and shifts
+    drawn from numpy's default_rng(seed), so that the fold is exercised;
+    the BN-free families take He-scaled weights from default_rng(seed)."""
+    twin = zoo.torch_twin(name, seed=seed)
+    if not name.startswith("resnet"):
+        state = he_state(torch, twin, seed)
+        twin.load_state_dict(state)
+        return state, twin
+    rng = np.random.default_rng(seed)
+    state = twin.state_dict()
+    for key in [k[:-len(".running_mean")] for k in state
+                if k.endswith(".running_mean")]:
+        n = state[f"{key}.weight"].shape[0]
+        state[f"{key}.weight"] = torch.tensor(
+            rng.uniform(0.5, 1.5, n).astype(np.float32))
+        state[f"{key}.bias"] = torch.tensor(
+            rng.normal(0, 0.1, n).astype(np.float32))
+    twin.load_state_dict(state)
+    return state, twin
+
+
+def gemm_layers(torch, q, model, dev, hw=224):
+    """[(name, layer, input shape)] of every Conv2d and Linear, as a batch-1
+    FP32 forward at hw x hw sees it (logical NCHW, or [1, K])."""
+    seen, hooks = [], []
+    for name, layer in model.named_layers():
+        if isinstance(layer, (q.Conv2d, q.Linear)):
+            hooks.append(layer.register_forward_pre_hook(
+                lambda mod, args, name=name: seen.append(
+                    (name, mod, tuple(args[0].shape)))))
+    try:
+        model(q.tensor(np.zeros((1, 3, hw, hw), np.float32), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def launches_per_forward(q, model):
+    """(B1, G1) launches one INT8 forward of ``model`` makes."""
+    g1 = sum(1 for _, layer in model.named_layers()
+             if isinstance(layer, q.Conv2d) and layer.groups > 1)
+    b1 = sum(1 for _, layer in model.named_layers()
+             if isinstance(layer, (q.Conv2d, q.Linear))) - g1
+    return b1, g1
+
+
+def grouped_shapes(torch, q, zoo, names, dev):
+    """{(h, w, c, o, groups, k, stride): (first layer, launches)} of the
+    grouped convs of ``names`` at 224 x 224."""
+    shapes = {}
+    for name in names:
+        model = zoo.build(name, device=dev)
+        for lname, layer, shape in gemm_layers(torch, q, model, dev):
+            if isinstance(layer, q.Conv2d) and layer.groups > 1:
+                _, c, h, w = shape
+                key = (h, w, c, layer.out_channels, layer.groups,
+                       layer.kernel_size, layer.stride)
+                first, n = shapes.get(key, (f"{name}.{lname}", 0))
+                shapes[key] = (first, n + 1)
+        del model
+    return shapes
+
+
+def grouped_operands(torch, G, gen, batch, shape, dev):
+    """A u8 NHWC input and a grouped conv's operands (as ``gemm_case``)."""
+    h, w, c, o, groups, k, _ = shape
+    x = torch.randint(0, 256, (batch, h, w, c), generator=gen,
+                      dtype=torch.uint8, device=dev)
+    cs = gemm_case(torch, gen, 1, k * k * (c // groups), o, dev)
+    cs["oc"] = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]),
+                                cs["s_a"], cs["zp_a"], recentered=True)
+    return x, cs
+
+
+def grouped_kw(cs, shape, rounding="trunc", relu=False):
+    k, stride = shape[5], shape[6]
+    return dict(groups=shape[4], kh=k, kw=k, stride=stride, padding=k // 2,
+                scale_a=cs["s_a"], zp_a=cs["zp_a"], scale_c=cs["s_c"],
+                zp_c=cs["zp_c"], relu=relu, rounding=rounding)
+
+
+def check_g1(torch, q, zoo, G, C, gen, dev):
+    """Phase 19: G1 against its plain version, bit for bit, at every grouped
+    shape of the zoo (batch 8) and over the sweep, per-tensor and
+    per-channel s_w, both roundings, relu on and off."""
+    cases = [(shape, G1_CHECK_BATCH, f"{first} (x{n})") for shape, (first, n)
+             in grouped_shapes(torch, q, zoo, ZOO_GROUPED, dev).items()]
+    for c in G1_SWEEP_C:
+        for groups in ((c, c // 2) if c % 2 == 0 else (c,)):
+            for k in (3, 5):
+                for stride in (1, 2):
+                    cases.append(((17, 15, c, c, groups, k, stride), 2,
+                                  "sweep"))
+    n_cases = 0
+    for shape, batch, what in cases:
+        x, cs = grouped_operands(torch, G, gen, batch, shape, dev)
+        o = shape[3]
+        spread = None
+        for per_channel in (False, True):
+            s_w = cs["s_w_pc"] if per_channel else 0.01
+            ep = G.epilogue_vector(cs["s_a"], s_w, cs["s_c"], o, dev, "conv")
+            for rounding in ("trunc", "nearest"):
+                for relu in (False, True):
+                    kw = grouped_kw(cs, shape, rounding, relu)
+                    before = C.conv2d_int8_grouped.launches
+                    got = C.conv2d_int8_grouped(x, cs["w"], cs["oc"], ep,
+                                                **kw)
+                    launched = C.conv2d_int8_grouped.launches - before
+                    want = C.conv2d_int8_grouped_plain(x, cs["w"], cs["oc"],
+                                                       ep, **kw)
+                    torch.cuda.synchronize()
+                    n_cases += 1
+                    if launched != 1 or not torch.equal(got, want):
+                        fail(f"G1 != plain at {shape} batch {batch} ({what}) "
+                             f"per_channel={per_channel} rounding={rounding}"
+                             f" relu={relu}: {int((got != want).sum())} "
+                             f"codes differ, {launched} launches")
+                    if spread is None:
+                        spread = int(torch.unique(want).numel())
+        log(json.dumps({"phase": "g1_vs_plain", "shape": list(shape),
+                        "batch": batch, "layer": what, "cases": 8,
+                        "distinct_codes": spread, "max_abs_err": 0}))
+        del x, cs
+    log(json.dumps({"phase": "g1_vs_plain", "cases": n_cases,
+                    "shapes": len(cases), "max_abs_err": 0}))
+    return 0
+
+
+def b1_shapes(torch, q, zoo, name, dev, batch=CNN_BATCH):
+    """{(kind, geometry or (M, K), N): (first layer, launches)} of the B1
+    launches of one forward of ``name`` at ``batch``: ('conv', (batch, h,
+    w, c, k, stride, pad), N) or ('gemm', (M, K), N)."""
+    shapes = {}
+    model = zoo.build(name, device=dev)
+    for lname, layer, shape in gemm_layers(torch, q, model, dev):
+        if isinstance(layer, q.Conv2d):
+            if layer.groups > 1:
+                continue
+            _, c, h, w = shape
+            key = ("conv", (batch, h, w, c, layer.kernel_size, layer.stride,
+                            layer.padding), layer.out_channels)
+        else:
+            key = ("gemm", (batch, shape[1]), layer.out_channels)
+        first, n = shapes.get(key, (lname, 0))
+        shapes[key] = (first, n + 1)
+    del model
+    return shapes
+
+
+def check_b1_cnn(torch, G, C, gen, dev, shapes, label):
+    """Phase 20: B1 against ``qgemm_plain`` at every conv and Linear shape
+    of a CNN forward, bit for bit: per-channel s_w with 'trunc' and relu
+    (the main path's), per-tensor with 'nearest' and no relu."""
+    n_cases = 0
+    for (kind, geom, n), (first, count) in shapes.items():
+        for per_channel, rounding, relu in ((True, "trunc", True),
+                                            (False, "nearest", False)):
+            if kind == "conv":
+                b, h, w, c, k, stride, pad = geom
+                x, cs = conv_case(torch, gen, geom, n, dev)
+                kw = dict(kh=k, kw=k, stride=stride, padding=pad,
+                          zp_a=cs["zp_a"], order="conv")
+            else:
+                cs = gemm_case(torch, gen, geom[0], geom[1], n, dev)
+                x, kw = cs["a"], dict(order="gemm")
+            order = kw["order"]
+            oc = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]),
+                                  cs["s_a"], cs["zp_a"], recentered=True)
+            ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"] if per_channel
+                                   else 0.01, cs["s_c"], n, dev, order)
+            kw.update(scale_a=cs["s_a"], scale_c=cs["s_c"], zp_c=cs["zp_c"],
+                      relu=relu, rounding=rounding)
+            before = G.qgemm.launches
+            if kind == "conv":
+                got = C.conv2d_int8_gemm(x, cs["w"], oc, ep, **kw)
+                launched = G.qgemm.launches - before
+                want = C.conv2d_int8_gemm(x, cs["w"], oc, ep,
+                                          gemm=G.qgemm_plain, **kw)
+            else:
+                got = G.qgemm(x, cs["w"], oc, ep, **kw)
+                launched = G.qgemm.launches - before
+                want = G.qgemm_plain(x, cs["w"], oc, ep, **kw)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if launched != 1 or not torch.equal(got, want):
+                fail(f"B1 != plain at {label} {first} {kind} {geom} N={n} "
+                     f"per_channel={per_channel}: "
+                     f"{int((got != want).sum())} codes differ, {launched} "
+                     f"launches")
+            del x, cs, got, want
+        log(json.dumps({"phase": f"b1_vs_plain_{label}", "layer": first,
+                        "launches_per_forward": count, "kind": kind,
+                        "shape": list(geom), "N": n, "cases": 2,
+                        "max_abs_err": 0}))
+    log(json.dumps({"phase": f"b1_vs_plain_{label}", "cases": n_cases,
+                    "shapes": len(shapes), "max_abs_err": 0}))
+    return 0
+
+
+def cnn_main_path(torch, q, zoo, kernel_fns, dev, name):
+    """Phases 21-22: a 224 x 224 CNN at batch 100 on the card: load (the
+    ResNets fold BN), the FP32 forward against the twin, prepare, calibrate
+    on 100 images, convert, one INT8 forward with exactly one launch per
+    layer (B1 or G1), and the first CNN_CPU_BATCH images' codes equal to a
+    CPU copy's (``export_state`` -> ``load_jax_state``).  Returns (INT8
+    model, FP32 input, state, launches by kernel)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    state, twin = cnn_state(torch, zoo, name)
+    twin = twin.to(dev).eval()
+    rng = np.random.default_rng(0)
+    shape = (CNN_BATCH, 3, 224, 224)
+    x_calib = rng.standard_normal(shape).astype(np.float32)
+    x_test = rng.standard_normal(shape).astype(np.float32)
+    cfg = cnn_config(q, name)
+
+    reset_counts(kernel_fns)
+    model = zoo.build(name, config=cfg, device="cuda")
+    model.load(state)
+    fp32 = model(q.tensor(x_test)).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(x_test, device=dev))
+    scale = float(ref.abs().max())
+    fp_err = float((fp32 - ref).abs().max()) / scale
+    if fp_err > CNN_FP32_RTOL:
+        fail(f"FP32 {name} differs from its torch twin: max error {fp_err} "
+             f"of max |logit|")
+    del twin
+    t0 = time.perf_counter()
+    model.prepare()
+    model(q.tensor(x_calib))
+    model.convert()
+    torch.cuda.synchronize()
+    lifecycle_s = time.perf_counter() - t0
+    out = model(q.tensor(x_test)).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    b1, g1 = launches_per_forward(q, model)
+    want = dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": b1}
+    if g1:
+        want["conv_grouped_u8s8"] = g1
+    if counts != want:
+        fail(f"INT8 {name} forward launched {counts}, want {want}")
+    if tuple(out.shape) != (CNN_BATCH, 10) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"INT8 {name} output {tuple(out.shape)} or non-finite values")
+    top1 = float((out.argmax(1) == ref.argmax(1)).float().mean())
+    cpu = zoo.build(name, config=cfg, device="cpu")
+    load_jax_state(cpu, export_state(model))
+    out_cpu = cpu(q.tensor(x_test[:CNN_CPU_BATCH], device="cpu")).data
+    if not torch.equal(out[:CNN_CPU_BATCH].cpu(), out_cpu):
+        fail(f"INT8 {name} codes on the card differ from the CPU copy's")
+    log(json.dumps({"phase": f"{name}_b{CNN_BATCH}", "launches": counts,
+                    "fp32_err_rel_to_max": fp_err,
+                    "calibrate_convert_s": round(lifecycle_s, 3),
+                    "top1_agreement_vs_fp32": top1,
+                    "gpu_vs_cpu_codes": {"images": CNN_CPU_BATCH,
+                                         "equal": True},
+                    "config": {"weight_per_channel":
+                               cfg.weight_per_channel}}))
+    return model, x_test, state, counts
+
+
+def cnn_timing(torch, q, zoo, name, model, x_test, state, dev):
+    """CUDA events around 20 INT8 and 20 FP32 forwards at batch 100 (input
+    on the card), and one profiled INT8 forward split by kernel: B1, G1,
+    the pools and the input's quantize (each timed alone at its shapes by
+    the same events) and the rest of the glue."""
+    from int8inferenceengine_tpu_torch.ops import functional as F
+    xt = q.tensor(x_test)
+    int8_ms = time_cuda(torch, lambda: model(xt), iters=20)
+    fp_model = zoo.build(name, config=cnn_config(q, name), device="cuda")
+    fp_model.load(state)
+    fp32_ms = time_cuda(torch, lambda: fp_model(xt), iters=20)
+    del fp_model
+    res = {"model": f"{name}_224", "batch": CNN_BATCH,
+           "int8_ms_per_batch": int8_ms,
+           "int8_images_per_s": CNN_BATCH * 1e3 / int8_ms,
+           "fp32_ms_per_batch": fp32_ms,
+           "fp32_images_per_s": CNN_BATCH * 1e3 / fp32_ms}
+    busy, split = profile_forward(torch, lambda: model(xt),
+                                  f"{name}_b{CNN_BATCH}_int8")
+    cfg = model.config
+    quant_ms = time_cuda(torch, lambda: F.quantize(
+        xt, cfg.input_scale, cfg.input_zero_point, cfg.rounding), iters=20)
+    pools_ms = sum(time_cuda(torch, fn, iters=20)
+                   for fn in pool_fns(torch, q, F, name, dev))
+    b1_us = split.get("qgemm_u8s8", {}).get("us", 0.0)
+    g1_us = split.get("conv_grouped_u8s8", {}).get("us", 0.0)
+    res["profile_split_us"] = {
+        "busy": busy, "b1": b1_us, "g1": g1_us, "pools": 1e3 * pools_ms,
+        "input_quantize": 1e3 * quant_ms,
+        "other_glue": busy - b1_us - g1_us - 1e3 * (pools_ms + quant_ms)}
+    log(json.dumps(res))
+    return res
+
+
+def pool_fns(torch, q, F, name, dev):
+    """The pools of one forward of ``name`` at batch 100 on u8 NHWC codes
+    of their shapes: the stem's 3x3/2 max-pool (ResNet) and the head's
+    global average pool."""
+    def codes(shape):
+        return q.Tensor(torch.randint(0, 256, shape, dtype=torch.uint8,
+                                      device=dev), 0.02, 3, _nhwc=True)
+    fns = []
+    if name.startswith("resnet"):
+        stem = codes((CNN_BATCH, 112, 112, 64))
+        fns.append(lambda: F.max_pool2d(stem, 3, 2, padding=1))
+        head = codes((CNN_BATCH, 7, 7, 2048))
+    else:
+        head = codes((CNN_BATCH, 7, 7, 1280))
+    fns.append(lambda: F.adaptive_avg_pool2d_1x1(head))
+    return fns
+
+
+def zoo_vs_cpu(torch, q, zoo, kernel_fns, dev):
+    """Phase 23: the rest of the zoo, one forward each at 224 x 224 on the
+    card at ZOO_BATCH (calibrated on the card at that batch) against a CPU
+    copy of the converted state: equal codes.  Returns the launches of the
+    card's INT8 forwards."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    rng = np.random.default_rng(4)
+    total = dict.fromkeys(kernel_fns, 0)
+    for name in ZOO_REST:
+        t0 = time.perf_counter()
+        state, _ = cnn_state(torch, zoo, name)
+        cfg = cnn_config(q, name)
+        x = rng.standard_normal((ZOO_BATCH, 3, 224, 224)).astype(np.float32)
+        model = zoo.build(name, config=cfg, device="cuda")
+        model.load(state)
+        model.prepare()
+        model(q.tensor(x))
+        model.convert()
+        reset_counts(kernel_fns)
+        out = model(q.tensor(x)).data.cpu()
+        counts = read_counts(kernel_fns)
+        for k, v in counts.items():
+            total[k] += v
+        b1, g1 = launches_per_forward(q, model)
+        if counts.get("qgemm_u8s8") != b1 or counts.get(
+                "conv_grouped_u8s8", 0) != g1:
+            fail(f"{name}: {counts}, want {b1} B1 and {g1} G1")
+        cpu = zoo.build(name, config=cfg, device="cpu")
+        load_jax_state(cpu, export_state(model))
+        out_cpu = cpu(q.tensor(x, device="cpu")).data
+        equal = torch.equal(out, out_cpu)
+        log(json.dumps({"phase": "zoo_card_vs_cpu", "model": name,
+                        "batch": ZOO_BATCH, "b1": b1, "g1": g1,
+                        "equal_codes": equal, "finite": bool(
+                            torch.isfinite(out).all()),
+                        "wall_s": time.perf_counter() - t0}))
+        if not equal:
+            d = (out - out_cpu).abs()
+            fail(f"{name}: the card's codes differ from the CPU copy's on "
+                 f"{int((d > 0).sum())} logits (max {float(d.max())})")
+        del model, cpu, state
+        torch.cuda.empty_cache()
+    return total
+
+
+def g1_bound_ms(batch, shape):
+    """G1's bound: the u8 input, the weights, oc and s_w and the u8 output
+    moved once; 2 k k C/g operations an output at the int8 peak."""
+    h, w, c, o, groups, k, stride = shape
+    oh = (h + 2 * (k // 2) - k) // stride + 1
+    ow = (w + 2 * (k // 2) - k) // stride + 1
+    kk = k * k * (c // groups)
+    m = batch * oh * ow
+    return bound(batch * h * w * c + o * kk + 8 * o + m * o, 2.0 * m * o * kk)
+
+
+def time_g1(torch, q, zoo, G, C, gen, dev, flush):
+    """G1 at one MobileNetV2 b100 forward's depthwise shapes: the kernel,
+    its plain version, the bound, and the yardstick: ``F.conv2d(groups=g)``
+    in float32 on the integer-valued recentred operands (exact below 2^24;
+    TF32 off) + the eager epilogue.  At PER_GROUP_LAYER also ROADMAP's
+    other option, one B1 launch a group (recorded, not a path)."""
+    import torch.nn.functional as tF
+    rows = []
+    shapes = grouped_shapes(torch, q, zoo, ("mobilenet_v2",), dev)
+    for shape, (first, count) in shapes.items():
+        h, w, c, o, groups, k, stride = shape
+        x, cs = grouped_operands(torch, G, gen, CNN_BATCH, shape, dev)
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], o, dev,
+                               "conv")
+        kw = grouped_kw(cs, shape, "trunc", True)
+
+        def fn():
+            return C.conv2d_int8_grouped(x, cs["w"], cs["oc"], ep, **kw)
+
+        def plain():
+            return C.conv2d_int8_grouped_plain(x, cs["w"], cs["oc"], ep,
+                                               **kw)
+
+        pad = k // 2
+        xf = tF.pad(x.permute(0, 3, 1, 2).to(torch.float32) - 128.0,
+                    (pad,) * 4, value=float(cs["zp_a"] - 128))
+        wf = cs["w"].reshape(o, k, k, c // groups).permute(
+            0, 3, 1, 2).to(torch.float32).contiguous()
+
+        def library():
+            acc = tF.conv2d(xf, wf, stride=stride, groups=groups)
+            acc = acc.permute(0, 2, 3, 1).to(torch.int32).reshape(-1, o)
+            return G._requant_epilogue(
+                acc + cs["oc"].reshape(1, -1), ep, scale_a=cs["s_a"],
+                scale_c=cs["s_c"], zp_c=cs["zp_c"], relu=True,
+                rounding="trunc", order="conv")
+
+        got = fn()
+        if not torch.equal(library().reshape(got.shape), got):
+            fail(f"G1 {first}: F.conv2d + epilogue disagrees with the kernel")
+        ms = time_cuda(torch, fn, iters=10, flush=flush)
+        plain_ms = time_cuda(torch, plain, iters=1, flush=flush)
+        library_ms = time_cuda(torch, library, iters=3, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = g1_bound_ms(CNN_BATCH, shape)
+        row = dict(kernel="conv_grouped_u8s8", path="mobilenet_v2_b100",
+                   layer=first, shape=list(shape), launches_per_unit=count,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=b_ms, bound_by=b_by, t_ops=t_ops,
+                   t_bytes=t_bytes)
+        if first.endswith(f".{PER_GROUP_LAYER}"):
+            row["per_group_b1_ms"] = time_per_group_b1(
+                torch, C, x, cs, ep, kw, got, flush)
+        rows.append(row)
+        log(json.dumps({k_: v for k_, v in row.items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": b_ms / ms}))
+        del x, cs, xf, wf, got
+    tot = {key: sum(r[key] * r["launches_per_unit"] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(json.dumps({"kernels_per_unit": "g1_mobilenet_v2_b100",
+                    "launches": sum(r["launches_per_unit"] for r in rows)}
+                   | tot | {"share_of_bound": tot["bound_ms"] / tot["ms"]}))
+    return rows
+
+
+def time_per_group_b1(torch, C, x, cs, ep, kw, want, flush):
+    """One depthwise conv as one B1 gathered-conv launch a group (the
+    group's channel sliced out, padded to 4 channels by ``qgemm_conv``),
+    equal to G1's codes; ms for the whole conv."""
+    groups = kw["groups"]
+    ckw = {k_: v for k_, v in kw.items() if k_ != "groups"}
+
+    def fn():
+        return torch.cat([C.qgemm_conv(
+            x[..., g:g + 1], cs["w"][g:g + 1], cs["oc"][g:g + 1],
+            ep[g:g + 1], order="conv", **ckw) for g in range(groups)],
+            dim=3)
+
+    if not torch.equal(fn(), want):
+        fail("one B1 launch a group disagrees with G1")
+    return time_cuda(torch, fn, iters=2, flush=flush)
+
+
+def time_cnn_gemms(torch, G, C, gen, dev, flush, shapes, path):
+    """B1 at one CNN forward's conv and Linear shapes (batch 100; the
+    main path's per-channel 'trunc' epilogue): the kernel, its plain
+    version, the bound and ``torch._int_mm`` on the patch matrix + the
+    eager epilogue."""
+    rows = []
+    for (kind, geom, n), (first, count) in shapes.items():
+        if kind == "conv":
+            b, h, w, ci, k, stride, pad = geom
+            x, cs = conv_case(torch, gen, geom, n, dev)
+            m, kk = G.ConvGeom(b, h, w, ci, k, k, stride, pad).gemm_shape
+            a = C.im2col_nhwc(x, k, k, stride, pad,
+                              pad_value=cs["zp_a"]).reshape(m, kk)
+            order = "conv"
+        else:
+            (m, kk), x = geom, None
+            cs = gemm_case(torch, gen, m, kk, n, dev)
+            a, order = cs["a"], "gemm"
+        oc = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]),
+                              cs["s_a"], cs["zp_a"], recentered=True)
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], n, dev,
+                               order)
+        kw = dict(scale_a=cs["s_a"], scale_c=cs["s_c"], zp_c=cs["zp_c"],
+                  relu=first != "fc", rounding="trunc", order=order)
+        if kind == "conv":
+            ckw = dict(kw, kh=k, kw=k, stride=stride, padding=pad,
+                       zp_a=cs["zp_a"])
+
+            def fn():
+                return C.qgemm_conv(x, cs["w"], oc, ep, **ckw)
+
+            def plain():
+                return C.conv2d_int8_gemm(x, cs["w"], oc, ep,
+                                          gemm=G.qgemm_plain, **ckw)
+
+            b_ms, b_by, t_ops, t_bytes = conv_bound_ms(geom, n)
+            plan = plan_of(G, m, n, kk, dev,
+                           conv=G.ConvGeom(b, h, w, ci, k, k, stride, pad))
+        else:
+            def fn():
+                return G.qgemm(a, cs["w"], oc, ep, **kw)
+
+            def plain():
+                return G.qgemm_plain(a, cs["w"], oc, ep, **kw)
+
+            b_ms, b_by, t_ops, t_bytes = bound_ms(m, kk, n)
+            plan = plan_of(G, m, n, kk, dev)
+        a_s8, w_p = int_mm_operands(torch, a, cs["w"])
+
+        def library():
+            acc = torch._int_mm(a_s8, w_p.t())[:m, :n]
+            return G._requant_epilogue(acc + oc.reshape(1, -1), ep, **kw)
+
+        if not torch.equal(library(), fn().reshape(m, n)):
+            fail(f"{path} {first}: torch._int_mm + epilogue disagrees with "
+                 f"B1")
+        row = dict(kernel="qgemm_u8s8", path=path, layer=first,
+                   M=m, K=kk, N=n, launches_per_unit=count, plan=plan,
+                   ms=time_cuda(torch, fn, iters=5, flush=flush),
+                   plain_ms=time_cuda(torch, plain, iters=1, flush=flush),
+                   library_ms=time_cuda(torch, library, iters=3,
+                                        flush=flush),
+                   bound_ms=b_ms, bound_by=b_by, t_ops=t_ops,
+                   t_bytes=t_bytes)
+        rows.append(row)
+        log(json.dumps({k_: v for k_, v in row.items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": b_ms / row["ms"]}))
+        del x, cs, a, a_s8, w_p
+    tot = {key: sum(r[key] * r["launches_per_unit"] for r in rows)
+           for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    log(json.dumps({"kernels_per_unit": path,
+                    "launches": sum(r["launches_per_unit"] for r in rows)}
+                   | tot | {"share_of_bound": tot["bound_ms"] / tot["ms"]}))
+    return rows
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -3126,8 +3729,8 @@ def kernels_line(rows, counts_by_path, max_err):
         out.append(dict(
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"],
-            **({"also_replaces": info["also_replaces"]}
-               if "also_replaces" in info else {}),
+            **{k: v for k, v in info.items()
+               if k not in ("source", "replaces")},
             launches=sum(c[name] for c in counts_by_path.values()),
             launches_by_path={p: c[name] for p, c in counts_by_path.items()},
             max_abs_err=max_err[name], ms=tot["ms"],
@@ -3183,7 +3786,8 @@ def main(argv=None) -> int:
     kernel_fns = {"qgemm_u8s8": G.qgemm, "qgemm_u8s8_vzp": G.qgemm_multi,
                   "decode_attn_flat": A.decode_attention_flat,
                   "w4_gemm": W.w4_gemm, "w4a8_v2_gemm": W.w4a8_v2,
-                  "w4a8_v1_gemm": W.w4a8_v1}
+                  "w4a8_v1_gemm": W.w4a8_v1,
+                  "conv_grouped_u8s8": C.conv2d_int8_grouped}
     t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
@@ -3266,9 +3870,33 @@ def main(argv=None) -> int:
     alexnet_timing(torch, q, zoo, model, x_test, state, args.profile)
 
     # -- 14. the AlexNet engine -----------------------------------------------
-    counts_by_path["alexnet_engine"] = serve_alexnet(torch, q, model,
-                                                     kernel_fns)
+    counts_by_path["alexnet_engine"] = serve_cnn(torch, q, model,
+                                                 kernel_fns)
     del model, state
+
+    # -- 19. G1 against its plain version --------------------------------------
+    max_err["conv_grouped_u8s8"] = check_g1(torch, q, zoo, G, C, gen, dev)
+
+    # -- 20. B1 at every ResNet-50 and MobileNetV2 conv and Linear shape -------
+    cnn_shapes = {name: b1_shapes(torch, q, zoo, name, dev)
+                  for name in ("resnet50", "mobilenet_v2")}
+    for name, shapes in cnn_shapes.items():
+        check_b1_cnn(torch, G, C, gen, dev, shapes, name)
+
+    # -- 21. the ResNet-50 main path and its engine ----------------------------
+    for name in ("resnet50", "mobilenet_v2"):
+        model, x_test, state, counts_by_path[f"{name}_b100"] = cnn_main_path(
+            torch, q, zoo, kernel_fns, dev, name)
+        cnn_timing(torch, q, zoo, name, model, x_test, state, dev)
+        # -- 22. (MobileNetV2: the same protocol without the engine) ---------
+        if name == "resnet50":
+            counts_by_path["resnet50_engine"] = serve_cnn(
+                torch, q, model, kernel_fns, label="resnet50")
+        del model, state
+        torch.cuda.empty_cache()
+
+    # -- 23. the rest of the zoo on the card against a CPU copy ----------------
+    counts_by_path["cnn_zoo_b2"] = zoo_vs_cpu(torch, q, zoo, kernel_fns, dev)
 
     # -- 6. the decoders on the card against a CPU copy ----------------------
     decoders_vs_cpu(torch, q, zoo, TD, LL, dev)
@@ -3335,6 +3963,10 @@ def main(argv=None) -> int:
     flush = flush_buf.zero_
     time_launch_floor(torch, flush)
     rows = time_alexnet_gemms(torch, G, C, gen, dev, flush)
+    for name, shapes in cnn_shapes.items():
+        rows += time_cnn_gemms(torch, G, C, gen, dev, flush, shapes,
+                               f"{name}_b100")
+    rows += time_g1(torch, q, zoo, G, C, gen, dev, flush)
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
     rows += time_extend_attention(torch, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)

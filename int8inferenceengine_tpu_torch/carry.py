@@ -13,14 +13,16 @@ with ``params`` in the JAX package's layouts:
   ([N, G] f32), ``bias`` and, on the static path (W4A8), ``w4_wsum`` ([N]
   f32), carried as they are (``wsum`` is an f32 sum whose order is part of
   the result, so it is never recomputed);
-* Conv2d: ``w_hwio`` / ``bias`` (HWIO), after convert ``qw_hwio`` (HWIO s8)
-  with ``q_bias``, ``rowsum`` and, per channel, ``w_scale``;
+* Conv2d: ``w_hwio`` / ``bias`` (HWIO, I = in_channels / groups), after
+  convert ``qw_hwio`` (HWIO s8) with ``q_bias``, ``rowsum`` and, per
+  channel, ``w_scale``;
 * QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
   ([V, C] u8) (a weight-only model keeps ``weight``);
 * QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
 * QuantLayerNorm: ``weight`` and ``bias``; QuantRMSNorm: ``weight``;
-* the weightless layers (QuantAct, QuantAdd, QuantMul, QuantMatmul,
-  QuantSoftmax, QuantRoPE): none, only ``scale`` and ``zero_point``.
+* the weightless layers (QuantAct, QuantAdd, QuantConcat, QuantMul,
+  QuantMatmul, QuantSoftmax, QuantRoPE): none, only ``scale`` and
+  ``zero_point``.
 
 It is what a JAX ``Layer`` holds in ``layer.params`` and its attributes, so
 after ``load_jax_state`` both packages compute the same function.
@@ -67,7 +69,9 @@ def _load_w4_layer(name: str, layer: Linear, p: dict) -> None:
 def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     p = st["params"]
     k = getattr(layer, "kernel_size", None)
-    n, c = layer.out_channels, layer.in_channels
+    # a grouped conv's taps span its group's channels
+    n = layer.out_channels
+    c = layer.in_channels // getattr(layer, "groups", 1)
     if st["is_quantized"] and "w4_packed" in p:
         return _load_w4_layer(name, layer, p)
     if not st["is_quantized"]:
@@ -148,8 +152,8 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
         qw = layer.qw.cpu().numpy()
         if isinstance(layer, Conv2d):
             k = layer.kernel_size
-            params = {"qw_hwio": qw.T.reshape(k, k, layer.in_channels,
-                                              layer.out_channels)}
+            params = {"qw_hwio": qw.T.reshape(
+                k, k, layer.in_channels // layer.groups, layer.out_channels)}
         else:
             params = {"qw_kn": qw.T.copy()}
         params["q_bias"] = layer.q_bias.cpu().numpy()

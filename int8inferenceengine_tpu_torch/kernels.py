@@ -66,6 +66,12 @@ SIGNATURES = {
         # x, packed, scales, bias, out, M, N, K, g, stream
         "w4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "conv_grouped": {
+        # x, w, oc, ep, out, B, H, W, C, O, groups, kh, kw, stride, pad,
+        # zp_a, s_a, s_c, zp_c, relu, nearest, stream
+        "conv_grouped_u8s8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

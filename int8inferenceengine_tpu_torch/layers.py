@@ -318,10 +318,14 @@ class Linear(Layer):
 
 
 class Conv2d(Layer):
-    """2D convolution; torch-style weight [out_c, in_c, kh, kw].
+    """2D convolution; torch-style weight [out_c, in_c/groups, kh, kw].
 
     The FP32 path runs NCHW through ``F.conv2d``; the INT8 path runs NHWC
-    through im2col + the quantized GEMM kernel."""
+    through the quantized GEMM kernel (B1's gathered conv on the card,
+    im2col + its plain version on the CPU), or, where ``groups`` > 1,
+    through the grouped conv (kernel G1 on the card, its plain version on
+    the CPU).  ``bias_correction`` is refused by the configuration check
+    (the JAX package applies it at ``groups == 1`` only)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -330,9 +334,10 @@ class Conv2d(Layer):
         super().__init__(config, device)
         if stride == 0:
             raise ValueError("stride must be >= 1 (reference: conv2d.h:12-14)")
-        if groups != 1:
-            raise NotImplementedError(
-                "grouped Conv2d is not implemented by the PyTorch port yet")
+        if in_channels % groups or out_channels % groups:
+            raise ValueError(
+                f"groups={groups} must divide in_channels={in_channels} and "
+                f"out_channels={out_channels}")
         if config.weight_only:
             raise NotImplementedError(
                 "a weight-only Conv2d (s8 weights, float activations) is not "
@@ -342,26 +347,30 @@ class Conv2d(Layer):
         self.kernel_size = int(kernel_size)
         self.stride = int(stride)
         self.padding = int(padding)
-        self.groups = 1
+        self.groups = int(groups)
         self.fuse_relu = fuse_relu
-        k = self.kernel_size
-        self.register_buffer(
-            "weight", self._buf((out_channels, in_channels, k, k)))
+        self.register_buffer("weight", self._buf(self._weight_shape()))
         self.register_buffer("bias", self._buf((out_channels,)))
 
-    def load_weight(self, w):
+    def _weight_shape(self) -> tuple:
         k = self.kernel_size
-        self.weight = self._load_array(
-            w, (self.out_channels, self.in_channels, k, k), "load_weight")
+        return (self.out_channels, self.in_channels // self.groups, k, k)
+
+    def load_weight(self, w):
+        self.weight = self._load_array(w, self._weight_shape(), "load_weight")
 
     def _kernel_weight(self, q_w: torch.Tensor) -> torch.Tensor:
-        # OIHW -> [O, (kh, kw, I)], the im2col patch order
+        # OIHW -> [O, (kh, kw, I/groups)], the im2col patch order (a
+        # grouped conv's taps over its group's channels)
         return q_w.permute(0, 2, 3, 1).reshape(self.out_channels, -1)
 
     def _order(self) -> str:
         # 'auto' replays the native integer conv's down_scale float order;
-        # 'gemm' the JAX package's im2col + qgemm path
-        return "gemm" if self.config.conv_backend == "gemm" else "conv"
+        # 'gemm' the JAX package's im2col + qgemm path, which it never takes
+        # for a grouped conv
+        if self.config.conv_backend == "gemm" and self.groups == 1:
+            return "gemm"
+        return "conv"
 
     def forward(self, x: Tensor) -> Tensor:
         if len(x.shape) != 4:
@@ -373,7 +382,7 @@ class Conv2d(Layer):
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
         out = conv_ops.conv2d_fp32(x.logical_data, self.weight, self.bias,
-                                   self.stride, self.padding)
+                                   self.stride, self.padding, self.groups)
         # sampled in NHWC element order, the order the JAX package's
         # reservoir sees
         self._observe(out.permute(0, 2, 3, 1))
@@ -384,11 +393,20 @@ class Conv2d(Layer):
         order = self._order()
         oc, ep = self._epilogue(x, order)
         k = self.kernel_size
-        out = conv_ops.conv2d_int8_gemm(
-            x.as_nhwc_data(), self.qw, oc, ep, kh=k, kw=k, stride=self.stride,
-            padding=self.padding, scale_a=x.scale, zp_a=x.zero_point,
-            scale_c=self.scale, zp_c=self.zero_point, relu=self.fuse_relu,
-            rounding=self.config.rounding, order=order, gemm=self._gemm())
+        kw = dict(kh=k, kw=k, stride=self.stride, padding=self.padding,
+                  scale_a=x.scale, zp_a=x.zero_point, scale_c=self.scale,
+                  zp_c=self.zero_point, relu=self.fuse_relu,
+                  rounding=self.config.rounding)
+        if self.groups > 1:
+            grouped = (conv_ops.conv2d_int8_grouped_plain
+                       if self.config.kernel_backend == "xla"
+                       else conv_ops.conv2d_int8_grouped)
+            out = grouped(x.as_nhwc_data(), self.qw, oc, ep,
+                          groups=self.groups, **kw)
+        else:
+            out = conv_ops.conv2d_int8_gemm(x.as_nhwc_data(), self.qw, oc, ep,
+                                            order=order, gemm=self._gemm(),
+                                            **kw)
         return Tensor(out, self.scale, self.zero_point, _nhwc=True)
 
 
@@ -479,8 +497,10 @@ class QuantAdd(_Weightless):
 
 
 class QuantMul(_Weightless):
-    """Calibrated elementwise multiply (SwiGLU's ``silu(gate) * up``): both
-    factors are dequantized at their own grids, multiplied in float32 and
+    """Calibrated elementwise multiply (SwiGLU's ``silu(gate) * up``, the
+    squeeze-excite gate): both factors are dequantized at their own grids,
+    multiplied in float32 with broadcasting (an SE gate [N, 1, 1, C] scales
+    the trunk [N, H, W, C]; in NCHW [N, C, 1, 1] and [N, C, H, W]) and
     requantized."""
 
     def forward(self, a: Tensor, b: Tensor) -> Tensor:
@@ -496,6 +516,42 @@ class QuantMul(_Weightless):
         q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point)
                           * dequantize_u8(b_data, b.scale, b.zero_point))
         return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
+
+
+class QuantConcat(_Weightless):
+    """Calibrated channel concatenation (SqueezeNet's Fire, GoogLeNet's
+    Inception, DenseNet's dense layers, ShuffleNetV2's branch merge).
+    While preparing, the FP32 concatenation's range is observed; after
+    convert, each input is requantized from its own (scale, zp) to this
+    layer's grid (``quantize_u8(dequantize_u8(..))``) and the parts are
+    concatenated on the channel axis of the physical layout, with an
+    optional relu at the zero point."""
+
+    def __init__(self, config: QuantConfig = DEFAULT_CONFIG,
+                 fuse_relu: bool = False, device=None):
+        super().__init__(config, device)
+        self.fuse_relu = fuse_relu
+
+    def forward(self, *xs: Tensor) -> Tensor:
+        if len(xs) < 2:
+            raise ValueError("QuantConcat needs at least two inputs")
+        first = xs[0]
+        if any(x.quantized != first.quantized for x in xs):
+            raise ValueError(
+                "QuantConcat: all inputs must be quantized or all float")
+        axis = 3 if first._nhwc else 1        # the channels in either layout
+        datas = [QuantAdd._aligned(first, x) for x in xs]
+        if not first.quantized:
+            out = torch.cat(datas, dim=axis)
+            self._observe(out)
+            return Tensor(out, _nhwc=first._nhwc)
+        self._check_converted()
+        out = torch.cat([self._requant(dequantize_u8(d, x.scale,
+                                                     x.zero_point))
+                         for d, x in zip(datas, xs)], dim=axis)
+        if self.fuse_relu:
+            out = out.clamp_min(self.zero_point)
+        return Tensor(out, self.scale, self.zero_point, _nhwc=first._nhwc)
 
 
 class QuantMatmul(_Weightless):

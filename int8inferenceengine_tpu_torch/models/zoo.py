@@ -1,12 +1,13 @@
-"""Model zoo: the reference's sample models and the GPT-style and llama
-decoders as framework Modules (counterpart of
-``int8inferenceengine_tpu.models.zoo``, for the four reference-parity
-models, ``gpt_tiny`` and ``llama_tiny``).
+"""Model zoo: the reference's sample models, the CNN families and the
+GPT-style and llama decoders as framework Modules (counterpart of
+``int8inferenceengine_tpu.models.zoo``: every CNN name of its ``build()``,
+``gpt_tiny`` and ``llama_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
 ``model.load(torch_twin(name).state_dict())`` works as-is — the reference
-notebooks' differential workflow.
+notebooks' differential workflow (the ResNets' twins carry BatchNorm, which
+``load`` folds).
 
 The CNNs take NCHW float input via ``tensor()`` and return logits
 [batch, classes]; ``gpt_tiny`` (``models.text_decoder.TextDecoder``) takes
@@ -21,11 +22,14 @@ from ..config import DEFAULT_CONFIG, QuantConfig
 from ..layers import Conv2d, Linear
 from ..module import Module
 from ..ops import functional as F
+from . import (densenet, efficientnet, googlenet, mobilenet, mobilenet_v3,
+               resnet, shufflenet, squeezenet)
 from .llama import LlamaDecoder, torch_llama
 from .text_decoder import TextDecoder, torch_text_decoder
 
-__all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "TextDecoder",
-           "LlamaDecoder", "build", "torch_twin", "MODEL_SPECS"]
+__all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "VGG11", "VGG16",
+           "VGG19", "TextDecoder", "LlamaDecoder", "build", "torch_twin",
+           "MODEL_SPECS"]
 
 
 class FCMnist(Module):
@@ -108,6 +112,63 @@ class AlexNet(Module):
         return self.fc3(x)
 
 
+# VGG configurations A/D/E: convs per stage; every stage ends in a 2x2/2
+# max-pool and widths are fixed (64, 128, 256, 512, 512).
+_VGG_STAGES = {11: (1, 1, 2, 2, 2), 16: (2, 2, 3, 3, 3), 19: (2, 2, 4, 4, 4)}
+_VGG_WIDTHS = (64, 128, 256, 512, 512)
+
+
+class _VGG(Module):
+    """Config-driven VGG for 224x224 input: deep plain-conv chains (long
+    sequences of requant boundaries, 3x3 convs up to 512 channels).
+    conv1..convN / fc1..fc3 naming (flat, reference-style single-dot
+    keys); weights load from ``torch_twin('vggN')``."""
+
+    INPUT_SHAPE = (3, 224, 224)
+    DEPTH = None  # set by subclasses
+
+    def __init__(self, num_classes: int = 10,
+                 config: QuantConfig = DEFAULT_CONFIG, device=None):
+        super().__init__(config, device)
+        kw = dict(config=config, device=self.device)
+        idx, in_ch = 1, 3
+        for n_convs, width in zip(_VGG_STAGES[self.DEPTH], _VGG_WIDTHS):
+            for _ in range(n_convs):
+                setattr(self, f"conv{idx}",
+                        Conv2d(in_ch, width, 3, padding=1, **kw))
+                in_ch, idx = width, idx + 1
+        self.fc1 = Linear(512 * 7 * 7, 4096, **kw)
+        self.fc2 = Linear(4096, 4096, **kw)
+        self.fc3 = Linear(4096, num_classes, **kw)
+
+    def forward(self, x):
+        idx = 1
+        for n_convs in _VGG_STAGES[self.DEPTH]:
+            for _ in range(n_convs):
+                x = F.relu(getattr(self, f"conv{idx}")(x))
+                idx += 1
+            x = F.max_pool2d(x, 2, 2)
+        x = x.reshape(-1, 512 * 7 * 7)
+        x = F.relu(self.fc1(x))
+        x = F.relu(self.fc2(x))
+        return self.fc3(x)
+
+
+class VGG11(_VGG):
+    """VGG-11 (configuration A): conv1..conv8."""
+    DEPTH = 11
+
+
+class VGG16(_VGG):
+    """VGG-16 (configuration D): conv1..conv13."""
+    DEPTH = 16
+
+
+class VGG19(_VGG):
+    """VGG-19 (configuration E): conv1..conv16."""
+    DEPTH = 19
+
+
 class LeNet(Module):
     """LeNet-style MNIST net (unittest/test_quantized_layer.py:26-42)."""
 
@@ -136,13 +197,57 @@ def _llama_tiny(**kw):
     return LlamaDecoder(**kw)
 
 
+def _mobilenet_v3(variant):
+    def make(**kw):
+        return mobilenet_v3.MobileNetV3(variant=variant, **kw)
+    return make
+
+
 MODEL_SPECS = {
     "fc_mnist": FCMnist,
     "simple_conv": SimpleConv,
     "alexnet": AlexNet,
     "lenet": LeNet,
+    "vgg11": VGG11,
+    "vgg16": VGG16,
+    "vgg19": VGG19,
+    "resnet18": resnet.ResNet18,
+    "resnet34": resnet.ResNet34,
+    "resnet50": resnet.ResNet50,
+    "resnet101": resnet.ResNet101,
+    "resnet152": resnet.ResNet152,
+    "mobilenet_v1": mobilenet.MobileNetV1,
+    "mobilenet_v2": mobilenet.MobileNetV2,
+    "mobilenet_v3_large": _mobilenet_v3("large"),
+    "mobilenet_v3_small": _mobilenet_v3("small"),
+    "efficientnet_b0": efficientnet.EfficientNetB0,
+    "shufflenet_v2": shufflenet.ShuffleNetV2,
+    "squeezenet": squeezenet.SqueezeNet,
+    "googlenet": googlenet.GoogLeNet,
+    "densenet121": densenet.DenseNet121,
     "gpt_tiny": TextDecoder,
     "llama_tiny": _llama_tiny,
+}
+
+# the families whose torch twins live in their own modules
+_TWINS = {
+    "resnet18": lambda seed: resnet.torch_resnet18(seed=seed),
+    "resnet34": lambda seed: resnet.torch_resnet34(seed=seed),
+    "resnet50": lambda seed: resnet.torch_resnet50(seed=seed),
+    "resnet101": lambda seed: resnet.torch_resnet101(seed=seed),
+    "resnet152": lambda seed: resnet.torch_resnet152(seed=seed),
+    "mobilenet_v1": lambda seed: mobilenet.torch_mobilenet_v1(seed=seed),
+    "mobilenet_v2": lambda seed: mobilenet.torch_mobilenet_v2(seed=seed),
+    "mobilenet_v3_large": lambda seed: mobilenet_v3.torch_mobilenet_v3(
+        variant="large", seed=seed),
+    "mobilenet_v3_small": lambda seed: mobilenet_v3.torch_mobilenet_v3(
+        variant="small", seed=seed),
+    "efficientnet_b0": lambda seed: efficientnet.torch_efficientnet_b0(
+        seed=seed),
+    "shufflenet_v2": lambda seed: shufflenet.torch_shufflenet_v2(seed=seed),
+    "squeezenet": lambda seed: squeezenet.torch_squeezenet(seed=seed),
+    "googlenet": lambda seed: googlenet.torch_googlenet(seed=seed),
+    "densenet121": lambda seed: densenet.torch_densenet121(seed=seed),
 }
 
 
@@ -168,6 +273,8 @@ def torch_twin(name: str, seed: int = 42):
         return torch_text_decoder(seed=seed)
     if name == "llama_tiny":
         return torch_llama(kv_heads=2, seed=seed)
+    if name in _TWINS:
+        return _TWINS[name](seed)
 
     torch.manual_seed(seed)
 
@@ -216,6 +323,34 @@ def torch_twin(name: str, seed: int = 42):
                 x = tF.relu(self.conv4(x))
                 x = tF.max_pool2d(tF.relu(self.conv5(x)), 3, 2)
                 x = x.reshape(-1, 9216)
+                x = tF.relu(self.fc1(x))
+                x = tF.relu(self.fc2(x))
+                return self.fc3(x)
+
+    elif name in ("vgg11", "vgg16", "vgg19"):
+        stages = _VGG_STAGES[int(name[3:])]
+
+        class Net(nn.Module):
+            def __init__(self):
+                super().__init__()
+                idx, in_ch = 1, 3
+                for n_convs, width in zip(stages, _VGG_WIDTHS):
+                    for _ in range(n_convs):
+                        setattr(self, f"conv{idx}",
+                                nn.Conv2d(in_ch, width, 3, padding=1))
+                        in_ch, idx = width, idx + 1
+                self.fc1 = nn.Linear(512 * 7 * 7, 4096)
+                self.fc2 = nn.Linear(4096, 4096)
+                self.fc3 = nn.Linear(4096, 10)
+
+            def forward(self, x):
+                idx = 1
+                for n_convs in stages:
+                    for _ in range(n_convs):
+                        x = tF.relu(getattr(self, f"conv{idx}")(x))
+                        idx += 1
+                    x = tF.max_pool2d(x, 2, 2)
+                x = x.reshape(-1, 512 * 7 * 7)
                 x = tF.relu(self.fc1(x))
                 x = tF.relu(self.fc2(x))
                 return self.fc3(x)

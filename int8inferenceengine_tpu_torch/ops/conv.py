@@ -1,6 +1,7 @@
 """Convolution paths (counterpart of ``int8inferenceengine_tpu.ops.conv``).
 
-* ``conv2d_fp32``      — ``torch.nn.functional.conv2d`` + bias, NCHW.
+* ``conv2d_fp32``      — ``torch.nn.functional.conv2d`` + bias, NCHW
+  (grouped when ``groups`` > 1).
 * ``conv2d_int8_gemm`` — the quantized conv as a GEMM over its patch
   matrix.  On a CUDA tensor with ``gemm=qgemm`` it launches the gathered
   conv (``qgemm_conv``: kernel B1's conv variant, whose loader reads each
@@ -10,6 +11,12 @@
   'conv' epilogue order it is bit-identical to the JAX package's native
   integer conv (``conv2d_int8_xla``): the integer accumulators are identical
   and the epilogue replays ``down_scale``'s float order.
+* ``conv2d_int8_grouped`` — the grouped (depthwise) quantized conv.  On a
+  CUDA tensor it launches kernel G1 (``csrc/conv_grouped.cu``), which has
+  no Pallas counterpart: the JAX package leaves grouped convs to XLA's
+  native integer conv (``conv2d_int8_xla`` with ``feature_group_count``);
+  ``conv2d_int8_grouped_plain`` is its plain version.  A grouped conv is
+  never space-to-depth'ed.
 
 Zero-point padding parity: the reference pads the patch matrix with the
 activation zero_point, so padded taps contribute nothing after zero-point
@@ -22,16 +29,17 @@ import torch
 import torch.nn.functional as F
 
 from .gemm_int8 import (ConvGeom, _card_operands, _check_operands,
-                        conv_gathered, launch_plan, plan_qgemm, qgemm,
-                        qgemm_plain, sm_count)
+                        _requant_epilogue, conv_gathered, launch_plan,
+                        plan_qgemm, qgemm, qgemm_plain, sm_count)
 
 
 def conv2d_fp32(x_nchw: torch.Tensor, w_oihw: torch.Tensor,
-                bias: torch.Tensor, stride: int, padding: int
-                ) -> torch.Tensor:
-    """FP32 convolution + bias in NCHW (bias added after the conv, as the
-    JAX package does)."""
-    out = F.conv2d(x_nchw, w_oihw, None, stride=stride, padding=padding)
+                bias: torch.Tensor, stride: int, padding: int,
+                groups: int = 1) -> torch.Tensor:
+    """FP32 convolution + bias in NCHW, grouped when ``groups`` > 1 (bias
+    added after the conv, as the JAX package does)."""
+    out = F.conv2d(x_nchw, w_oihw, None, stride=stride, padding=padding,
+                   groups=groups)
     return out + bias.reshape(1, -1, 1, 1)
 
 
@@ -150,3 +158,123 @@ def qgemm_conv(x_u8_nhwc: torch.Tensor, qw_nk: torch.Tensor, oc: torch.Tensor,
                            f"{rc} ({geom}, {plan})")
     qgemm.launches += 1
     return out
+
+
+# -- grouped (depthwise) convolution: kernel G1 -------------------------------
+
+def _grouped_geometry(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
+                      oc: torch.Tensor, ep: torch.Tensor, groups: int,
+                      kh: int, kw: int, stride: int, padding: int):
+    """Check a grouped conv's operands; returns (C/g, O, OH, OW)."""
+    if x_u8_nhwc.dtype != torch.uint8 or x_u8_nhwc.dim() != 4:
+        raise TypeError(f"grouped conv takes u8 NHWC codes, got "
+                        f"{x_u8_nhwc.dtype} {tuple(x_u8_nhwc.shape)}")
+    if qw.dtype != torch.int8 or qw.dim() != 2:
+        raise TypeError(f"grouped conv weights must be s8 [O, K], got "
+                        f"{qw.dtype} {tuple(qw.shape)}")
+    n, h, w, c = x_u8_nhwc.shape
+    o = qw.shape[0]
+    if groups < 1 or c % groups or o % groups:
+        raise ValueError(f"groups={groups} must divide in_channels={c} and "
+                         f"out_channels={o}")
+    cg = c // groups
+    if qw.shape[1] != kh * kw * cg:
+        raise ValueError(f"grouped conv weight {tuple(qw.shape)}: want "
+                         f"[{o}, {kh * kw * cg}] ((kh, kw, C/g) taps)")
+    if oc.dtype != torch.int32 or tuple(oc.shape) != (o,):
+        raise ValueError(f"oc must be int32 [{o}], got {oc.dtype} "
+                         f"{tuple(oc.shape)}")
+    if ep.dtype != torch.float32 or tuple(ep.shape) != (o,):
+        raise ValueError(f"ep must be float32 [{o}], got {ep.dtype} "
+                         f"{tuple(ep.shape)}")
+    oh = (h + 2 * padding - kh) // stride + 1
+    ow = (w + 2 * padding - kw) // stride + 1
+    if stride < 1 or padding < 0 or min(oh, ow) <= 0:
+        raise ValueError(f"grouped conv: window {kh}x{kw} stride {stride} "
+                         f"padding {padding} over {tuple(x_u8_nhwc.shape)}")
+    return cg, o, oh, ow
+
+
+def conv2d_int8_grouped_plain(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
+                              oc: torch.Tensor, ep: torch.Tensor, *,
+                              groups: int, kh: int, kw: int, stride: int,
+                              padding: int, scale_a, zp_a, scale_c, zp_c,
+                              relu=False, rounding: str = "trunc"
+                              ) -> torch.Tensor:
+    """The grouped conv in plain PyTorch: u8 NHWC [B, H, W, C] x s8 ``qw``
+    [O, kh*kw*C/g] (taps (kh, kw, C/g), output channel o in group
+    o // (O/g)) -> u8 NHWC [B, OH, OW, O].
+
+    im2col over the input with padded taps at ``zp_a``, each group's patch
+    columns against its weights in float64 (exact integers, as
+    ``qgemm_plain``'s accumulate: |acc| <= 128*127*K), ``+ oc`` (which holds
+    the +128*rowsum term over the channel's own group taps), then the conv
+    float order ``acc*s_a*s_w / s_c + zp_c``, clip, 'trunc' or 'nearest',
+    relu at the zero point: the JAX package's ``conv2d_int8_xla`` with
+    ``feature_group_count``."""
+    cg, o, oh, ow = _grouped_geometry(x_u8_nhwc, qw, oc, ep, groups, kh, kw,
+                                      stride, padding)
+    n = x_u8_nhwc.shape[0]
+    patches = im2col_nhwc(x_u8_nhwc, kh, kw, stride, padding,
+                          pad_value=int(zp_a))
+    a = patches.reshape(-1, kh * kw, groups, cg).to(torch.float64) - 128.0
+    wt = qw.reshape(groups, o // groups, kh * kw, cg).to(torch.float64)
+    acc = torch.einsum("mtgc,gotc->mgo", a, wt).to(torch.int32)
+    out = _requant_epilogue(acc.reshape(-1, o) + oc.reshape(1, -1), ep,
+                            scale_a=scale_a, scale_c=scale_c, zp_c=zp_c,
+                            relu=relu, rounding=rounding, order="conv")
+    return out.reshape(n, oh, ow, o)
+
+
+def conv2d_int8_grouped(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
+                        oc: torch.Tensor, ep: torch.Tensor, *, groups: int,
+                        kh: int, kw: int, stride: int, padding: int, scale_a,
+                        zp_a, scale_c, zp_c, relu=False,
+                        rounding: str = "trunc") -> torch.Tensor:
+    """The grouped INT8 conv (``conv2d_int8_grouped_plain``'s function).
+
+    On CUDA tensors this launches kernel G1 (``csrc/conv_grouped.cu``
+    ``conv_grouped_u8s8``) on the current stream and adds one to
+    ``conv2d_int8_grouped.launches``; on CPU tensors it is the plain
+    version.  ``ep`` is the per-channel ``s_w`` (``epilogue_vector(...,
+    order='conv')``): a grouped conv always takes the conv order, as the
+    JAX package's native grouped conv does."""
+    cg, o, oh, ow = _grouped_geometry(x_u8_nhwc, qw, oc, ep, groups, kh, kw,
+                                      stride, padding)
+    kw_ = dict(groups=groups, kh=kh, kw=kw, stride=stride, padding=padding,
+               scale_a=scale_a, zp_a=zp_a, scale_c=scale_c, zp_c=zp_c,
+               relu=relu, rounding=rounding)
+    dev = x_u8_nhwc.device
+    if dev.type == "cpu":
+        return conv2d_int8_grouped_plain(x_u8_nhwc, qw, oc, ep, **kw_)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped conv runs on CUDA or CPU tensors, got "
+                         f"{dev}")
+    x_u8_nhwc = x_u8_nhwc.contiguous()
+    for i, t in enumerate((qw, oc, ep)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"grouped conv: operand {i + 1} must be "
+                             f"contiguous on {dev}")
+    n, h, w, c = x_u8_nhwc.shape
+    if x_u8_nhwc.numel() >= 2 ** 31 or n * oh * ow * o >= 2 ** 31:
+        raise ValueError(f"grouped conv: {tuple(x_u8_nhwc.shape)} -> {o} "
+                         f"channels is too large")
+    out = torch.empty((n, oh, ow, o), dtype=torch.uint8, device=dev)
+    from ..kernels import load
+    lib = load("conv_grouped")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.conv_grouped_u8s8(
+            x_u8_nhwc.data_ptr(), qw.data_ptr(), oc.data_ptr(),
+            ep.data_ptr(), out.data_ptr(), n, h, w, c, o, groups, kh, kw,
+            stride, padding, int(zp_a), float(scale_a), float(scale_c),
+            int(zp_c), int(bool(relu)), int(rounding == "nearest"), stream)
+    if rc != 0:
+        raise RuntimeError(f"conv_grouped_u8s8 launch failed with CUDA "
+                           f"error {rc} ({tuple(x_u8_nhwc.shape)}, O={o}, "
+                           f"groups={groups}, k={kh}x{kw}, stride={stride})")
+    conv2d_int8_grouped.launches += 1
+    return out
+
+
+conv2d_int8_grouped.launches = 0

@@ -1,7 +1,7 @@
-"""Functional tensor ops: relu, max_pool2d, argmax, module-level quant ops,
-the activation table and the attention head layout ops (split, merge and
-the grouped-query ``repeat_kv``)
-(counterpart of ``int8inferenceengine_tpu.ops.functional``).
+"""Functional tensor ops: relu, the pools, argmax, module-level quant ops,
+the activation table, the channel layout ops (shuffle, split) and the
+attention head layout ops (split, merge and the grouped-query
+``repeat_kv``) (counterpart of ``int8inferenceengine_tpu.ops.functional``).
 
 They preserve quantization metadata exactly like the reference:
 
@@ -9,6 +9,9 @@ They preserve quantization metadata exactly like the reference:
   and propagates (scale, zp).
 * ``max_pool2d`` is a window max with scale/zp pass-through; the u8 identity
   element is 0.
+* ``avg_pool2d`` and ``adaptive_avg_pool2d_1x1`` average the u8 codes and
+  truncate back to u8 at the same (scale, zp).
+* ``channel_shuffle`` and ``split_channels`` move channels only.
 """
 
 from __future__ import annotations
@@ -125,6 +128,65 @@ def max_pool2d(x: Tensor, kernel_size: int, stride: int,
     if not x._nhwc:
         out = out.permute(0, 3, 1, 2).contiguous()
     return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+
+
+def _mean_cast(total: torch.Tensor, count: int, like: Tensor) -> Tensor:
+    """``total / count`` in float32 (a true division by a float32 tensor on
+    the operand's device, never a Python float), cast back to ``like``'s
+    dtype: u8 codes truncate, at ``like``'s (scale, zp)."""
+    out = (total / f32(float(count), total.device)).to(like.dtype)
+    return Tensor(out, like.scale, like.zero_point, _nhwc=like._nhwc)
+
+
+def avg_pool2d(x: Tensor, kernel_size: int, stride: int) -> Tensor:
+    """VALID window mean (square window), either layout.  On u8 codes the
+    window sum is taken in float32, exact in any order (below 2^24), so the
+    one rounding is the division; the truncated mean keeps the input's
+    (scale, zp), as the JAX package's does (mean(x) = (mean(q) - zp) * s)."""
+    d = x.as_nhwc_data().to(torch.float32)
+    total = windows_nhwc(d, kernel_size, kernel_size, stride).sum(dim=(3, 4))
+    if not x._nhwc:
+        total = total.permute(0, 3, 1, 2)
+    return _mean_cast(total, kernel_size * kernel_size, x)
+
+
+def adaptive_avg_pool2d_1x1(x: Tensor) -> Tensor:
+    """Global average pool to 1 x 1 (the CNN heads, squeeze-excite): the
+    float32 sum over H and W divided by H * W, then cast as ``avg_pool2d``
+    does.  u8 codes are summed as int32 (exact) before the float32
+    division."""
+    axes = (1, 2) if x._nhwc else (2, 3)
+    if x.quantized:
+        total = x.data.sum(dim=axes, keepdim=True, dtype=torch.int32).to(
+            torch.float32)
+    else:
+        total = x.data.to(torch.float32).sum(dim=axes, keepdim=True)
+    return _mean_cast(total, x.data.shape[axes[0]] * x.data.shape[axes[1]],
+                      x)
+
+
+def channel_shuffle(x: Tensor, groups: int) -> Tensor:
+    """ShuffleNet's channel permutation: the channels as [groups, C/groups],
+    transposed.  A layout op: (scale, zp) pass through."""
+    axis = 3 if x._nhwc else 1
+    shape = tuple(x.data.shape)
+    c = shape[axis]
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    split = shape[:axis] + (groups, c // groups) + shape[axis + 1:]
+    out = x.data.reshape(split).transpose(axis, axis + 1).reshape(shape)
+    return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+
+
+def split_channels(x: Tensor, sections: int) -> tuple:
+    """The channel axis cut into ``sections`` equal parts (ShuffleNetV2's
+    channel split), each a view at the input's (scale, zp)."""
+    axis = 3 if x._nhwc else 1
+    c = x.data.shape[axis]
+    if c % sections:
+        raise ValueError(f"channels {c} not divisible into {sections} parts")
+    return tuple(Tensor(p, x.scale, x.zero_point, _nhwc=x._nhwc)
+                 for p in torch.split(x.data, c // sections, dim=axis))
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:

@@ -61,8 +61,25 @@ def test_port_imports_without_jax():
     assert out.stdout.startswith("OK")
     assert int(out.stdout.split()[1]) >= 12      # every module was imported
     names = set(out.stdout.split()[2:])
-    for mod in ("graphs", "serve", "serve.engine", "serve.generation"):
+    for mod in ("graphs", "serve", "serve.engine", "serve.generation",
+                "models.resnet", "models.mobilenet", "models.mobilenet_v3",
+                "models.efficientnet", "models.shufflenet",
+                "models.squeezenet", "models.googlenet", "models.densenet"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
+
+
+def test_every_kernel_source_is_bound_and_stands_alone():
+    """Each ``csrc/*.cu`` (G1's ``conv_grouped.cu`` among them) has its C
+    entry points in ``kernels.SIGNATURES`` and names no JAX code."""
+    from int8inferenceengine_tpu_torch import kernels
+    sources = {p.stem: p for p in kernels.CSRC.glob("*.cu")}
+    assert set(sources) == set(kernels.SIGNATURES)
+    assert "conv_grouped_u8s8" in kernels.SIGNATURES["conv_grouped"]
+    for name, path in sources.items():
+        text = path.read_text()
+        for fn in kernels.SIGNATURES[name]:
+            assert f'extern "C" int {fn}(' in text, (name, fn)
+        assert "#include <jax" not in text and "import jax" not in text
 
 
 def test_default_device_is_the_card(monkeypatch):
