@@ -8,6 +8,8 @@
     python3 chip_smoke.py --sweep     # only time B1/B2, B6 and B3 under every
                                       # candidate plan (the planners' tuning
                                       # data)
+    python3 chip_smoke.py --windowed  # only the windowed decoders' phases
+                                      # (24-28), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -178,6 +180,32 @@ Phases, in order (any failure exits non-zero):
    ResNet-50 and MobileNetV2 shape and G1 at MobileNetV2's (beside its
    plain version, its bound, ``F.conv2d(groups=)`` in float32 + the eager
    epilogue, and, at one shape, one B1 launch a group).
+24. B1 and B2 bit for bit against their plain versions at gemma-2-2b's
+   decode (M = 8) and prefill (M = 512) GEMMs, the 256,000-wide head
+   included, and B3 at its attention (D = 256, 8 heads over 4, window 4,096,
+   softcap 50) at T = 8,192 (batch 8, every split count) and 16,384 (batch
+   2), live lengths 1, 4,095, 4,096, 4,097, 8,191, T - 1, T and a
+   per-sequence vector, within the contract;
+25. (d) the small windowed decoders (gemma and mistral, depth 2, dim 256,
+   window 32, ``ring_cache=True``, max_len 256) calibrated on the card
+   against a CPU copy: prefill codes, 120 teacher-forced steps across
+   three base moves of the ring, greedy tokens; and their engines (4 slots,
+   prompts of 5-100 tokens) against ``generate()``, equal;
+26. (a) gemma-2-2b at its published widths (``GEMMA2``; weights from a
+   ``torch.Generator`` on the card), batch 8, a 64-token prompt: FP32
+   forward against its twin on the card, calibrate, convert, greedy
+   ``generate(ids, 128)`` captured with exactly 105 B1, 26 B2 and 26 B3 a
+   step, the captured decode equal to the eager loop; ms/step, tokens/s,
+   the prefill and a profiled step beside their bounds (recorded, not
+   gated);
+27. (c) its ``GenerationEngine`` (8 slots) under 32 x 64 x 128 at once:
+   tokens/s, TTFT p50/p99, slot fill; every request equal to
+   ``generate()``;
+28. (b) the ring leg: gemma-2-2b's widths at 4 blocks, max_len 16,384,
+   batch 1, an 8,160-token prompt and 64 steps, ``ring_cache=True``
+   against the same state with full-length caches: tokens and every step's
+   codes equal; ms per captured step and KV bytes of both.  In 11, B1, B2
+   and B3 are timed at gemma-2-2b's shapes.
 
 The last lines are the nvidia-smi line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
@@ -332,6 +360,50 @@ CPU_GATE_LEGS = [("gpt2", 4, {}, True), ("llama_w4a8", 4, {}, True),
                  ("llama_w4a8", 4, {"mlp_hidden": 768}, False)]
 # the full-context forwards: the batch at the model's max_len
 FULL_CONTEXT = (DEC_BATCH, LLAMA["max_len"])
+
+# gemma-2-2b at its published widths (Hugging Face google/gemma-2-2b,
+# config.json, model_type gemma2): vocab 256,000, 8,192 positions, dim 2,304,
+# 26 blocks, 8 heads over 4 kv heads of 256, MLP 9,216, window 4,096 on the
+# local (odd) blocks, softcaps 50 / 30, eps 1e-6, rope_theta 10,000; weights
+# random from a torch.Generator on the card.  'nearest', the JAX package's
+# gemma configuration (the sandwich norms add requant boundaries)
+GEMMA2 = dict(vocab_size=256_000, max_len=8192, dim=2304, depth=26, heads=8,
+              kv_heads=4, head_dim=256, mlp_hidden=9216, sliding_window=4096,
+              attn_softcap=50.0, final_softcap=30.0, eps=1e-6,
+              rope_base=10000.0)
+GEMMA_CFG = dict(rounding="nearest")
+# a gemma-2-2b step's B1 launches (layer, K, N, launches per step or
+# prefill), its merged QKV (B2: K, per-head N, launches) and B3 at batch 8
+GEMMA_GEMMS = [("proj", 2048, 2304, 26), ("gate", 2304, 9216, 26),
+               ("up", 2304, 9216, 26), ("down", 9216, 2304, 26),
+               ("head", 2304, 256_000, 1)]
+GEMMA_QKV = (2304, (2048, 1024, 1024), 26)
+# B3's checks at gemma-2's attention: (batch, T, every split count), the
+# live lengths around the window's edge (and T - 1, T)
+GEMMA_ATTN_CASES = [(8, 8192, True), (2, 16384, False)]
+GEMMA_ATTN_LIVE = (1, 4095, 4096, 4097, 8191)
+# B3 timed: the step (live 128 of 8,192: the mean over generate(ids, 128)
+# after a 64-token prompt) with a full window beside it, and one local layer
+# of the ring leg on its 8,192-row ring and on a full-length 16,384-row cache
+_GEMMA_ATTN = dict(h=8, hkv=4, d=256, window=4096, softcap=50.0)
+GEMMA_ATTN_TIMED = [
+    (dict(_GEMMA_ATTN, b=8, t=8192, valid=128, launches=26),
+     "gemma2_2b_decode_step", "attention"),
+    (dict(_GEMMA_ATTN, b=1, t=8192, valid=4128, launches=0),
+     "gemma2_2b_decode_step", "ring leg, local layer on its ring"),
+    (dict(_GEMMA_ATTN, b=1, t=16384, valid=8192, launches=0),
+     "gemma2_2b_decode_step", "ring leg, local layer on a full cache")]
+# the ring leg: gemma-2-2b's widths at 4 blocks (2 local, 2 global), batch
+# 1, max_len raised to 16,384 (at the published 8,192 the ring's
+# roundup32(2 x 4,096) = 8,192 rows are no fewer than max_len): an
+# 8,160-token prompt and 64 steps; the local layers' base moves at 8,192
+RING = dict(GEMMA2, depth=4, max_len=16384)
+RING_PROMPT, RING_STEPS = 8160, 64
+# the windowed families' small card-vs-CPU gate and ring engines: window 32
+# (64 ring rows; the base moves at 64, 96, 128), a 16-token prompt, 120 steps
+SMALL_RING = dict(vocab_size=4096, max_len=256, dim=256, depth=2, heads=4,
+                  kv_heads=2, sliding_window=32, ring_cache=True)
+SMALL_RING_STEPS = 120
 
 KERNEL_INFO = {
     "qgemm_u8s8": dict(
@@ -670,8 +742,25 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                         "contract": "exact" if fn in PIECEWISE
                         else "<=1 code on <=0.2%"}))
 
-    for m, k, widths in [(8, 768, (768, 768, 768)), (512, 768, (768,) * 3),
-                         (37, 100, (13, 50, 7)), (1, 48, (130, 1, 64))]:
+    check_b2(torch, G, gen, dev, [(8, 768, (768, 768, 768)),
+                                  (512, 768, (768,) * 3),
+                                  (37, 100, (13, 50, 7)),
+                                  (1, 48, (130, 1, 64))])
+    for case in ATTN_CASES:
+        t, mq = case[0], case[3]
+        lives = [x for x in ATTN_LIVE if x <= t - mq + 1] + [t - mq + 1]
+        err["decode_attn_flat"] = max(
+            err["decode_attn_flat"],
+            check_attention(torch, A, gen, dev, DEC_ATTN["b"], DEC_ATTN["d"],
+                            case, lives, ATTN_PARAMS, "attn_kernel_vs_plain"))
+    return err
+
+
+def check_b2(torch, G, gen, dev, cases):
+    """B2 (the merged QKV GEMM) bit for bit against its plain version at
+    each (M, K, per-head widths) of ``cases``, both roundings, one head
+    with per-channel weight scales."""
+    for m, k, widths in cases:
         parts = []
         for i, n in enumerate(widths):
             c = gemm_case(torch, gen, m, k, n, dev)
@@ -695,56 +784,57 @@ def check_decoder_kernels(torch, G, A, gen, dev):
                         "N": list(widths), "max_abs_err": 0,
                         "plan": plan_of(G, m, sum(widths), k, dev),
                         "distinct_codes": int(torch.unique(got).numel())}))
+        del parts, merged, got, want
 
-    b, d = DEC_ATTN["b"], DEC_ATTN["d"]
-    for t, h, kv, mq, window, softcap, every_split in ATTN_CASES:
-        qshape = (b, mq, h * d) if mq > 1 else (b, h * d)
-        q = torch.randint(0, 256, qshape, generator=gen, dtype=torch.uint8,
-                          device=dev)
-        k = torch.randint(0, 256, (b, t, kv * d), generator=gen,
-                          dtype=torch.uint8, device=dev)
-        v = torch.randint(0, 256, (b, t, kv * d), generator=gen,
-                          dtype=torch.uint8, device=dev)
-        per_seq = torch.randint(1, t - mq + 2, (b,), generator=gen,
-                                dtype=torch.int32, device=dev)
-        kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=kv, window=window,
-                  softcap=softcap)
-        chosen = A.plan_decode_attn(b, t, h, kv, d, mq)
-        plans = [chosen] + ([A.decode_attn_plan(sp, mq, h // kv, t, d)
-                             for sp in range(1, A.MAX_SPLITS + 1)
-                             if sp != chosen.splits] if every_split else [])
-        plans = [p for p in plans if p.smem <= A.SMEM_LIMIT]
-        lives = [x for x in ATTN_LIVE if x <= t - mq + 1] + [t - mq + 1]
-        worst = (0, 0.0)
-        for plan in plans:
-            for valid in lives + [per_seq]:
-                for rounding, merged in (("trunc", True), ("nearest", False)):
-                    got = A.decode_attention_flat(q, k, v, valid,
-                                                  rounding=rounding,
-                                                  merged=merged, plan=plan,
-                                                  **kw)
-                    want = A.decode_attention_flat(q, k, v, valid,
-                                                   backend="xla",
-                                                   rounding=rounding, **kw)
-                    torch.cuda.synchronize()
-                    mx, share = contract(torch, got, want)
-                    worst = max(worst, (mx, share))
-                    if mx > 1 or share > 0.002:
-                        fail(f"decode attention kernel != plain at T={t} "
-                             f"H={h} Hkv={kv} mq={mq} window={window} "
-                             f"softcap={softcap} {plan} valid="
-                             f"{valid if isinstance(valid, int) else 'per-seq'}"
-                             f" {rounding}: max {mx}, share {share}")
-        err["decode_attn_flat"] = max(err["decode_attn_flat"], worst[0])
-        log(json.dumps({"phase": "attn_kernel_vs_plain", "B": b, "T": t,
-                        "H": h, "Hkv": kv, "D": d, "mq": mq,
-                        "window": window, "softcap": softcap,
-                        "valid": lives + ["per-seq"],
-                        "plan": chosen._asdict(),
-                        "splits_checked": [p.splits for p in plans],
-                        "max_abs_err": worst[0],
-                        "share_differing": worst[1]}))
-    return err
+
+def check_attention(torch, A, gen, dev, b, d, case, lives, params, label):
+    """B3/B4 against the composed plain version at one ``case`` (T, H,
+    Hkv, mq, window, softcap, every split count) of batch ``b`` and head
+    width ``d``: each live length of ``lives`` and a per-sequence vector,
+    both roundings, under ``plan_decode_attn``'s split and, where asked,
+    every other split count; within the contract.  Returns the largest
+    code difference."""
+    t, h, kv, mq, window, softcap, every_split = case
+    qshape = (b, mq, h * d) if mq > 1 else (b, h * d)
+    q = torch.randint(0, 256, qshape, generator=gen, dtype=torch.uint8,
+                      device=dev)
+    k = torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                      dtype=torch.uint8, device=dev)
+    v = torch.randint(0, 256, (b, t, kv * d), generator=gen,
+                      dtype=torch.uint8, device=dev)
+    per_seq = torch.randint(1, t - mq + 2, (b,), generator=gen,
+                            dtype=torch.int32, device=dev)
+    kw = dict(params, n_heads=h, n_kv_heads=kv, window=window,
+              softcap=softcap)
+    chosen = A.plan_decode_attn(b, t, h, kv, d, mq)
+    plans = [chosen] + ([A.decode_attn_plan(sp, mq, h // kv, t, d)
+                         for sp in range(1, A.MAX_SPLITS + 1)
+                         if sp != chosen.splits] if every_split else [])
+    plans = [p for p in plans if p.smem <= A.SMEM_LIMIT]
+    worst = (0, 0.0)
+    for plan in plans:
+        for valid in lives + [per_seq]:
+            for rounding, merged in (("trunc", True), ("nearest", False)):
+                got = A.decode_attention_flat(q, k, v, valid,
+                                              rounding=rounding,
+                                              merged=merged, plan=plan, **kw)
+                want = A.decode_attention_flat(q, k, v, valid, backend="xla",
+                                               rounding=rounding, **kw)
+                torch.cuda.synchronize()
+                mx, share = contract(torch, got, want)
+                worst = max(worst, (mx, share))
+                if mx > CPU_MAX_CODE or share > CPU_MAX_SHARE:
+                    fail(f"decode attention kernel != plain at B={b} T={t} "
+                         f"H={h} Hkv={kv} D={d} mq={mq} window={window} "
+                         f"softcap={softcap} {plan} valid="
+                         f"{valid if isinstance(valid, int) else 'per-seq'}"
+                         f" {rounding}: max {mx}, share {share}")
+    log(json.dumps({"phase": label, "B": b, "T": t, "H": h, "Hkv": kv,
+                    "D": d, "mq": mq, "window": window, "softcap": softcap,
+                    "valid": lives + ["per-seq"], "plan": chosen._asdict(),
+                    "splits_checked": [p.splits for p in plans],
+                    "max_abs_err": worst[0], "share_differing": worst[1]}))
+    return worst[0]
 
 
 # -- phase 8: the 4-bit kernels against their plain versions ----------------
@@ -1196,11 +1286,7 @@ def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
     copy of its converted state (``export_state`` -> ``load_jax_state``):
     the prefill's logit codes at every prompt position, greedy tokens, and
     ``SMALL_STEPS`` decode steps teacher-forced on the card's tokens.
-    Returns one result dict per leg, each with ``ok`` under the contract
-    (at most CPU_MAX_CODE codes off on at most CPU_MAX_SHARE of them)."""
-    from int8inferenceengine_tpu_torch.carry import (export_state,
-                                                     load_jax_state)
-    from int8inferenceengine_tpu_torch.tensor import Tensor
+    Returns ``card_vs_cpu``'s legs."""
     geo = dict(SMALL_DEC, **geo)
     if family == "gpt2":
         name, cfg, residual = "gpt_tiny", {}, ("proj", "fc2")
@@ -1218,7 +1304,22 @@ def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
     model.prepare()
     model(q.tensor(ids, device=dev))
     model.convert()
-    cpu = zoo.build(name, config=q.QuantConfig(**cfg), device="cpu", **geo)
+    return card_vs_cpu(torch, zoo, model, name, geo, ids, SMALL_STEPS,
+                       family)
+
+
+def card_vs_cpu(torch, zoo, model, name, geo, ids, steps, family):
+    """A converted model on the card against a CPU copy of its state
+    (``export_state`` -> ``load_jax_state``): the prefill's logit codes at
+    every prompt position, ``steps`` decode steps teacher-forced on the
+    card's greedy tokens, and the tokens.  Returns one result dict per leg,
+    each with ``ok`` under the contract (at most CPU_MAX_CODE codes off on
+    at most CPU_MAX_SHARE of them; tokens equal)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev, batch = model.device, ids.shape[0]
+    cpu = zoo.build(name, config=model.config, device="cpu", **geo)
     load_jax_state(cpu, export_state(model))
 
     legs = []
@@ -1235,8 +1336,8 @@ def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
     with torch.no_grad():
         leg("prefill", model.forward(Tensor(prompt.to(dev))).data,
             cpu.forward(Tensor(prompt)).data)
-    tokens = model.generate(ids, SMALL_STEPS)
-    tokens_cpu = cpu.generate(ids, SMALL_STEPS)
+    tokens = model.generate(ids, steps)
+    tokens_cpu = cpu.generate(ids, steps)
     toks = torch.tensor(tokens, dtype=torch.int64)
     leg("teacher_forced_decode",
         teacher_forced(torch, model, prompt.to(dev), toks.to(dev)),
@@ -1244,7 +1345,7 @@ def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
     same = bool(np.array_equal(tokens, tokens_cpu))
     legs.append({"phase": "decoder_card_vs_cpu", "family": family,
                  "leg": "greedy_tokens", "batch": batch,
-                 "steps": SMALL_STEPS, "equal": same,
+                 "steps": steps, "equal": same,
                  "first_step_apart": None if same else int(
                      np.argwhere((tokens != tokens_cpu).any(0))[0, 0]),
                  "ok": same})
@@ -1973,10 +2074,11 @@ def first_new(full, lo):
                 if int(full[j]) not in full[:j].tolist())
 
 
-def saturated_load(torch, eng, vocab, label):
+def saturated_load(torch, eng, vocab, label, collect=False):
     """SERVE_LOAD greedy requests submitted at once to a warm engine, each
     through ``submit_stream`` on its own thread: tokens/s over the whole
-    load, time to first token (TTFT) p50/p99 and the mean slot fill."""
+    load, time to first token (TTFT) p50/p99 and the mean slot fill.
+    ``collect``: returns (result, prompts, each request's tokens)."""
     import threading
     from int8inferenceengine_tpu_torch.serve import GenerationStats
     n, t_prompt, new = SERVE_LOAD
@@ -1985,12 +2087,14 @@ def saturated_load(torch, eng, vocab, label):
                for _ in range(n)]
     first = [None] * n
     counts = [0] * n
+    toks = [[] for _ in range(n)]
 
     def consume(i, it, t0):
         for tok in it:
             if counts[i] == 0:
                 first[i] = time.perf_counter() - t0
             counts[i] += 1
+            toks[i].append(tok)
 
     eng.stats = GenerationStats()
     t0 = time.perf_counter()
@@ -2014,6 +2118,8 @@ def saturated_load(torch, eng, vocab, label):
            "chunks": eng.stats.chunks, "prefills": eng.stats.prefills,
            "latency_ms": eng.stats.latency_percentiles()}
     log(json.dumps(res))
+    if collect:
+        return res, prompts, [np.asarray(t, np.int32) for t in toks]
     return res
 
 
@@ -2822,23 +2928,27 @@ def time_alexnet_gemms(torch, G, C, gen, dev, flush):
     return rows
 
 
-def time_decode_kernels(torch, G, A, gen, dev, flush):
-    """Each kernel at one decode step's shapes; a row per shape with its
-    launches per step."""
+def time_gemms(torch, G, gen, dev, flush, path, gemms, qkv,
+               rounding="trunc"):
+    """B1 at each (layer, M, K, N, launches per unit, act) of ``gemms`` and
+    B2 at ``qkv`` (M, K, per-head widths, launches per unit), each launch
+    timed with L2 flushed, beside its plain version, its bound and
+    ``torch._int_mm`` + the eager epilogue (checked equal to the plain
+    version first): a row per shape."""
     rows = []
-    for layer, m, k, n, per_step, act_name in DEC_GEMMS:
+    for layer, m, k, n, per, act_name in gemms:
         c = gemm_case(torch, gen, m, k, n, dev)
         oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
                               c["zp_a"], recentered=True)
         ep = G.epilogue_vector(c["s_a"], c["s_w_pc"], c["s_c"], n, dev)
         kw = dict(scale_a=c["s_a"], scale_c=c["s_c"], zp_c=c["zp_c"],
-                  rounding="trunc",
+                  rounding=rounding,
                   act=act_grid(act_name) if act_name else None)
         ms = time_cuda(torch, lambda: G.qgemm(c["a"], c["w"], oc, ep, **kw),
                        iters=20, flush=flush)
         plain_ms = time_cuda(
             torch, lambda: G.qgemm_plain(c["a"], c["w"], oc, ep, **kw),
-            iters=5, flush=flush)
+            iters=3, flush=flush)
         a_s8, w_p = int_mm_operands(torch, c["a"], c["w"])
 
         def library():
@@ -2851,19 +2961,19 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
                  f"plain version")
         library_ms = time_cuda(torch, library, iters=10, flush=flush)
         b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n)
-        rows.append(dict(kernel="qgemm_u8s8", path="decode_step",
-                         layer=layer, M=m, K=k, N=n,
-                         plan=plan_of(G, m, n, k, dev),
-                         launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
+        rows.append(dict(kernel="qgemm_u8s8", path=path, layer=layer, M=m,
+                         K=k, N=n, plan=plan_of(G, m, n, k, dev),
+                         launches_per_unit=per, ms=ms, bound_ms=b_ms,
                          bound_im2col_ms=b_ms, bound_by=b_by,
                          plain_ms=plain_ms, library_ms=library_ms,
                          t_ops=t_ops, t_bytes=t_bytes))
         del c, a_s8, w_p
 
-    m, k, n, per_step = DEC_QKV
+    m, k, widths, per = qkv
+    n = sum(widths)
     parts, cases = [], []
-    for i in range(3):
-        c = gemm_case(torch, gen, m, k, n, dev)
+    for i, w in enumerate(widths):
+        c = gemm_case(torch, gen, m, k, w, dev)
         cases.append(c)
         parts.append(dict(w_s8_nk=c["w"], q_bias=c["q_bias"],
                           rowsum=rowsum(torch, c["w"]), scale_w=c["s_w_pc"],
@@ -2871,36 +2981,51 @@ def time_decode_kernels(torch, G, A, gen, dev, flush):
     a = cases[0]["a"]
     merged = G.merge_parts(parts, scale_a=cases[0]["s_a"],
                            zp_a=cases[0]["zp_a"])
-    ms = time_cuda(torch, lambda: G.qgemm_multi(a, merged), iters=20,
-                   flush=flush)
-    plain_ms = time_cuda(torch, lambda: G.qgemm_multi_plain(a, merged),
-                         iters=5, flush=flush)
+    ms = time_cuda(torch, lambda: G.qgemm_multi(a, merged,
+                                                rounding=rounding),
+                   iters=20, flush=flush)
+    plain_ms = time_cuda(torch, lambda: G.qgemm_multi_plain(
+        a, merged, rounding=rounding), iters=3, flush=flush)
     a_s8, w_p = int_mm_operands(torch, a, merged["w"])
 
     def library_multi():
-        acc = torch._int_mm(a_s8, w_p.t())[:m, :3 * n]
-        return G.vzp_epilogue(acc + merged["oc"].reshape(1, -1), merged)
+        acc = torch._int_mm(a_s8, w_p.t())[:m, :n]
+        return G.vzp_epilogue(acc + merged["oc"].reshape(1, -1), merged,
+                              rounding=rounding)
 
-    if not torch.equal(library_multi(),
-                       torch.cat(G.qgemm_multi(a, merged), 1)):
+    if not torch.equal(library_multi(), torch.cat(
+            G.qgemm_multi(a, merged, rounding=rounding), 1)):
         fail("merged QKV: torch._int_mm + epilogue disagrees with the kernel")
     library_ms = time_cuda(torch, library_multi, iters=10, flush=flush)
-    b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, 3 * n, vectors=3)
-    rows.append(dict(kernel="qgemm_u8s8_vzp", path="decode_step",
-                     layer="qkv", M=m, K=k, N=3 * n,
-                     plan=plan_of(G, m, 3 * n, k, dev),
-                     launches_per_unit=per_step, ms=ms, bound_ms=b_ms,
+    b_ms, b_by, t_ops, t_bytes = bound_ms(m, k, n, vectors=3)
+    rows.append(dict(kernel="qgemm_u8s8_vzp", path=path, layer="qkv", M=m,
+                     K=k, N=n, plan=plan_of(G, m, n, k, dev),
+                     launches_per_unit=per, ms=ms, bound_ms=b_ms,
                      bound_by=b_by, plain_ms=plain_ms, library_ms=library_ms,
                      t_ops=t_ops, t_bytes=t_bytes))
+    return rows
 
-    rows += time_attention(torch, A, gen, dev, flush, DEC_ATTN,
-                           "decode_step", "attention")
+
+def log_rows(rows):
+    """Print each per-shape row with its share of the bound and its time
+    against the library call's."""
     for r in rows:
         log(json.dumps({k_: v for k_, v in r.items()
                         if k_ not in ("t_ops", "t_bytes")}
                        | {"share_of_bound": r["bound_ms"] / r["ms"]}
                        | ({"vs_library": r["ms"] / r["library_ms"]}
                           if r["library_ms"] else {})))
+
+
+def time_decode_kernels(torch, G, A, gen, dev, flush):
+    """Each kernel at one decode step's shapes; a row per shape with its
+    launches per step."""
+    m, k, n, per_step = DEC_QKV
+    rows = time_gemms(torch, G, gen, dev, flush, "decode_step", DEC_GEMMS,
+                      (m, k, (n, n, n), per_step))
+    rows += time_attention(torch, A, gen, dev, flush, DEC_ATTN,
+                           "decode_step", "attention")
+    log_rows(rows)
     step = {key: sum(r[key] * r["launches_per_unit"] for r in rows)
             for key in ("ms", "bound_ms", "plain_ms")}
     for kernel in ("qgemm_u8s8", "qgemm_u8s8_vzp"):
@@ -2919,14 +3044,17 @@ def time_attention(torch, A, gen, dev, flush, cfg, path, label,
                    rounding="trunc"):
     """B3 at one decode step's shapes under its plan: at the step's mean
     live length (``cfg['valid']``, counted per step) and at T - 1 (a full
-    cache, recorded beside it)."""
+    cache, recorded beside it).  ``cfg`` may hold a ``window`` (the bound
+    counts the window's rows) and a ``softcap``."""
     b, t, h, d = (cfg[x] for x in ("b", "t", "h", "d"))
     hkv = cfg.get("hkv", h)
+    window = cfg.get("window")
     q = torch.randint(0, 256, (b, h * d), generator=gen, dtype=torch.uint8,
                       device=dev)
     k_, v_ = (torch.randint(0, 256, (b, t, hkv * d), generator=gen,
                             dtype=torch.uint8, device=dev) for _ in range(2))
-    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv, rounding=rounding)
+    kw = dict(ATTN_PARAMS, n_heads=h, n_kv_heads=hkv, rounding=rounding,
+              window=window, softcap=cfg.get("softcap"))
     plan = A.plan_decode_attn(b, t, h, hkv, d)
     rows = []
     for valid, per in ((cfg["valid"], cfg["launches"]), (t - 1, 0)):
@@ -2935,10 +3063,12 @@ def time_attention(torch, A, gen, dev, flush, cfg, path, label,
             q, k_, v_, valid_t, **kw), iters=20, flush=flush)
         plain_ms = time_cuda(torch, lambda: A.decode_attention_flat(
             q, k_, v_, valid_t, backend="xla", **kw), iters=5, flush=flush)
-        b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, hkv, d, valid)
+        live = valid if window is None else min(valid, window)
+        b_ms, b_by, t_ops, t_bytes = attn_bound_ms(b, h, hkv, d, live)
         rows.append(dict(kernel="decode_attn_flat", path=path,
-                         layer=f"{label} (live length {valid} of {t})", B=b,
-                         T=t, H=h, Hkv=hkv, D=d, plan=plan._asdict(),
+                         layer=f"{label} (live length {valid} of {t}"
+                               + (f", window {window})" if window else ")"),
+                         B=b, T=t, H=h, Hkv=hkv, D=d, plan=plan._asdict(),
                          launches_per_unit=per, ms=ms, bound_ms=b_ms,
                          bound_by=b_by, plain_ms=plain_ms, library_ms=None,
                          t_ops=t_ops, t_bytes=t_bytes))
@@ -3328,10 +3458,11 @@ def b1_shapes(torch, q, zoo, name, dev, batch=CNN_BATCH):
     return shapes
 
 
-def check_b1_cnn(torch, G, C, gen, dev, shapes, label):
-    """Phase 20: B1 against ``qgemm_plain`` at every conv and Linear shape
-    of a CNN forward, bit for bit: per-channel s_w with 'trunc' and relu
-    (the main path's), per-tensor with 'nearest' and no relu."""
+def check_b1_shapes(torch, G, C, gen, dev, shapes, label):
+    """B1 against ``qgemm_plain`` at every conv and Linear shape of
+    ``shapes`` (``b1_shapes``' form: a CNN forward's in phase 20,
+    gemma-2-2b's GEMMs in 24), bit for bit, one launch each: per-channel
+    s_w with 'trunc' and relu, per-tensor with 'nearest' and no relu."""
     n_cases = 0
     for (kind, geom, n), (first, count) in shapes.items():
         for per_channel, rounding, relu in ((True, "trunc", True),
@@ -3711,6 +3842,443 @@ def time_cnn_gemms(torch, G, C, gen, dev, flush, shapes, path):
     return rows
 
 
+# -- phases 24-28: the windowed decoders --------------------------------------
+
+def gemma_state(torch, shapes, depth: int, seed: int, dev):
+    """Random weights on the card from a ``torch.Generator`` (gemma-2-2b has
+    3.2 B parameters: no host draws): N(0, 0.02) for Linears and the
+    embedding, 0.02 / sqrt(2 * depth) for the residual projections (proj,
+    down), N(0, 0.02) unit-offset deltas for the RMSNorm gains."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {}
+    for key, shape in shapes.items():
+        z = torch.randn(tuple(shape), generator=gen, device=dev)
+        std = (0.02 / math.sqrt(2 * depth) if key.startswith(("proj",
+                                                              "down"))
+               else 0.02)
+        state[key] = z.mul_(std)
+    return state
+
+
+def twin_shapes(torch, GM, geo):
+    """The parameter shapes of ``torch_gemma(**geo)``, built on the meta
+    device (nothing allocated)."""
+    with torch.device("meta"):
+        twin = GM.torch_gemma(**geo, seed=0)
+    return {k: tuple(v.shape) for k, v in twin.state_dict().items()}
+
+
+def twin_kwargs(geo):
+    """``geo`` without the key that only the port's model takes."""
+    return {k: v for k, v in geo.items() if k != "ring_cache"}
+
+
+def gemma_step_bound_ms(b=DEC_BATCH, valid=DEC_ATTN["valid"]):
+    """One gemma-2-2b decode step's least time: each launch's bound (B1,
+    B2, B3 at the mean live length) times its launches."""
+    tot = sum(bound_ms(b, k, n)[0] * per for _, k, n, per in GEMMA_GEMMS)
+    k, widths, per = GEMMA_QKV
+    tot += bound_ms(b, k, sum(widths), vectors=3)[0] * per
+    tot += attn_bound_ms(b, GEMMA2["heads"], GEMMA2["kv_heads"],
+                         GEMMA2["head_dim"], valid)[0] * GEMMA2["depth"]
+    return tot
+
+
+def gemma_prefill_bound_ms(m=DEC_BATCH * DEC_PROMPT):
+    """The prefill's GEMMs at M = 8 x 64: each weight read once, 2MNK int8
+    operations at the tensor-core peak (the composed attention left out)."""
+    shapes = [(k, n, per) for _, k, n, per in GEMMA_GEMMS]
+    shapes.append((GEMMA_QKV[0], sum(GEMMA_QKV[1]), GEMMA_QKV[2]))
+    nbytes = sum((m * k + n * k + m * n) * per for k, n, per in shapes)
+    ops = sum(2.0 * m * n * k * per for k, n, per in shapes)
+    return bound(nbytes, ops)
+
+
+def check_gemma_kernels(torch, G, C, A, gen, dev):
+    """Phase 24: B1 and B2 bit for bit against their plain versions at
+    gemma-2-2b's decode (M = 8) and prefill (M = 512) GEMMs, the
+    256,000-wide head included; B3 at its attention (D = 256, 8 heads over
+    4, window 4,096, softcap 50) at T = 8,192 and 16,384 over live lengths
+    around the window's edge, within the contract (the softcap's tanh and
+    the exp).  Returns {kernel: max |code difference|}."""
+    shapes = {("gemm", (m, k), n): (layer, per)
+              for m in (DEC_BATCH, DEC_BATCH * DEC_PROMPT)
+              for layer, k, n, per in GEMMA_GEMMS}
+    check_b1_shapes(torch, G, C, gen, dev, shapes, "gemma2_2b")
+    k, widths, _ = GEMMA_QKV
+    check_b2(torch, G, gen, dev, [(DEC_BATCH, k, widths),
+                                  (DEC_BATCH * DEC_PROMPT, k, widths)])
+    h, kv, d = GEMMA2["heads"], GEMMA2["kv_heads"], GEMMA2["head_dim"]
+    params = dict(ATTN_PARAMS, alpha=d ** -0.5)
+    err = 0
+    for b, t, every_split in GEMMA_ATTN_CASES:
+        case = (t, h, kv, 1, GEMMA2["sliding_window"],
+                GEMMA2["attn_softcap"], every_split)
+        lives = sorted(set(GEMMA_ATTN_LIVE) | {t - 1, t})
+        err = max(err, check_attention(torch, A, gen, dev, b, d, case, lives,
+                                       params, "gemma2_attn_vs_plain"))
+    return {"qgemm_u8s8": 0, "qgemm_u8s8_vzp": 0, "decode_attn_flat": err}
+
+
+def build_gemma(torch, q, zoo, GM, geo, dev, seed=0, calib=None,
+                twin_check=False):
+    """A gemma-2-family model of ``geo`` on the card with ``gemma_state``
+    weights, calibrated on ``calib`` ids and converted (the FP32 weights are
+    freed).  ``twin_check``: first the FP32 forward on ``calib`` against
+    ``torch_gemma`` built on the card with the same weights (1e-4 of the
+    largest logit, as the other decoders' twins)."""
+    twin_geo = twin_kwargs(geo)
+    state = gemma_state(torch, twin_shapes(torch, GM, twin_geo), geo["depth"],
+                        seed, dev)
+    model = zoo.build("gemma_tiny", config=q.QuantConfig(**GEMMA_CFG),
+                      device=dev, **geo)
+    model.load(state)
+    ids = q.tensor(calib, device=dev)
+    if twin_check:
+        with torch.device(dev):
+            twin = GM.torch_gemma(**twin_geo, seed=0)
+        twin.load_state_dict(state)
+        fp32 = model(ids).data
+        with torch.no_grad():
+            ref = twin(torch.tensor(calib, dtype=torch.int64, device=dev))
+        del twin
+        scale = float(ref.abs().max())
+        fp_err = float((fp32 - ref).abs().max()) / scale
+        log(json.dumps({"phase": "gemma2_fp32_vs_twin", "depth": geo["depth"],
+                        "max_err_rel_to_max": fp_err}))
+        if tuple(fp32.shape) != tuple(ref.shape) or fp_err > 1e-4:
+            fail(f"FP32 gemma differs from its torch twin: max error "
+                 f"{fp_err} of max |logit|")
+        del fp32, ref
+    del state
+    model.prepare()
+    model(ids)
+    model.convert()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return model
+
+
+def gemma_main_path(torch, q, zoo, GM, kernel_fns, dev):
+    """Leg (a): gemma-2-2b at its published widths, batch 8, a 64-token
+    prompt: FP32 forward against its twin, calibrate, convert, greedy
+    ``generate(ids, 128)`` (captured) with exactly 105 B1, 26 B2 and 26 B3
+    a decode step, and the captured decode equal to the eager step loop.
+    Returns (INT8 model, ids, launches)."""
+    ids = np.random.default_rng(0).integers(
+        0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    reset_counts(kernel_fns)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids,
+                        twin_check=True)
+    lifecycle_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    reset_counts(kernel_fns)
+    tokens = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    depth = GEMMA2["depth"]
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 4 * depth + 1, "qgemm_u8s8_vzp": depth,
+        "decode_attn_flat": depth}
+    prefill = dict(per_step, decode_attn_flat=0)
+    check_captured_launches(torch, "gemma2_2b", counts, model, ids, prefill,
+                            per_step, kernel_fns)
+    if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.min() < 0 or \
+            tokens.max() >= GEMMA2["vocab_size"]:
+        fail(f"gemma2 generate returned {tokens.shape} in "
+             f"[{tokens.min()}, {tokens.max()}]")
+    weights = sum(t.numel() * t.element_size() for _, layer in
+                  model.named_layers() for t in (
+                      getattr(layer, "qw", None),
+                      getattr(layer, "q_weight", None)) if t is not None)
+    log(json.dumps({"phase": "gemma2_2b_generate", **GEMMA2,
+                    "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    "steps": DEC_STEPS, "launches": counts,
+                    "launches_per_decode_step": per_step,
+                    "int8_weight_bytes": weights,
+                    "fp32_lifecycle_peak_gib": peak_gb,
+                    "prepare_calibrate_convert_s": lifecycle_s,
+                    "distinct_tokens": int(np.unique(tokens).size)}))
+    captured_vs_eager(torch, model, ids, tokens, "gemma2_2b")
+    return model, ids, counts
+
+
+def gemma_profile(torch, model, ids, step_ms):
+    """A captured gemma-2-2b step's device time by kernel (16 profiled
+    replays) beside its bound: busy, the glue's share, B1, B2 and B3."""
+    reps = 16
+    rows, wall_us, _ = replay_profile(torch, model, ids, reps)
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    split = by_kernel(rows, reps)
+    glue = split.get("other (eager glue)", {"us": 0.0})["us"]
+    res = {"profile": "gemma2_2b: captured decode_step replay",
+           "batch": DEC_BATCH, "wall_us_per_step_profiled": wall_us,
+           "ms_per_step_unprofiled": step_ms,
+           "device_busy_us_per_step": busy,
+           "device_idle_share": 1 - busy / (step_ms * 1e3),
+           "glue_us": glue, "glue_share_of_busy": glue / busy,
+           "step_bound_us": gemma_step_bound_ms() * 1e3,
+           "by_kernel": split,
+           "rows": [{"name": e.key[:90],
+                     "us_per_step": e.self_device_time_total / reps,
+                     "calls_per_step": e.count / reps} for e in rows[:25]]}
+    log(json.dumps(res))
+    return res
+
+
+def time_captured_steps(torch, model, prompt, steps):
+    """ms per captured decode step after the prompt (a device tensor): the
+    prefill and the first (eager) step untimed, then ``steps`` replays
+    between two CUDA events."""
+    from int8inferenceengine_tpu_torch import graphs
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(prompt))
+        tok = codes.argmax(-1)
+        pos = torch.full((), prompt.shape[1], dtype=torch.int64, device=dev)
+
+        def step():
+            codes, _ = model._decode_step(cache, pos, tok)
+            tok.copy_(codes.argmax(-1))
+            pos.add_(1)
+
+        program = graphs.run_steps(step, 1, dev)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            program()
+        end.record()
+        torch.cuda.synchronize()
+    kv_bytes = sum(t.numel() for pair in cache.values() for t in pair)
+    del program, cache
+    return start.elapsed_time(end) / steps, kv_bytes
+
+
+def ring_leg(torch, q, zoo, GM, kernel_fns, dev):
+    """Leg (b): gemma-2-2b's widths at 4 blocks (2 local, 2 global),
+    max_len 16,384, batch 1: the ring model (local layers of 8,192 rows)
+    against the same converted state with full-length caches.  An
+    8,160-token prompt and 64 greedy steps (the local layers' base moves at
+    8,192): tokens and every step's logit codes equal; both models' ms per
+    captured step and KV-cache bytes.  Returns the ring generate's
+    launches."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    calib = np.random.default_rng(3).integers(
+        0, RING["vocab_size"], (2, 256)).astype(np.int32)
+    ring = build_gemma(torch, q, zoo, GM, dict(RING, ring_cache=True), dev,
+                       seed=1, calib=calib)
+    full = zoo.build("gemma_tiny", config=q.QuantConfig(**GEMMA_CFG),
+                     device=dev, **RING)
+    load_jax_state(full, export_state(ring))
+    rows = [ring._cache_rows(i) for i in range(1, RING["depth"] + 1)]
+    ring_rows = -(-2 * RING["sliding_window"] // 32) * 32
+    if rows != [ring_rows, RING["max_len"]] * (RING["depth"] // 2):
+        fail(f"ring rows {rows}, want {ring_rows} on the local layers")
+    ids = np.random.default_rng(4).integers(
+        0, RING["vocab_size"], (1, RING_PROMPT)).astype(np.int32)
+    reset_counts(kernel_fns)
+    toks = ring.generate(ids, RING_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    toks_full = full.generate(ids, RING_STEPS)
+    prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+    tt = torch.tensor(toks, dtype=torch.int64, device=dev)
+    codes_ring = teacher_forced(torch, ring, prompt, tt)
+    codes_full = teacher_forced(torch, full, prompt, tt)
+    same_tokens = bool(np.array_equal(toks, toks_full))
+    same_codes = bool(torch.equal(codes_ring, codes_full))
+    del codes_ring, codes_full
+    times = {}
+    for label, m in (("ring", ring), ("full", full), ("ring_again", ring),
+                     ("full_again", full)):
+        times[label] = time_captured_steps(torch, m, prompt, RING_STEPS)
+    res = {"phase": "gemma2_ring_vs_full", **{k: v for k, v in RING.items()},
+           "ring_rows": rows, "batch": 1, "prompt": RING_PROMPT,
+           "steps": RING_STEPS, "base_moves_at": ring_rows,
+           "tokens_equal": same_tokens, "codes_equal_every_step": same_codes,
+           "launches": counts,
+           "ms_per_captured_step": {k: v[0] for k, v in times.items()},
+           "kv_cache_bytes": {"ring": times["ring"][1],
+                              "full": times["full"][1]},
+           "distinct_tokens": int(np.unique(toks).size)}
+    log(json.dumps(res))
+    if not (same_tokens and same_codes):
+        fail(f"the ring cache differs from the full-length cache: tokens "
+             f"equal {same_tokens}, codes equal {same_codes}")
+    del ring, full
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gemma_engine_leg(torch, model, kernel_fns):
+    """Leg (c): gemma-2-2b's ``GenerationEngine`` at SERVE under a
+    saturated load (32 requests x 64 prompt tokens x 128 new tokens, all at
+    once): tokens/s, TTFT p50/p99 and slot fill; each request's tokens equal
+    ``generate()``'s (batches of 8 prompts: rows are independent).  Returns
+    the engine's launches over the load (a warm-up request first)."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    n, t_prompt, new = SERVE_LOAD
+    eng = GenerationEngine(model, **SERVE)
+    try:
+        warm = np.random.default_rng(12).integers(
+            0, model.vocab_size, t_prompt).astype(np.int32)
+        results([eng.submit(warm, SERVE["chunk_steps"] + 1)])
+        reset_counts(kernel_fns)
+        res, prompts, outs = saturated_load(torch, eng, model.vocab_size,
+                                            "gemma2_2b", collect=True)
+        counts = read_counts(kernel_fns)
+    finally:
+        eng.shutdown()
+    want = np.concatenate([model.generate(np.stack(prompts[i:i + 8]), new)
+                           for i in range(0, n, 8)])
+    bad = [i for i in range(n) if not np.array_equal(outs[i], want[i])]
+    log(json.dumps({"phase": "gemma2_engine_vs_generate", "requests": n,
+                    "equal": n - len(bad), "differing": bad,
+                    "launches": counts}))
+    if bad:
+        fail(f"gemma2 engine requests {bad} differ from generate()")
+    return counts
+
+
+def small_windowed(torch, q, zoo, GM, family, dev):
+    """A small ring decoder (SMALL_RING) of ``family`` on ``dev``,
+    calibrated on 4 x 16 ids and converted: 'gemma' (the window on the odd
+    block, 'nearest', ``gemma_state`` weights) or 'mistral' (the window on
+    both blocks, the default config, ``decoder_state`` weights).  Returns
+    (model, zoo name)."""
+    from int8inferenceengine_tpu_torch.models import llama as LL
+    geo = twin_kwargs(SMALL_RING)
+    ids = np.random.default_rng(2).integers(
+        0, SMALL_RING["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+            np.int32)
+    if family == "gemma":
+        state = gemma_state(torch, twin_shapes(torch, GM, geo),
+                            SMALL_RING["depth"], 2, dev)
+        name, cfg = "gemma_tiny", GEMMA_CFG
+    else:
+        state = decoder_state(torch, LL.torch_llama(**geo, seed=0),
+                              SMALL_RING["depth"], seed=2,
+                              residual=("proj", "down"))
+        name, cfg = "mistral_tiny", {}
+    model = zoo.build(name, config=q.QuantConfig(**cfg), device=dev,
+                      **SMALL_RING)
+    model.load(state)
+    model.prepare()
+    model(q.tensor(ids, device=dev))
+    model.convert()
+    return model, name
+
+
+def windowed_small(torch, q, zoo, GM, dev):
+    """Leg (d): the small ring gemma and mistral (SMALL_RING) on the card
+    against a CPU copy of their converted state (``card_vs_cpu``: the
+    prefill's codes, 120 steps teacher-forced across three base moves of
+    the ring, the greedy tokens), then each served by a ring engine at 4
+    slots with requests whose prompts (5-100 tokens, the longer ones past
+    the 64 ring rows) put the slots' bases at different phases: each
+    request's 120 tokens equal ``generate()``'s."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    ids = np.random.default_rng(7).integers(
+        0, SMALL_RING["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+            np.int32)
+    legs, bad = [], []
+    for family in ("gemma", "mistral"):
+        model, name = small_windowed(torch, q, zoo, GM, family, dev)
+        legs += card_vs_cpu(torch, zoo, model, name, SMALL_RING, ids,
+                            SMALL_RING_STEPS, family)
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, SMALL_RING["vocab_size"], n).astype(
+            np.int32) for n in (5, 30, 70, 100, 17, 64)]
+        eng = GenerationEngine(model, slots=4, chunk_steps=8, sync_chunks=2)
+        try:
+            rows = [eng._caches[i][0].shape[1] for i in (1, 2)]
+            outs = results([eng.submit(p, SMALL_RING_STEPS)
+                            for p in prompts])
+        finally:
+            eng.shutdown()
+        equal = [bool(np.array_equal(o, model.generate(
+            p[None], SMALL_RING_STEPS)[0])) for p, o in zip(prompts, outs)]
+        log(json.dumps({"phase": "ring_engine_vs_generate", "family": family,
+                        **SMALL_RING, "slot_cache_rows": rows,
+                        "prompts": [len(p) for p in prompts],
+                        "new_tokens": SMALL_RING_STEPS, "equal": equal}))
+        if not all(equal):
+            bad.append(f"{family} engine")
+    for r in legs:
+        log(json.dumps(r))
+    bad += [f"{r['family']} {r['leg']}" for r in legs if not r["ok"]]
+    if bad:
+        fail(f"windowed decoders: card differs from a CPU copy beyond the "
+             f"contract, or an engine from generate(): {bad}")
+
+
+def time_gemma_kernels(torch, G, A, gen, dev, flush):
+    """B1 and B2 at gemma-2-2b's decode step (M = 8) and prefill (M = 512)
+    shapes, B3 at its step (T = 8,192, live 128) and, recorded beside it,
+    at a full window and at the ring leg's shapes (``time_gemms``,
+    ``time_attention``); a row per shape with its launches per unit (a
+    decode step, a prefill)."""
+    rows = []
+    k, widths, per = GEMMA_QKV
+    for m, path in ((DEC_BATCH, "gemma2_2b_decode_step"),
+                    (DEC_BATCH * DEC_PROMPT, "gemma2_2b_prefill")):
+        rows += time_gemms(
+            torch, G, gen, dev, flush, path,
+            [(layer, m, kk, n, p, None) for layer, kk, n, p in GEMMA_GEMMS],
+            (m, k, widths, per), rounding="nearest")
+    for cfg, path, label in GEMMA_ATTN_TIMED:
+        rows += time_attention(torch, A, gen, dev, flush, cfg, path, label,
+                               rounding="nearest")
+    log_rows(rows)
+    for path in ("gemma2_2b_decode_step", "gemma2_2b_prefill"):
+        mine = [r for r in rows if r["path"] == path]
+        log(json.dumps({"kernels_per_unit": path} | {
+            key: sum(r[key] * r["launches_per_unit"] for r in mine)
+            for key in ("ms", "bound_ms", "plain_ms")}))
+    return rows
+
+
+def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile):
+    """Phases 24-28 in order: (d) the small windowed decoders on the card
+    against a CPU copy and their ring engines against ``generate()``, (a)
+    gemma-2-2b's main path, its timing and step profile, (c) its engine,
+    (b) the ring leg.  Returns the launches of the main paths."""
+    windowed_small(torch, q, zoo, GM, dev)
+    counts = {}
+    model, ids, counts["gemma2_2b_generate"] = gemma_main_path(
+        torch, q, zoo, GM, kernel_fns, dev)
+    timing = decoder_timing(torch, model, ids, profile,
+                            label="gemma2_2b_decode")
+    prof = gemma_profile(torch, model, ids, timing["decode_ms_per_step"])
+    b_ms, b_by, _, _ = gemma_prefill_bound_ms()
+    log(json.dumps({"phase": "gemma2_2b_summary",
+                    "decode_ms_per_step": timing["decode_ms_per_step"],
+                    "tokens_per_s": timing["tokens_per_s"],
+                    "eager_step_loop_ms_per_step":
+                        timing["eager_step_loop_ms_per_step"],
+                    "step_bound_ms": gemma_step_bound_ms(),
+                    "share_of_step_bound":
+                        gemma_step_bound_ms() / timing["decode_ms_per_step"],
+                    "device_busy_ms_per_step":
+                        prof["device_busy_us_per_step"] / 1e3,
+                    "glue_share_of_busy": prof["glue_share_of_busy"],
+                    "prefill_ms": timing["prefill_ms"],
+                    "prefill_bound_ms": b_ms, "prefill_bound_by": b_by,
+                    "gated": False}))
+    counts["gemma2_2b_engine"] = gemma_engine_leg(torch, model, kernel_fns)
+    del model
+    torch.cuda.empty_cache()
+    counts["gemma2_ring_generate"] = ring_leg(torch, q, zoo, GM, kernel_fns,
+                                              dev)
+    return counts
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -3767,6 +4335,10 @@ def main(argv=None) -> int:
                     help="only build and time B1/B2, B6 and B3 under every "
                          "candidate plan at the main paths' shapes (no "
                          "checks, no result line)")
+    ap.add_argument("--windowed", action="store_true",
+                    help="only build and run the windowed decoders' phases "
+                         "(24-28) with their kernel checks and times (no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3775,6 +4347,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import int8inferenceengine_tpu_torch as q
     from int8inferenceengine_tpu_torch import kernels
+    from int8inferenceengine_tpu_torch.models import gemma as GM
     from int8inferenceengine_tpu_torch.models import llama as LL
     from int8inferenceengine_tpu_torch.models import text_decoder as TD
     from int8inferenceengine_tpu_torch.models import zoo
@@ -3817,6 +4390,17 @@ def main(argv=None) -> int:
                     flush_buf.zero_)
         return 0
 
+    if args.windowed:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        check_gemma_kernels(torch, G, C, A, gen, dev)
+        counts = windowed_paths(torch, q, zoo, GM, kernel_fns, dev,
+                                args.profile)
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        time_gemma_kernels(torch, G, A, gen, dev, flush_buf.zero_)
+        log(json.dumps({"phase": "windowed_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
     # -- 3. on-card numerics ---------------------------------------------------
     rng = np.random.default_rng(1)
     x = (rng.standard_normal(1 << 20) * 10).astype(np.float32)
@@ -3852,6 +4436,10 @@ def main(argv=None) -> int:
     for name, err in check_decoder_kernels(torch, G, A, gen, dev).items():
         max_err[name] = max(max_err.get(name, 0), err)
 
+    # -- 24. B1, B2 and B3 at gemma-2-2b's shapes ------------------------------
+    for name, err in check_gemma_kernels(torch, G, C, A, gen, dev).items():
+        max_err[name] = max(max_err[name], err)
+
     # -- 15. B3 at the extend shapes against its plain version ----------------
     max_err["decode_attn_flat"] = max(max_err["decode_attn_flat"],
                                       check_extend_attention(torch, A, gen,
@@ -3881,7 +4469,7 @@ def main(argv=None) -> int:
     cnn_shapes = {name: b1_shapes(torch, q, zoo, name, dev)
                   for name in ("resnet50", "mobilenet_v2")}
     for name, shapes in cnn_shapes.items():
-        check_b1_cnn(torch, G, C, gen, dev, shapes, name)
+        check_b1_shapes(torch, G, C, gen, dev, shapes, name)
 
     # -- 21. the ResNet-50 main path and its engine ----------------------------
     for name in ("resnet50", "mobilenet_v2"):
@@ -3958,6 +4546,12 @@ def main(argv=None) -> int:
     del wo, state
     torch.cuda.empty_cache()
 
+    # -- 25-28. the windowed decoders: the small gates, gemma-2-2b, its
+    # engine, the ring leg ------------------------------------------------------
+    counts_by_path.update(windowed_paths(torch, q, zoo, GM, kernel_fns, dev,
+                                         args.profile))
+    torch.cuda.empty_cache()
+
     # -- 11. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
@@ -3970,6 +4564,7 @@ def main(argv=None) -> int:
     rows += time_decode_kernels(torch, G, A, gen, dev, flush)
     rows += time_extend_attention(torch, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)
+    rows += time_gemma_kernels(torch, G, A, gen, dev, flush)
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)

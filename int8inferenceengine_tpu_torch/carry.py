@@ -19,7 +19,10 @@ with ``params`` in the JAX package's layouts:
 * QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
   ([V, C] u8) (a weight-only model keeps ``weight``);
 * QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
-* QuantLayerNorm: ``weight`` and ``bias``; QuantRMSNorm: ``weight``;
+* QuantLayerNorm: ``weight`` and ``bias``; QuantRMSNorm: ``weight`` (a
+  unit-offset norm's, gemma's ``ln*``, ``postn1_*``, ``postn2_*`` and
+  ``ln_f``, is the delta around 1, as the JAX layer holds it: carried as it
+  is, never with ``1 + w`` folded in);
 * the weightless layers (QuantAct, QuantAdd, QuantConcat, QuantMul,
   QuantMatmul, QuantSoftmax, QuantRoPE): none, only ``scale`` and
   ``zero_point``.

@@ -20,9 +20,14 @@ inherited:
   are one merged call (``fused_w4a8_multi``) and silu stays a composed
   ``QuantAct``.
 
-Not ported yet, each raising ``NotImplementedError``: the mistral-family
-``sliding_window`` and its ``ring_cache``, and weight-only ``generate`` (it
-needs the float KV cache).
+* **The mistral family** (``sliding_window=W``): every position attends to
+  at most the last W positions, through ``QuantSoftmax(window=)`` in the
+  prefill and kernel B3's window in the cached steps; ``ring_cache=True``
+  gives each windowed layer a ring of roundup32(2W) cache rows instead of
+  ``max_len`` (``TextDecoder._cache_rows``).
+
+Not ported yet, raising ``NotImplementedError``: weight-only ``generate``
+(it needs the float KV cache).
 """
 
 from __future__ import annotations
@@ -66,10 +71,6 @@ class LlamaDecoder(TextDecoder):
                  ring_cache: bool = False, eps: float = 1e-6,
                  config: QuantConfig = DEFAULT_CONFIG, device=None):
         Module.__init__(self, config, device)
-        if sliding_window is not None or ring_cache:
-            raise NotImplementedError(
-                "sliding-window attention and ring KV caches (the mistral "
-                "family) are not implemented by the PyTorch port yet")
         kv_heads = heads if kv_heads is None else int(kv_heads)
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
@@ -82,6 +83,11 @@ class LlamaDecoder(TextDecoder):
         self.head_dim = dim // heads
         self.mlp_hidden = (swiglu_hidden(dim) if mlp_hidden is None
                            else int(mlp_hidden))
+        self.sliding_window = (None if sliding_window is None
+                               else int(sliding_window))
+        if ring_cache and self.sliding_window is None:
+            raise ValueError("ring_cache requires sliding_window")
+        self.ring_cache = bool(ring_cache)
         self.INPUT_SHAPE = (max_len,)
         kv_dim = kv_heads * self.head_dim
         kw = dict(config=config, device=self.device)
@@ -96,7 +102,8 @@ class LlamaDecoder(TextDecoder):
                     self.head_dim, rope_base, scaling=rope_scaling, **kw))
             setattr(self, f"attn{i}", QuantMatmul(
                 alpha=self.head_dim ** -0.5, transpose_b=True, **kw))
-            setattr(self, f"smax{i}", QuantSoftmax(causal=True, **kw))
+            setattr(self, f"smax{i}", QuantSoftmax(
+                causal=True, window=self.sliding_window, **kw))
             setattr(self, f"av{i}", QuantMatmul(**kw))
             setattr(self, f"proj{i}", Linear(dim, dim, **kw))
             setattr(self, f"add1_{i}", QuantAdd(**kw))
@@ -119,6 +126,11 @@ class LlamaDecoder(TextDecoder):
         # the cache holds post-RoPE k codes: rk defines k's grid
         rk, wv = self._l("rk", i), self._l("wv", i)
         return (rk.scale, rk.zero_point), (wv.scale, wv.zero_point)
+
+    def _attn_out(self, i, o):
+        """The attention output before the residual add: the gemma family
+        norms it (``postn1_{i}``); llama passes it on."""
+        return o
 
     def _mlp(self, i, x):
         h = self._l("ln2_", i)(x)
@@ -153,9 +165,9 @@ class LlamaDecoder(TextDecoder):
         p = self._l("smax", i)(s)
         o = F.merge_heads(self._l("av", i)(p, F.repeat_kv(vh, grp)))
         o = self._l("proj", i)(o.reshape(b * t, o.shape[-1]))
-        return self._mlp(i, self._l("add1_", i)(x, o))
+        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
 
-    def _block_decode(self, i, x, valid, pos, rows, k_cache, v_cache):
+    def _block_decode(self, i, x, valid, pos, rows, at, k_cache, v_cache):
         b = x.shape[0]
         h = self._l("ln1_", i)(x)
         q2, k2, v2 = self._qkv(i, h)
@@ -163,9 +175,9 @@ class LlamaDecoder(TextDecoder):
         kh = F.split_heads(k2.reshape(b, 1, -1), self.kv_heads)
         qh = self._l("rq", i)(qh, start=pos)
         kh = self._l("rk", i)(kh, start=pos)
-        self._append(k_cache, F.merge_heads(kh).data.reshape(b, -1), pos,
+        self._append(k_cache, F.merge_heads(kh).data.reshape(b, -1), at,
                      rows)
-        self._append(v_cache, v2.data, pos, rows)
+        self._append(v_cache, v2.data, at, rows)
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         q_flat = F.merge_heads(qh).reshape(b, -1)
         o = fused_decode_attention(
@@ -173,7 +185,7 @@ class LlamaDecoder(TextDecoder):
             Tensor(k_cache, ks, kzp), Tensor(v_cache, vs, vzp), valid,
             self.head_dim)
         o = self._l("proj", i)(o)
-        return self._mlp(i, self._l("add1_", i)(x, o))
+        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
 
     def _block_extend(self, i, x, b, m, valid, pos, k_cache, v_cache):
         """m-row cached block: RoPE at positions pos..pos+m-1 (per-row
@@ -193,17 +205,19 @@ class LlamaDecoder(TextDecoder):
             self._l("attn", i), self._l("smax", i), self._l("av", i),
             F.merge_heads(qh), Tensor(k_cache, ks, kzp),
             Tensor(v_cache, vs, vzp), valid, self.head_dim)
-        o = self._l("proj", i)(o.reshape(b * m, self.dim))
-        return self._mlp(i, self._l("add1_", i)(x, o))
+        o = self._l("proj", i)(o.reshape(b * m, -1))
+        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
 
 
 def torch_llama(vocab_size: int = 1000, max_len: int = 64, dim: int = 128,
                 depth: int = 2, heads: int = 4, kv_heads: int | None = None,
                 mlp_hidden: int | None = None, rope_base: float = 10000.0,
-                eps: float = 1e-6, seed: int = 42):
+                eps: float = 1e-6, seed: int = 42,
+                sliding_window: int | None = None):
     """Matching ``torch.nn`` oracle on the CPU (same attribute names, so
     its ``state_dict`` loads as-is; its bias-free Linears leave the port's
-    zero biases untouched)."""
+    zero biases untouched).  ``sliding_window`` adds the mistral band mask:
+    position t attends to (t - W, t]."""
     import torch
     import torch.nn as nn
     import torch.nn.functional as tF
@@ -246,6 +260,9 @@ def torch_llama(vocab_size: int = 1000, max_len: int = 64, dim: int = 128,
             x = self.embed(ids)
             mask = torch.triu(torch.full((t, t), float("-inf"), device=dev),
                               1)
+            if sliding_window is not None:
+                mask = mask + torch.tril(torch.full(
+                    (t, t), float("-inf"), device=dev), -sliding_window)
             half = hd // 2
             inv = rope_base ** (-torch.arange(half, dtype=torch.float32,
                                               device=dev) * (2.0 / hd))

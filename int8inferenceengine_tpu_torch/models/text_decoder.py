@@ -12,6 +12,20 @@
   exactly zero, so cached decode gives the same tokens as re-running the
   full causal forward at every step.
 
+* **ring cache of windowed layers** (``ring_cache=True`` on the llama and
+  gemma families): a layer with a sliding window W holds R =
+  roundup32(2W) rows instead of ``max_len``.  Row r holds position base +
+  r, with base a closed form of the position (``_ring_base``) that moves by
+  S = R - W whenever the rows fill.  The JAX package then compacts, one
+  W-row block copy to row 0, at the step where base moves; a captured CUDA
+  graph cannot branch on the position, so here every step writes its k/v
+  row twice instead: at ``pos - base`` and, once that row reaches S, also
+  at ``pos - base - S``, a row that the window no longer reads.  When
+  base moves, rows [0, W) already hold the window, so no step copies a
+  block, and the per-slot positions of the serving engine cost the same
+  single extra row.  Attention reads rows [0, pos - base] with the window
+  masked relative to them, so the codes equal the full-length cache's.
+
 ``generate()`` fills the cache for the whole prompt in one causal forward,
 then runs the cached decode steps.  On the CPU they are a Python loop; on
 the card the first step runs eagerly and the rest replay it as a captured
@@ -314,19 +328,63 @@ class TextDecoder(Module):
         wk, wv = self._l("wk", i), self._l("wv", i)
         return (wk.scale, wk.zero_point), (wv.scale, wv.zero_point)
 
+    # -- ring KV cache (sliding-window layers) -------------------------------
+    def _layer_window(self, i):
+        """Layer i's sliding window (None: global attention)."""
+        return self._l("smax", i).window
+
+    def _cache_rows(self, i) -> int:
+        """Allocated KV-cache rows of layer i: R = min(max_len,
+        roundup32(2W)) for a windowed layer of a ``ring_cache`` model,
+        ``max_len`` otherwise.  A cache with fewer rows than ``max_len`` is
+        a ring (see the module docstring)."""
+        w = self._layer_window(i)
+        if w is None or not getattr(self, "ring_cache", False):
+            return self.max_len
+        return min(self.max_len, -(-2 * int(w) // 32) * 32)
+
+    @staticmethod
+    def _ring_base(pos: torch.Tensor, rows: int, window: int) -> torch.Tensor:
+        """The absolute position of ring row 0 while position ``pos`` (an
+        int64 tensor) decodes: S * max(0, 1 + floor((pos - R) / S)) with S =
+        R - W, so pos - base stays in [W, R) once pos reaches R.  The
+        division rounds toward minus infinity, as ``jnp``'s does."""
+        s = rows - window
+        return s * torch.clamp(
+            1 + torch.div(pos - rows, s, rounding_mode="floor"), min=0)
+
+    def _ring_tail(self, rows: torch.Tensor, i: int, t: int, last):
+        """A windowed layer's ring [B, R, C] after a prompt whose k/v rows
+        are ``rows`` [B, T0, C] and whose true lengths are ``last`` (int64
+        [B]): row r holds position base + r + S where that position is
+        below the length, else base + r, and zeros at or past the length;
+        base is the ring base of the prompt's last position.  These are the
+        rows that one-at-a-time decode steps (two writes each) leave."""
+        w = self._layer_window(i)
+        s = t - w
+        b, t0, _ = rows.shape
+        base = self._ring_base(last - 1, t, w)                      # [B]
+        r = torch.arange(t, device=rows.device, dtype=torch.int64)
+        src = base[:, None] + r[None, :]
+        src = torch.where(src + s < last[:, None], src + s, src)
+        live = src < last[:, None]
+        src = torch.where(live, src, torch.zeros_like(src))
+        out = rows.gather(1, src[:, :, None].expand(b, t, rows.shape[-1]))
+        return out * live[:, :, None].to(out.dtype)
+
     def _prefill(self, ids: Tensor, last=None):
         """Full causal forward over the prompt ids [B, T0]; returns (u8
         logit codes [B, V], cache) with each layer's k/v codes in rows [0,
-        T0) of full-length buffers [B, max_len, C].  The codes are the last
-        position's, or with ``last`` (int64 [B], the true lengths of
+        T0) of full-length buffers [B, max_len, C], or a windowed ring
+        layer's in the rows that ``_ring_tail`` gives.  The codes are the
+        last position's, or with ``last`` (int64 [B], the true lengths of
         right-padded prompts) row ``last - 1``'s of each prompt: the causal
         mask keeps the padding out of every earlier row."""
-        if getattr(self, "ring_cache", False):
-            raise NotImplementedError(
-                "ring KV caches (sliding-window layers) are not implemented "
-                "by the PyTorch port yet")
         b, t0 = ids.data.shape
         x = self._stem(ids).reshape(b * t0, self.dim)
+        lens = (torch.full((b,), t0, dtype=torch.int64, device=self.device)
+                if last is None else
+                last.to(device=self.device, dtype=torch.int64))
         cache = {}
         for i in range(1, self.depth + 1):
             cap = {}
@@ -335,9 +393,13 @@ class TextDecoder(Module):
             if not kf.quantized:
                 raise RuntimeError("the KV cache holds u8 codes: convert() "
                                    "the model first")
+            t = self._cache_rows(i)
             bufs = []
             for rows in (kf.data, vf.data):
-                buf = torch.zeros((b, self.max_len, rows.shape[-1]),
+                if t < self.max_len:
+                    bufs.append(self._ring_tail(rows, i, t, lens))
+                    continue
+                buf = torch.zeros((b, t, rows.shape[-1]),
                                   dtype=torch.uint8, device=rows.device)
                 buf[:, :t0] = rows
                 bufs.append(buf)
@@ -348,15 +410,16 @@ class TextDecoder(Module):
         codes = self.head(x).data.reshape(b, t0, self.vocab_size)
         if last is None:
             return codes[:, -1, :], cache
-        idx = (last.to(device=codes.device, dtype=torch.int64) - 1)
-        return codes.gather(1, idx.reshape(b, 1, 1).expand(
+        return codes.gather(1, (lens - 1).reshape(b, 1, 1).expand(
             b, 1, self.vocab_size))[:, 0, :], cache
 
     def _decode_step(self, cache, pos, tok):
         """One cached decode step: tokens ``tok`` [B] at position ``pos``
         (an int, a 0-dim tensor, or a [B] tensor of per-row positions).
-        Appends each layer's k/v row to ``cache`` in place and returns (u8
-        logit codes [B, V], cache).
+        Appends each layer's k/v row to ``cache`` in place (a ring layer's
+        twice, ``_write_rows``) and returns (u8 logit codes [B, V], cache).
+        Nothing depends on the host's view of ``pos``, so a captured step
+        replays at every position, ring layers included.
 
         A position at or past ``max_len`` is clamped to the last row, as
         the JAX package's ``dynamic_update_slice``/``dynamic_slice`` clamp
@@ -372,18 +435,44 @@ class TextDecoder(Module):
         x = self._stem(Tensor(tok.reshape(b, 1)), start=pos)
         x = x.reshape(b, self.dim)
         rows = torch.arange(b, device=dev) if pos.dim() == 1 else None
+        ring = {}
         for i in range(1, self.depth + 1):
-            x = self._block_decode(i, x, valid, pos, rows, *cache[i])
+            at, vi = self._write_rows(i, cache[i][0].shape[1], pos, valid,
+                                      ring)
+            x = self._block_decode(i, x, vi, pos, rows, at, *cache[i])
         x = self.ln_f(x)
         return self.head(x).data, cache
 
+    def _write_rows(self, i, t: int, pos, valid, ring: dict):
+        """Layer i's cache rows that position ``pos`` writes (int64, [k] for
+        a 0-dim ``pos``, [B, k] for a [B] one) and its live length in rows:
+        ``pos`` itself and ``valid`` for a full-length cache of ``t`` =
+        max_len rows; for a ring, row ``pos - base`` and its mirror S rows
+        below it (the row itself while it is below S), and ``valid -
+        base``.  The rings of one (rows, window) share one computation a
+        step (``ring`` holds it)."""
+        if t >= self.max_len:
+            return pos.reshape(-1, 1) if pos.dim() else pos.reshape(1), valid
+        w = self._layer_window(i)
+        if (t, w) not in ring:
+            s = t - w
+            base = self._ring_base(pos, t, w)
+            row = pos - base
+            at = torch.stack([row, torch.where(row >= s, row - s, row)], -1)
+            ring[t, w] = at, (valid - base).to(torch.int32)
+        return ring[t, w]
+
     @staticmethod
-    def _append(buf, new, pos, rows):
-        """Write the [B, C] codes ``new`` into row ``pos`` of ``buf``."""
+    def _append(buf, new, at, rows):
+        """Write the [B, C] codes ``new`` into the rows ``at`` of ``buf``
+        ([k] rows of every sequence, or with ``rows`` [B, k] rows of each);
+        a row named twice gets the same codes twice."""
         if rows is None:
-            buf.index_copy_(1, pos.reshape(1), new.unsqueeze(1))
+            buf.index_copy_(1, at, new.unsqueeze(1).expand(
+                -1, at.shape[0], -1))
         else:
-            buf[rows, pos] = new
+            buf[rows[:, None], at] = new.unsqueeze(1).expand(
+                -1, at.shape[1], -1)
 
     @staticmethod
     def _append_rows(buf, new, pos):
@@ -396,11 +485,11 @@ class TextDecoder(Module):
             rows = torch.arange(buf.shape[0], device=buf.device)
             buf[rows[:, None], pos[:, None] + steps] = new
 
-    def _block_decode(self, i, x, valid, pos, rows, k_cache, v_cache):
+    def _block_decode(self, i, x, valid, pos, rows, at, k_cache, v_cache):
         h = self._l("ln1_", i)(x)
         q2, k2, v2 = self._qkv(i, h)
-        self._append(k_cache, k2.data, pos, rows)
-        self._append(v_cache, v2.data, pos, rows)
+        self._append(k_cache, k2.data, at, rows)
+        self._append(v_cache, v2.data, at, rows)
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         o = fused_decode_attention(
             self._l("attn", i), self._l("smax", i), self._l("av", i), q2,
@@ -537,7 +626,7 @@ class TextDecoder(Module):
             self._l("attn", i), self._l("smax", i), self._l("av", i),
             q2.reshape(b, m, -1), Tensor(k_cache, ks, kzp),
             Tensor(v_cache, vs, vzp), valid, self.head_dim)
-        o = self._l("proj", i)(o.reshape(b * m, self.dim))
+        o = self._l("proj", i)(o.reshape(b * m, -1))
         return self._mlp(i, self._l("add1_", i)(x, o))
 
     def generate_speculative(self, draft, ids, steps: int, k: int = 4):

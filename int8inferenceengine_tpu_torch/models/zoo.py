@@ -1,7 +1,7 @@
 """Model zoo: the reference's sample models, the CNN families and the
 GPT-style and llama decoders as framework Modules (counterpart of
 ``int8inferenceengine_tpu.models.zoo``: every CNN name of its ``build()``,
-``gpt_tiny`` and ``llama_tiny``).
+``gpt_tiny``, ``llama_tiny``, ``mistral_tiny`` and ``gemma_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
@@ -13,7 +13,9 @@ The CNNs take NCHW float input via ``tensor()`` and return logits
 [batch, classes]; ``gpt_tiny`` (``models.text_decoder.TextDecoder``) takes
 token ids [batch, T] and returns logits [batch, T, vocab], as does
 ``llama_tiny`` (``models.llama.LlamaDecoder``, 4 query heads over 2 kv heads
-by default).
+by default), ``mistral_tiny`` (the same with a sliding window of 16) and
+``gemma_tiny`` (``models.gemma.GemmaDecoder``, 2 kv heads, a window of 32 on
+its odd blocks).
 """
 
 from __future__ import annotations
@@ -24,12 +26,13 @@ from ..module import Module
 from ..ops import functional as F
 from . import (densenet, efficientnet, googlenet, mobilenet, mobilenet_v3,
                resnet, shufflenet, squeezenet)
+from .gemma import GemmaDecoder, torch_gemma
 from .llama import LlamaDecoder, torch_llama
 from .text_decoder import TextDecoder, torch_text_decoder
 
 __all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "VGG11", "VGG16",
-           "VGG19", "TextDecoder", "LlamaDecoder", "build", "torch_twin",
-           "MODEL_SPECS"]
+           "VGG19", "TextDecoder", "LlamaDecoder", "GemmaDecoder", "build",
+           "torch_twin", "MODEL_SPECS"]
 
 
 class FCMnist(Module):
@@ -197,6 +200,18 @@ def _llama_tiny(**kw):
     return LlamaDecoder(**kw)
 
 
+def _mistral_tiny(**kw):
+    # the llama topology with sliding-window attention
+    kw.setdefault("kv_heads", 2)
+    kw.setdefault("sliding_window", 16)
+    return LlamaDecoder(**kw)
+
+
+def _gemma_tiny(**kw):
+    kw.setdefault("kv_heads", 2)
+    return GemmaDecoder(**kw)
+
+
 def _mobilenet_v3(variant):
     def make(**kw):
         return mobilenet_v3.MobileNetV3(variant=variant, **kw)
@@ -227,6 +242,8 @@ MODEL_SPECS = {
     "densenet121": densenet.DenseNet121,
     "gpt_tiny": TextDecoder,
     "llama_tiny": _llama_tiny,
+    "mistral_tiny": _mistral_tiny,
+    "gemma_tiny": _gemma_tiny,
 }
 
 # the families whose torch twins live in their own modules
@@ -273,6 +290,10 @@ def torch_twin(name: str, seed: int = 42):
         return torch_text_decoder(seed=seed)
     if name == "llama_tiny":
         return torch_llama(kv_heads=2, seed=seed)
+    if name == "mistral_tiny":
+        return torch_llama(kv_heads=2, sliding_window=16, seed=seed)
+    if name == "gemma_tiny":
+        return torch_gemma(kv_heads=2, seed=seed)
     if name in _TWINS:
         return _TWINS[name](seed)
 

@@ -51,9 +51,17 @@ stream in and out of slots:
 * ``overlap=True`` dispatches chunk k+1 before reading chunk k's tokens;
   each chunk's tokens leave the static output buffer through a
   stream-ordered copy into pinned host memory.
+* **Ring caches** (a ``ring_cache`` model: mistral, gemma-2's local
+  blocks): a windowed layer's slot caches hold roundup32(2W) rows, its own
+  buffer per layer.  Each slot's ring base follows its own position inside
+  the captured chunk: every step writes a ring layer's row twice
+  (``TextDecoder._write_rows``), so no slot ever copies its window, and
+  the bucketed prefill keeps each prompt's ring tail.  Chunked prefill and
+  the prefix cache need full-length slot caches and are refused with a
+  ring model (``ValueError``), as in the JAX package.
 
-Not ported, each refused with ``NotImplementedError``: ring-cache models;
-weight-only models (the float head-split cache); meshes.
+Not ported, each refused with ``NotImplementedError``: weight-only models
+(the float head-split cache); meshes.
 """
 
 from __future__ import annotations
@@ -167,12 +175,16 @@ class GenerationEngine:
         if model.config.weight_only:
             raise _unported("weight-only serving (the float head-split KV "
                             "cache)", "item 3")
-        if getattr(model, "ring_cache", False):
-            raise _unported("ring-cache serving", "item 2")
         if prefill_chunk is not None and not \
                 1 <= int(prefill_chunk) <= model.max_len:
             raise ValueError(f"prefill_chunk must be in [1, max_len="
                              f"{model.max_len}], got {prefill_chunk}")
+        self._ring_serving = bool(getattr(model, "ring_cache", False))
+        if self._ring_serving and prefill_chunk is not None:
+            raise ValueError(
+                "prefill_chunk needs full-length slot caches; a ring_cache "
+                "model serves through bucketed prefill: drop prefill_chunk, "
+                "or build the model with ring_cache=False")
         _check_eos(eos_id)
         self.model = model
         self.slots = int(slots)
@@ -184,10 +196,20 @@ class GenerationEngine:
                               else int(prefill_chunk))
         dev = self.device = model.device
         self._cuda = dev.type == "cuda"
-        # every layer's k and v slot caches are views of one buffer [depth,
-        # 2, slots, max_len, C]: a prefix seeds all of them in one copy
-        self._kv = self._kv_buffer(self.slots)
-        self._caches = self._views(self._kv)
+        if self._ring_serving:
+            # per-layer rows: a ring layer's slot caches are its own
+            self._kv = None
+            self._caches = {i: tuple(
+                torch.zeros((self.slots, model._cache_rows(i),
+                             model.kv_heads * model.head_dim),
+                            dtype=torch.uint8, device=dev) for _ in range(2))
+                for i in range(1, model.depth + 1)}
+        else:
+            # every layer's k and v slot caches are views of one buffer
+            # [depth, 2, slots, max_len, C]: a prefix seeds all of them in
+            # one copy
+            self._kv = self._kv_buffer(self.slots)
+            self._caches = self._views(self._kv)
 
         def zeros(dtype, fill=0):
             return torch.full((self.slots,), fill, dtype=dtype, device=dev)
@@ -397,11 +419,11 @@ class GenerationEngine:
                       topks, sampled: bool, use_topp: bool, use_topk: bool):
         """Batched prefill of the right-padded prompts [n, bucket] in one
         forward (eager; a graph per (bucket, n) is later work): the rows
-        scatter into the slots' caches, and each prompt's first token is
-        picked from its row ``t0 - 1``."""
+        (a ring layer's ring tail) scatter into the slots' caches, and each
+        prompt's first token is picked from its row ``t0 - 1``."""
         m = self.model
         codes, cache1 = m._prefill(Tensor(prompts_pad), last=t0s)
-        for i, (k1, v1) in cache1.items():           # [n, max_len, C]
+        for i, (k1, v1) in cache1.items():           # [n, rows, C]
             self._caches[i][0].index_copy_(0, slots, k1)
             self._caches[i][1].index_copy_(0, slots, v1)
         if not sampled:

@@ -12,8 +12,10 @@ JAX package's converted state carried over.
   single-chunk), per-request eos and ``stop`` sequences, ``submit_stream``,
   a failing loop failing every future.
 * A negative ``eos_id`` raises; the options the port does not implement
-  (ring caches, weight-only models, meshes) raise ``NotImplementedError``
-  (chunked prefill and the prefix cache: ``test_torch_prefix_cache``).
+  (weight-only models, meshes) raise ``NotImplementedError``, and a ring
+  cache with chunked prefill ``ValueError`` (chunked prefill and the prefix
+  cache: ``test_torch_prefix_cache``; ring serving:
+  ``test_torch_ring_cache``).
 * A slot decoding past ``max_len`` stays in its own last cache row and
   leaves the other slots' results unchanged.
 * On the card (``cuda``-marked): the captured ``generate()`` equals the
@@ -148,10 +150,12 @@ def test_negative_eos_id_raises(model):
 
 
 def test_unported_options_raise(model, monkeypatch):
+    # ring caches are served since the windowed decoders were ported
+    # (tests/test_torch_ring_cache.py); with chunked prefill they are refused
     with monkeypatch.context() as mp:
         mp.setattr(model, "ring_cache", True, raising=False)
-        with pytest.raises(NotImplementedError, match="ring"):
-            GenerationEngine(model)
+        with pytest.raises(ValueError, match="prefill_chunk"):
+            GenerationEngine(model, prefill_chunk=8)
     with monkeypatch.context() as mp:
         mp.setattr(model, "_mesh", object(), raising=False)
         with pytest.raises(NotImplementedError, match="sharded"):

@@ -64,7 +64,8 @@ def test_port_imports_without_jax():
     for mod in ("graphs", "serve", "serve.engine", "serve.generation",
                 "models.resnet", "models.mobilenet", "models.mobilenet_v3",
                 "models.efficientnet", "models.shufflenet",
-                "models.squeezenet", "models.googlenet", "models.densenet"):
+                "models.squeezenet", "models.googlenet", "models.densenet",
+                "models.gemma"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 

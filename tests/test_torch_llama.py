@@ -17,7 +17,8 @@ Both packages see the same numpy inputs and the same ``torch_llama`` weights
   (``test_torch_llama_w4a8`` does the same for W4A8 with these helpers);
 * the W4 weight-only forward within 1e-4 of the largest JAX logit;
 * the carry round trip of W4 Linears and ``QuantRMSNorm``;
-* the modes this slice leaves out raise ``NotImplementedError``.
+* the modes this slice leaves out raise ``NotImplementedError``, and a ring
+  cache without a window ``ValueError``.
 """
 
 import jax.numpy as jnp
@@ -326,10 +327,10 @@ def test_unported_modes_raise():
         with pytest.raises(NotImplementedError):
             tzoo.build("llama_tiny", config=qt.QuantConfig(**cfg),
                        device="cpu", **GEO)
-    for kw in (dict(sliding_window=16), dict(sliding_window=16,
-                                             ring_cache=True)):
-        with pytest.raises(NotImplementedError, match="sliding"):
-            LlamaDecoder(device="cpu", **GEO, **kw)
+    # the mistral window and its ring cache are ported (test_torch_sliding_
+    # window.py, test_torch_ring_cache.py); a ring without a window raises
+    with pytest.raises(ValueError, match="sliding_window"):
+        LlamaDecoder(device="cpu", **GEO, ring_cache=True)
     m = tzoo.build("llama_tiny", config=qt.QuantConfig(**WEIGHT_ONLY),
                    device="cpu", **GEO)
     m.convert()
