@@ -10,6 +10,8 @@
                                       # data)
     python3 chip_smoke.py --windowed  # only the windowed decoders' phases
                                       # (24-28), no result line
+    python3 chip_smoke.py --weight-only  # only the weight modes' phases
+                                         # (29-33), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -99,7 +101,7 @@ Phases, in order (any failure exits non-zero):
    and shape the kernel (with B1's, B2's, B6's and B3's plan), its plain
    version, the bound and a library yardstick; B3 also at a full cache
    (recorded beside the step's); beside each captured decode ms/step the
-   eager step loop's by the same protocol; an empty launch through the same timer
+   eager step loop's (see below); an empty launch through the same timer
    (the event floor); for the convs the gathered kernel beside
    im2col + B1 and the conv's own bound beside the im2col operand's
    (``bound_im2col_ms``); the yardstick for the int8 GEMMs is
@@ -195,9 +197,9 @@ Phases, in order (any failure exits non-zero):
    ``torch.Generator`` on the card), batch 8, a 64-token prompt: FP32
    forward against its twin on the card, calibrate, convert, greedy
    ``generate(ids, 128)`` captured with exactly 105 B1, 26 B2 and 26 B3 a
-   step, the captured decode equal to the eager loop; ms/step, tokens/s,
-   the prefill and a profiled step beside their bounds (recorded, not
-   gated);
+   step, the captured decode equal to the eager loop (24 steps); ms/step,
+   tokens/s, the prefill and a profiled step beside their bounds
+   (recorded, not gated);
 27. (c) its ``GenerationEngine`` (8 slots) under 32 x 64 x 128 at once:
    tokens/s, TTFT p50/p99, slot fill; every request equal to
    ``generate()``;
@@ -206,9 +208,36 @@ Phases, in order (any failure exits non-zero):
    against the same state with full-length caches: tokens and every step's
    codes equal; ms per captured step and KV bytes of both.  In 11, B1, B2
    and B3 are timed at gemma-2-2b's shapes.
+29. B5 against its plain version at the decode shapes (M = 8 and 40, at
+   gemma-2-2b's Linears with the 256,000-wide head and bench.py's llama
+   widths) within 2e-5; DA (``ops/weight_only.s8_matmul``) bit for bit at
+   M = 1, 8, 17, 100 and odd K and N, and DAC (``ops/conv.conv2d_s8``) at
+   ResNet-50's and the zoo's grouped and depthwise shapes;
+30. gpt_tiny, llama_tiny (GQA) and gemma_tiny (window, softcaps) at
+   SMALL_DEC's widths in the three weight modes (W8-float, dynamic, W4
+   weight-only): on the card against a CPU copy (forward and
+   teacher-forced logits within ``FLOAT_RTOL``, argmax agreement), captured
+   against eager bit for bit, the engine (llama also chunked and prefixed),
+   an m = 5 extend and speculative decoding against ``generate()``, under
+   the float contract (equal, or leaving ``generate()`` at a near-tie);
+31. gemma-2-2b at its published widths, batch 8, a 64-token prompt, 128
+   steps, in each weight mode from one set of FP32 weights: 183 weight
+   GEMMs a step (B5 launches, or W8F / DA calls), captured against eager
+   over 24 teacher-forced steps, ms/step, tokens/s, the eager loop, the
+   prefill, KV bytes, a profiled captured step with its busy split (weight
+   GEMMs, float attention, glue) and the step's bound;
+32. the W8-float gemma-2-2b served by ``GenerationEngine`` under 32 x 64 x
+   128: tokens/s, TTFT, slot fill, each request against ``generate()``;
+33. ResNet-50-224 at batch 100 in W8-float and dynamic: images/s, top-1
+   agreement with FP32, a CPU copy at batch 2.  In 11, W8F, DA, B5 and the
+   float attention are timed at gemma-2-2b's step shapes and DAC at
+   ResNet-50's convs, each beside its bound.
 
-The last lines are the nvidia-smi line, one JSON object describing every
-kernel, and ``{"ok": true, "device": {...}}``.  The script imports nothing of
+Beside each captured decode ms/step the eager step loop's is timed as
+``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
+line, one JSON object describing every kernel (and, under
+``library_routes``, the weight modes' stock-PyTorch routes), and ``{"ok":
+true, "device": {...}}``.  The script imports nothing of
 JAX or of the JAX package.
 """
 
@@ -311,6 +340,11 @@ ATTN_PARAMS = dict(scale_q=0.021, zp_q=117, scale_k=0.034, zp_k=131,
                    alpha=0.125)
 # the decoder's codes, kernel path vs plain path, teacher-forced
 MAX_CODE_DIFF, MAX_SHARE_DIFF = 2, 0.01
+# the eager step loop's ms/step: (t(32) - t(16)) / 16, one run each; and
+# gemma-2-2b's captured-vs-eager gate over 24 teacher-forced steps (an eager
+# gemma-2-2b step takes ~0.1 s)
+EAGER_STEPS = (16, 32)
+GEMMA_CAPTURED_STEPS = 24
 
 # bench.py's W4A8 llama leg (bench.py:258-293): geometry and config; the
 # batch and prompt are the decoder's (DEC_BATCH, DEC_PROMPT)
@@ -436,6 +470,19 @@ KERNEL_INFO = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """A phase's end: seconds since the script started and the card's
+    allocated and reserved memory."""
+    import torch
+    log(json.dumps({"mark": label,
+                    "t_s": round(time.perf_counter() - T_START, 1),
+                    "gib_allocated": torch.cuda.memory_allocated() / 2**30,
+                    "gib_reserved": torch.cuda.memory_reserved() / 2**30}))
 
 
 def fail(msg: str) -> None:
@@ -981,15 +1028,23 @@ def check_w4_kernels(torch, W, gen, dev):
                  ("ragged", 1, 48, 130, 128, False)]
     b5_cases += [(*e, False) for e in W4_EDGE]
     b5_cases += [("wide range", 512, 768, 768, 128, True)]
-    for name, m, k, n, group, wide in b5_cases:
+    err["w4_gemm"] = check_b5(torch, W, gen, dev, b5_cases)
+    return err
+
+
+def check_b5(torch, W, gen, dev, cases):
+    """B5 within W4_RTOL of the largest |output| of its plain version at
+    ``cases`` (name, M, K, N, group, wide x); returns the largest
+    |difference|."""
+    err = 0.0
+    for name, m, k, n, group, wide in cases:
         c = w4_case(torch, W, gen, m, k, n, group, dev, weight_only=True,
                     wide=wide)
         args = (c["x"], c["packed"], c["scales"], c["bias"], k, group)
         got, want = W.w4_gemm(*args), W.w4_gemm_plain(*args)
         torch.cuda.synchronize()
         rel = rel_err(torch, got, want)
-        err["w4_gemm"] = max(err["w4_gemm"],
-                             float((got - want).abs().max()))
+        err = max(err, float((got - want).abs().max()))
         if not rel <= W4_RTOL:
             fail(f"B5 kernel != plain at {name} M={m} K={k} N={n}: "
                  f"{rel} of the largest |output|")
@@ -997,6 +1052,8 @@ def check_w4_kernels(torch, W, gen, dev):
                         "M": m, "K": k, "N": n, "group": group,
                         "x": "2^-60..2^60" if wide else "N(0, 1)",
                         "max_err_rel_to_max": rel}))
+        del c, got, want
+    torch.cuda.empty_cache()
     return err
 
 
@@ -1676,12 +1733,13 @@ def full_context_timing(torch, q, model, label, kernel_fns):
 
 def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
     """Decode ms/step by bench.py's protocol, the prefill, and under
-    ``profile`` the device time of decode steps by kernel."""
+    ``profile`` the device time of decode steps by kernel.  No warm-up
+    run: every ``generate()`` captures its own step graph, and the best of
+    3 leaves the first out."""
     from int8inferenceengine_tpu_torch.tensor import Tensor
     vocab = model.vocab_size
     times = {}
     for steps in (DEC_SHORT, DEC_STEPS):
-        model.generate(ids, steps)
         best = float("inf")
         for trial in range(3):
             p2 = (ids + trial + 1) % vocab
@@ -1960,7 +2018,7 @@ def teacher_forced_captured(torch, model, prompt, tokens):
     b, steps = tokens.shape
     with torch.no_grad():
         codes0, cache = model._prefill(Tensor(prompt))
-        out = torch.empty((b, steps, codes0.shape[-1]), dtype=torch.uint8,
+        out = torch.empty((b, steps, codes0.shape[-1]), dtype=codes0.dtype,
                           device=prompt.device)
         out[:, 0] = codes0
         pos = torch.full((), prompt.shape[1], dtype=torch.int64,
@@ -1981,41 +2039,42 @@ def teacher_forced_captured(torch, model, prompt, tokens):
     return out
 
 
-def captured_vs_eager(torch, model, ids, tokens, label):
-    """The captured ``generate()``'s tokens against the eager step loop's,
-    and DEC_STEPS teacher-forced steps' codes through a captured step
-    against the eager step's: both equal."""
-    eager = eager_generate(torch, model, ids, DEC_STEPS)
+def captured_vs_eager(torch, model, ids, tokens, label, steps=DEC_STEPS):
+    """The captured ``generate()``'s first ``steps`` tokens against the
+    eager step loop's, and ``steps`` teacher-forced steps' logits (u8 codes
+    or floats) through a captured step against the eager step's: both
+    equal, bit for bit."""
+    eager = eager_generate(torch, model, ids, steps)
     prompt = torch.tensor(ids, dtype=torch.int64, device=model.device)
-    toks = torch.tensor(tokens, dtype=torch.int64, device=model.device)
+    toks = torch.tensor(tokens[:, :steps], dtype=torch.int64,
+                        device=model.device)
     got = teacher_forced_captured(torch, model, prompt, toks)
     want = teacher_forced(torch, model, prompt, toks)
-    mx, share = contract(torch, got, want)
-    same = bool(np.array_equal(tokens, eager))
+    same_tokens = bool(np.array_equal(tokens[:, :steps], eager))
+    same = bool(torch.equal(got, want))
     log(json.dumps({"phase": f"{label}_captured_vs_eager",
-                    "tokens_equal": same, "teacher_forced_steps": DEC_STEPS,
-                    "codes": int(got.numel()), "max_abs_err": mx,
-                    "share_differing": share, "limit": "equal"}))
-    if not same or mx:
+                    "tokens_equal": same_tokens, "teacher_forced_steps": steps,
+                    "logits": int(got.numel()), "bitwise_equal": same,
+                    "max_abs_diff": float((got.float() - want.float()).abs()
+                                          .max()),
+                    "limit": "bitwise equal"}))
+    if not (same and same_tokens):
         fail(f"{label}: the captured decode differs from the eager step "
-             f"loop (tokens equal: {same}; codes max {mx}, share {share})")
+             f"loop (tokens equal {same_tokens}, logits equal {same})")
 
 
 def time_eager_steps(torch, model, ids):
-    """The eager step loop's ms/step by the decoders' protocol (best of
-    3)."""
+    """The eager step loop's ms/step: ``(t(EAGER_STEPS[1]) -
+    t(EAGER_STEPS[0])) / their difference``, one run each (an eager
+    gemma-2-2b step takes ~0.1 s)."""
     times = {}
-    for steps in (DEC_SHORT, DEC_STEPS):
-        best = float("inf")
-        for trial in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            eager_generate(torch, model, (ids + trial + 1) % model.vocab_size,
-                           steps)
-            best = min(best, time.perf_counter() - t0)
-        times[steps] = best
-    return 1e3 * (times[DEC_STEPS] - times[DEC_SHORT]) / (DEC_STEPS
-                                                          - DEC_SHORT)
+    for steps in EAGER_STEPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_generate(torch, model, ids, steps)
+        times[steps] = time.perf_counter() - t0
+    lo, hi = EAGER_STEPS
+    return 1e3 * (times[hi] - times[lo]) / (hi - lo)
 
 
 def replay_profile(torch, model, ids, reps):
@@ -4001,7 +4060,8 @@ def gemma_main_path(torch, q, zoo, GM, kernel_fns, dev):
                     "fp32_lifecycle_peak_gib": peak_gb,
                     "prepare_calibrate_convert_s": lifecycle_s,
                     "distinct_tokens": int(np.unique(tokens).size)}))
-    captured_vs_eager(torch, model, ids, tokens, "gemma2_2b")
+    captured_vs_eager(torch, model, ids, tokens, "gemma2_2b",
+                      steps=GEMMA_CAPTURED_STEPS)
     return model, ids, counts
 
 
@@ -4250,12 +4310,15 @@ def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile):
     gemma-2-2b's main path, its timing and step profile, (c) its engine,
     (b) the ring leg.  Returns the launches of the main paths."""
     windowed_small(torch, q, zoo, GM, dev)
+    mark("windowed small")
     counts = {}
     model, ids, counts["gemma2_2b_generate"] = gemma_main_path(
         torch, q, zoo, GM, kernel_fns, dev)
+    mark("gemma2_2b main path")
     timing = decoder_timing(torch, model, ids, profile,
                             label="gemma2_2b_decode")
     prof = gemma_profile(torch, model, ids, timing["decode_ms_per_step"])
+    mark("gemma2_2b timing")
     b_ms, b_by, _, _ = gemma_prefill_bound_ms()
     log(json.dumps({"phase": "gemma2_2b_summary",
                     "decode_ms_per_step": timing["decode_ms_per_step"],
@@ -4274,9 +4337,798 @@ def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile):
     counts["gemma2_2b_engine"] = gemma_engine_leg(torch, model, kernel_fns)
     del model
     torch.cuda.empty_cache()
+    mark("gemma2_2b engine")
     counts["gemma2_ring_generate"] = ring_leg(torch, q, zoo, GM, kernel_fns,
                                               dev)
     return counts
+
+
+# -- phases 29-34: the weight modes (W8-float, dynamic_act, W4 weight-only) --
+
+# the three weight-only QuantConfigs, each with gemma's 'nearest' rounding
+WEIGHT_MODES = {"w8f": dict(weight_only=True),
+                "dynamic": dict(weight_only=True, dynamic_act=True),
+                "w4": dict(weight_only=True, weight_bits=4)}
+# the float path's tolerance of each mode, relative to the largest |logit|:
+# card against a CPU copy, an extend against decode steps, and where an
+# engine's or a speculative run's greedy tokens may leave generate()'s (a
+# position whose two best logits lie within twice it).  The float32 sums
+# run in another order on the card (W8F, the float attention); B5 holds
+# 2e-5 a launch.  A dynamic row whose float input differs in its last bits
+# quantizes an element on a rounding boundary one code apart, 1/127 of the
+# row's scale, and the flip carries to the logits: half of the JAX
+# package's own dynamic-vs-FP32 bound (10%, tests/test_weight_only.py).
+# (Before the first card run the dynamic bound was 1e-2 with 0.99 argmax
+# agreement; llama_tiny measured 1.24e-2 and 0.984, from such flips.)
+FLOAT_RTOL = {"w8f": 1e-4, "dynamic": 5e-2, "w4": 5e-4}
+# greedy argmax agreement, card against a CPU copy, at every position of
+# the forward and of the teacher-forced steps
+FLOAT_AGREE = {"w8f": 0.99, "dynamic": 0.95, "w4": 0.99}
+# B5 at the decode shapes: M = 8 (a step at batch 8) and 40 (a verify of
+# k + 1 = 5 rows at batch 8); gemma-2-2b's Linears (layer, K, N, launches a
+# step) and bench.py's llama widths (W4_FORWARD's)
+B5_DECODE_M = (DEC_BATCH, DEC_BATCH * (SPEC_K + 1))
+GEMMA_WO = [("wq", 2304, 2048, 26), ("wk", 2304, 1024, 26),
+            ("wv", 2304, 1024, 26), ("proj", 2048, 2304, 26),
+            ("gate", 2304, 9216, 26), ("up", 2304, 9216, 26),
+            ("down", 9216, 2304, 26), ("head", 2304, 256_000, 1)]
+# DA (the dynamic Linear's s8 x s8 -> s32) at M = 1, 8, 17, 100: gemma's
+# K x N and odd ones; DAC (the dynamic conv) at ResNet-50's and the zoo's
+# grouped shapes: (batch, C, H, W, O, k, stride, padding, groups)
+DA_M = (1, 8, 17, 100)
+DA_KN = [(2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+         (9216, 2304), (2304, 256_000), (33, 17), (2305, 1001), (7, 3)]
+DAC_SHAPES = [(2, 3, 224, 224, 64, 7, 2, 3, 1),
+              (2, 64, 56, 56, 64, 3, 1, 1, 1),
+              (2, 256, 56, 56, 128, 1, 1, 0, 1),
+              (2, 512, 7, 7, 512, 3, 1, 1, 1),
+              (2, 96, 112, 112, 96, 3, 2, 1, 96),
+              (2, 144, 56, 56, 144, 3, 1, 1, 144),
+              (2, 58, 28, 28, 58, 5, 1, 2, 58),
+              (2, 64, 28, 28, 128, 3, 1, 1, 2),
+              (2, 3, 31, 29, 17, 5, 2, 2, 1)]
+# the small decoders of the float gates: SMALL_DEC's widths (llama and
+# gemma over 2 kv heads, gemma's odd block windowed at 32), batch 4, a
+# 16-token prompt, 24 teacher-forced steps (past the window)
+WO_SMALL = {"gpt_tiny": dict(SMALL_DEC),
+            "llama_tiny": dict(SMALL_DEC, kv_heads=2),
+            "gemma_tiny": dict(SMALL_DEC, kv_heads=2, sliding_window=32)}
+WO_SMALL_STEPS = 24
+# the library routes of the weight modes: what JAX leaves to XLA there
+LIBRARY_INFO = {
+    "w8f_matmul": dict(
+        route="torch.matmul on the weight dequantized each call (f32, TF32 "
+              "off)",
+        replaces="int8inferenceengine_tpu/layers.py:405-407 (XLA)"),
+    "s8_matmul": dict(
+        route="torch._int_mm on zero-padded s8 operands",
+        replaces="int8inferenceengine_tpu/layers.py:398-401 (XLA)"),
+    "conv2d_s8": dict(
+        route="F.conv2d on float64 copies of the s8 operands (exact)",
+        replaces="int8inferenceengine_tpu/layers.py:757-762 (XLA)"),
+    "float_attention": dict(
+        route="composed QK^T, masked softmax, P@V over all T_max rows",
+        replaces="int8inferenceengine_tpu/models/llama.py:258-267 (XLA)"),
+}
+
+
+def check_b5_decode(torch, W, gen, dev):
+    """B5 at the decode shapes: M = 8 and 40 at gemma-2-2b's Linears (the
+    256,000-wide head included) and bench.py's llama widths."""
+    cases = [("gemma2 " + name, m, k, n, 128, False) for m in B5_DECODE_M
+             for name, k, n, _ in GEMMA_WO]
+    cases += [("llama " + name, m, k, n, 128, False) for m in B5_DECODE_M
+              for name, _, k, n, _ in W4_FORWARD]
+    return check_b5(torch, W, gen, dev, cases)
+
+
+def check_library_routes(torch, WO, C, dev):
+    """DA (``s8_matmul``: ``torch._int_mm`` on padded operands) and DAC
+    (``conv2d_s8``: float64 ``F.conv2d``) on the card against their plain
+    versions, bit for bit: DA at DA_M x DA_KN (the plain version on the CPU,
+    or on the card where K x N passes 2^24), DAC at DAC_SHAPES (the integer
+    im2col on the CPU).  Also records whether ``torch._int_mm`` takes
+    unpadded M = 8 operands."""
+    rng = np.random.default_rng(21)
+    for m in DA_M:
+        for k, n in DA_KN:
+            a = torch.tensor(rng.integers(-127, 128, (m, k)).astype(np.int8))
+            w = torch.tensor(rng.integers(-127, 128, (n, k)).astype(np.int8))
+            got = WO.s8_matmul(a.to(dev), w.to(dev))
+            on_card = k * n > 1 << 24
+            want = (WO.s8_matmul_plain(a.to(dev), w.to(dev)) if on_card
+                    else WO.s8_matmul_plain(a, w))
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu(), want.cpu()):
+                fail(f"DA s8_matmul != plain at M={m} K={k} N={n}")
+            log(json.dumps({"phase": "da_vs_plain", "M": m, "K": k, "N": n,
+                            "padded_to": list(WO.int_mm_shape(m, k, n)),
+                            "plain_on": "card" if on_card else "cpu",
+                            "equal": True}))
+    probe = {}
+    a8 = torch.ones((8, 64), dtype=torch.int8, device=dev)
+    w16 = torch.ones((16, 64), dtype=torch.int8, device=dev)
+    try:
+        torch._int_mm(a8, w16.t())
+        torch.cuda.synchronize()
+        probe["int_mm_takes_8_rows"] = True
+    except RuntimeError as e:
+        probe["int_mm_takes_8_rows"] = False
+        probe["int_mm_8_rows_error"] = str(e).splitlines()[0][:200]
+    log(json.dumps({"phase": "int_mm_probe", **probe}))
+    for shape in DAC_SHAPES:
+        b, c, h, w_, o, k, s, p, g = shape
+        x = torch.tensor(rng.integers(-127, 128, (b, c, h, w_)).astype(
+            np.int8))
+        wt = torch.tensor(rng.integers(-127, 128, (o, c // g, k, k)).astype(
+            np.int8))
+        got = C.conv2d_s8(x.to(dev), wt.to(dev), s, p, g)
+        torch.cuda.synchronize()
+        want = C.conv2d_s8_plain(x, wt, s, p, g)
+        if not torch.equal(got.cpu(), want):
+            fail(f"DAC conv2d_s8 != plain at {shape}: "
+                 f"{int((got.cpu() != want).sum())} accumulators differ")
+        log(json.dumps({"phase": "dac_vs_plain", "shape": list(shape),
+                        "max_abs_acc": int(want.abs().max()),
+                        "equal": True}))
+    torch.cuda.empty_cache()
+
+
+def wo_config(q, mode, **kw):
+    return q.QuantConfig(**WEIGHT_MODES[mode], **dict(GEMMA_CFG, **kw))
+
+
+def wo_small(torch, q, zoo, GM, TD, LL, name, mode, dev):
+    """A small decoder of WO_SMALL on ``dev`` in weight mode ``mode``,
+    converted without calibration (seeded random weights)."""
+    geo = WO_SMALL[name]
+    if name == "gemma_tiny":
+        state = gemma_state(torch, twin_shapes(torch, GM, geo), geo["depth"],
+                            2, dev)
+    elif name == "llama_tiny":
+        state = decoder_state(torch, LL.torch_llama(**geo, seed=0),
+                              geo["depth"], seed=2, residual=("proj", "down"))
+    else:
+        state = decoder_state(torch, TD.torch_text_decoder(**geo, seed=0),
+                              geo["depth"], seed=2)
+    model = zoo.build(name, config=wo_config(q, mode), device=dev, **geo)
+    model.load(state)
+    model.convert()
+    return model
+
+
+def float_gap(torch, logits):
+    """The gap between each row's two largest logits over the row's
+    largest |logit| ([..., V] -> [...])."""
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) / logits.abs().amax(-1)
+
+
+def near_tie_divergence(torch, model, prompts, outs, want, rtol):
+    """Each request's tokens ``outs[i]`` against ``want[i]``: equal, or
+    leaving them at a position where ``want``'s run had its two best
+    logits within 2 * rtol of the largest |logit| (recomputed by a prefill
+    of the prompt and the common tokens).  Returns (equal count, [(i,
+    position, gap)] of the divergences, ok)."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    equal, diverged, ok = 0, [], True
+    for i, (p, o, w) in enumerate(zip(prompts, outs, want)):
+        if np.array_equal(o, w):
+            equal += 1
+            continue
+        j = int(np.argwhere(o != w)[0, 0])
+        seq = np.concatenate([p, w[:j]]).astype(np.int64)[None]
+        with torch.no_grad():
+            logits, _ = model._prefill(Tensor(torch.tensor(
+                seq, device=model.device)))
+        gap = float(float_gap(torch, logits)[0])
+        diverged.append((i, j, gap))
+        ok &= gap <= 2 * rtol
+    return equal, diverged, ok
+
+
+def wo_card_vs_cpu(torch, zoo, model, name, mode, ids):
+    """The float gate of a small weight-only decoder on the card against a
+    CPU copy of its state: the forward's logits at every prompt position
+    and WO_SMALL_STEPS teacher-forced steps (on the card's greedy tokens)
+    within FLOAT_RTOL[mode] of the largest |logit|, the teacher-forced
+    argmax agreeing on FLOAT_AGREE of the positions; the greedy tokens'
+    agreement recorded."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    geo = WO_SMALL[name]
+    cpu = zoo.build(name, config=model.config, device="cpu", **geo)
+    load_jax_state(cpu, export_state(model))
+    prompt = torch.tensor(ids, dtype=torch.int64)
+    dev = model.device
+    with torch.no_grad():
+        fwd = model.forward(Tensor(prompt.to(dev))).data.cpu()
+        fwd_cpu = cpu.forward(Tensor(prompt)).data
+    tokens = model.generate(ids, WO_SMALL_STEPS)
+    tokens_cpu = cpu.generate(ids, WO_SMALL_STEPS)
+    toks = torch.tensor(tokens, dtype=torch.int64)
+    tf = teacher_forced(torch, model, prompt.to(dev), toks.to(dev)).cpu()
+    tf_cpu = teacher_forced(torch, cpu, prompt, toks)
+    res = {"phase": "weight_only_card_vs_cpu", "model": name, "mode": mode,
+           **geo, "batch": ids.shape[0], "steps": WO_SMALL_STEPS,
+           "limit_rel": FLOAT_RTOL[mode], "limit_agree": FLOAT_AGREE[mode]}
+    for leg, got, want in (("forward", fwd, fwd_cpu),
+                           ("teacher_forced", tf, tf_cpu)):
+        res[f"{leg}_err_rel_to_max"] = rel_err(torch, got, want)
+        res[f"{leg}_argmax_agree"] = float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean())
+    res["greedy_tokens_agree"] = float((tokens == tokens_cpu).mean())
+    res["ok"] = all(res[f"{leg}_err_rel_to_max"] <= FLOAT_RTOL[mode]
+                    and res[f"{leg}_argmax_agree"] >= FLOAT_AGREE[mode]
+                    for leg in ("forward", "teacher_forced"))
+    return res
+
+
+def wo_engine_vs_generate(torch, model, mode, label, prefill_chunk=None,
+                          prefix=False):
+    """A weight-only engine (4 slots, chunks of 8) against ``generate()``
+    of each prompt alone: 6 greedy requests (5-60 prompt tokens, 24 new
+    tokens), equal or leaving ``generate()`` only at a near-tie
+    (``near_tie_divergence``).  ``prefill_chunk`` chunks the longer
+    prompts; ``prefix`` registers a 24-token prefix that the requests
+    share."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    rng = np.random.default_rng(31)
+    pre = rng.integers(0, model.vocab_size, 24).astype(np.int32)
+    prompts = [rng.integers(0, model.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 30, 60, 9, 40)]
+    if prefix:
+        prompts = [np.concatenate([pre, p]) for p in prompts]
+    eng = GenerationEngine(model, slots=4, chunk_steps=8, sync_chunks=2,
+                           prefill_chunk=prefill_chunk)
+    try:
+        kw = {}
+        if prefix:
+            kw["prefix_id"] = eng.register_prefix(pre)
+        outs = results([eng.submit(p, 24, **kw) for p in prompts])
+        dtype = str(eng._caches[1][0].dtype)
+    finally:
+        eng.shutdown()
+    want = [model.generate(p[None], 24)[0] for p in prompts]
+    equal, div, ok = near_tie_divergence(torch, model, prompts, outs, want,
+                                         FLOAT_RTOL[mode])
+    return {"leg": label, "requests": len(prompts), "equal": equal,
+            "near_tie_divergences": div, "slot_cache_dtype": dtype,
+            "ok": ok}
+
+
+def wo_extend_vs_decode(torch, model, mode, ids):
+    """An m = 5 extend at batch 4 against 5 decode steps from one shared
+    prefill cache (the cache cloned): logits within FLOAT_RTOL[mode] of
+    the largest |logit|, the caches' rows likewise."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    toks = torch.tensor(np.random.default_rng(32).integers(
+        0, model.vocab_size, (ids.shape[0], 5)), dtype=torch.int64,
+        device=dev)
+    with torch.no_grad():
+        _, cache = model._prefill(Tensor(torch.tensor(
+            ids, dtype=torch.int64, device=dev)))
+        other = {i: (k.clone(), v.clone()) for i, (k, v) in cache.items()}
+        pos = torch.full((), ids.shape[1], dtype=torch.int64, device=dev)
+        ext, _ = model._extend_step(cache, pos, toks)
+        steps = torch.stack([model._decode_step(other, pos + j, toks[:, j])[0]
+                             for j in range(5)], 1)
+    cache_err = max(rel_err(torch, a, b) for i in cache
+                    for a, b in zip(cache[i], other[i]))
+    err = rel_err(torch, ext, steps)
+    agree = float((ext.argmax(-1) == steps.argmax(-1)).float().mean())
+    return {"leg": "extend_m5_vs_decode", "logits_err_rel_to_max": err,
+            "cache_err_rel_to_max": cache_err, "argmax_agree": agree,
+            "ok": err <= FLOAT_RTOL[mode] and cache_err <= FLOAT_RTOL[mode]}
+
+
+def wo_speculative_vs_generate(torch, model, mode, ids):
+    """Speculative decoding (the model as its own draft, k = 4, 32 tokens)
+    against ``generate()``: equal, or leaving it only at a near-tie."""
+    got = model.generate_speculative(model, ids, 32, k=SPEC_K)
+    want = model.generate(ids, 32)
+    equal, div, ok = near_tie_divergence(torch, model, list(ids), list(got),
+                                         list(want), FLOAT_RTOL[mode])
+    return {"leg": "speculative_vs_generate", "rows": int(ids.shape[0]),
+            "equal": equal, "near_tie_divergences": div,
+            "stats": model.speculative_stats, "ok": ok}
+
+
+def wo_small_gates(torch, q, zoo, GM, TD, LL, dev):
+    """Phase 30: gpt_tiny, llama_tiny (GQA) and gemma_tiny (window and
+    softcaps) in each weight mode on the card: against a CPU copy
+    (``wo_card_vs_cpu``), captured against eager bit for bit, the engine
+    (bucketed, chunked and prefixed) and speculative decoding against
+    ``generate()`` and an extend against decode steps, each under the
+    float contract."""
+    ids = np.random.default_rng(8).integers(
+        0, SMALL_DEC["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+            np.int32)
+    bad = []
+    for name in WO_SMALL:
+        for mode in WEIGHT_MODES:
+            model = wo_small(torch, q, zoo, GM, TD, LL, name, mode, dev)
+            gate = wo_card_vs_cpu(torch, zoo, model, name, mode, ids)
+            log(json.dumps(gate))
+            tokens = model.generate(ids, WO_SMALL_STEPS)
+            captured_vs_eager(torch, model, ids, tokens, f"{name}_{mode}",
+                              steps=WO_SMALL_STEPS)
+            legs = [wo_engine_vs_generate(torch, model, mode, "engine"),
+                    wo_extend_vs_decode(torch, model, mode, ids),
+                    wo_speculative_vs_generate(torch, model, mode, ids)]
+            if name == "llama_tiny":
+                legs += [wo_engine_vs_generate(torch, model, mode,
+                                               "engine_chunked",
+                                               prefill_chunk=16),
+                         wo_engine_vs_generate(torch, model, mode,
+                                               "engine_prefixed",
+                                               prefill_chunk=16,
+                                               prefix=True)]
+            for leg in legs:
+                log(json.dumps({"phase": "weight_only_vs_generate",
+                                "model": name, "mode": mode,
+                                "limit_rel": FLOAT_RTOL[mode], **leg}))
+            bad += [f"{name} {mode} {leg['leg']}" for leg in legs
+                    if not leg["ok"]]
+            if not gate["ok"]:
+                bad.append(f"{name} {mode} card_vs_cpu")
+            del model
+    if bad:
+        fail(f"weight modes: beyond the float contract: {bad}")
+
+
+def gemma_wo_step_bound_ms(mode, b=DEC_BATCH, valid=DEC_ATTN["valid"]):
+    """One weight-only gemma-2-2b decode step's least time: every weight
+    read once (s8, or packed W4 with its f32 group scales) with the
+    activations, plus the live float K/V rows of 26 layers, against the
+    step's products (f32 ops for W8F, int8 for DA, three bf16 passes for
+    B5); returns (ms, bound by)."""
+    nbytes = ops = 0.0
+    for _, k, n, per in GEMMA_WO:
+        w = n * k // 2 + 4 * n * (k // 128) if mode == "w4" else n * k
+        nbytes += per * (w + 4 * b * k + 4 * b * n + 4 * n)
+        ops += per * 2.0 * b * n * k
+    h, hkv, d = GEMMA2["heads"], GEMMA2["kv_heads"], GEMMA2["head_dim"]
+    depth = GEMMA2["depth"]
+    nbytes += depth * (2 * b * hkv * valid * d * 4 + 2 * 4 * b * h * d)
+    peak = {"w8f": PEAK_FP32_OPS, "dynamic": PEAK_INT8_OPS,
+            "w4": PEAK_BF16_OPS / 3}[mode]
+    t_ops = ops / peak + depth * 4.0 * b * h * valid * d / PEAK_FP32_OPS
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+@contextlib.contextmanager
+def wo_ranges(torch, TD, layers_mod):
+    """Profiler ranges around every weight-only GEMM (``Linear.
+    _forward_weight_only``: W8F, DA or B5) and every float attention
+    (``TextDecoder._float_attention``) while the block runs (a harness
+    wrap, eager steps only)."""
+    from torch.profiler import record_function
+    lin, attn = (layers_mod.Linear._forward_weight_only,
+                 TD.TextDecoder._float_attention)
+
+    def r_lin(self, x):
+        with record_function("wo_gemm"):
+            return lin(self, x)
+
+    def r_attn(self, *a):
+        with record_function("wo_attention"):
+            return attn(self, *a)
+
+    layers_mod.Linear._forward_weight_only = r_lin
+    TD.TextDecoder._float_attention = r_attn
+    try:
+        yield
+    finally:
+        layers_mod.Linear._forward_weight_only = lin
+        TD.TextDecoder._float_attention = attn
+
+
+def wo_busy_split(torch, TD, layers_mod, model, ids, reps=2):
+    """Device µs a decode step by part (the weight GEMMs, the float
+    attention, the glue), from ``reps`` eager steps profiled with
+    ``wo_ranges`` (the captured step runs the same kernels)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    with torch.no_grad():
+        codes, cache = model._prefill(Tensor(torch.tensor(
+            ids.astype(np.int64), device=dev)))
+        tok = codes.argmax(-1)
+        pos = torch.full((), ids.shape[1], dtype=torch.int64, device=dev)
+        model._decode_step(cache, pos, tok)
+        torch.cuda.synchronize()
+        with wo_ranges(torch, TD, layers_mod), torch_profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                model._decode_step(cache, pos, tok)
+            torch.cuda.synchronize()
+    ranges = ("wo_gemm", "wo_attention")
+    rows = [e for e in profile_rows(torch, prof) if e.key not in ranges]
+    # the kernels alone: the ranges' own device-side rows span them again
+    busy = sum(e.self_device_time_total for e in rows)
+    # a range's kernels: those that its CPU-side ops launched; B5 launches
+    # through ctypes, outside any op, so its rows count by kernel name
+    parts = {name: sum(e.device_time_total for e in prof.events()
+                       if e.name == name
+                       and e.device_type == torch.autograd.DeviceType.CPU)
+             for name in ranges}
+    del cache
+    gemm = parts["wo_gemm"] + sum(e.self_device_time_total for e in rows
+                                  if kernel_of(e.key) == "w4_gemm")
+    attn = parts["wo_attention"]
+    return {"busy_us": busy / reps, "weight_gemm_us": gemm / reps,
+            "float_attention_us": attn / reps,
+            "glue_us": (busy - gemm - attn) / reps}
+
+
+def gemma_wo_shared_state(torch, GM, dev):
+    """gemma-2-2b's FP32 weights on the card (``gemma_state``, seed 5),
+    built once for the three weight modes: every mode's model loads them
+    without a copy and converts its own s8 or 4-bit weights."""
+    return gemma_state(torch, twin_shapes(torch, GM, twin_kwargs(GEMMA2)),
+                       GEMMA2["depth"], 5, dev)
+
+
+def gemma_wo_leg(torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns,
+                 state, mode, ids, fp32_last):
+    """Phase 31 in one weight mode: gemma-2-2b at its published widths,
+    batch 8, converted without calibration from ``state``; greedy
+    ``generate(ids, 128)`` captured with exactly 183 weight GEMMs a step
+    (B5 launches under W4, W8F or DA calls otherwise), the captured decode
+    bit for bit the eager step loop's, the last prompt position's argmax
+    against the FP32 model's, and ms/step, tokens/s, the eager loop, the
+    prefill, KV bytes, a profiled captured step with its busy split and
+    the step's bound.  Returns (model, launches and calls)."""
+    dev = next(iter(state.values())).device
+    model = zoo.build("gemma_tiny", config=wo_config(q, mode), device=dev,
+                      **GEMMA2)
+    t0 = time.perf_counter()
+    model.load(state)
+    model.convert()
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    counters = dict(kernel_fns, **route_fns)
+    reset_counts(counters)
+    tokens = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    all_counts = read_counts(counters)
+    counts = {k: v for k, v in all_counts.items() if v}
+    gemm = {"w8f": "w8f_matmul", "dynamic": "s8_matmul", "w4": "w4_gemm"}[mode]
+    per_step = sum(per for _, _, _, per in GEMMA_WO)
+    want = {gemm: per_step * DEC_STEPS}
+    if counts != want:
+        fail(f"gemma2 {mode} generate: launches and calls {counts}, want "
+             f"{want} ({per_step} a step and a prefill)")
+    if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.min() < 0 or \
+            tokens.max() >= GEMMA2["vocab_size"]:
+        fail(f"gemma2 {mode} generate returned {tokens.shape} in "
+             f"[{tokens.min()}, {tokens.max()}]")
+    captured_vs_eager(torch, model, ids, tokens, f"gemma2_2b_{mode}",
+                      steps=GEMMA_CAPTURED_STEPS)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    prompt = Tensor(torch.tensor(ids, dtype=torch.int64, device=dev))
+    with torch.no_grad():
+        _, cache = model._prefill(prompt)
+        # the final softcap's logits, as the FP32 forward gives them
+        last = model.forward(prompt).data[:, -1].clone()
+    kv_bytes = sum(t.numel() * t.element_size() for pair in cache.values()
+                   for t in pair)
+    del cache
+    agree_fp32 = float((last.argmax(-1) == fp32_last.argmax(-1)).float()
+                       .mean())
+    err_fp32 = rel_err(torch, last, fp32_last)
+    timing = decoder_timing(torch, model, ids, False,
+                            label=f"gemma2_2b_{mode}_decode")
+    rows, wall_us, _ = replay_profile(torch, model, ids, 8)
+    busy = sum(e.self_device_time_total for e in rows) / 8
+    split = wo_busy_split(torch, TD, layers_mod, model, ids)
+    b_ms, b_by = gemma_wo_step_bound_ms(mode)
+    weights = sum(t.numel() * t.element_size() for _, layer in
+                  model.named_layers() for t in (
+                      getattr(layer, "q_weight", None),
+                      getattr(layer, "w4_packed", None),
+                      getattr(layer, "w4_scales", None)) if t is not None)
+    log(json.dumps({"phase": "gemma2_2b_weight_only", "mode": mode,
+                    **GEMMA2, "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    "steps": DEC_STEPS, "ring_cache": False,
+                    "launches_and_calls": counts,
+                    "weight_gemms_per_step": {gemm: per_step},
+                    "weight_bytes": weights, "kv_cache_bytes": kv_bytes,
+                    "convert_s": convert_s,
+                    **{k: timing[k] for k in (
+                        "decode_ms_per_step", "tokens_per_s",
+                        "eager_step_loop_ms_per_step", "prefill_ms")},
+                    "captured_step_busy_us": busy,
+                    "captured_step_wall_us_profiled": wall_us,
+                    "device_idle_share": 1 - busy / wall_us,
+                    "busy_split_eager_step_us": split,
+                    "step_bound_ms": b_ms, "step_bound_by": b_by,
+                    "share_of_step_bound": b_ms
+                    / timing["decode_ms_per_step"],
+                    "prefill_last_argmax_agree_vs_fp32": agree_fp32,
+                    "prefill_last_err_rel_to_max_vs_fp32": err_fp32,
+                    "distinct_tokens": int(np.unique(tokens).size),
+                    "gated": "launches, captured = eager"}))
+    return model, all_counts
+
+
+def gemma_wo_engine_leg(torch, model, mode):
+    """Phase 32: the W8-float gemma-2-2b served by ``GenerationEngine`` at
+    SERVE under SERVE_LOAD at once: tokens/s, TTFT p50/p99 and slot fill;
+    each request against ``generate()`` of its batch of 8 prompts, equal
+    or leaving it only at a near-tie."""
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    n, t_prompt, new = SERVE_LOAD
+    eng = GenerationEngine(model, **SERVE)
+    try:
+        warm = np.random.default_rng(12).integers(
+            0, model.vocab_size, t_prompt).astype(np.int32)
+        results([eng.submit(warm, SERVE["chunk_steps"] + 1)])
+        res, prompts, outs = saturated_load(torch, eng, model.vocab_size,
+                                            f"gemma2_2b_{mode}",
+                                            collect=True)
+    finally:
+        eng.shutdown()
+    want = np.concatenate([model.generate(np.stack(prompts[i:i + 8]), new)
+                           for i in range(0, n, 8)])
+    equal, div, ok = near_tie_divergence(torch, model, prompts, outs,
+                                         list(want), FLOAT_RTOL[mode])
+    log(json.dumps({"phase": f"gemma2_2b_{mode}_engine_vs_generate",
+                    "requests": n, "equal": equal,
+                    "near_tie_divergences": div,
+                    "limit_rel": FLOAT_RTOL[mode]}))
+    if not ok:
+        fail(f"gemma2 {mode} engine leaves generate() away from a near-tie:"
+             f" {div}")
+    return res
+
+
+def resnet_wo_leg(torch, q, zoo, dev, counters):
+    """Phase 33: ResNet-50-224 at batch 100 in W8-float and dynamic
+    (per-channel scales, BN folded at load, no calibration): images/s by
+    CUDA events over 10 forwards, top-1 agreement with the FP32 forward,
+    the library calls of a forward, and a CPU copy at batch 2 within the
+    mode's float tolerance (argmax equal).  Returns each mode's launches
+    and calls of one forward."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    state, _ = cnn_state(torch, zoo, "resnet50")
+    x = np.random.default_rng(0).standard_normal(
+        (CNN_BATCH, 3, 224, 224)).astype(np.float32)
+    xt = q.tensor(x, device=dev)
+    fp = zoo.build("resnet50", config=q.QuantConfig(weight_per_channel=True),
+                   device=dev)
+    fp.load(state)
+    ref = fp(xt).data
+    del fp
+    out = {}
+    for mode in ("w8f", "dynamic"):
+        cfg = q.QuantConfig(**WEIGHT_MODES[mode], weight_per_channel=True)
+        model = zoo.build("resnet50", config=cfg, device=dev)
+        model.load(state)
+        model.convert()
+        reset_counts(counters)
+        got = model(xt).data
+        torch.cuda.synchronize()
+        out[f"resnet50_{mode}_b100"] = read_counts(counters)
+        calls = {k: v for k, v in out[f"resnet50_{mode}_b100"].items() if v}
+        ms = time_cuda(torch, lambda: model(xt), iters=10)
+        cpu = zoo.build("resnet50", config=cfg, device="cpu")
+        load_jax_state(cpu, export_state(model))
+        got_cpu = cpu(q.tensor(x[:2], device="cpu")).data
+        card_err = rel_err(torch, got[:2].cpu(), got_cpu)
+        card_argmax = bool(torch.equal(got[:2].argmax(1).cpu(),
+                                       got_cpu.argmax(1)))
+        res = {"phase": "resnet50_weight_only", "mode": mode,
+               "batch": CNN_BATCH, "ms_per_batch": ms,
+               "images_per_s": CNN_BATCH * 1e3 / ms,
+               "top1_agreement_vs_fp32": float(
+                   (got.argmax(1) == ref.argmax(1)).float().mean()),
+               "err_rel_to_max_vs_fp32": rel_err(torch, got, ref),
+               "calls_per_forward": calls,
+               "card_vs_cpu_batch2_err_rel_to_max": card_err,
+               "card_vs_cpu_argmax_equal": card_argmax,
+               "limit_rel": FLOAT_RTOL[mode]}
+        log(json.dumps(res))
+        if not (card_argmax and card_err <= FLOAT_RTOL[mode]):
+            fail(f"resnet50 {mode}: the card differs from a CPU copy: "
+                 f"{card_err} of the largest |logit|, argmax equal "
+                 f"{card_argmax}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"resnet50 {mode}: non-finite outputs")
+        del model, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_library_routes(torch, WO, C, gen, dev, flush, resnet_shapes):
+    """The weight modes' library routes and the float attention at their
+    main paths' shapes, L2 flushed: W8F and DA at gemma-2-2b's decode-step
+    Linears (M = 8), B5 beside them (its kernel rows), DAC at every conv
+    shape of ResNet-50 at batch 100 (``resnet_shapes``: ``b1_shapes``'s
+    conv entries), and the float attention of a gemma-2-2b step (batch 8,
+    T 8,192, live 128); each beside its bound.  Returns (kernel rows for
+    B5, library rows)."""
+    from int8inferenceengine_tpu_torch.ops.quant import quantize_dynamic
+    from int8inferenceengine_tpu_torch.ops import w4 as W
+    krows, lrows = [], []
+    m = DEC_BATCH
+    for name, k, n, per in GEMMA_WO:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s_w = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4
+        bias = torch.randn((n,), generator=gen, device=dev) * 0.01
+        w8f = time_cuda(torch, lambda: WO.w8f_matmul(x, w, s_w, bias),
+                        iters=10, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = bound(n * k + 4 * (m * k + m * n + 2 * n),
+                                           2.0 * m * n * k, PEAK_FP32_OPS)
+        lrows.append(dict(kernel="w8f_matmul", path="gemma2_2b_w8f_step",
+                          layer=name, M=m, K=k, N=n, launches_per_unit=per,
+                          ms=w8f, bound_ms=b_ms, bound_by=b_by))
+        a, s_a = quantize_dynamic(x, (1,))
+
+        def da():
+            a, s_a = quantize_dynamic(x, (1,))
+            return WO.s8_matmul(a, w).to(torch.float32) * (s_a * s_w) + bias
+
+        da_ms = time_cuda(torch, da, iters=10, flush=flush)
+        int_mm_ms = time_cuda(torch, lambda: WO.s8_matmul(a, w), iters=10,
+                              flush=flush)
+        b_ms, b_by, _, _ = bound(n * k + 4 * (m * k + m * n + 2 * n),
+                                 2.0 * m * n * k)
+        lrows.append(dict(kernel="s8_matmul", path="gemma2_2b_dynamic_step",
+                          layer=name, M=m, K=k, N=n, launches_per_unit=per,
+                          ms=da_ms, int_mm_alone_ms=int_mm_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        del w, a
+        c = w4_case(torch, W, gen, m, k, n, 128, dev, weight_only=True)
+        args = (c["x"], c["packed"], c["scales"], c["bias"], k, 128)
+        ms = time_cuda(torch, lambda: W.w4_gemm(*args), iters=20,
+                       flush=flush)
+        plain_ms = time_cuda(torch, lambda: W.w4_gemm_plain(*args), iters=3,
+                             flush=flush)
+        w_deq = W.dequant_w4(c["packed"], c["scales"], k, 128)
+        lib_ms = time_cuda(torch, lambda: torch.addmm(c["bias"], c["x"],
+                                                      w_deq.t()),
+                           iters=10, flush=flush)
+        b_ms, b_by, t_ops, t_bytes = w4_bound_ms("w4_gemm", m, k, n, 128)
+        krows.append(dict(kernel="w4_gemm", path="gemma2_2b_w4_step",
+                          layer=name, M=m, K=k, N=n, group=128,
+                          launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                          bound_by=b_by, plain_ms=plain_ms,
+                          library_ms=lib_ms, t_ops=t_ops, t_bytes=t_bytes))
+        del c, w_deq
+    convs = [(geom, o, per) for (kind, geom, o), (_, per)
+             in resnet_shapes.items() if kind == "conv"]
+    for (b, h, w_, c, k, s, p), o, per in convs:
+        x = torch.randint(-127, 128, (b, c, h, w_), generator=gen,
+                          device=dev, dtype=torch.int8)
+        wt = torch.randint(-127, 128, (o, c, k, k), generator=gen,
+                           device=dev, dtype=torch.int8)
+        ms = time_cuda(torch, lambda: C.conv2d_s8(x, wt, s, p), iters=3,
+                       flush=flush)
+        oh, ow = (h + 2 * p - k) // s + 1, (w_ + 2 * p - k) // s + 1
+        outs = b * o * oh * ow
+        b_ms, b_by, _, _ = bound(x.numel() + wt.numel() + 4 * outs,
+                                 2.0 * outs * c * k * k)
+        lrows.append(dict(kernel="conv2d_s8", path="resnet50_dynamic_b100",
+                          layer=f"{c}x{h}x{w_}->{o} k{k}/s{s}",
+                          launches_per_unit=per, ms=ms, bound_ms=b_ms,
+                          bound_by=b_by))
+        del x, wt
+    h, hkv, d = GEMMA2["heads"], GEMMA2["kv_heads"], GEMMA2["head_dim"]
+    b, t, valid = DEC_BATCH, GEMMA2["max_len"], DEC_ATTN["valid"]
+    q_ = torch.randn((b, h, 1, d), generator=gen, device=dev)
+    kc = torch.randn((b, hkv, t, d), generator=gen, device=dev)
+    vc = torch.randn((b, hkv, t, d), generator=gen, device=dev)
+    attn = float_attention_fn(torch, q_, kc, vc, valid)
+    ms = time_cuda(torch, attn, iters=10, flush=flush)
+    b_ms, b_by, _, _ = bound(2 * b * hkv * valid * d * 4 + 2 * 4 * b * h * d,
+                             4.0 * b * h * valid * d, PEAK_FP32_OPS)
+    lrows.append(dict(kernel="float_attention", path="gemma2_2b_w8f_step",
+                      layer=f"b{b} T{t} live {valid}", launches_per_unit=26,
+                      ms=ms, bound_ms=b_ms, bound_by=b_by,
+                      full_cache_bytes_ms=1e3 * (2 * b * hkv * t * d * 4)
+                      / PEAK_BYTES))
+    del q_, kc, vc
+    for r in krows + lrows:
+        log(json.dumps({k_: v for k_, v in r.items()
+                        if k_ not in ("t_ops", "t_bytes")}
+                       | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+    for path in sorted({r["path"] for r in krows + lrows}):
+        mine = [r for r in krows + lrows if r["path"] == path]
+        log(json.dumps({"per_unit": path, "ms": sum(
+            r["ms"] * r["launches_per_unit"] for r in mine), "bound_ms": sum(
+            r["bound_ms"] * r["launches_per_unit"] for r in mine)}))
+    return krows, lrows
+
+
+def float_attention_fn(torch, q_, kc, vc, valid):
+    """The decode step's composed float attention on tensors (one layer:
+    grouped QK^T, the masked softmax, P@V), as ``_float_attention`` runs
+    it."""
+    from int8inferenceengine_tpu_torch.ops.attention import softmax_last
+    b, h, m, d = q_.shape
+    hkv = kc.shape[1]
+    g = h // hkv
+    col = torch.arange(kc.shape[2], device=kc.device)
+    alpha = torch.full((), d ** -0.5, device=kc.device)
+    cap = torch.full((), 50.0, device=kc.device)
+    ninf = torch.full((), float("-inf"), device=kc.device)
+
+    def run():
+        s = alpha * torch.matmul(q_.reshape(b, hkv, g * m, d),
+                                 kc.transpose(-1, -2))
+        s = cap * torch.tanh(s / cap)
+        s = torch.where(col < valid, s, ninf)
+        p = softmax_last(s)
+        return torch.matmul(p, vc)
+
+    return run
+
+
+def library_line(lrows, counts_by_path):
+    """One entry per library route of the weight modes: its time and bound
+    summed over its unit of work (a gemma-2-2b step, a ResNet-50 b100
+    forward), and its calls on the main paths."""
+    out = []
+    for name, info in LIBRARY_INFO.items():
+        mine = [r for r in lrows if r["kernel"] == name]
+        tot = {key: sum(r[key] * r["launches_per_unit"] for r in mine)
+               for key in ("ms", "bound_ms")}
+        out.append(dict(name=name, **info, ms=tot["ms"],
+                        bound_ms=tot["bound_ms"],
+                        calls={p: c[name] for p, c in counts_by_path.items()
+                               if c.get(name)},
+                        work=" + ".join(sorted({r["path"] for r in mine}))))
+    return out
+
+
+def weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod, kernel_fns,
+                      route_fns, dev):
+    """Phases 30-33 in order: the small decoders' float gates, gemma-2-2b
+    in the three weight modes, its W8-float engine, ResNet-50 in W8-float
+    and dynamic.  Returns the launches and calls of the main paths."""
+    wo_small_gates(torch, q, zoo, GM, TD, LL, dev)
+    mark("weight modes: small gates")
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    counts = {}
+    ids = np.random.default_rng(0).integers(
+        0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    state = gemma_wo_shared_state(torch, GM, dev)
+    fp = zoo.build("gemma_tiny", config=q.QuantConfig(**GEMMA_CFG),
+                   device=dev, **GEMMA2)
+    fp.load(state)
+    with torch.no_grad():
+        fp32_last = fp.forward(Tensor(torch.tensor(
+            ids, dtype=torch.int64, device=dev))).data[:, -1].clone()
+    del fp
+    engine = None
+    for mode in WEIGHT_MODES:
+        model, counts[f"gemma2_2b_{mode}_generate"] = gemma_wo_leg(
+            torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns, state,
+            mode, ids, fp32_last)
+        mark(f"weight modes: gemma2_2b {mode}")
+        if mode == "w8f":
+            reset_counts(dict(kernel_fns, **route_fns))
+            engine = gemma_wo_engine_leg(torch, model, mode)
+            counts["gemma2_2b_w8f_engine"] = read_counts(
+                dict(kernel_fns, **route_fns))
+            mark("weight modes: gemma2_2b w8f engine")
+        del model
+        torch.cuda.empty_cache()
+    del state
+    torch.cuda.empty_cache()
+    counts.update(resnet_wo_leg(torch, q, zoo, dev,
+                                dict(kernel_fns, **route_fns)))
+    return counts, engine
 
 
 def kernels_line(rows, counts_by_path, max_err):
@@ -4316,14 +5168,17 @@ def kernels_line(rows, counts_by_path, max_err):
 
 
 def reset_counts(kernel_fns):
+    """Zero the kernel wrappers' launch counts (and the library routes'
+    call counts)."""
     for fn in kernel_fns.values():
-        fn.launches = 0
-        if hasattr(fn, "merged_launches"):
-            fn.merged_launches = 0
+        for attr in ("launches", "merged_launches", "calls"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_counts(kernel_fns):
-    return {name: fn.launches for name, fn in kernel_fns.items()}
+    return {name: fn.launches if hasattr(fn, "launches") else fn.calls
+            for name, fn in kernel_fns.items()}
 
 
 def main(argv=None) -> int:
@@ -4339,6 +5194,10 @@ def main(argv=None) -> int:
                     help="only build and run the windowed decoders' phases "
                          "(24-28) with their kernel checks and times (no "
                          "result line)")
+    ap.add_argument("--weight-only", action="store_true",
+                    help="only build and run the weight modes' phases "
+                         "(29-33) with their checks and times (no result "
+                         "line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4347,6 +5206,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import int8inferenceengine_tpu_torch as q
     from int8inferenceengine_tpu_torch import kernels
+    from int8inferenceengine_tpu_torch import layers as layers_mod
     from int8inferenceengine_tpu_torch.models import gemma as GM
     from int8inferenceengine_tpu_torch.models import llama as LL
     from int8inferenceengine_tpu_torch.models import text_decoder as TD
@@ -4355,12 +5215,16 @@ def main(argv=None) -> int:
     from int8inferenceengine_tpu_torch.ops import conv as C
     from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
     from int8inferenceengine_tpu_torch.ops import w4 as W
+    from int8inferenceengine_tpu_torch.ops import weight_only as WO
     from int8inferenceengine_tpu_torch.ops.quant import quantize_u8
     kernel_fns = {"qgemm_u8s8": G.qgemm, "qgemm_u8s8_vzp": G.qgemm_multi,
                   "decode_attn_flat": A.decode_attention_flat,
                   "w4_gemm": W.w4_gemm, "w4a8_v2_gemm": W.w4a8_v2,
                   "w4a8_v1_gemm": W.w4a8_v1,
                   "conv_grouped_u8s8": C.conv2d_int8_grouped}
+    # the weight modes' library routes (what the JAX package leaves to XLA)
+    route_fns = {"w8f_matmul": WO.w8f_matmul, "s8_matmul": WO.s8_matmul,
+                 "w8f_conv2d": C.w8f_conv2d, "conv2d_s8": C.conv2d_s8}
     t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
@@ -4398,6 +5262,23 @@ def main(argv=None) -> int:
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         time_gemma_kernels(torch, G, A, gen, dev, flush_buf.zero_)
         log(json.dumps({"phase": "windowed_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.weight_only:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        check_b5_decode(torch, W, gen, dev)
+        check_library_routes(torch, WO, C, dev)
+        mark("weight-only checks")
+        counts, _ = weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod,
+                                      kernel_fns, route_fns, dev)
+        mark("weight-only paths")
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        _, lrows = time_library_routes(
+            torch, WO, C, gen, dev, flush_buf.zero_,
+            b1_shapes(torch, q, zoo, "resnet50", dev))
+        log(json.dumps({"library_routes": library_line(lrows, counts)}))
+        log(json.dumps({"phase": "weight_only_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -4451,6 +5332,12 @@ def main(argv=None) -> int:
                                                   dev).items():
         max_err[name] = max(max_err.get(name, 0), err)
 
+    # -- 29. B5 at the decode shapes, DA and DAC against their plain versions
+    max_err["w4_gemm"] = max(max_err["w4_gemm"],
+                             check_b5_decode(torch, W, gen, dev))
+    check_library_routes(torch, WO, C, dev)
+    mark("kernel checks")
+
     # -- 5. the AlexNet main path ---------------------------------------------
     counts_by_path = {}
     model, x_test, state, counts_by_path["alexnet_b100"] = alexnet_main_path(
@@ -4461,6 +5348,7 @@ def main(argv=None) -> int:
     counts_by_path["alexnet_engine"] = serve_cnn(torch, q, model,
                                                  kernel_fns)
     del model, state
+    mark("alexnet")
 
     # -- 19. G1 against its plain version --------------------------------------
     max_err["conv_grouped_u8s8"] = check_g1(torch, q, zoo, G, C, gen, dev)
@@ -4483,8 +5371,10 @@ def main(argv=None) -> int:
         del model, state
         torch.cuda.empty_cache()
 
+    mark("resnet50, mobilenet_v2")
     # -- 23. the rest of the zoo on the card against a CPU copy ----------------
     counts_by_path["cnn_zoo_b2"] = zoo_vs_cpu(torch, q, zoo, kernel_fns, dev)
+    mark("cnn zoo")
 
     # -- 6. the decoders on the card against a CPU copy ----------------------
     decoders_vs_cpu(torch, q, zoo, TD, LL, dev)
@@ -4492,45 +5382,54 @@ def main(argv=None) -> int:
     # -- 13. the small decoders' engines, card against CPU ---------------------
     small_engines_vs_cpu(torch, q, zoo, TD, LL, dev)
 
+    mark("small decoders vs cpu")
     # -- 7. the decoder main path ---------------------------------------------
     dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
         torch, q, zoo, TD, kernel_fns, dev)
     decoder_timing(torch, dec, ids, args.profile)
+    mark("gpt2 main path and timing")
 
     # -- 12. the gpt2 engine ---------------------------------------------------
     counts_by_path["gpt2_engine"] = serve_decoder(
         torch, dec, "gpt2", kernel_fns, profile=args.profile)
     bench_engine_load(torch, dec)
+    mark("gpt2 engines")
 
     # -- 16-18. gpt2: extend against decode, speculative decoding, chunked
     # prefill and the prefix cache ---------------------------------------------
     counts_by_path["gpt2_extend"] = extend_vs_decode(torch, dec, ids, "gpt2",
                                                      kernel_fns)
+    mark("gpt2 extend")
     counts_by_path["gpt2_speculative_self_draft"] = speculative_path(
         torch, dec, dec, ids, "gpt2_self_draft", kernel_fns)
     draft = build_draft(torch, q, zoo, TD, ids)
     counts_by_path["gpt2_speculative_small_draft"] = speculative_path(
         torch, dec, draft, ids, "gpt2_small_draft", kernel_fns)
     del draft
+    mark("gpt2 speculative")
     counts_by_path["gpt2_engine_chunked"] = engine_chunked(torch, dec, "gpt2",
                                                            kernel_fns)
     del dec
     torch.cuda.empty_cache()
+    mark("gpt2")
 
     # -- 9. the llama W4A8 main path ------------------------------------------
     (dec, ids, state,
      counts_by_path["llama_w4a8_generate"]) = llama_w4a8_main_path(
         torch, q, zoo, LL, W, A, kernel_fns, dev)
+    mark("llama w4a8 main path")
     decoder_timing(torch, dec, ids, args.profile, label="llama_w4a8_decode")
     counts_by_path["llama_w4a8_engine"] = serve_decoder(
         torch, dec, "llama_w4a8", kernel_fns, sampled_and_eos=False,
         profile=args.profile)
+    mark("llama w4a8 timing and engine")
     counts_by_path["llama_w4a8_extend"] = extend_vs_decode(
         torch, dec, ids, "llama_w4a8", kernel_fns)
     counts_by_path["llama_w4a8_speculative_self_draft"] = speculative_path(
         torch, dec, dec, ids, "llama_w4a8_self_draft", kernel_fns)
     counts_by_path["llama_w4a8_engine_chunked"] = engine_chunked(
         torch, dec, "llama_w4a8", kernel_fns, full=False)
+    mark("llama w4a8 extend, speculative, chunked")
     full_context_timing(torch, q, dec,
                         "llama_w4a8_causal_forward_full_context", kernel_fns)
     del dec
@@ -4545,12 +5444,22 @@ def main(argv=None) -> int:
                         kernel_fns)
     del wo, state
     torch.cuda.empty_cache()
+    mark("llama")
 
     # -- 25-28. the windowed decoders: the small gates, gemma-2-2b, its
     # engine, the ring leg ------------------------------------------------------
     counts_by_path.update(windowed_paths(torch, q, zoo, GM, kernel_fns, dev,
                                          args.profile))
     torch.cuda.empty_cache()
+    mark("windowed")
+
+    # -- 30-33. the weight modes: the small float gates, gemma-2-2b in W8F,
+    # dynamic and W4, its W8F engine, ResNet-50 in W8F and dynamic ------------
+    wo_counts, _ = weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod,
+                                     kernel_fns, route_fns, dev)
+    counts_by_path.update(wo_counts)
+    torch.cuda.empty_cache()
+    mark("weight modes")
 
     # -- 11. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -4565,11 +5474,14 @@ def main(argv=None) -> int:
     rows += time_extend_attention(torch, A, gen, dev, flush)
     rows += time_w4_kernels(torch, W, A, gen, dev, flush)
     rows += time_gemma_kernels(torch, G, A, gen, dev, flush)
+    krows, lrows = time_library_routes(torch, WO, C, gen, dev, flush,
+                                       cnn_shapes["resnet50"])
+    rows += krows
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)
-    log(json.dumps({"kernels": kernels_line(rows, counts_by_path,
-                                            max_err)}))
+    log(json.dumps({"kernels": kernels_line(rows, counts_by_path, max_err),
+                    "library_routes": library_line(lrows, counts_by_path)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -12,10 +12,13 @@ with ``params`` in the JAX package's layouts:
   ``w_scale``; with 4-bit weights ``w4_packed`` ([N, K/2] u8), ``w4_scales``
   ([N, G] f32), ``bias`` and, on the static path (W4A8), ``w4_wsum`` ([N]
   f32), carried as they are (``wsum`` is an f32 sum whose order is part of
-  the result, so it is never recomputed);
+  the result, so it is never recomputed); 8-bit weight-only (W8-float and
+  ``dynamic_act``) ``q_weight`` ([N, K] s8), the float32 ``bias`` and, per
+  channel, ``w_scale``;
 * Conv2d: ``w_hwio`` / ``bias`` (HWIO, I = in_channels / groups), after
   convert ``qw_hwio`` (HWIO s8) with ``q_bias``, ``rowsum`` and, per
-  channel, ``w_scale``;
+  channel, ``w_scale``; 8-bit weight-only ``q_w_hwio`` (HWIO s8), ``bias``
+  and, per channel, ``w_scale``;
 * QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
   ([V, C] u8) (a weight-only model keeps ``weight``);
 * QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
@@ -69,6 +72,12 @@ def _load_w4_layer(name: str, layer: Linear, p: dict) -> None:
                  _t(p["bias"], np.float32), wsum)
 
 
+def _weight_scale(st: dict):
+    p = st["params"]
+    return (_t(p["w_scale"], np.float32) if "w_scale" in p
+            else float(np.float32(st["weight_scale"])))
+
+
 def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     p = st["params"]
     k = getattr(layer, "kernel_size", None)
@@ -77,6 +86,19 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     c = layer.in_channels // getattr(layer, "groups", 1)
     if st["is_quantized"] and "w4_packed" in p:
         return _load_w4_layer(name, layer, p)
+    if st["is_quantized"] and ("q_weight" in p or "q_w_hwio" in p):
+        # 8-bit weight-only: s8 weights in the port's layout (OIHW for a
+        # conv), the float32 bias as it is
+        _expect(name, "bias", p["bias"], (n,))
+        if isinstance(layer, Conv2d):
+            _expect(name, "q_w_hwio", p["q_w_hwio"], (k, k, c, n))
+            q_w = np.transpose(p["q_w_hwio"], (3, 2, 0, 1))
+        else:
+            _expect(name, "q_weight", p["q_weight"], (n, c))
+            q_w = p["q_weight"]
+        return layer.set_weight_only(_t(q_w, np.int8),
+                                     _t(p["bias"], np.float32),
+                                     _weight_scale(st))
     if not st["is_quantized"]:
         if isinstance(layer, Conv2d):
             _expect(name, "w_hwio", p["w_hwio"], (k, k, c, n))
@@ -92,9 +114,8 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
         _expect(name, "qw_kn", p["qw_kn"], (c, n))
         qw = np.asarray(p["qw_kn"]).T
     _expect(name, "q_bias", p["q_bias"], (n,))
-    s_w = (_t(p["w_scale"], np.float32) if "w_scale" in p
-           else float(np.float32(st["weight_scale"])))
-    layer.set_quantized(_t(qw, np.int8), _t(p["q_bias"], np.int8), s_w)
+    layer.set_quantized(_t(qw, np.int8), _t(p["q_bias"], np.int8),
+                        _weight_scale(st))
     rowsum = np.asarray(p["rowsum"], np.int64)
     if not np.array_equal(layer.rowsum.cpu().numpy(), rowsum):
         raise ValueError(f"{name}.rowsum disagrees with its weights")
@@ -151,6 +172,15 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
         if layer.w4_wsum is not None:
             params["w4_wsum"] = layer.w4_wsum.cpu().numpy()
         return params, layer.weight_scale
+    ws = layer.weight_scale
+    if layer.is_quantized and layer.q_weight is not None:
+        q_w = layer.q_weight.cpu().numpy()
+        params = ({"q_w_hwio": np.transpose(q_w, (2, 3, 1, 0)).copy()}
+                  if isinstance(layer, Conv2d) else {"q_weight": q_w})
+        params["bias"] = layer.bias.cpu().numpy()
+        if isinstance(ws, torch.Tensor):
+            ws = params["w_scale"] = ws.cpu().numpy()
+        return params, ws
     if layer.is_quantized:
         qw = layer.qw.cpu().numpy()
         if isinstance(layer, Conv2d):
@@ -161,7 +191,6 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
             params = {"qw_kn": qw.T.copy()}
         params["q_bias"] = layer.q_bias.cpu().numpy()
         params["rowsum"] = layer.rowsum.cpu().numpy()
-        ws = layer.weight_scale
         if isinstance(ws, torch.Tensor):
             ws = params["w_scale"] = ws.cpu().numpy()
         return params, ws

@@ -67,7 +67,12 @@ class QuantConfig:
     w4_mse_scales: bool = True
     w4_kernel: str = "auto"
 
-    # Per-token dynamic activation quantization (requires weight_only).
+    # Per-token dynamic activation quantization: under weight_only, each
+    # row of a Linear's input (each image of a Conv2d's) quantizes to s8
+    # at its own symmetric scale, the product accumulates exactly in s32
+    # and dequantizes per row.  Without weight_only it changes nothing (the
+    # static INT8 path runs), as in the JAX package; with weight_bits=4,
+    # convert() raises ValueError.
     dynamic_act: bool = False
 
     # Transformer-layer fusions (layers.fused_*).
@@ -94,7 +99,6 @@ DEFAULT_CONFIG = QuantConfig()
 
 # field -> the only value this package implements so far
 _IMPLEMENTED = {
-    "dynamic_act": False,
     "bias_correction": False,
     "glue_dtype": "float32",
     "epilogue_dtype": "float32",
@@ -127,11 +131,6 @@ def check_supported(config: QuantConfig) -> None:
         raise NotImplementedError(
             f"QuantConfig.weight_bits={config.weight_bits!r} is not "
             f"implemented by the PyTorch port (8 or 4)")
-    if config.weight_only and config.weight_bits != 4:
-        raise NotImplementedError(
-            "QuantConfig.weight_only=True with weight_bits=8 (the W8-float "
-            "mode) is not implemented by the PyTorch port yet; "
-            "weight_only=True takes weight_bits=4")
     if config.conv_backend == "xla_conv":
         raise NotImplementedError(
             "QuantConfig.conv_backend='xla_conv' is not implemented by the "

@@ -20,12 +20,21 @@ chunk of steps, or a CNN forward) is captured once with stock
 * Nothing inside a program syncs with the host, and capture runs in
   ``thread_local`` error mode on its own stream, so an engine's thread may
   capture while other threads use the card.
+* Memory: a capture allocates from a private pool of its own and cannot
+  release cached memory while it runs, and a dropped graph's pool stays
+  cached until released.  So ``run_steps`` and ``run_until``, which
+  capture a new program at every ``generate()``, first release the cache
+  when less than a quarter of the card is free (``release_if_low``); and
+  they capture on one side stream per thread and device (``side_stream``),
+  since PyTorch keeps a cuBLAS workspace for every stream that a float
+  GEMM has run on.
 * A program that runs until a device value says it is done
   (``run_until``: speculative decoding's macro-steps) replays a few times
   between host reads of that value.
 * Launch counts follow the work: a kernel wrapper adds to its ``launches``
-  when it is called, so capture (which runs nothing) would count once and
-  a replay (which calls no wrapper) never.  ``Captured`` therefore takes
+  (a library route to its ``calls``) when it is called, so capture (which
+  runs nothing) would count once and a replay (which calls no wrapper)
+  never.  ``Captured`` therefore takes
   the counts that its capture added back out, keeps them as the graph's
   kernels, and adds them again at every replay.  This assumes that no
   other thread calls a kernel wrapper while a program is captured.
@@ -35,21 +44,27 @@ On the CPU nothing is captured: the same program runs eagerly every time.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 __all__ = ["capture", "Captured", "run_steps", "run_until",
            "launch_counters"]
 
+_local = threading.local()
+
 
 def launch_counters():
-    """The kernel wrappers' launch counters, as (wrapper, attribute)
-    pairs."""
-    from .ops import attention, gemm_int8, w4
+    """The kernel wrappers' launch counters and the weight-only library
+    routes' call counters, as (function, attribute) pairs."""
+    from .ops import attention, conv, gemm_int8, w4, weight_only
     fns = (gemm_int8.qgemm, gemm_int8.qgemm_multi,
            attention.decode_attention_flat, w4.w4_gemm, w4.w4a8_v1,
-           w4.w4a8_v2)
+           w4.w4a8_v2, conv.conv2d_int8_grouped, weight_only.w8f_matmul,
+           weight_only.s8_matmul, conv.w8f_conv2d, conv.conv2d_s8)
     return [(fn, attr) for fn in fns
-            for attr in ("launches", "merged_launches") if hasattr(fn, attr)]
+            for attr in ("launches", "merged_launches", "calls")
+            if hasattr(fn, attr)]
 
 
 def capture(fn, stream) -> torch.cuda.CUDAGraph:
@@ -115,6 +130,26 @@ class Captured:
         self.out = self.fn()
 
 
+def release_if_low(device) -> None:
+    """Release the caching allocator's idle memory when less than a quarter
+    of the card is free (a capture cannot release it)."""
+    free, total = torch.cuda.mem_get_info(device)
+    if free < total // 4:
+        torch.cuda.empty_cache()
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """This thread's capture stream on ``device``, made at its first use
+    and kept."""
+    streams = getattr(_local, "streams", None)
+    if streams is None:
+        streams = _local.streams = {}
+    stream = streams.get(device)
+    if stream is None:
+        stream = streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def run_steps(step, n: int, device):
     """Run ``step()`` ``n`` times in order.  On the CPU: a loop.  On the
     card: the first call eagerly on a side stream (the warm-up), captured
@@ -128,7 +163,8 @@ def run_steps(step, n: int, device):
         return None
     if n <= 0:
         return None
-    side = torch.cuda.Stream(device)
+    release_if_low(device)
+    side = side_stream(device)
     program = Captured(step, side)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -155,7 +191,8 @@ def run_until(step, done, device, first: int = 1, every: int = 1):
             step()
             if done():
                 return None
-    side = torch.cuda.Stream(device)
+    release_if_low(device)
+    side = side_stream(device)
     program = Captured(step, side)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):

@@ -19,6 +19,16 @@ K-major, the kernel's layout; a conv's K is ordered (kh, kw, in_channel)),
 ``q_bias`` (s8 [N]), ``rowsum`` (s32 [N]) and ``w_scale`` (f32 [N], the
 per-tensor scale repeated when weights are not per-channel).
 
+Under ``QuantConfig(weight_only=True)`` (8-bit weights) a converted
+``Linear``/``Conv2d`` keeps float activations and holds ``q_weight`` (s8,
+``weight``'s layout), ``w_scale`` and the float32 ``bias``: the W8-float
+forward dequantizes the weight at every call and runs one float32 product
+(``ops/weight_only.w8f_matmul``, ``ops/conv.w8f_conv2d``); with
+``dynamic_act=True`` each row (each image of a conv) quantizes to s8 at its
+own scale (``ops/quant.quantize_dynamic``), the product accumulates
+exactly in s32 (``ops/weight_only.s8_matmul``, ``ops/conv.conv2d_s8``) and
+``acc * (s_a * s_w) + bias`` dequantizes it.
+
 The transformer layers (``QuantEmbed``, ``QuantPosEmbed``,
 ``QuantLayerNorm``, ``QuantMatmul``, ``QuantSoftmax``, ``QuantAct``,
 ``QuantAdd``) follow the same lifecycle: their FP32 path observes its
@@ -44,12 +54,14 @@ from .ops import conv as conv_ops
 from .ops import quant as quant_ops
 from .ops import rope as rope_ops
 from .ops import w4 as w4_ops
+from .ops import weight_only as wo_ops
 from .ops.functional import ACTIVATIONS
 from .ops.gemm_int8 import (KERNEL_ACTS, compute_offset, epilogue_vector,
                             merge_parts, qgemm, qgemm_multi,
                             qgemm_multi_plain, qgemm_plain)
 from .ops.qmatmul import qmatmul_act
-from .ops.quant import dequantize_u8, f32, quantize_u8
+from .ops.quant import (dequantize_dynamic, dequantize_u8, f32,
+                        quantize_dynamic, quantize_u8)
 from .tensor import Tensor, resolve_device
 
 
@@ -128,8 +140,26 @@ class Layer(nn.Module):
         else:
             q_w, q_b, s_w = quant_ops.quantize_weight_joint_scale(
                 self.weight, self.bias, rounding=rnd)
+        if self.config.weight_only:
+            # W8-float / dynamic: the bias stays float32, unquantized
+            self.set_weight_only(q_w, self.bias, s_w)
+            return
         qw = self._kernel_weight(q_w).contiguous()
         self.set_quantized(qw, q_b, s_w)
+
+    def set_weight_only(self, q_w: torch.Tensor, bias: torch.Tensor, s_w):
+        """Install 8-bit weight-only weights: s8 ``q_w`` in ``weight``'s
+        layout, the float32 ``bias`` and the weight scale (a float, or an
+        f32 [N] tensor per channel); the FP32 weight is freed."""
+        n = q_w.shape[0]
+        self.weight_scale = s_w if isinstance(s_w, float) else s_w.to(
+            device=self.device, dtype=torch.float32)
+        self.q_weight = q_w.to(device=self.device,
+                               dtype=torch.int8).contiguous()
+        self.w_scale = quant_ops.f32(s_w, self.device).expand(n).contiguous()
+        self.bias = bias.to(device=self.device,
+                            dtype=torch.float32).contiguous()
+        self.weight = None
 
     def set_quantized(self, qw: torch.Tensor, q_bias: torch.Tensor, s_w):
         """Install converted weights: s8 [N, K] ``qw``, s8 [N] ``q_bias`` and
@@ -178,13 +208,15 @@ class Layer(nn.Module):
 
     def _check_int8(self, x: Tensor):
         self._check_converted()
+        if self.config.weight_only:
+            raise RuntimeError("a weight-only layer takes float input")
         w = self.qw if self.qw is not None else getattr(self, "w4_packed",
                                                         None)
         if w is not None and x.device != w.device:
             raise ValueError(f"input on {x.device}, layer on {w.device}")
 
     def _check_fp32(self):
-        if self.is_quantized:
+        if self.is_quantized and not self.config.weight_only:
             raise RuntimeError(
                 "layer already converted to INT8 — quantize the input "
                 "(FP32 weights were freed, as in the reference)")
@@ -205,7 +237,8 @@ class Linear(Layer):
     (W4A8), ``w4_wsum`` (f32 [N], the dequantized weight's row sums).
     W4A8 takes u8 codes to u8 codes through kernels B6/B7; with
     ``weight_only=True`` the activations stay float and the layer runs
-    kernel B5."""
+    kernel B5.  8-bit ``weight_only`` runs W8F or, with ``dynamic_act``,
+    DA (see the module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  config: QuantConfig = DEFAULT_CONFIG, fuse_relu: bool = False,
@@ -216,7 +249,7 @@ class Linear(Layer):
         self.fuse_relu = fuse_relu
         self.register_buffer("weight", self._buf((out_channels, in_channels)))
         self.register_buffer("bias", self._buf((out_channels,)))
-        for name in ("w4_packed", "w4_scales", "w4_wsum"):
+        for name in ("w4_packed", "w4_scales", "w4_wsum", "q_weight"):
             self.register_buffer(name, None)
 
     def load_weight(self, w):
@@ -226,6 +259,9 @@ class Linear(Layer):
     def _quantize_weights(self):
         if self.config.weight_bits != 4:
             return super()._quantize_weights()
+        if self.config.dynamic_act:
+            raise ValueError(
+                "dynamic_act requires s8 weights (weight_bits=8)")
         packed, scales = w4_ops.pack_w4(self.weight, self.config.w4_group,
                                         optimize=self.config.w4_mse_scales)
         wsum = None if self.config.weight_only else w4_ops.weight_rowsum(
@@ -255,21 +291,28 @@ class Linear(Layer):
             return self._forward_int8(x)
         return self._forward_fp32(x)
 
-    def _check_fp32(self):
-        if not (self.is_quantized and self.config.weight_only):
-            super()._check_fp32()
-
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
-        if self.is_quantized:                    # W4 weight-only (kernel B5)
-            out = w4_ops.w4_matmul(x.data.contiguous(), self.w4_packed,
-                                   self.w4_scales, self.bias,
-                                   self.in_channels, self.config.w4_group,
-                                   backend=self.config.w4_kernel)
-            return Tensor(out)
+        if self.is_quantized:                    # weight-only
+            return Tensor(self._forward_weight_only(x.data))
         out = torch.matmul(x.data, self.weight.t()) + self.bias.reshape(1, -1)
         self._observe(out)
         return Tensor(out)
+
+    def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 [M, K] -> [M, N]: W4 (kernel B5), W8F or DA."""
+        if self.config.weight_bits == 4:
+            return w4_ops.w4_matmul(x.contiguous(), self.w4_packed,
+                                    self.w4_scales, self.bias,
+                                    self.in_channels, self.config.w4_group,
+                                    backend=self.config.w4_kernel)
+        if not self.config.dynamic_act:
+            return wo_ops.w8f_matmul(x, self.q_weight, self.w_scale,
+                                     self.bias)
+        a, s_a = quantize_dynamic(x, (1,))       # per-token scales [M, 1]
+        acc = wo_ops.s8_matmul(a, self.q_weight)
+        return dequantize_dynamic(acc, s_a, self.w_scale.reshape(1, -1),
+                                  self.bias.reshape(1, -1))
 
     def w4a8_operands(self, x: Tensor) -> dict:
         """This layer's W4A8 operands for input grid (x.scale,
@@ -294,8 +337,6 @@ class Linear(Layer):
         into the epilogue (``fused_linear_act``)."""
         self._check_int8(x)
         if self.config.weight_bits == 4:
-            if self.config.weight_only:
-                raise RuntimeError("a weight-only layer takes float input")
             if act is not None:
                 raise RuntimeError("W4A8 has no fused-act epilogue; "
                                    "fused_linear_act composes it")
@@ -324,8 +365,11 @@ class Conv2d(Layer):
     through the quantized GEMM kernel (B1's gathered conv on the card,
     im2col + its plain version on the CPU), or, where ``groups`` > 1,
     through the grouped conv (kernel G1 on the card, its plain version on
-    the CPU).  ``bias_correction`` is refused by the configuration check
-    (the JAX package applies it at ``groups == 1`` only)."""
+    the CPU).  8-bit ``weight_only`` (the only weight-only conv: the JAX
+    package's ``weight_bits`` shapes Linears alone) runs W8F, or DAC with
+    per-image scales under ``dynamic_act``, on NCHW floats.
+    ``bias_correction`` is refused by the configuration check (the JAX
+    package applies it at ``groups == 1`` only)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -338,10 +382,6 @@ class Conv2d(Layer):
             raise ValueError(
                 f"groups={groups} must divide in_channels={in_channels} and "
                 f"out_channels={out_channels}")
-        if config.weight_only:
-            raise NotImplementedError(
-                "a weight-only Conv2d (s8 weights, float activations) is not "
-                "implemented by the PyTorch port yet")
         self.in_channels = int(in_channels)
         self.out_channels = int(out_channels)
         self.kernel_size = int(kernel_size)
@@ -351,6 +391,7 @@ class Conv2d(Layer):
         self.fuse_relu = fuse_relu
         self.register_buffer("weight", self._buf(self._weight_shape()))
         self.register_buffer("bias", self._buf((out_channels,)))
+        self.register_buffer("q_weight", None)
 
     def _weight_shape(self) -> tuple:
         k = self.kernel_size
@@ -381,12 +422,26 @@ class Conv2d(Layer):
 
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
+        if self.is_quantized:                    # weight-only
+            return Tensor(self._forward_weight_only(x.logical_data))
         out = conv_ops.conv2d_fp32(x.logical_data, self.weight, self.bias,
                                    self.stride, self.padding, self.groups)
         # sampled in NHWC element order, the order the JAX package's
         # reservoir sees
         self._observe(out.permute(0, 2, 3, 1))
         return Tensor(out)
+
+    def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 NCHW -> NCHW: W8F, or DAC with one scale per image."""
+        geo = (self.stride, self.padding, self.groups)
+        if not self.config.dynamic_act:
+            return conv_ops.w8f_conv2d(x, self.q_weight, self.w_scale,
+                                       self.bias, *geo)
+        a, s_a = quantize_dynamic(x, (1, 2, 3))  # per-image [N, 1, 1, 1]
+        acc = conv_ops.conv2d_s8(a, self.q_weight, *geo)
+        return dequantize_dynamic(acc, s_a,
+                                  self.w_scale.reshape(1, -1, 1, 1),
+                                  self.bias.reshape(1, -1, 1, 1))
 
     def _forward_int8(self, x: Tensor) -> Tensor:
         self._check_int8(x)

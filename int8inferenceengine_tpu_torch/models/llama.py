@@ -26,8 +26,10 @@ inherited:
   gives each windowed layer a ring of roundup32(2W) cache rows instead of
   ``max_len`` (``TextDecoder._cache_rows``).
 
-Not ported yet, raising ``NotImplementedError``: weight-only ``generate``
-(it needs the float KV cache).
+* **The weight-only modes** keep a head-split float cache [B, Hkv, T, D]
+  (``TextDecoder._float_attention``): each kv head's query heads read it
+  through a grouped view, so GQA never repeats the cache in the cached
+  steps either.
 """
 
 from __future__ import annotations
@@ -178,6 +180,11 @@ class LlamaDecoder(TextDecoder):
         self._append(k_cache, F.merge_heads(kh).data.reshape(b, -1), at,
                      rows)
         self._append(v_cache, v2.data, at, rows)
+        if not qh.quantized:                     # the float cache
+            o = F.merge_heads(self._float_attention(
+                i, qh, k_cache, v_cache, self._float_valid(valid, 1)))
+            o = self._l("proj", i)(o.reshape(b, -1))
+            return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         q_flat = F.merge_heads(qh).reshape(b, -1)
         o = fused_decode_attention(
@@ -191,7 +198,8 @@ class LlamaDecoder(TextDecoder):
         """m-row cached block: RoPE at positions pos..pos+m-1 (per-row
         starts broadcast through ``QuantRoPE``), the post-rotation k codes
         appended, every query row of every head against the kv-compact
-        cache in one ``fused_extend_attention`` call."""
+        cache in one ``fused_extend_attention`` call (the composed
+        ``_float_attention`` over a float cache)."""
         h = self._l("ln1_", i)(x)
         q2, k2, v2 = self._qkv(i, h)
         qh = F.split_heads(q2.reshape(b, m, -1), self.heads)
@@ -200,6 +208,11 @@ class LlamaDecoder(TextDecoder):
         kh = self._l("rk", i)(kh, start=pos)
         self._append_rows(k_cache, F.merge_heads(kh).data, pos)
         self._append_rows(v_cache, v2.data.reshape(b, m, -1), pos)
+        if not qh.quantized:                     # the float cache
+            o = F.merge_heads(self._float_attention(
+                i, qh, k_cache, v_cache, self._float_valid(valid, m)))
+            o = self._l("proj", i)(o.reshape(b * m, -1))
+            return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         o = fused_extend_attention(
             self._l("attn", i), self._l("smax", i), self._l("av", i),

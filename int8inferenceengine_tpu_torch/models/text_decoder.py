@@ -38,11 +38,24 @@ the end.
 extend sees the cache up to its own position): the verify pass of
 ``generate_speculative`` and the serving engine's chunked prefill.
 
+* **float KV cache** (``QuantConfig(weight_only=True)``: W8-float,
+  ``dynamic_act``, W4): the k/v rows are float32, so each layer's cache is
+  two **head-split** float buffers [B, Hkv, T, D], the layout the composed
+  attention reads (``_float_attention``).  A prompt's rows and a step's row
+  land where the u8 path writes its codes, in the same position order, a
+  ring layer's twice; attention reads every one of the T rows with
+  columns past the live length masked to -inf, as the JAX package does.
+  Grouped-query heads read their kv head through a grouped view (the
+  group folded into the query rows); the cache is never repeated.  The
+  logits are float, picked by ``pick_float``.
+
 Sampling works on the u8 logit codes (``code_histogram``,
 ``nucleus_code_floor``, ``topk_code_floor``, ``pick_u8``): top-k and top-p
 are code thresholds found from one 256-bin histogram per row, and the draw
 is a Gumbel-max over a counter-based hash (``uniform_hash``), so every
-step is free of host syncs and can be captured.
+step is free of host syncs and can be captured.  On float logits top-k is
+a threshold at the k-th largest value of a sort and top-p
+``nucleus_float_cutoff``, with the same draw.
 """
 
 from __future__ import annotations
@@ -63,7 +76,8 @@ from ..tensor import Tensor
 
 __all__ = ["TextDecoder", "torch_text_decoder", "code_histogram",
            "nucleus_code_floor", "topk_code_floor", "uniform_hash",
-           "fold_seed", "row_seeds", "pick_u8"]
+           "fold_seed", "row_seeds", "pick_u8", "nucleus_float_cutoff",
+           "pick_float"]
 
 
 # -- sampling on the u8 logit grid -----------------------------------------
@@ -219,9 +233,57 @@ def pick_u8(codes, scale, zp, temps, seeds, pos, topps=None, topks=None):
             keep = keep & keepk
         keep = keep | (topps >= f32(1.0, dev))[:, None]
         logits = torch.where(keep, logits, ninf)
-    u = uniform_hash(seeds, pos, codes.shape[-1])
+    return _draw(logits, temps, t_safe, seeds, pos, greedy)
+
+
+def _draw(logits, temps, t_safe, seeds, pos, greedy):
+    """Gumbel-max over ``logits / t`` keyed by (seed, position) where
+    ``temps`` > 0, else ``greedy``."""
+    u = uniform_hash(seeds, pos, logits.shape[-1])
     sampled = (logits / t_safe[:, None] - torch.log(-torch.log(u))).argmax(-1)
     return torch.where(temps > 0, sampled, greedy)
+
+
+def nucleus_float_cutoff(logits_t: torch.Tensor, p: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-row smallest kept logit of nucleus (top-p) sampling on FLOAT
+    logits (the weight-only path has no code grid): sort descending,
+    softmax, keep the shortest prefix whose mass reaches ``p`` (a position
+    stays iff the mass strictly before it is below p, so ties at the
+    cutoff all stay).  ``logits_t`` [B, V] already divided by the
+    temperature, ``p`` float32 [B]; returns [B, 1]."""
+    srt = torch.sort(logits_t, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    inf = f32(float("inf"), logits_t.device)
+    return torch.where(before < p[:, None], srt, inf).amin(-1, keepdim=True)
+
+
+def pick_float(logits, temps, seeds, pos, topps=None, topks=None):
+    """``pick_u8`` on float logits [B, V] (the weight-only modes): greedy
+    argmax where ``temps`` <= 0, else the same Gumbel-max draw of ``logits
+    / temperature``.  ``topks`` (int [B], 0 = off) keeps the logits at or
+    above each row's k-th largest (ties kept, a threshold as on the u8
+    grid); ``topps`` (float32 [B], 1 = off) then keeps the nucleus of the
+    top-k-kept logits (``nucleus_float_cutoff``, HF's order).  Returns
+    int64 [B]."""
+    dev = logits.device
+    greedy = logits.argmax(-1)
+    logits = logits.to(torch.float32)
+    ninf = f32(float("-inf"), dev)
+    if topks is not None:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        idx = (topks - 1).clamp(0, logits.shape[-1] - 1)
+        kth = srt.gather(1, idx[:, None].to(torch.int64))
+        keepk = (logits >= kth) | (topks <= 0)[:, None]
+        logits = torch.where(keepk, logits, ninf)
+    t_safe = torch.maximum(temps, f32(1e-6, dev))
+    if topps is not None:
+        lt = logits / t_safe[:, None]
+        keep = (lt >= nucleus_float_cutoff(lt, topps)) \
+            | (topps >= f32(1.0, dev))[:, None]
+        logits = torch.where(keep, logits, ninf)
+    return _draw(logits, temps, t_safe, seeds, pos, greedy)
 
 
 class TextDecoder(Module):
@@ -372,14 +434,18 @@ class TextDecoder(Module):
         out = rows.gather(1, src[:, :, None].expand(b, t, rows.shape[-1]))
         return out * live[:, :, None].to(out.dtype)
 
-    def _prefill(self, ids: Tensor, last=None):
-        """Full causal forward over the prompt ids [B, T0]; returns (u8
-        logit codes [B, V], cache) with each layer's k/v codes in rows [0,
-        T0) of full-length buffers [B, max_len, C], or a windowed ring
-        layer's in the rows that ``_ring_tail`` gives.  The codes are the
-        last position's, or with ``last`` (int64 [B], the true lengths of
-        right-padded prompts) row ``last - 1``'s of each prompt: the causal
-        mask keeps the padding out of every earlier row."""
+    def _prefill(self, ids: Tensor, last=None, full_cache: bool = False):
+        """Full causal forward over the prompt ids [B, T0]; returns (logit
+        codes [B, V], cache) with each layer's k/v codes in rows [0, T0)
+        of full-length buffers [B, max_len, C], or a windowed ring layer's
+        in the rows that ``_ring_tail`` gives.  A weight-only model's
+        logits and rows are float, its buffers head-split [B, Hkv, T, D]
+        (``_float_rows``).  The codes are the last position's, or with
+        ``last`` (int64 [B], the true lengths of right-padded prompts) row
+        ``last - 1``'s of each prompt: the causal mask keeps the padding
+        out of every earlier row.  ``full_cache`` gives every layer
+        ``max_len`` rows, rings included (a weight-only engine's slot
+        caches)."""
         b, t0 = ids.data.shape
         x = self._stem(ids).reshape(b * t0, self.dim)
         lens = (torch.full((b,), t0, dtype=torch.int64, device=self.device)
@@ -390,10 +456,19 @@ class TextDecoder(Module):
             cap = {}
             x = self._block(i, x, b, t0, capture=cap)
             kf, vf = cap[i]                      # flat [B, T0, C] rows
-            if not kf.quantized:
+            if not (kf.quantized or self.config.weight_only):
                 raise RuntimeError("the KV cache holds u8 codes: convert() "
                                    "the model first")
-            t = self._cache_rows(i)
+            t = self.max_len if full_cache else self._cache_rows(i)
+            if not kf.quantized:
+                if t < self.max_len and last is not None and t0 > t:
+                    raise NotImplementedError(
+                        "ring-cache serving prefill (right-padded prompts "
+                        "beyond the ring rows) is u8-path only; weight_only "
+                        "engines allocate full-length caches")
+                cache[i] = tuple(self._float_rows(rows, i, t, lens)
+                                 for rows in (kf.data, vf.data))
+                continue
             bufs = []
             for rows in (kf.data, vf.data):
                 if t < self.max_len:
@@ -407,17 +482,70 @@ class TextDecoder(Module):
         x = self.ln_f(x)
         # u8 logit codes: argmax over codes == argmax over the dequantized
         # logits (one positive scale), so greedy decoding never dequantizes
+        # (float logits under weight_only)
         codes = self.head(x).data.reshape(b, t0, self.vocab_size)
         if last is None:
             return codes[:, -1, :], cache
         return codes.gather(1, (lens - 1).reshape(b, 1, 1).expand(
             b, 1, self.vocab_size))[:, 0, :], cache
 
+    def _float_rows(self, rows: torch.Tensor, i: int, t: int, lens):
+        """A layer's head-split float cache [B, Hkv, t, D] after a prompt
+        whose flat k or v rows are ``rows`` [B, T0, Hkv*D] (true lengths
+        ``lens``): rows [0, T0) of a full-length cache, or a ring layer's
+        ``_ring_tail``; zeros elsewhere."""
+        b, t0, _ = rows.shape
+        if t < self.max_len:
+            return self._head_split(self._ring_tail(rows, i, t, lens))
+        buf = torch.zeros((b, self.kv_heads, t, self.head_dim),
+                          dtype=rows.dtype, device=rows.device)
+        buf[:, :, :t0] = self._head_split(rows)
+        return buf
+
+    def _head_split(self, rows: torch.Tensor) -> torch.Tensor:
+        """Flat [B, T, Hkv*D] rows -> contiguous [B, Hkv, T, D]."""
+        b, t, _ = rows.shape
+        return rows.reshape(b, t, self.kv_heads, self.head_dim).transpose(
+            1, 2).contiguous()
+
+    @staticmethod
+    def _rows_of(buf: torch.Tensor) -> int:
+        """A cache buffer's rows: [B, T, C] u8 or [B, Hkv, T, D] float."""
+        return buf.shape[2] if buf.dim() == 4 else buf.shape[1]
+
+    def _float_attention(self, i, qh: Tensor, k_cache, v_cache,
+                         valid) -> Tensor:
+        """The composed attention of layer i over its head-split float
+        cache: ``av(smax(attn(q, k), valid_len=valid), v)`` for the query
+        heads ``qh`` [B, H, m, D] against [B, Hkv, T, D].  Each kv head's g
+        = H / Hkv query heads ride one product as g * m rows (a grouped
+        view, no repeated cache).  ``valid`` [B or 1, 1, m, 1] (or
+        broadcastable) gives each query row's live rows.  Returns [B, H, m,
+        D]."""
+        b, h, m, d = qh.data.shape
+        hkv = k_cache.shape[1]
+        g = h // hkv
+        s = self._l("attn", i)(Tensor(qh.data.reshape(b, hkv, g * m, d)),
+                               Tensor(k_cache))          # [B, Hkv, g*m, T]
+        p = self._l("smax", i)(Tensor(s.data.reshape(b, h, m, -1)),
+                               valid_len=valid)
+        o = self._l("av", i)(Tensor(p.data.reshape(b, hkv, g * m, -1)),
+                             Tensor(v_cache))
+        return Tensor(o.data.reshape(b, h, m, d))
+
+    @staticmethod
+    def _float_valid(valid, m: int) -> torch.Tensor:
+        """Row j's live length ``valid + j`` as [B or 1, 1, m, 1], the
+        composed softmax's per-row mask (``valid`` 0-dim or [B])."""
+        steps = torch.arange(m, dtype=valid.dtype, device=valid.device)
+        return valid.reshape(-1, 1, 1, 1) + steps.reshape(1, 1, m, 1)
+
     def _decode_step(self, cache, pos, tok):
         """One cached decode step: tokens ``tok`` [B] at position ``pos``
         (an int, a 0-dim tensor, or a [B] tensor of per-row positions).
         Appends each layer's k/v row to ``cache`` in place (a ring layer's
-        twice, ``_write_rows``) and returns (u8 logit codes [B, V], cache).
+        twice, ``_write_rows``) and returns (logit codes [B, V], cache):
+        u8, or float under weight_only.
         Nothing depends on the host's view of ``pos``, so a captured step
         replays at every position, ring layers included.
 
@@ -437,8 +565,8 @@ class TextDecoder(Module):
         rows = torch.arange(b, device=dev) if pos.dim() == 1 else None
         ring = {}
         for i in range(1, self.depth + 1):
-            at, vi = self._write_rows(i, cache[i][0].shape[1], pos, valid,
-                                      ring)
+            at, vi = self._write_rows(i, self._rows_of(cache[i][0]), pos,
+                                      valid, ring)
             x = self._block_decode(i, x, vi, pos, rows, at, *cache[i])
         x = self.ln_f(x)
         return self.head(x).data, cache
@@ -466,7 +594,17 @@ class TextDecoder(Module):
     def _append(buf, new, at, rows):
         """Write the [B, C] codes ``new`` into the rows ``at`` of ``buf``
         ([k] rows of every sequence, or with ``rows`` [B, k] rows of each);
-        a row named twice gets the same codes twice."""
+        a row named twice gets the same codes twice.  A head-split float
+        ``buf`` [B, Hkv, T, D] takes ``new`` as [B, Hkv * D]."""
+        if buf.dim() == 4:
+            b, hkv, _, d = buf.shape
+            new = new.reshape(b, hkv, 1, d)
+            if rows is None:
+                buf.index_copy_(2, at, new.expand(-1, -1, at.shape[0], -1))
+            else:                                # [B, k, Hkv, D] rows
+                buf[rows[:, None], :, at] = new.transpose(1, 2).expand(
+                    -1, at.shape[1], -1, -1)
+            return
         if rows is None:
             buf.index_copy_(1, at, new.unsqueeze(1).expand(
                 -1, at.shape[0], -1))
@@ -477,8 +615,18 @@ class TextDecoder(Module):
     @staticmethod
     def _append_rows(buf, new, pos):
         """Write the [B, m, C] codes ``new`` into rows pos..pos+m-1 of
-        ``buf`` (``pos`` a 0-dim or [B] device tensor), in place."""
+        ``buf`` (``pos`` a 0-dim or [B] device tensor), in place; a
+        head-split float ``buf`` [B, Hkv, T, D] takes [B, m, Hkv * D]."""
         steps = torch.arange(new.shape[1], device=buf.device)
+        if buf.dim() == 4:
+            b, hkv, _, d = buf.shape
+            new = new.reshape(b, -1, hkv, d)             # [B, m, Hkv, D]
+            if pos.dim() == 0:
+                buf.index_copy_(2, pos + steps, new.transpose(1, 2))
+            else:
+                rows = torch.arange(b, device=buf.device)
+                buf[rows[:, None], :, pos[:, None] + steps] = new
+            return
         if pos.dim() == 0:
             buf.index_copy_(1, pos + steps, new)
         else:
@@ -490,6 +638,12 @@ class TextDecoder(Module):
         q2, k2, v2 = self._qkv(i, h)
         self._append(k_cache, k2.data, at, rows)
         self._append(v_cache, v2.data, at, rows)
+        if not q2.quantized:                     # the float cache
+            qh = F.split_heads(q2.reshape(x.shape[0], 1, -1), self.heads)
+            o = F.merge_heads(self._float_attention(
+                i, qh, k_cache, v_cache, self._float_valid(valid, 1)))
+            o = self._l("proj", i)(o.reshape(x.shape[0], -1))
+            return self._mlp(i, self._l("add1_", i)(x, o))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         o = fused_decode_attention(
             self._l("attn", i), self._l("smax", i), self._l("av", i), q2,
@@ -504,7 +658,9 @@ class TextDecoder(Module):
 
     def _pick(self, codes, temps, seeds, pos, topps=None, topks=None):
         """Per-row next token from the u8 logit codes (``pick_u8`` on the
-        head's grid)."""
+        head's grid), or from float logits (``pick_float``)."""
+        if codes.dtype != torch.uint8:
+            return pick_float(codes, temps, seeds, pos, topps, topks)
         scale, zp = self._head_scale_zp()
         return pick_u8(codes, scale, zp, temps, seeds, pos, topps, topks)
 
@@ -512,23 +668,19 @@ class TextDecoder(Module):
                  top_k: int | None = None, top_p: float | None = None,
                  seed: int = 0) -> np.ndarray:
         """Decode ``steps`` tokens after the prompt ``ids`` [B, T0]; returns
-        int32 [B, steps] on the host.  INT8 only (call after
-        ``convert()``).  ``temperature`` 0 is greedy; above 0 each token is
-        drawn from softmax(logits / temperature), optionally over the
-        top_k codes and then the top_p nucleus (HF's order), with the
-        draw keyed by (seed, row, position) (``row_seeds``,
-        ``uniform_hash``): the port's stream, not the JAX package's.
+        int32 [B, steps] on the host.  Call after ``convert()``; a
+        weight-only model decodes over the float cache.  ``temperature`` 0
+        is greedy; above 0 each token is drawn from softmax(logits /
+        temperature), optionally over the top_k codes (logits) and then the
+        top_p nucleus (HF's order), with the draw keyed by (seed, row,
+        position) (``row_seeds``, ``uniform_hash``): the port's stream, not
+        the JAX package's.
 
         On the card the first decode step runs eagerly and the others
         replay it as a CUDA graph (``graphs.run_steps``); on the CPU they
         run as a loop.  Both give the same tokens."""
         if not self.is_quant:
             raise RuntimeError("generate() requires a converted model")
-        if self.config.weight_only:
-            raise NotImplementedError(
-                "weight-only generate() needs the float KV cache (head-split "
-                "[B, Hkv, T, D] float rows), which the PyTorch port does not "
-                "implement yet; the weight-only forward model(ids) runs")
         ids = np.asarray(ids)
         b, t0 = ids.shape
         if steps < 1:
@@ -584,7 +736,8 @@ class TextDecoder(Module):
         ``_decode_step`` to m query rows.  ``pos`` is an int, a 0-dim or a
         [B] tensor (per-row positions: per-slot serving, per-row
         speculative acceptance).  Appends each layer's m k/v rows to
-        ``cache`` in place and returns (u8 logit codes [B, m, V], cache).
+        ``cache`` in place and returns (logit codes [B, m, V], cache): u8,
+        or float under weight_only.
 
         Row j's attention sees the cache columns < pos + j + 1: every
         earlier position and rows 0..j of this extend, written before
@@ -596,7 +749,7 @@ class TextDecoder(Module):
         inside the cache."""
         b, m = toks.shape
         for i in range(1, self.depth + 1):
-            if cache[i][0].shape[1] < self.max_len:
+            if self._rows_of(cache[i][0]) < self.max_len:
                 raise NotImplementedError(
                     "multi-token extends over a RING cache would need "
                     "mid-chunk compaction; spec decode / chunked prefill "
@@ -621,6 +774,12 @@ class TextDecoder(Module):
         q2, k2, v2 = self._qkv(i, h)
         self._append_rows(k_cache, k2.data.reshape(b, m, -1), pos)
         self._append_rows(v_cache, v2.data.reshape(b, m, -1), pos)
+        if not q2.quantized:                     # the float cache
+            qh = F.split_heads(q2.reshape(b, m, -1), self.heads)
+            o = F.merge_heads(self._float_attention(
+                i, qh, k_cache, v_cache, self._float_valid(valid, m)))
+            o = self._l("proj", i)(o.reshape(b * m, -1))
+            return self._mlp(i, self._l("add1_", i)(x, o))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         o = fused_extend_attention(
             self._l("attn", i), self._l("smax", i), self._l("av", i),
@@ -672,10 +831,6 @@ class TextDecoder(Module):
                 "speculative decoding needs an UNSHARDED draft (the "
                 "draft is small by construction — shard the target, "
                 "replicate the draft)")
-        if self.config.weight_only or draft.config.weight_only:
-            raise NotImplementedError(
-                "weight-only speculative decoding needs the float KV cache, "
-                "which the PyTorch port does not implement yet")
         if draft.device != self.device:
             raise ValueError(f"draft on {draft.device}, target on "
                              f"{self.device}")

@@ -278,3 +278,74 @@ def conv2d_int8_grouped(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
 
 
 conv2d_int8_grouped.launches = 0
+
+
+# -- the weight-only convs: W8F and DAC --------------------------------------
+
+def w8f_conv2d(x_nchw: torch.Tensor, q_w: torch.Tensor, s_w: torch.Tensor,
+               bias: torch.Tensor, stride: int, padding: int,
+               groups: int = 1) -> torch.Tensor:
+    """The W8-float conv: ``conv2d_fp32`` on the weight dequantized at this
+    call (``q_w`` s8 OIHW, ``s_w`` float32 [O]), as the JAX package's
+    weight-only ``Conv2d`` does; float32 NCHW out."""
+    from .weight_only import dequant_w8
+    w8f_conv2d.calls += 1
+    return conv2d_fp32(x_nchw, dequant_w8(q_w, s_w), bias, stride, padding,
+                       groups)
+
+
+w8f_conv2d.calls = 0
+
+
+def _check_s8_conv(x: torch.Tensor, w: torch.Tensor, groups: int) -> None:
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"conv2d_s8 takes int8 operands, got {x.dtype} and "
+                        f"{w.dtype}")
+    if x.dim() != 4 or w.dim() != 4 or x.shape[1] != w.shape[1] * groups \
+            or w.shape[0] % groups:
+        raise ValueError(f"conv2d_s8 shapes: x {tuple(x.shape)} (NCHW), w "
+                         f"{tuple(w.shape)} (OIHW), groups {groups}")
+    if x.device != w.device:
+        raise ValueError(f"conv2d_s8: x on {x.device}, w on {w.device}")
+
+
+def conv2d_s8(x_s8_nchw: torch.Tensor, w_s8_oihw: torch.Tensor,
+              stride: int, padding: int, groups: int = 1) -> torch.Tensor:
+    """DAC, the dynamic conv's product: s8 NCHW x s8 OIHW -> s32 NCHW,
+    exact, on any device: ``F.conv2d`` on float64 copies of the integer
+    operands (zero padding).  Every partial sum is an integer of magnitude
+    at most (C/g) * k^2 * 127^2 < 2^53, so float64 holds it exactly in any
+    order of additions (float32 would not: 512 * 9 * 127^2 > 2^24).  The
+    JAX package runs XLA's integer conv with ``feature_group_count``; no
+    ``pallas_call``."""
+    _check_s8_conv(x_s8_nchw, w_s8_oihw, groups)
+    conv2d_s8.calls += 1
+    out = F.conv2d(x_s8_nchw.to(torch.float64), w_s8_oihw.to(torch.float64),
+                   None, stride=stride, padding=padding, groups=groups)
+    return out.to(torch.int32)
+
+
+conv2d_s8.calls = 0
+
+
+def conv2d_s8_plain(x_s8_nchw: torch.Tensor, w_s8_oihw: torch.Tensor,
+                    stride: int, padding: int, groups: int = 1
+                    ) -> torch.Tensor:
+    """``conv2d_s8``'s plain version on integers alone: im2col of the
+    zero-padded input and one int64 product a group."""
+    _check_s8_conv(x_s8_nchw, w_s8_oihw, groups)
+    o, cg, k, _ = w_s8_oihw.shape
+    x = x_s8_nchw.permute(0, 2, 3, 1).to(torch.int64)         # NHWC
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    win = windows_nhwc(x, k, k, stride)              # [n, oh, ow, k, k, c]
+    n, oh, ow = win.shape[:3]
+    og = o // groups
+    outs = []
+    for g in range(groups):
+        patch = win[..., g * cg:(g + 1) * cg].reshape(n * oh * ow, -1)
+        wg = w_s8_oihw[g * og:(g + 1) * og].permute(0, 2, 3, 1).reshape(
+            og, -1).to(torch.int64)                  # (kh, kw, c) taps
+        outs.append(patch @ wg.t())
+    out = torch.cat(outs, dim=1).reshape(n, oh, ow, o)
+    return out.permute(0, 3, 1, 2).to(torch.int32).contiguous()

@@ -109,3 +109,24 @@ def quantize_weight_per_channel(weight: torch.Tensor, bias: torch.Tensor,
     shape[channel_axis] = -1
     return (quantize_s8(weight, scale.reshape(shape), rounding),
             quantize_s8(bias, scale, rounding), scale)
+
+
+def quantize_dynamic(x: torch.Tensor, dims) -> tuple:
+    """Dynamic symmetric s8 quantization with one scale per slice over
+    ``dims`` (a Linear's rows: ``dims=(1,)``; a conv's images: ``(1, 2,
+    3)``): ``s = max(max|x|, 1e-8) / 127`` (kept dims, float32) and ``q =
+    clip(round_half_even(x / s), -127, 127)`` as int8, in the JAX package's
+    order.  Returns ``(q, s)``."""
+    dev = x.device
+    s = torch.maximum(torch.amax(torch.abs(x), dim=dims, keepdim=True),
+                      f32(1e-8, dev)) / f32(127.0, dev)
+    q = torch.clamp(torch.round(x / s), -127.0, 127.0)
+    return q.to(torch.int8), s
+
+
+def dequantize_dynamic(acc: torch.Tensor, s_a: torch.Tensor,
+                       s_w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The dynamic epilogue: ``acc.f32 * (s_a * s_w) + bias`` in that
+    order, each operation rounded on its own (no fused multiply-add);
+    ``s_a``, ``s_w`` and ``bias`` broadcast against the s32 ``acc``."""
+    return acc.to(torch.float32) * (s_a * s_w) + bias

@@ -92,6 +92,21 @@ V2_SPLIT_K = 1024
 SMEM_LIMIT = 227 * 1024
 
 
+# the MSE scale search's largest candidate tensor, in values
+MSE_SEARCH_VALUES = 1 << 28
+
+
+def _mse_best(wg: torch.Tensor, scales: torch.Tensor, cands: torch.Tensor
+              ) -> torch.Tensor:
+    """Each group's index into ``cands`` with the least squared
+    reconstruction error (``wg`` [N, G, g], ``scales`` [N, G]); the first
+    of equal minima, as ``jnp.argmin``."""
+    s_c = scales[None, :, :, None] * cands[:, None, None, None]
+    q = torch.clamp(torch.round(wg[None] / s_c), -7.0, 7.0)
+    err = torch.square(q * s_c - wg[None]).sum(dim=3)          # [C, N, G]
+    return torch.argmin(err, dim=0)
+
+
 def pack_w4(w: torch.Tensor, group: int = 128, optimize: bool = False):
     """Float [N, K] -> (packed u8 [N, K//2], scales f32 [N, ceil(K/g)]),
     g = min(group, K).  The last group may be short; odd K raises.
@@ -109,11 +124,12 @@ def pack_w4(w: torch.Tensor, group: int = 128, optimize: bool = False):
     scales = torch.clamp_min(wg.abs().amax(dim=2), 1e-8) / f32(7.0, dev)
     if optimize:
         cands = torch.tensor(_MSE_CANDIDATES, device=dev)
-        s_c = scales[None, :, :, None] * cands[:, None, None, None]
-        q = torch.clamp(torch.round(wg[None] / s_c), -7.0, 7.0)
-        err = torch.square(q * s_c - wg[None]).sum(dim=3)      # [C, N, G]
-        # the first of equal minima, as jnp.argmin
-        best = torch.argmin(err, dim=0)
+        # rows a pass: the [C, rows, G, g] candidate tensors stay within
+        # MSE_SEARCH_VALUES (a 256,000-row head would need ~22 GB a tensor)
+        rows = max(1, MSE_SEARCH_VALUES // (len(_MSE_CANDIDATES) * n_groups
+                                            * g))
+        best = torch.cat([_mse_best(wg[r:r + rows], scales[r:r + rows], cands)
+                          for r in range(0, n, rows)])
         scales = scales * cands[best]
     codes = torch.clamp(torch.round(wg / scales[:, :, None]), -7.0, 7.0) + 8
     codes = codes.reshape(n, n_groups * g)[:, :k].to(torch.uint8)

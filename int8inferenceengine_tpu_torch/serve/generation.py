@@ -59,9 +59,17 @@ stream in and out of slots:
   the bucketed prefill keeps each prompt's ring tail.  Chunked prefill and
   the prefix cache need full-length slot caches and are refused with a
   ring model (``ValueError``), as in the JAX package.
+* **Weight-only models** (W8-float, ``dynamic_act``, W4): float slot
+  caches [depth, 2, slots, Hkv, max_len, D], head-split like
+  ``generate()``'s, float rows in the prefix table and the chunked
+  prefill, per-request top-k by a float sort and top-p by
+  ``nucleus_float_cutoff`` (``models.text_decoder.pick_float``).  As in
+  the JAX package they keep full-length slot caches even for a
+  ``ring_cache`` model.  Float sums depend on the shapes they are taken
+  at, so a request's tokens follow ``generate()``'s within the float
+  path's tolerance rather than bit for bit.
 
-Not ported, each refused with ``NotImplementedError``: weight-only models
-(the float head-split cache); meshes.
+Not ported, refused with ``NotImplementedError``: meshes.
 """
 
 from __future__ import annotations
@@ -172,14 +180,15 @@ class GenerationEngine:
             raise RuntimeError("GenerationEngine requires a converted model")
         if getattr(model, "_mesh", None) is not None:
             raise _unported("serving a sharded model", "item 10")
-        if model.config.weight_only:
-            raise _unported("weight-only serving (the float head-split KV "
-                            "cache)", "item 3")
         if prefill_chunk is not None and not \
                 1 <= int(prefill_chunk) <= model.max_len:
             raise ValueError(f"prefill_chunk must be in [1, max_len="
                              f"{model.max_len}], got {prefill_chunk}")
-        self._ring_serving = bool(getattr(model, "ring_cache", False))
+        # a weight-only ring model serves from full-length float caches,
+        # as in the JAX package (its serving prefill has no float ring tail)
+        self._float = bool(model.config.weight_only)
+        self._ring_serving = (bool(getattr(model, "ring_cache", False))
+                              and not self._float)
         if self._ring_serving and prefill_chunk is not None:
             raise ValueError(
                 "prefill_chunk needs full-length slot caches; a ring_cache "
@@ -246,10 +255,21 @@ class GenerationEngine:
         self._thread.start()
 
     def _kv_buffer(self, rows: int) -> torch.Tensor:
+        """Every layer's k and v caches of ``rows`` slots in one buffer:
+        [depth, 2, rows, max_len, Hkv*D] u8, or head-split [depth, 2, rows,
+        Hkv, max_len, D] float32 for a weight-only model."""
         m = self.model
+        if self._float:
+            return torch.zeros((m.depth, 2, rows, m.kv_heads, m.max_len,
+                                m.head_dim), dtype=torch.float32,
+                               device=self.device)
         return torch.zeros((m.depth, 2, rows, m.max_len,
                             m.kv_heads * m.head_dim), dtype=torch.uint8,
                            device=self.device)
+
+    def _first_rows(self, kv: torch.Tensor, t: int) -> torch.Tensor:
+        """The view of positions [0, t) of a ``_kv_buffer``."""
+        return kv.narrow(4 if self._float else 3, 0, t)
 
     @staticmethod
     def _views(kv: torch.Tensor) -> dict:
@@ -266,9 +286,13 @@ class GenerationEngine:
         The cache holds u8 codes at fixed calibrated grids, and position
         t's codes depend only on the tokens up to t, so the rows do not
         depend on what follows them: a prefixed request gives the tokens
-        of the full prompt submitted cold.  The rows come from the chunked
-        extend (``prefill_chunk`` must be set), run eagerly in the caller's
-        thread on a private one-row cache, and are published under a lock.
+        of the full prompt submitted cold.  A weight-only model's float
+        rows come from the same program, but a float sum over a chunk can
+        differ in its last bits from a bucketed prefill's, so there the
+        prefixed tokens follow the cold ones within the float path's
+        tolerance.  The rows come from the chunked extend
+        (``prefill_chunk`` must be set), run eagerly in the caller's thread
+        on a private one-row cache, and are published under a lock.
         Raises ``RuntimeError`` when the table holds ``max_prefixes``."""
         if self.prefill_chunk is None:
             raise ValueError(
@@ -292,7 +316,7 @@ class GenerationEngine:
                     [c0], dtype=torch.int64, device=self.device),
                     torch.tensor(pad[None, c0:c0 + self.prefill_chunk],
                                  device=self.device))
-            rows = kv[:, :, 0, :t0].clone()        # [depth, 2, t0, C]
+            rows = self._first_rows(kv, t0)[:, :, 0].clone()
         if self._cuda:
             # the engine's stream reads the rows: they must be written
             torch.cuda.current_stream(self.device).synchronize()
@@ -422,7 +446,8 @@ class GenerationEngine:
         (a ring layer's ring tail) scatter into the slots' caches, and each
         prompt's first token is picked from its row ``t0 - 1``."""
         m = self.model
-        codes, cache1 = m._prefill(Tensor(prompts_pad), last=t0s)
+        codes, cache1 = m._prefill(Tensor(prompts_pad), last=t0s,
+                                   full_cache=not self._ring_serving)
         for i, (k1, v1) in cache1.items():           # [n, rows, C]
             self._caches[i][0].index_copy_(0, slots, k1)
             self._caches[i][1].index_copy_(0, slots, v1)
@@ -623,11 +648,11 @@ class GenerationEngine:
 
     def _seed_fn(self, base: int):
         """The seed program of prefixes of ``base`` tokens: all layers'
-        rows [depth, 2, base, C] into one slot's first ``base`` rows, one
-        copy.  At most ``_SEED_FN_CAP`` are kept (the oldest goes)."""
+        rows into one slot's first ``base`` rows, one copy.  At most
+        ``_SEED_FN_CAP`` are kept (the oldest goes)."""
         fn = self._seed_fns.get(base)
         if fn is None:
-            head = self._kv[:, :, :, :base]
+            head = self._first_rows(self._kv, base)
 
             def fn(rows, slot):
                 head[:, :, slot].copy_(rows)

@@ -12,7 +12,7 @@ JAX package's converted state carried over.
   single-chunk), per-request eos and ``stop`` sequences, ``submit_stream``,
   a failing loop failing every future.
 * A negative ``eos_id`` raises; the options the port does not implement
-  (weight-only models, meshes) raise ``NotImplementedError``, and a ring
+  (meshes) raise ``NotImplementedError``, and a ring
   cache with chunked prefill ``ValueError`` (chunked prefill and the prefix
   cache: ``test_torch_prefix_cache``; ring serving:
   ``test_torch_ring_cache``).
@@ -160,12 +160,18 @@ def test_unported_options_raise(model, monkeypatch):
         mp.setattr(model, "_mesh", object(), raising=False)
         with pytest.raises(NotImplementedError, match="sharded"):
             GenerationEngine(model)
+    # weight-only models are served since the float KV cache was ported
+    # (tests/test_torch_float_cache.py): float head-split slot caches
     wo = tzoo.build("llama_tiny", device="cpu", config=qt.QuantConfig(
         weight_only=True, weight_bits=4), vocab_size=64, max_len=16,
         dim=128, depth=1, heads=4, kv_heads=2)
     wo.convert()
-    with pytest.raises(NotImplementedError, match="weight-only"):
-        GenerationEngine(wo)
+    eng = GenerationEngine(wo, slots=2)
+    try:
+        assert eng._caches[1][0].dtype == torch.float32
+        assert tuple(eng._caches[1][0].shape) == (2, 2, 16, 32)
+    finally:
+        eng.shutdown()
     with pytest.raises(RuntimeError, match="converted"):
         GenerationEngine(tzoo.build("gpt_tiny", device="cpu"))
 

@@ -151,8 +151,7 @@ def test_deep_trunc_model_warns_on_convert(rounding, warns):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("weight_only", True), ("weight_bits", 2), ("dynamic_act", True),
-    ("bias_correction", True), ("glue_dtype", "bfloat16"),
+    ("weight_bits", 2), ("bias_correction", True), ("glue_dtype", "bfloat16"),
     ("epilogue_dtype", "bfloat16"), ("fp_dtype", "bfloat16"),
     ("conv_backend", "xla_conv"), ("fused_attention", "xla"),
 ])
@@ -162,6 +161,18 @@ def test_unimplemented_config_fields_raise(field, value):
         zoo.FCMnist(config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=field):
         qt.Linear(4, 2, config=cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(weight_only=True), dict(weight_only=True, dynamic_act=True),
+    dict(dynamic_act=True)])
+def test_weight_modes_are_accepted(cfg):
+    """W8-float and dynamic_act build (dynamic_act without weight_only is
+    the static path, as in the JAX package)."""
+    config = qt.QuantConfig(**cfg)
+    zoo.FCMnist(config=config, device="cpu")
+    qt.Linear(4, 2, config=config, device="cpu")
+    qt.Conv2d(4, 2, 3, config=config, device="cpu")
 
 
 @pytest.mark.parametrize("cfg", [

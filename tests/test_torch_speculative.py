@@ -143,11 +143,13 @@ def test_guards(gpt_ref, draft):
     other.convert()
     with pytest.raises(ValueError, match="vocab"):
         target.generate_speculative(other, prompt, 4)
+    # weight-only targets decode over the float cache
+    # (tests/test_torch_float_cache.py)
     wo = tzoo.build("gpt_tiny", device="cpu", config=qt.QuantConfig(
         weight_only=True, weight_bits=4), **GPT)
     wo.convert()
-    with pytest.raises(NotImplementedError, match="weight-only"):
-        wo.generate_speculative(wo, prompt, 4)
+    np.testing.assert_array_equal(wo.generate_speculative(wo, prompt, 4),
+                                  wo.generate(prompt, 4))
     # steps == 1: the prefill's token alone, no macro-step
     np.testing.assert_array_equal(
         target.generate_speculative(draft, prompt, 1),
