@@ -12,6 +12,8 @@
                                       # (24-28), no result line
     python3 chip_smoke.py --weight-only  # only the weight modes' phases
                                          # (29-33), no result line
+    python3 chip_smoke.py --families  # only the other decoder families'
+                                      # phases (34-38), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -223,15 +225,47 @@ Phases, in order (any failure exits non-zero):
 31. gemma-2-2b at its published widths, batch 8, a 64-token prompt, 128
    steps, in each weight mode from one set of FP32 weights: 183 weight
    GEMMs a step (B5 launches, or W8F / DA calls), captured against eager
-   over 24 teacher-forced steps, ms/step, tokens/s, the eager loop, the
-   prefill, KV bytes, a profiled captured step with its busy split (weight
-   GEMMs, float attention, glue) and the step's bound;
+   over 24 teacher-forced steps, ms per captured step (64 replays between
+   CUDA events), tokens/s, the eager loop, the prefill, KV
+   bytes, a profiled captured step with its busy split (weight GEMMs,
+   float attention, glue) and the step's bound;
 32. the W8-float gemma-2-2b served by ``GenerationEngine`` under 32 x 64 x
    128: tokens/s, TTFT, slot fill, each request against ``generate()``;
 33. ResNet-50-224 at batch 100 in W8-float and dynamic: images/s, top-1
    agreement with FP32, a CPU copy at batch 2.  In 11, W8F, DA, B5 and the
    float attention are timed at gemma-2-2b's step shapes and DAC at
    ResNet-50's convs, each beside its bound.
+34. B1, B2 and B3 bit for bit against their plain versions at Pythia-1.4B's
+   and Mixtral's shapes: B1 at qkv 2,048 -> 6,144, proj, fc1 with its gelu
+   epilogue, fc2 and the 50,304-wide head (Mixtral's proj and 32,000-wide
+   head) at M = 8 and 512; B2 at both merged QKVs; B3 at 16 heads of 128
+   over T = 2,048 and at 32 heads over 8 kv heads over T = 4,096, every
+   split count, live lengths 1, 128, T - 1;
+35. opt_tiny, neox_tiny (parallel and sequential residual), bloom_tiny
+   (ALiBi) and moe_tiny (8 experts, dense and sparse dispatch) at
+   SMALL_DEC's widths, calibrated on the card, against a CPU copy of their
+   converted state bit for bit (prefill codes, 16 teacher-forced steps,
+   greedy tokens), the captured decode against the eager loop bit for bit,
+   sparse against dense equal; moe_tiny in W8-float against a CPU copy
+   within FLOAT_RTOL;
+36. NeoX at EleutherAI pythia-1.4b's published widths (``PYTHIA``; weights
+   from a ``torch.Generator`` on the card; nothing cut), batch 8, a
+   64-token prompt: FP32 forward against its twin on the card, calibrate,
+   convert, greedy ``generate(ids, 128)`` captured with exactly 73 B1, 24
+   B2 and 24 B3 a step, the captured decode equal to the eager loop, 16
+   cached decode steps equal to a full recompute (partial rotary in the
+   cache); ms/step, the eager loop, the prefill, the busy split (kernels /
+   glue) beside the step's bound (recorded, not gated);
+37. its ``GenerationEngine`` (8 slots) under 32 x 64 x 128: tokens/s, TTFT
+   p50/p99; every request equal to ``generate()``;
+38. the MoE decoder at Mixtral-8x7B-v0.1's widths cut to 4 of 32 blocks and
+   max_len 4,096 (``MIXTRAL``), batch 8, a 64-token prompt, 128 tokens:
+   captured (dense experts) equal to the eager loop (sparse experts at 8
+   tokens), 16 cached steps equal to a full recompute, 5 B1, 4 B2 and 4 B3
+   a step; ms/step and the busy split
+   (expert GEMMs, router and combine, B1/B2/B3, glue) beside the step's
+   bound.  In 11, B1, B2 and B3 at both models' shapes, the MoE experts
+   and the ALiBi decode attention (library routes) each beside its bound.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -634,10 +668,12 @@ def decoder_state(torch, twin, depth: int, seed: int,
 
 def profile_rows(torch, prof):
     """Device-side rows (kernels, memcpy, memset), largest first: the aten
-    op rows repeat their kernels' time."""
+    op rows repeat their kernels' time, and a schedule's ``ProfilerStep``
+    annotation spans them."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda e: -e.self_device_time_total)
     return rows
 
@@ -834,13 +870,14 @@ def check_b2(torch, G, gen, dev, cases):
         del parts, merged, got, want
 
 
-def check_attention(torch, A, gen, dev, b, d, case, lives, params, label):
+def check_attention(torch, A, gen, dev, b, d, case, lives, params, label,
+                    exact=False):
     """B3/B4 against the composed plain version at one ``case`` (T, H,
     Hkv, mq, window, softcap, every split count) of batch ``b`` and head
     width ``d``: each live length of ``lives`` and a per-sequence vector,
     both roundings, under ``plan_decode_attn``'s split and, where asked,
-    every other split count; within the contract.  Returns the largest
-    code difference."""
+    every other split count; within the contract, or bit for bit where
+    ``exact``.  Returns the largest code difference."""
     t, h, kv, mq, window, softcap, every_split = case
     qshape = (b, mq, h * d) if mq > 1 else (b, h * d)
     q = torch.randint(0, 256, qshape, generator=gen, dtype=torch.uint8,
@@ -870,7 +907,8 @@ def check_attention(torch, A, gen, dev, b, d, case, lives, params, label):
                 torch.cuda.synchronize()
                 mx, share = contract(torch, got, want)
                 worst = max(worst, (mx, share))
-                if mx > CPU_MAX_CODE or share > CPU_MAX_SHARE:
+                if mx > CPU_MAX_CODE or share > CPU_MAX_SHARE or \
+                        (exact and mx):
                     fail(f"decode attention kernel != plain at B={b} T={t} "
                          f"H={h} Hkv={kv} D={d} mq={mq} window={window} "
                          f"softcap={softcap} {plan} valid="
@@ -1957,13 +1995,36 @@ def check_captured_launches(torch, label, counts, model, ids, prefill,
     ``graphs.Captured``'s for each of the DEC_STEPS - 2 replays) equal
     ``prefill`` plus DEC_STEPS - 1 steps of ``per_step`` exactly; and a
     step captured the same way (``replay_profile``) runs, in each of
-    REPLAYS_PROFILED profiled replays, the kernels that a replay counts."""
+    REPLAYS_PROFILED profiled replays, the kernels that a replay counts (a
+    profile short of them and over none is taken again over one replay
+    more, up to PROFILE_ATTEMPTS times)."""
     want = {k: prefill[k] + (DEC_STEPS - 1) * per_step[k] for k in per_step}
     if counts != want:
         fail(f"{label} launches {counts}, want {want}")
-    rows, _, program = replay_profile(torch, model, ids, REPLAYS_PROFILED)
-    check_replays(f"{label} captured step", program, kernel_fns,
-                  executions(rows), REPLAYS_PROFILED, per_step)
+    short = []
+    for attempt in range(PROFILE_ATTEMPTS):
+        # the profiler can drop a kernel record of a long replay, at the
+        # same record of a profile of the same length: a profile short of
+        # the counts, and never over them, is taken again over one replay
+        # more (as ``profile_engine_chunk`` retakes its own)
+        reps = REPLAYS_PROFILED + attempt
+        rows, _, program = replay_profile(torch, model, ids, reps)
+        ran = executions(rows)
+        lost = any(ran.get(k, 0) < reps * n for k, n in per_step.items()) \
+            and all(ran.get(k, 0) <= reps * n for k, n in per_step.items()) \
+            and set(ran) <= {k for k, n in per_step.items() if n}
+        if not lost or attempt == PROFILE_ATTEMPTS - 1:
+            break
+        short.append({"replays": reps, "ran": ran, "rows": {
+            e.key[:120]: e.count for e in rows
+            if kernel_of(e.key) or "qgemm" in e.key or "decode_attn"
+            in e.key or e.key.startswith("_Z")}})
+    if short:
+        log(json.dumps({"phase": f"{label}_step_profile_retaken",
+                        "profiles_short_of_the_counts": short,
+                        "each_replay_counts": per_step}))
+    check_replays(f"{label} captured step", program, kernel_fns, ran, reps,
+                  per_step)
 
 
 def executions(rows):
@@ -2077,11 +2138,34 @@ def time_eager_steps(torch, model, ids):
     return 1e3 * (times[hi] - times[lo]) / (hi - lo)
 
 
+def profiled(torch, fn, reps, warm, warm_calls=1):
+    """(device rows, wall µs a call) of ``reps`` calls of ``fn`` profiled
+    after ``warm_calls`` calls of ``warm`` in the same profiler session,
+    which the rows leave out: late in this script a session's first
+    records go missing (a long replay's first B2, all of a short graph's)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import schedule
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1)) as prof:
+        for _ in range(warm_calls):
+            warm()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    return profile_rows(torch, prof), wall_us
+
+
 def replay_profile(torch, model, ids, reps):
     """A decode step of ``ids`` captured as ``generate()`` captures it (one
-    eager step, then the capture), and ``reps`` replays profiled: (device
-    rows, wall µs a replay, the ``graphs.Captured`` program)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    eager step, then the capture), and ``reps`` replays profiled after a
+    warm-up replay (``profiled``): (device rows, wall µs a replay, the
+    ``graphs.Captured`` program)."""
     from int8inferenceengine_tpu_torch import graphs
     from int8inferenceengine_tpu_torch.tensor import Tensor
     dev = model.device
@@ -2098,14 +2182,8 @@ def replay_profile(torch, model, ids, reps):
 
         program = graphs.run_steps(step, 1, dev)
         torch.cuda.synchronize()
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                program()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    return profile_rows(torch, prof), wall_us, program
+        rows, wall_us = profiled(torch, program, reps, program.graph.replay)
+    return rows, wall_us, program
 
 
 def profile_captured(torch, model, ids, label, reps=16):
@@ -4176,12 +4254,13 @@ def ring_leg(torch, q, zoo, GM, kernel_fns, dev):
     return counts
 
 
-def gemma_engine_leg(torch, model, kernel_fns):
-    """Leg (c): gemma-2-2b's ``GenerationEngine`` at SERVE under a
-    saturated load (32 requests x 64 prompt tokens x 128 new tokens, all at
-    once): tokens/s, TTFT p50/p99 and slot fill; each request's tokens equal
-    ``generate()``'s (batches of 8 prompts: rows are independent).  Returns
-    the engine's launches over the load (a warm-up request first)."""
+def gemma_engine_leg(torch, model, kernel_fns, label="gemma2_2b"):
+    """Leg (c): gemma-2-2b's ``GenerationEngine`` (or ``label``'s model's)
+    at SERVE under a saturated load (32 requests x 64 prompt tokens x 128
+    new tokens, all at once): tokens/s, TTFT p50/p99 and slot fill; each
+    request's tokens equal ``generate()``'s (batches of 8 prompts: rows are
+    independent).  Returns the engine's launches over the load (a warm-up
+    request first)."""
     from int8inferenceengine_tpu_torch.serve import GenerationEngine
     n, t_prompt, new = SERVE_LOAD
     eng = GenerationEngine(model, **SERVE)
@@ -4191,18 +4270,18 @@ def gemma_engine_leg(torch, model, kernel_fns):
         results([eng.submit(warm, SERVE["chunk_steps"] + 1)])
         reset_counts(kernel_fns)
         res, prompts, outs = saturated_load(torch, eng, model.vocab_size,
-                                            "gemma2_2b", collect=True)
+                                            label, collect=True)
         counts = read_counts(kernel_fns)
     finally:
         eng.shutdown()
     want = np.concatenate([model.generate(np.stack(prompts[i:i + 8]), new)
                            for i in range(0, n, 8)])
     bad = [i for i in range(n) if not np.array_equal(outs[i], want[i])]
-    log(json.dumps({"phase": "gemma2_engine_vs_generate", "requests": n,
+    log(json.dumps({"phase": f"{label}_engine_vs_generate", "requests": n,
                     "equal": n - len(bad), "differing": bad,
                     "launches": counts}))
     if bad:
-        fail(f"gemma2 engine requests {bad} differ from generate()")
+        fail(f"{label} engine requests {bad} differ from generate()")
     return counts
 
 
@@ -4409,6 +4488,15 @@ LIBRARY_INFO = {
     "float_attention": dict(
         route="composed QK^T, masked softmax, P@V over all T_max rows",
         replaces="int8inferenceengine_tpu/models/llama.py:258-267 (XLA)"),
+    # the other decoder families' (phases 34-38)
+    "moe_experts": dict(
+        route="the experts' s8 products on torch._int_mm (gate and up over "
+              "the [E*H, K] view, down per expert), quantize, silu, combine",
+        replaces="int8inferenceengine_tpu/layers.py:1839-1903 (XLA)"),
+    "alibi_attention": dict(
+        route="composed QK^T, ALiBi bias, masked softmax, P@V over all "
+              "T_max rows of the u8 cache",
+        replaces="int8inferenceengine_tpu/ops/attention.py:787-801 (XLA)"),
 }
 
 
@@ -4527,17 +4615,18 @@ def near_tie_divergence(torch, model, prompts, outs, want, rtol):
     return equal, diverged, ok
 
 
-def wo_card_vs_cpu(torch, zoo, model, name, mode, ids):
-    """The float gate of a small weight-only decoder on the card against a
-    CPU copy of its state: the forward's logits at every prompt position
-    and WO_SMALL_STEPS teacher-forced steps (on the card's greedy tokens)
-    within FLOAT_RTOL[mode] of the largest |logit|, the teacher-forced
-    argmax agreeing on FLOAT_AGREE of the positions; the greedy tokens'
-    agreement recorded."""
+def wo_card_vs_cpu(torch, zoo, model, name, mode, ids, geo=None):
+    """The float gate of a small weight-only decoder (of ``geo``, by
+    default ``WO_SMALL[name]``) on the card against a CPU copy of its
+    state: the forward's logits at every prompt position and WO_SMALL_STEPS
+    teacher-forced steps (on the card's greedy tokens) within
+    FLOAT_RTOL[mode] of the largest |logit|, the teacher-forced argmax
+    agreeing on FLOAT_AGREE of the positions; the greedy tokens' agreement
+    recorded."""
     from int8inferenceengine_tpu_torch.carry import (export_state,
                                                      load_jax_state)
     from int8inferenceengine_tpu_torch.tensor import Tensor
-    geo = WO_SMALL[name]
+    geo = WO_SMALL[name] if geo is None else geo
     cpu = zoo.build(name, config=model.config, device="cpu", **geo)
     load_jax_state(cpu, export_state(model))
     prompt = torch.tensor(ids, dtype=torch.int64)
@@ -4823,8 +4912,8 @@ def gemma_wo_leg(torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns,
     agree_fp32 = float((last.argmax(-1) == fp32_last.argmax(-1)).float()
                        .mean())
     err_fp32 = rel_err(torch, last, fp32_last)
-    timing = decoder_timing(torch, model, ids, False,
-                            label=f"gemma2_2b_{mode}_decode")
+    timing = captured_step_timing(torch, model, ids,
+                                  f"gemma2_2b_{mode}_decode")
     rows, wall_us, _ = replay_profile(torch, model, ids, 8)
     busy = sum(e.self_device_time_total for e in rows) / 8
     split = wo_busy_split(torch, TD, layers_mod, model, ids)
@@ -5075,12 +5164,15 @@ def float_attention_fn(torch, q_, kc, vc, valid):
 
 
 def library_line(lrows, counts_by_path):
-    """One entry per library route of the weight modes: its time and bound
+    """One entry per library route timed in ``lrows``: its time and bound
     summed over its unit of work (a gemma-2-2b step, a ResNet-50 b100
-    forward), and its calls on the main paths."""
+    forward, a Mixtral-width MoE step, a step's ALiBi attentions), and its
+    calls on the main paths."""
     out = []
     for name, info in LIBRARY_INFO.items():
         mine = [r for r in lrows if r["kernel"] == name]
+        if not mine:
+            continue
         tot = {key: sum(r[key] * r["launches_per_unit"] for r in mine)
                for key in ("ms", "bound_ms")}
         out.append(dict(name=name, **info, ms=tot["ms"],
@@ -5129,6 +5221,642 @@ def weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod, kernel_fns,
     counts.update(resnet_wo_leg(torch, q, zoo, dev,
                                 dict(kernel_fns, **route_fns)))
     return counts, engine
+
+
+# -- phases 34-38: the other decoder families (OPT, NeoX, BLOOM, MoE) --------
+
+# EleutherAI pythia-1.4b at its published widths (Hugging Face
+# EleutherAI/pythia-1.4b, config.json, model_type gpt_neox): vocab 50,304,
+# 2,048 positions, hidden 2,048, 24 layers, 16 heads of 128, rotary_pct
+# 0.25, rotary_emb_base 10,000, intermediate 8,192 (gelu), parallel
+# residual, layer_norm_eps 1e-5, an untied head; nothing cut.  'nearest',
+# the JAX package's neox configuration
+PYTHIA = dict(vocab_size=50_304, max_len=2048, dim=2048, depth=24, heads=16,
+              mlp_ratio=4, rotary_pct=0.25, rope_base=10000.0,
+              use_parallel_residual=True, eps=1e-5)
+FAMILY_CFG = dict(rounding="nearest")
+# a Pythia step's B1 launches (layer, K, N, launches a step, act; the qkv
+# shape is B2's, checked on B1 too), its merged QKV (B2: K, per-head N,
+# launches) and its B3 (the mean live length of generate(ids, 128) after a
+# 64-token prompt)
+PYTHIA_GEMMS = [("proj", 2048, 2048, 24, None),
+                ("fc1+gelu", 2048, 8192, 24, "gelu"),
+                ("fc2", 8192, 2048, 24, None),
+                ("head", 2048, 50_304, 1, None)]
+PYTHIA_QKV = (2048, (2048, 2048, 2048), 24)
+PYTHIA_ATTN = dict(b=DEC_BATCH, t=2048, h=16, d=128, valid=128, launches=24)
+# mistralai/Mixtral-8x7B-v0.1 (config.json, model_type mixtral): vocab
+# 32,000, hidden 4,096, 32 heads over 8 kv heads of 128, 8 experts of
+# 14,336, top-2, rope_theta 1e6, rms_norm_eps 1e-5.  Cut to 4 of its 32
+# blocks and max_len 4,096 of 32,768: the lifecycle calibrates from FP32
+# weights, and 32 blocks would hold 187 GB of them (4 blocks: 24 GB FP32,
+# 5.9 GB s8)
+MIXTRAL = dict(vocab_size=32_000, max_len=4096, dim=4096, depth=4, heads=32,
+               kv_heads=8, mlp_hidden=14_336, n_experts=8, top_k=2,
+               rope_base=1e6, eps=1e-5)
+MIXTRAL_GEMMS = [("proj", 4096, 4096, 4, None),
+                 ("head", 4096, 32_000, 1, None)]
+MIXTRAL_QKV = (4096, (4096, 1024, 1024), 4)
+MIXTRAL_ATTN = dict(b=DEC_BATCH, t=4096, h=32, hkv=8, d=128, valid=128,
+                    launches=4)
+# B3's exact checks at the new shapes: (batch, T, H, Hkv, live lengths)
+FAMILY_ATTN_CASES = [(DEC_BATCH, 2048, 16, 16, [1, 128, 2047, 2048]),
+                     (DEC_BATCH, 4096, 32, 8, [1, 128, 4095])]
+# the small families' gates at SMALL_DEC's widths: (label, zoo name, extra
+# geometry); the MoE with 8 experts of 704, top-2, over 2 kv heads
+_SMALL_MOE = dict(kv_heads=2, n_experts=8)
+FAMILY_SMALL = [("opt", "opt_tiny", {}),
+                ("neox_parallel", "neox_tiny", {}),
+                ("neox_sequential", "neox_tiny",
+                 dict(use_parallel_residual=False)),
+                ("bloom", "bloom_tiny", {}),
+                ("moe_dense", "moe_tiny", dict(_SMALL_MOE, dispatch="dense")),
+                ("moe_sparse", "moe_tiny",
+                 dict(_SMALL_MOE, dispatch="sparse"))]
+
+
+def family_twin(name):
+    """The torch twin constructor of a family (geometry keywords)."""
+    from int8inferenceengine_tpu_torch.models import (bloom, moe, neox,
+                                                      text_decoder)
+    return {"opt_tiny": lambda **g: text_decoder.torch_text_decoder(
+                act="relu", **g),
+            "neox_tiny": neox.torch_neox, "bloom_tiny": bloom.torch_bloom,
+            "moe_tiny": moe.torch_moe}[name]
+
+
+def family_shapes(torch, name, geo):
+    """The parameter shapes of ``name``'s twin at ``geo``, built on the meta
+    device (nothing allocated)."""
+    geo = {k: v for k, v in geo.items() if k != "dispatch"}
+    with torch.device("meta"):
+        twin = family_twin(name)(**geo, seed=0)
+    return {k: tuple(v.shape) for k, v in twin.state_dict().items()}
+
+
+def card_state(torch, shapes, depth: int, seed: int, dev,
+               residual=("proj", "fc2", "down_w")):
+    """Random weights on the card from a ``torch.Generator``: the norms'
+    gains 1 + N(0, 0.02) and biases N(0, 0.02), the Linears' biases N(0,
+    0.01), the residual projections (``residual``) N(0, 0.02 / sqrt(2 *
+    depth)), everything else (the embedding, the Linears, the router, the
+    experts' gate and up) N(0, 0.02)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {}
+    for key, shape in shapes.items():
+        name, attr = key.rsplit(".", 1)
+        z = torch.randn(tuple(shape), generator=gen, device=dev)
+        if name.startswith(("ln", "embed_ln")):
+            state[key] = z.mul_(0.02).add_(1.0) if attr == "weight" \
+                else z.mul_(0.02)
+        elif attr == "bias":
+            state[key] = z.mul_(0.01)
+        elif name.startswith(residual) or attr in residual:
+            state[key] = z.mul_(0.02 / math.sqrt(2 * depth))
+        else:
+            state[key] = z.mul_(0.02)
+    return state
+
+
+def check_b1_act_exact(torch, G, gen, dev, m, k, n, act_name):
+    """B1 with its fused activation (``act_grid``) bit for bit against its
+    plain version at one shape, both roundings."""
+    c = gemm_case(torch, gen, m, k, n, dev)
+    oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
+                          c["zp_a"], recentered=True)
+    # scale s_w and s_c alike: the same codes, dequantized to [-5, 5]
+    f = 5.0 / (110 * c["s_c"])
+    ep = G.epilogue_vector(c["s_a"], c["s_w_pc"] * f, c["s_c"] * f, n, dev,
+                           "gemm")
+    for rounding in ("trunc", "nearest"):
+        kw = dict(scale_a=c["s_a"], scale_c=c["s_c"] * f, zp_c=c["zp_c"],
+                  rounding=rounding, act=act_grid(act_name))
+        got = G.qgemm(c["a"], c["w"], oc, ep, **kw)
+        want = G.qgemm_plain(c["a"], c["w"], oc, ep, **kw)
+        torch.cuda.synchronize()
+        mx, share = contract(torch, got, want)
+        if mx:
+            fail(f"B1 act={act_name} != plain at M={m} K={k} N={n} "
+                 f"{rounding}: max {mx}, share {share}")
+    log(json.dumps({"phase": "b1_act_vs_plain_families", "act": act_name,
+                    "M": m, "K": k, "N": n, "max_abs_err": 0,
+                    "plan": plan_of(G, m, n, k, dev)}))
+
+
+def check_family_kernels(torch, G, C, A, gen, dev):
+    """Phase 34: B1, B2 and B3 bit for bit against their plain versions at
+    Pythia-1.4B's and Mixtral's shapes: B1 at qkv 2,048 -> 6,144, proj,
+    fc1 with its gelu epilogue, fc2 and the 50,304-wide head (and
+    Mixtral's proj and head) at M = 8 and 512; B2 at both merged QKVs; B3
+    at 16 heads of 128 over T = 2,048 (MHA) and 32 over 8 kv heads of 128
+    over T = 4,096, every split count, live lengths 1, 128, T - 1 (and T)
+    and a per-sequence vector.  Returns {kernel: max |code difference|}."""
+    shapes = {}
+    for gemms, qkv in ((PYTHIA_GEMMS, PYTHIA_QKV),
+                       (MIXTRAL_GEMMS, MIXTRAL_QKV)):
+        for m in (DEC_BATCH, DEC_BATCH * DEC_PROMPT):
+            for layer, k, n, per, act_name in gemms:
+                if act_name is None:
+                    shapes[("gemm", (m, k), n)] = (layer, per)
+                else:
+                    check_b1_act_exact(torch, G, gen, dev, m, k, n, act_name)
+            shapes[("gemm", (m, qkv[0]), sum(qkv[1]))] = ("qkv", qkv[2])
+    check_b1_shapes(torch, G, C, gen, dev, shapes, "families")
+    check_b2(torch, G, gen, dev, [(m, k, widths) for m in (
+        DEC_BATCH, DEC_BATCH * DEC_PROMPT) for k, widths, _ in (
+        PYTHIA_QKV, MIXTRAL_QKV)])
+    for b, t, h, kv, lives in FAMILY_ATTN_CASES:
+        check_attention(torch, A, gen, dev, b, 128, (t, h, kv, 1, None, None,
+                                                     True), lives,
+                        dict(ATTN_PARAMS, alpha=128 ** -0.5),
+                        "families_attn_vs_plain", exact=True)
+    return {"qgemm_u8s8": 0, "qgemm_u8s8_vzp": 0, "decode_attn_flat": 0}
+
+
+def build_family(torch, q, zoo, name, geo, dev, seed, calib, cfg=None):
+    """A ``name`` model of ``geo`` on ``dev`` with ``card_state`` weights,
+    calibrated on ``calib`` ids and converted (the FP32 weights freed);
+    a weight-only ``cfg`` converts without calibration."""
+    cfg = q.QuantConfig(**(FAMILY_CFG if cfg is None else cfg))
+    state = card_state(torch, family_shapes(torch, name, geo), geo["depth"],
+                       seed, dev)
+    model = zoo.build(name, config=cfg, device=dev, **geo)
+    model.load(state)
+    del state
+    if not cfg.weight_only:
+        model.prepare()
+        model(q.tensor(calib, device=dev))
+    model.convert()
+    torch.cuda.synchronize()
+    return model
+
+
+def family_small_gates(torch, q, zoo, dev):
+    """Phase 35: opt_tiny, neox_tiny (parallel and sequential residual),
+    bloom_tiny and moe_tiny (dense and sparse dispatch) at SMALL_DEC's
+    widths, calibrated on the card: against a CPU copy of the converted
+    state (``card_vs_cpu``, held bit for bit here: prefill codes, 16
+    teacher-forced steps, greedy tokens), the captured decode against the
+    eager step loop, the sparse MoE against the dense one's state (equal
+    codes and tokens); then moe_tiny in W8-float against a CPU copy
+    (``wo_card_vs_cpu``, FLOAT_RTOL)."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    ids = np.random.default_rng(3).integers(
+        0, SMALL_DEC["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+            np.int32)
+    legs, moe_state = [], None
+    for label, name, extra in FAMILY_SMALL:
+        geo = dict(SMALL_DEC, **extra)
+        model = build_family(torch, q, zoo, name, geo, dev, 2, ids)
+        if label == "moe_sparse":
+            # the dense MoE's state, carried: the two dispatches must agree
+            load_jax_state(model, moe_state)
+        for r in card_vs_cpu(torch, zoo, model, name, geo, ids, SMALL_STEPS,
+                             label):
+            legs.append(dict(r, ok=r["ok"] and r.get("max_abs_err", 0) == 0))
+        tokens = model.generate(ids, SMALL_STEPS)
+        captured_vs_eager(torch, model, ids, tokens, f"{label}_small",
+                          steps=SMALL_STEPS)
+        if label == "moe_dense":
+            moe_state, moe_tokens = export_state(model), tokens
+        if label == "moe_sparse" and not np.array_equal(tokens, moe_tokens):
+            fail("moe_tiny: sparse dispatch's tokens differ from dense's")
+        del model
+    for r in legs:
+        log(json.dumps(r))
+    bad = [f"{r['family']} {r['leg']}" for r in legs if not r["ok"]]
+    if bad:
+        fail(f"small families: card differs from a CPU copy: {bad}")
+    geo = dict(SMALL_DEC, **_SMALL_MOE)
+    model = build_family(torch, q, zoo, "moe_tiny", geo, dev, 2, ids,
+                         cfg=dict(FAMILY_CFG, **WEIGHT_MODES["w8f"]))
+    res = wo_card_vs_cpu(torch, zoo, model, "moe_tiny", "w8f", ids, geo)
+    log(json.dumps(res))
+    if not res["ok"]:
+        fail(f"moe_tiny W8-float: card differs from a CPU copy beyond "
+             f"{FLOAT_RTOL['w8f']}")
+    tokens = model.generate(ids, SMALL_STEPS)
+    captured_vs_eager(torch, model, ids, tokens, "moe_w8f_small",
+                      steps=SMALL_STEPS)
+
+
+def weight_bytes(model) -> int:
+    """The converted model's s8 weight bytes (Linears and experts)."""
+    names = ("qw", "q_gate_w", "q_up_w", "q_down_w")
+    return sum(t.numel() * t.element_size() for _, layer in
+               model.named_layers() for t in (
+                   getattr(layer, n, None) for n in names) if t is not None)
+
+
+def step_bound_ms(gemms, qkv, attn, experts_bytes=0.0, b=DEC_BATCH):
+    """A decode step's least time: each B1 and B2 launch's bound, B3 at the
+    mean live length, and the experts' s8 weights read once (dense
+    dispatch reads every expert)."""
+    tot = sum(bound_ms(b, k, n)[0] * per for _, k, n, per, _ in gemms)
+    k, widths, per = qkv
+    tot += bound_ms(b, k, sum(widths), vectors=3)[0] * per
+    tot += attn_bound_ms(b, attn["h"], attn.get("hkv", attn["h"]), attn["d"],
+                         attn["valid"])[0] * attn["launches"]
+    return tot + 1e3 * experts_bytes / PEAK_BYTES
+
+
+def family_generate(torch, model, ids, kernel_fns, label, per_step):
+    """Greedy ``generate(ids, 128)`` (captured) with the launch gate of
+    ``check_captured_launches``, its tokens checked, and the captured decode
+    against the eager step loop (GEMMA_CAPTURED_STEPS teacher-forced
+    steps).  Returns (tokens, launches)."""
+    reset_counts(kernel_fns)
+    tokens = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    gated = {k: counts[k] for k in per_step}
+    check_captured_launches(torch, label, gated, model, ids,
+                            dict(per_step, decode_attn_flat=0), per_step,
+                            {k: kernel_fns[k] for k in per_step})
+    if tokens.shape != (DEC_BATCH, DEC_STEPS) or tokens.min() < 0 or \
+            tokens.max() >= model.vocab_size:
+        fail(f"{label} generate returned {tokens.shape} in "
+             f"[{tokens.min()}, {tokens.max()}]")
+    captured_vs_eager(torch, model, ids, tokens, label,
+                      steps=GEMMA_CAPTURED_STEPS)
+    return tokens, counts
+
+
+def cached_equals_recompute(torch, model, ids, tokens, label,
+                            steps=SMALL_STEPS):
+    """The cached-decode invariant at full width: ``steps`` decode steps
+    teacher-forced on ``tokens`` through the KV cache (``teacher_forced``)
+    give the logit codes that one causal forward over the prompt and those
+    tokens gives at the same positions, bit for bit."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    dev = model.device
+    prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+    toks = torch.tensor(tokens[:, :steps], dtype=torch.int64, device=dev)
+    cached = teacher_forced(torch, model, prompt, toks)
+    with torch.no_grad():
+        full = model.forward(Tensor(torch.cat([prompt, toks[:, :-1]], 1)))
+    full = full.data[:, ids.shape[1] - 1:]
+    same = bool(torch.equal(cached, full))
+    log(json.dumps({"phase": f"{label}_cached_vs_recompute",
+                    "steps": steps, "codes": int(full.numel()),
+                    "bitwise_equal": same}))
+    if not same:
+        fail(f"{label}: cached decode codes differ from a full recompute "
+             f"on {int((cached != full).sum())} codes")
+
+
+def captured_step_timing(torch, model, ids, label):
+    """ms per captured decode step (the prefill and the eager first step
+    untimed, then 64 replays between two CUDA events), the eager step
+    loop's ms/step (``time_eager_steps``) and the prefill's ms (CUDA events,
+    3 runs)."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    prompt = torch.tensor(ids, dtype=torch.int64, device=model.device)
+    step_ms, kv_bytes = time_captured_steps(torch, model, prompt, 64)
+    with torch.no_grad():
+        prefill_ms = time_cuda(torch, lambda: model._prefill(Tensor(prompt)),
+                               iters=3)
+    res = {"model": label, "batch": ids.shape[0], "prompt": ids.shape[1],
+           "decode_ms_per_step": step_ms,
+           "tokens_per_s": ids.shape[0] / step_ms * 1e3,
+           "eager_step_loop_ms_per_step": time_eager_steps(torch, model, ids),
+           "prefill_ms": prefill_ms, "kv_cache_bytes": kv_bytes,
+           "protocol": "64 replays of a captured step between CUDA events"}
+    log(json.dumps(res))
+    return res
+
+
+def library_gemm_names(torch, WO, dev, shapes):
+    """The kernel names that ``torch._int_mm`` runs at ``shapes`` ((M, K,
+    N), through ``s8_matmul``): the largest device row of each, from
+    replays of the call captured as a graph (``layer_busy``)."""
+    names = set()
+    for m, k, n in shapes:
+        a = torch.zeros((m, k), dtype=torch.int8, device=dev)
+        w = torch.zeros((n, k), dtype=torch.int8, device=dev)
+        names.add(layer_busy(torch, lambda: WO.s8_matmul(a, w), dev)[0].key)
+        del a, w
+    log(json.dumps({"int_mm_kernels": sorted(names)}))
+    return names
+
+
+def layer_busy(torch, fn, dev, reps=8):
+    """Profiler rows of ``reps`` replays of ``fn`` captured (its first call
+    eager), after 64 warm-up replays (``profiled``)."""
+    from int8inferenceengine_tpu_torch import graphs
+    side = graphs.side_stream(dev)
+    program = graphs.Captured(fn, side)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.no_grad(), torch.cuda.stream(side):
+        program()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    rows, _ = profiled(torch, program.graph.replay, reps,
+                       program.graph.replay, warm_calls=64)
+    del program
+    return rows
+
+
+def busy_split(torch, WO, model, ids, step_ms, label, gemm_shapes=()):
+    """A captured step's device time (16 profiled replays) split into the
+    port's kernels (B1, B2, B3), ``torch._int_mm``'s expert GEMMs (kernel
+    names from ``gemm_shapes``), and for an MoE the rest of one captured
+    MoE layer (router, quantize, silu, combine; times the depth), the
+    remainder glue; beside the step's idle share."""
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    reps = 16
+    rows, wall_us, _ = replay_profile(torch, model, ids, reps)
+    busy = sum(e.self_device_time_total for e in rows) / reps
+    names = library_gemm_names(torch, WO, model.device, gemm_shapes) \
+        if gemm_shapes else set()
+    split = {"B1": 0.0, "B2": 0.0, "B3": 0.0, "expert GEMMs": 0.0,
+             "glue": 0.0}
+    short = {"qgemm_u8s8": "B1", "qgemm_u8s8_vzp": "B2",
+             "decode_attn_flat": "B3"}
+    for e in rows:
+        k = short.get(kernel_of(e.key))
+        if k is None:
+            k = "expert GEMMs" if e.key in names else "glue"
+        split[k] += e.self_device_time_total / reps
+    res = {"profile": f"{label}: captured decode_step replay",
+           "batch": ids.shape[0], "wall_us_per_step_profiled": wall_us,
+           "ms_per_step_unprofiled": step_ms,
+           "device_busy_us_per_step": busy,
+           "device_idle_share": 1 - busy / (step_ms * 1e3),
+           "us_per_step": split,
+           "rows": [{"name": e.key[:90],
+                     "us_per_step": e.self_device_time_total / reps,
+                     "calls_per_step": e.count / reps} for e in rows[:25]]}
+    moe = getattr(model, "moe1", None)
+    if moe is not None:
+        ln = model.ln2_1
+        gen = torch.Generator(device=model.device).manual_seed(5)
+        x = Tensor(torch.randint(0, 256, (ids.shape[0], model.dim),
+                                 generator=gen, dtype=torch.uint8,
+                                 device=model.device), ln.scale,
+                   ln.zero_point)
+        lrows = layer_busy(torch, lambda: moe(x), model.device)
+        layer_us = sum(e.self_device_time_total for e in lrows) / 8
+        layer_gemm = sum(e.self_device_time_total for e in lrows
+                         if e.key in names) / 8
+        other = (layer_us - layer_gemm) * model.depth
+        res["moe_layer_us"] = layer_us
+        res["moe_layer_expert_gemm_us"] = layer_gemm
+        split["router, quantize, silu, combine"] = other
+        split["glue"] -= other
+    log(json.dumps(res))
+    return res
+
+
+def pythia_leg(torch, q, zoo, kernel_fns, dev):
+    """Phases 36-37: NeoX at Pythia-1.4B's published widths, batch 8, a
+    64-token prompt: the FP32 forward against its twin on the card (1e-4 of
+    the largest logit), calibrate, convert, greedy ``generate(ids, 128)``
+    captured with exactly 73 B1, 24 B2 and 24 B3 a step, the captured
+    decode equal to the eager step loop, 16 cached steps equal to a full
+    recompute; ms/step, the eager loop, the prefill and the busy split
+    beside the step's bound; then its
+    ``GenerationEngine`` under 32 x 64 x 128, every request equal to
+    ``generate()``.  Returns the launches of generate() and the engine."""
+    from int8inferenceengine_tpu_torch.models import neox as NX
+    from int8inferenceengine_tpu_torch.ops import weight_only as WO
+    ids = np.random.default_rng(0).integers(
+        0, PYTHIA["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = card_state(torch, family_shapes(torch, "neox_tiny", PYTHIA),
+                       PYTHIA["depth"], 0, dev)
+    with torch.device(dev):
+        twin = NX.torch_neox(**PYTHIA, seed=0)
+    twin.load_state_dict(state)
+    model = zoo.build("neox_tiny", config=q.QuantConfig(**FAMILY_CFG),
+                      device=dev, **PYTHIA)
+    model.load(state)
+    del state
+    x = q.tensor(ids, device=dev)
+    fp32 = model(x).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(ids, dtype=torch.int64, device=dev))
+    del twin
+    fp_err = float((fp32 - ref).abs().max()) / float(ref.abs().max())
+    log(json.dumps({"phase": "pythia_1_4b_fp32_vs_twin",
+                    "max_err_rel_to_max": fp_err}))
+    if tuple(fp32.shape) != tuple(ref.shape) or fp_err > 1e-4:
+        fail(f"FP32 Pythia-1.4B differs from its torch twin: {fp_err}")
+    del fp32, ref
+    model.prepare()
+    model(x)
+    model.convert()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lifecycle_s = time.perf_counter() - t0
+    depth = PYTHIA["depth"]
+    per_step = {"qgemm_u8s8": 3 * depth + 1, "qgemm_u8s8_vzp": depth,
+                "decode_attn_flat": depth}
+    tokens, counts = family_generate(torch, model, ids, kernel_fns,
+                                     "pythia_1_4b", per_step)
+    cached_equals_recompute(torch, model, ids, tokens, "pythia_1_4b")
+    log(json.dumps({"phase": "pythia_1_4b_generate", **PYTHIA,
+                    "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    "steps": DEC_STEPS, "launches": counts,
+                    "launches_per_decode_step": per_step,
+                    "int8_weight_bytes": weight_bytes(model),
+                    "fp32_lifecycle_peak_gib":
+                        torch.cuda.max_memory_allocated() / 2**30,
+                    "prepare_calibrate_convert_s": lifecycle_s,
+                    "distinct_tokens": int(np.unique(tokens).size)}))
+    mark("pythia_1_4b main path")
+    timing = captured_step_timing(torch, model, ids, "pythia_1_4b_decode")
+    prof = busy_split(torch, WO, model, ids, timing["decode_ms_per_step"],
+                      "pythia_1_4b")
+    bound = step_bound_ms(PYTHIA_GEMMS, PYTHIA_QKV, PYTHIA_ATTN)
+    log(json.dumps({"phase": "pythia_1_4b_summary", "card": nvidia_smi(),
+                    "decode_ms_per_step": timing["decode_ms_per_step"],
+                    "tokens_per_s": timing["tokens_per_s"],
+                    "eager_step_loop_ms_per_step":
+                        timing["eager_step_loop_ms_per_step"],
+                    "prefill_ms": timing["prefill_ms"],
+                    "launches_per_step": per_step,
+                    "step_bound_ms": bound,
+                    "share_of_step_bound":
+                        bound / timing["decode_ms_per_step"],
+                    "device_busy_ms_per_step":
+                        prof["device_busy_us_per_step"] / 1e3,
+                    "busy_us_kernels": sum(prof["us_per_step"][k]
+                                           for k in ("B1", "B2", "B3")),
+                    "busy_us_glue": prof["us_per_step"]["glue"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "gated": False}))
+    mark("pythia_1_4b timing")
+    engine = gemma_engine_leg(torch, model, kernel_fns, label="pythia_1_4b")
+    del model
+    torch.cuda.empty_cache()
+    return {"pythia_1_4b_generate": counts, "pythia_1_4b_engine": engine}
+
+
+def mixtral_leg(torch, q, zoo, kernel_fns, route_fns, dev):
+    """Phase 38: the MoE decoder at Mixtral-8x7B's published widths cut to
+    4 blocks (MIXTRAL), batch 8, a 64-token prompt: calibrate, convert,
+    greedy ``generate(ids, 128)`` captured (the MoE layers in their dense
+    form) with exactly 5 B1, 4 B2 and 4 B3 a step, the captured decode
+    equal to the eager step loop (whose MoE layers run the sparse form at
+    8 tokens), 16 cached steps equal to a full recompute; ms/step, the eager loop, the prefill, the busy split
+    (expert GEMMs, router and combine, B1/B2/B3, glue) beside the step's
+    bound.  Returns the launches of generate()."""
+    from int8inferenceengine_tpu_torch.ops import weight_only as WO
+    ids = np.random.default_rng(0).integers(
+        0, MIXTRAL["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_family(torch, q, zoo, "moe_tiny", MIXTRAL, dev, 0, ids)
+    torch.cuda.empty_cache()
+    lifecycle_s = time.perf_counter() - t0
+    depth = MIXTRAL["depth"]
+    per_step = {"qgemm_u8s8": depth + 1, "qgemm_u8s8_vzp": depth,
+                "decode_attn_flat": depth}
+    tokens, counts = family_generate(torch, model, ids,
+                                     dict(kernel_fns, **route_fns),
+                                     "mixtral_4l", per_step)
+    cached_equals_recompute(torch, model, ids, tokens, "mixtral_4l")
+    e, h, k = MIXTRAL["n_experts"], MIXTRAL["mlp_hidden"], MIXTRAL["dim"]
+    experts_bytes = 3 * e * h * k * depth
+    log(json.dumps({"phase": "mixtral_4l_generate", **MIXTRAL,
+                    "cut": "depth 4 of 32, max_len 4,096 of 32,768",
+                    "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    "steps": DEC_STEPS, "launches": counts,
+                    "launches_per_decode_step": per_step,
+                    "int8_weight_bytes": weight_bytes(model),
+                    "expert_weight_bytes": experts_bytes,
+                    "fp32_lifecycle_peak_gib":
+                        torch.cuda.max_memory_allocated() / 2**30,
+                    "prepare_calibrate_convert_s": lifecycle_s,
+                    "distinct_tokens": int(np.unique(tokens).size)}))
+    mark("mixtral_4l main path")
+    timing = captured_step_timing(torch, model, ids, "mixtral_4l_decode")
+    prof = busy_split(torch, WO, model, ids, timing["decode_ms_per_step"],
+                      "mixtral_4l",
+                      gemm_shapes=[(DEC_BATCH, k, e * h), (DEC_BATCH, h, k)])
+    bound = step_bound_ms(MIXTRAL_GEMMS, MIXTRAL_QKV, MIXTRAL_ATTN,
+                          experts_bytes)
+    log(json.dumps({"phase": "mixtral_4l_summary", "card": nvidia_smi(),
+                    "decode_ms_per_step": timing["decode_ms_per_step"],
+                    "tokens_per_s": timing["tokens_per_s"],
+                    "eager_step_loop_ms_per_step":
+                        timing["eager_step_loop_ms_per_step"],
+                    "prefill_ms": timing["prefill_ms"],
+                    "step_bound_ms": bound,
+                    "share_of_step_bound":
+                        bound / timing["decode_ms_per_step"],
+                    "device_busy_ms_per_step":
+                        prof["device_busy_us_per_step"] / 1e3,
+                    "busy_us": prof["us_per_step"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "gated": False}))
+    del model
+    torch.cuda.empty_cache()
+    return {"mixtral_4l_generate": counts}
+
+
+def time_family_kernels(torch, G, A, WO, gen, dev, flush):
+    """B1 and B2 at Pythia-1.4B's and Mixtral's decode-step (M = 8) and
+    prefill (M = 512) shapes and B3 at their steps (``time_gemms``,
+    ``time_attention``): kernel rows a unit (a step, a prefill).  Then the
+    two library routes, each captured as a graph (the form a decode step
+    runs; the eager call's time, Python gaps included, beside it): one
+    Mixtral MoE layer's experts at M = 8 (dense, every expert read; bound:
+    the s8 expert bytes), and the ALiBi decode attention at Pythia's
+    attention shape beside B3's time there (bound: the live rows)."""
+    from int8inferenceengine_tpu_torch.ops import moe as M
+    rows = []
+    for name, gemms, (k, widths, per), attn in (
+            ("pythia_1_4b", PYTHIA_GEMMS, PYTHIA_QKV, PYTHIA_ATTN),
+            ("mixtral_4l", MIXTRAL_GEMMS, MIXTRAL_QKV, MIXTRAL_ATTN)):
+        for m, unit in ((DEC_BATCH, "decode_step"),
+                        (DEC_BATCH * DEC_PROMPT, "prefill")):
+            rows += time_gemms(
+                torch, G, gen, dev, flush, f"{name}_{unit}",
+                [(layer, m, kk, n, p, act) for layer, kk, n, p, act in gemms],
+                (m, k, widths, per), rounding="nearest")
+        rows += time_attention(torch, A, gen, dev, flush, attn,
+                               f"{name}_decode_step", "attention",
+                               rounding="nearest")
+    log_rows(rows)
+    for path in sorted({r["path"] for r in rows}):
+        mine = [r for r in rows if r["path"] == path]
+        log(json.dumps({"kernels_per_unit": path} | {
+            key: sum(r[key] * r["launches_per_unit"] for r in mine)
+            for key in ("ms", "bound_ms", "plain_ms")}))
+    lrows = []
+    e, h, k = MIXTRAL["n_experts"], MIXTRAL["mlp_hidden"], MIXTRAL["dim"]
+    m = DEC_BATCH
+    f = torch.randn((m, k), generator=gen, device=dev)
+    wexp = M.route(f, torch.randn((e, k), generator=gen, device=dev) * 0.02,
+                   MIXTRAL["top_k"])
+    gate, up = (torch.randint(-127, 128, (e, h, k), generator=gen,
+                              dtype=torch.int8, device=dev) for _ in range(2))
+    down = torch.randint(-127, 128, (e, k, h), generator=gen,
+                         dtype=torch.int8, device=dev)
+    s = torch.full((e,), 1e-3, device=dev)
+
+    def experts():
+        return M.experts(f, wexp, gate, up, down, s, s, s, dynamic=True,
+                         sparse=False)
+
+    with torch.no_grad():
+        prog = captured(torch, experts, dev)
+        ms = time_cuda(torch, prog.graph.replay, iters=10, flush=flush)
+        eager_ms = time_cuda(torch, experts, iters=5, flush=flush)
+    b_ms, b_by, _, _ = bound(3 * e * h * k, 2.0 * 3 * m * e * h * k)
+    lrows.append(dict(kernel="moe_experts", path="mixtral_4l_decode_step",
+                      layer=f"dense, M {m}, {e} experts of {h}, captured",
+                      launches_per_unit=MIXTRAL["depth"], ms=ms,
+                      eager_ms=eager_ms, bound_ms=b_ms, bound_by=b_by))
+    del gate, up, down, prog
+    cfg = PYTHIA_ATTN
+    b, t, hh, d = cfg["b"], cfg["t"], cfg["h"], cfg["d"]
+    qq = torch.randint(0, 256, (b, hh * d), generator=gen, dtype=torch.uint8,
+                       device=dev)
+    kc, vc = (torch.randint(0, 256, (b, t, hh * d), generator=gen,
+                            dtype=torch.uint8, device=dev) for _ in range(2))
+    valid = torch.full((), cfg["valid"], dtype=torch.int32, device=dev)
+    from int8inferenceengine_tpu_torch.layers import alibi_slopes
+    slopes = torch.tensor(alibi_slopes(hh), dtype=torch.float32, device=dev)
+    kw = dict(ATTN_PARAMS, alpha=d ** -0.5, n_heads=hh, rounding="nearest")
+
+    def alibi():
+        return A.decode_attention_flat(qq, kc, vc, valid, alibi=slopes, **kw)
+
+    prog = captured(torch, alibi, dev)
+    ms = time_cuda(torch, prog.graph.replay, iters=10, flush=flush)
+    eager_ms = time_cuda(torch, alibi, iters=5, flush=flush)
+    b3_ms = time_cuda(torch, lambda: A.decode_attention_flat(
+        qq, kc, vc, valid, **kw), iters=10, flush=flush)
+    b_ms, b_by, _, _ = attn_bound_ms(b, hh, hh, d, cfg["valid"])
+    lrows.append(dict(kernel="alibi_attention",
+                      path="alibi_decode_step_at_pythia_shape",
+                      layer=f"b{b} T{t} H{hh} D{d} live {cfg['valid']}, "
+                            f"captured",
+                      launches_per_unit=PYTHIA["depth"], ms=ms,
+                      eager_ms=eager_ms, b3_without_bias_ms=b3_ms,
+                      bound_ms=b_ms, bound_by=b_by))
+    del prog
+    for r in lrows:
+        log(json.dumps(r | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+    return rows, lrows
+
+
+def families_paths(torch, q, zoo, kernel_fns, route_fns, dev):
+    """Phases 35-38 in order: the small families' gates, Pythia-1.4B with
+    its engine, the Mixtral-width MoE.  Returns the launches of the main
+    paths."""
+    family_small_gates(torch, q, zoo, dev)
+    mark("families: small gates")
+    counts = pythia_leg(torch, q, zoo, kernel_fns, dev)
+    mark("families: pythia_1_4b engine")
+    counts.update(mixtral_leg(torch, q, zoo, kernel_fns, route_fns, dev))
+    mark("families: mixtral_4l")
+    return counts
 
 
 def kernels_line(rows, counts_by_path, max_err):
@@ -5198,6 +5926,10 @@ def main(argv=None) -> int:
                     help="only build and run the weight modes' phases "
                          "(29-33) with their checks and times (no result "
                          "line)")
+    ap.add_argument("--families", action="store_true",
+                    help="only build and run the other decoder families' "
+                         "phases (34-38) with their checks and times (no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5214,6 +5946,7 @@ def main(argv=None) -> int:
     from int8inferenceengine_tpu_torch.ops import attention as A
     from int8inferenceengine_tpu_torch.ops import conv as C
     from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
+    from int8inferenceengine_tpu_torch.ops import moe as MO
     from int8inferenceengine_tpu_torch.ops import w4 as W
     from int8inferenceengine_tpu_torch.ops import weight_only as WO
     from int8inferenceengine_tpu_torch.ops.quant import quantize_u8
@@ -5222,9 +5955,12 @@ def main(argv=None) -> int:
                   "w4_gemm": W.w4_gemm, "w4a8_v2_gemm": W.w4a8_v2,
                   "w4a8_v1_gemm": W.w4a8_v1,
                   "conv_grouped_u8s8": C.conv2d_int8_grouped}
-    # the weight modes' library routes (what the JAX package leaves to XLA)
+    # the library routes (what the JAX package leaves to XLA): the weight
+    # modes', the MoE experts', the ALiBi attention's
     route_fns = {"w8f_matmul": WO.w8f_matmul, "s8_matmul": WO.s8_matmul,
-                 "w8f_conv2d": C.w8f_conv2d, "conv2d_s8": C.conv2d_s8}
+                 "w8f_conv2d": C.w8f_conv2d, "conv2d_s8": C.conv2d_s8,
+                 "moe_experts": MO.experts,
+                 "alibi_attention": A.decode_attention_alibi}
     t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
@@ -5262,6 +5998,19 @@ def main(argv=None) -> int:
         flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         time_gemma_kernels(torch, G, A, gen, dev, flush_buf.zero_)
         log(json.dumps({"phase": "windowed_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.families:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        check_family_kernels(torch, G, C, A, gen, dev)
+        mark("families: kernel checks")
+        counts = families_paths(torch, q, zoo, kernel_fns, route_fns, dev)
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        _, lrows = time_family_kernels(torch, G, A, WO, gen, dev,
+                                       flush_buf.zero_)
+        log(json.dumps({"library_routes": library_line(lrows, counts)}))
+        log(json.dumps({"phase": "families_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -5319,6 +6068,10 @@ def main(argv=None) -> int:
 
     # -- 24. B1, B2 and B3 at gemma-2-2b's shapes ------------------------------
     for name, err in check_gemma_kernels(torch, G, C, A, gen, dev).items():
+        max_err[name] = max(max_err[name], err)
+
+    # -- 34. B1, B2 and B3 at Pythia-1.4B's and Mixtral's shapes ------------
+    for name, err in check_family_kernels(torch, G, C, A, gen, dev).items():
         max_err[name] = max(max_err[name], err)
 
     # -- 15. B3 at the extend shapes against its plain version ----------------
@@ -5461,6 +6214,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mark("weight modes")
 
+    # -- 35-38. the other decoder families: the small gates, Pythia-1.4B and
+    # its engine, the Mixtral-width MoE ---------------------------------------
+    counts_by_path.update(families_paths(torch, q, zoo, kernel_fns,
+                                         route_fns, dev))
+    torch.cuda.empty_cache()
+    mark("families")
+
     # -- 11. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
@@ -5477,6 +6237,9 @@ def main(argv=None) -> int:
     krows, lrows = time_library_routes(torch, WO, C, gen, dev, flush,
                                        cnn_shapes["resnet50"])
     rows += krows
+    frows, flrows = time_family_kernels(torch, G, A, WO, gen, dev, flush)
+    rows += frows
+    lrows += flrows
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)

@@ -26,6 +26,11 @@ with ``params`` in the JAX package's layouts:
   unit-offset norm's, gemma's ``ln*``, ``postn1_*``, ``postn2_*`` and
   ``ln_f``, is the delta around 1, as the JAX layer holds it: carried as it
   is, never with ``1 + w`` folded in);
+* QuantMoE: ``router`` ([E, K] float32, kept after convert) and before
+  convert ``gate_w`` / ``up_w`` ([E, H, K]) and ``down_w`` ([E, K, H]);
+  after it ``q_gate_w`` / ``q_up_w`` / ``q_down_w`` (s8, the same
+  layouts) and their scales ``gate_w_s`` / ``up_w_s`` / ``down_w_s``
+  ([E], or per expert row [E, H], [E, H], [E, K]);
 * the weightless layers (QuantAct, QuantAdd, QuantConcat, QuantMul,
   QuantMatmul, QuantSoftmax, QuantRoPE): none, only ``scale`` and
   ``zero_point``.
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from .layers import (Conv2d, Layer, Linear, QuantEmbed, QuantLayerNorm,
-                     QuantPosEmbed, QuantRMSNorm)
+                     QuantMoE, QuantPosEmbed, QuantRMSNorm)
 
 _TABLES = (QuantEmbed, QuantPosEmbed, QuantLayerNorm, QuantRMSNorm)
 
@@ -134,9 +139,28 @@ def _load_table_layer(name: str, layer: Layer, st: dict) -> None:
         layer.load_bias(p["bias"])
 
 
+def _load_moe_layer(name: str, layer: QuantMoE, st: dict) -> None:
+    p = st["params"]
+    layer.load_router(p["router"])
+    for key in QuantMoE._SHAPES:
+        if not st["is_quantized"]:
+            getattr(layer, "load_" + key)(p[key])
+            continue
+        shape = QuantMoE._SHAPES[key](layer.n_experts, layer.hidden,
+                                      layer.dim)
+        _expect(name, "q_" + key, p["q_" + key], shape)
+        if np.shape(p[key + "_s"]) not in ((shape[0],), shape[:2]):
+            raise ValueError(f"{name}.{key}_s: shape "
+                             f"{np.shape(p[key + '_s'])} for {shape}")
+        layer.set_experts(key, _t(p["q_" + key], np.int8),
+                          _t(p[key + "_s"], np.float32))
+
+
 def _load_layer(name: str, layer: Layer, st: dict) -> None:
     if isinstance(layer, (Linear, Conv2d)):
         _load_gemm_layer(name, layer, st)
+    elif isinstance(layer, QuantMoE):
+        _load_moe_layer(name, layer, st)
     elif isinstance(layer, _TABLES):
         _load_table_layer(name, layer, st)
     elif st["params"]:
@@ -204,6 +228,11 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
 def _params(layer: Layer) -> tuple[dict, object]:
     if isinstance(layer, (Linear, Conv2d)):
         return _gemm_params(layer)
+    if isinstance(layer, QuantMoE):
+        keys = ["router"] + [k for n in QuantMoE._SHAPES for k in (
+            ("q_" + n, n + "_s") if layer.is_quantized else (n,))]
+        return ({k: getattr(layer, k).cpu().numpy() for k in keys},
+                layer.weight_scale)
     if isinstance(layer, QuantEmbed) and layer.q_weight is not None:
         return {"q_weight": layer.q_weight.cpu().numpy()}, layer.weight_scale
     params = {}

@@ -51,6 +51,7 @@ from .calibrator import Calibrator
 from .config import DEFAULT_CONFIG, QuantConfig, check_supported
 from .ops import attention as attn_ops
 from .ops import conv as conv_ops
+from .ops import moe as moe_ops
 from .ops import quant as quant_ops
 from .ops import rope as rope_ops
 from .ops import w4 as w4_ops
@@ -641,6 +642,26 @@ class QuantMatmul(_Weightless):
         return Tensor(out, self.scale, self.zero_point)
 
 
+def alibi_slopes(n_heads: int) -> tuple:
+    """The ALiBi slope ladder (Press et al., ICLR'22) as the JAX package's
+    ``alibi_slopes`` computes it: for H a power of two, head h (from 0) has
+    ``m_h = 2^(-8(h+1)/H)`` (its ``QuantSoftmax`` docstring's 2^(-8h/H) is
+    not what it computes); otherwise the ladder of the closest power of two
+    below H, then the odd steps of the doubled ladder.  Python floats
+    (float64), rounded to float32 where they are used."""
+    import math
+
+    def pow2_ladder(n):
+        start = 2.0 ** (-8.0 / n)
+        return [start ** (i + 1) for i in range(n)]
+
+    if n_heads & (n_heads - 1) == 0:
+        return tuple(pow2_ladder(n_heads))
+    closest = 2 ** int(math.floor(math.log2(n_heads)))
+    extra = pow2_ladder(2 * closest)[0::2][: n_heads - closest]
+    return tuple(pow2_ladder(closest) + extra)
+
+
 class QuantSoftmax(_Weightless):
     """Calibrated softmax over the last axis (attention probabilities).
 
@@ -648,27 +669,42 @@ class QuantSoftmax(_Weightless):
     (an int, a 0-dim tensor, [B, 1, 1, 1] per sequence or [..., tq, 1] per
     row) masks columns >= valid_len; ``window`` also drops columns more than
     ``window`` back; ``softcap`` maps scores through ``softcap*tanh(x /
-    softcap)`` before the mask.  Masked positions quantize to exactly the
-    zero point.  ALiBi (``alibi_heads``) is not ported."""
+    softcap)`` before the mask.  ``alibi_heads`` (the BLOOM family) adds
+    each head's ALiBi bias ``m_h * (col - rowpos)`` after the softcap and
+    before the mask, in float32 (``alibi``, the slopes as a float32 tensor
+    on the layer's device): ``rowpos`` is the row index on square causal
+    scores, ``valid_len - 1`` otherwise (a decode step, an extend's rows),
+    and the scores carry the head axis at -3.  Masked positions quantize to
+    exactly the zero point."""
 
     def __init__(self, config: QuantConfig = DEFAULT_CONFIG,
                  causal: bool = False, window: int | None = None,
                  softcap: float | None = None,
                  alibi_heads: int | None = None, device=None):
         super().__init__(config, device)
-        if alibi_heads is not None:
-            raise NotImplementedError(
-                "QuantSoftmax(alibi_heads=...) is not implemented by the "
-                "PyTorch port yet")
         self.causal = causal
         self.window = None if window is None else int(window)
         self.softcap = None if softcap is None else float(softcap)
+        self.alibi = (None if alibi_heads is None else torch.tensor(
+            alibi_slopes(int(alibi_heads)), dtype=torch.float32,
+            device=self.device))
 
     def _masked(self, f: torch.Tensor, valid_len) -> torch.Tensor:
         if self.softcap is not None:
             f = attn_ops.softcap_(f, self.softcap)
         tq, tk = f.shape[-2], f.shape[-1]
         neg = f32(float("-inf"), f.device)
+        if self.alibi is not None:
+            col = torch.arange(tk, device=f.device, dtype=torch.int32)
+            if self.causal and tq > 1 and tq == tk:
+                rowp = torch.arange(tq, device=f.device,
+                                    dtype=torch.int32).reshape(-1, 1)
+            elif valid_len is not None:
+                rowp = valid_len - 1
+            else:
+                rowp = tk - 1
+            m = self.alibi.to(f.device).reshape(-1, 1, 1)
+            f = f + m * (col - rowp).to(torch.float32)
         window_done = False
         if self.causal and tq > 1 and tq == tk:
             row = torch.arange(tq, device=f.device).reshape(-1, 1)
@@ -1001,6 +1037,145 @@ class QuantEmbed(Layer):
         return Tensor(self.q_weight[idx], self.scale, self.zero_point)
 
 
+class QuantMoE(Layer):
+    """Mixture-of-experts SwiGLU MLP with top-k routing: one layer holding
+    all E experts' stacked weights (the mixtral-family MLP; counterpart of
+    the JAX package's ``QuantMoE``).
+
+    Before convert it holds ``router`` [E, K], ``gate_w``/``up_w`` [E, H,
+    K] and ``down_w`` [E, K, H], float32.  ``convert()`` quantizes each
+    expert's weights to s8 (``q_gate_w``, ``q_up_w``, ``q_down_w``) with
+    one symmetric scale an expert (``gate_w_s``, ``up_w_s``, ``down_w_s``
+    [E]) or, under ``weight_per_channel``, one an expert row ([E, H] for
+    gate and up, [E, K] for down); the router stays float32, since a
+    quantized logit could flip a top-k choice.  Only the output grid is
+    calibrated: the layer observes the combined float32 output while
+    preparing and requantizes to it after convert, so it is u8 in and u8
+    out like any layer.  The arithmetic is ``ops/moe.py``: the experts run
+    the dynamic W8A8 products (per-token s8 activations), except in plain
+    ``weight_only`` mode, whose float activations meet the s8 experts
+    dequantized; ``weight_bits=4`` leaves the experts s8.
+
+    ``dispatch``: 'dense' computes every expert over every token (the
+    routing weights' zeros drop the unrouted ones), 'sparse' skips the
+    experts no token routes to (one host sync for the mask), 'auto' takes
+    sparse from 8 experts at 16 tokens or fewer (the JAX package's rule).
+    Both give the same codes.  A step captured as a CUDA graph cannot sync
+    with the host, so under capture the layer runs the dense form."""
+
+    def __init__(self, dim: int, hidden: int, n_experts: int,
+                 top_k: int = 2, config: QuantConfig = DEFAULT_CONFIG,
+                 dispatch: str = "auto", device=None):
+        super().__init__(config, device)
+        if not 1 <= top_k <= n_experts:
+            raise ValueError(f"top_k {top_k} not in [1, {n_experts}]")
+        if dispatch not in ("auto", "dense", "sparse"):
+            raise ValueError(f"dispatch {dispatch!r} not in "
+                             "auto/dense/sparse")
+        self.dim, self.hidden = int(dim), int(hidden)
+        self.n_experts, self.top_k = int(n_experts), int(top_k)
+        self.dispatch = dispatch
+        e, h, k = self.n_experts, self.hidden, self.dim
+        self.register_buffer("router", self._buf((e, k)))
+        for name, shape in self._SHAPES.items():
+            self.register_buffer(name, self._buf(shape(e, h, k)))
+            self.register_buffer("q_" + name, None)
+            self.register_buffer(name + "_s", None)
+
+    _SHAPES = {"gate_w": lambda e, h, k: (e, h, k),
+               "up_w": lambda e, h, k: (e, h, k),
+               "down_w": lambda e, h, k: (e, k, h)}
+
+    def load_router(self, w):
+        self.router = self._load_array(w, (self.n_experts, self.dim),
+                                       "load_router")
+
+    def _load_expert(self, name, w):
+        setattr(self, name, self._load_array(
+            w, self._SHAPES[name](self.n_experts, self.hidden, self.dim),
+            "load_" + name))
+
+    def load_gate_w(self, w):
+        self._load_expert("gate_w", w)
+
+    def load_up_w(self, w):
+        self._load_expert("up_w", w)
+
+    def load_down_w(self, w):
+        self._load_expert("down_w", w)
+
+    def load_bias(self, b):
+        raise ValueError("QuantMoE has no bias (it loads router, gate_w, "
+                         "up_w and down_w)")
+
+    def _quantize_weights(self):
+        """The JAX package's order: ``s = max(max|w|, 1e-12) / 127`` per
+        expert (or expert row), ``w / s`` rounded ('nearest': half to even)
+        or truncated, clipped to +-127; one expert at a time."""
+        dev = self.device
+        for name in self._SHAPES:
+            w = getattr(self, name)
+            if self.config.weight_per_channel:
+                s = torch.amax(torch.abs(w), dim=2)
+            else:
+                s = torch.amax(torch.abs(w), dim=(1, 2))
+            s = torch.clamp_min(s, f32(1e-12, dev)) / f32(127.0, dev)
+            q = torch.empty(w.shape, dtype=torch.int8, device=dev)
+            for e in range(self.n_experts):
+                t = w[e] / (s[e] if s.dim() == 1 else s[e][:, None])
+                t = torch.round(t) if self.config.rounding == "nearest" \
+                    else torch.trunc(t)
+                q[e] = torch.clamp(t, -127.0, 127.0).to(torch.int8)
+            self.set_experts(name, q, s)
+
+    def set_experts(self, name: str, q: torch.Tensor, s: torch.Tensor):
+        """Install one converted expert stack (``name`` of ``gate_w``,
+        ``up_w``, ``down_w``): s8 ``q`` and its float32 scales; the FP32
+        stack is freed."""
+        shape = self._SHAPES[name](self.n_experts, self.hidden, self.dim)
+        if tuple(q.shape) != shape or s.shape[0] != self.n_experts:
+            raise ValueError(f"QuantMoE.{name}: codes {tuple(q.shape)} / "
+                             f"scales {tuple(s.shape)} for {shape}")
+        setattr(self, "q_" + name, q.to(device=self.device,
+                                        dtype=torch.int8).contiguous())
+        setattr(self, name + "_s", s.to(device=self.device,
+                                        dtype=torch.float32).contiguous())
+        setattr(self, name, None)
+
+    def _use_sparse(self, m: int) -> bool:
+        if self.dispatch != "auto":
+            return self.dispatch == "sparse"
+        return self.n_experts >= 8 and m <= 16
+
+    def _moe(self, f: torch.Tensor) -> torch.Tensor:
+        """Route and run the experts on float32 tokens [M, K]."""
+        wexp = moe_ops.route(f, self.router, self.top_k)
+        sparse = self._use_sparse(f.shape[0]) and not (
+            f.is_cuda and torch.cuda.is_current_stream_capturing())
+        if self.q_gate_w is None:
+            return moe_ops.experts(f, wexp, self.gate_w, self.up_w,
+                                   self.down_w, None, None, None,
+                                   dynamic=False, sparse=sparse)
+        dynamic = self.config.dynamic_act or not self.config.weight_only
+        return moe_ops.experts(f, wexp, self.q_gate_w, self.q_up_w,
+                               self.q_down_w, self.gate_w_s, self.up_w_s,
+                               self.down_w_s, dynamic=dynamic, sparse=sparse)
+
+    def forward(self, x: Tensor) -> Tensor:
+        if x.shape[-1] != self.dim or len(x.shape) != 2:
+            raise ValueError(f"QuantMoE({self.dim}) expects tokens [M, "
+                             f"{self.dim}], got {x.shape}")
+        if not x.quantized:
+            out = self._moe(x.data)
+            self._observe(out)
+            return Tensor(out)
+        self._check_converted()
+        out = self._moe(dequantize_u8(x.data, x.scale, x.zero_point))
+        return Tensor(quantize_u8(out, self.scale, self.zero_point,
+                                  self.config.rounding), self.scale,
+                      self.zero_point)
+
+
 def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
     """The three attention projections sharing input ``x`` as one GEMM
     (``ops/gemm_int8.qgemm_multi``, kernel B2): the same codes as calling
@@ -1104,7 +1279,7 @@ def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
         scale_p=smax.scale, zp_p=smax.zero_point,
         scale_c=av.scale, zp_c=av.zero_point,
         alpha=attn.alpha, rounding=attn.config.rounding,
-        window=smax.window, softcap=smax.softcap)
+        window=smax.window, softcap=smax.softcap, alibi=smax.alibi)
     return Tensor(out, av.scale, av.zero_point)
 
 

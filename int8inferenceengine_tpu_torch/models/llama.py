@@ -134,6 +134,12 @@ class LlamaDecoder(TextDecoder):
         norms it (``postn1_{i}``); llama passes it on."""
         return o
 
+    def _residual(self, i, x, o):
+        """The block's tail after attention: sequential here (the MLP reads
+        the post-attention residual ``x + o``); the neox family overrides it
+        with the parallel form ``x + o + mlp(x)``."""
+        return self._mlp(i, self._l("add1_", i)(x, o))
+
     def _mlp(self, i, x):
         h = self._l("ln2_", i)(x)
         gate, silu, up = self._l("gate", i), self._l("silu", i), \
@@ -167,7 +173,7 @@ class LlamaDecoder(TextDecoder):
         p = self._l("smax", i)(s)
         o = F.merge_heads(self._l("av", i)(p, F.repeat_kv(vh, grp)))
         o = self._l("proj", i)(o.reshape(b * t, o.shape[-1]))
-        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
+        return self._residual(i, x, self._attn_out(i, o))
 
     def _block_decode(self, i, x, valid, pos, rows, at, k_cache, v_cache):
         b = x.shape[0]
@@ -184,7 +190,7 @@ class LlamaDecoder(TextDecoder):
             o = F.merge_heads(self._float_attention(
                 i, qh, k_cache, v_cache, self._float_valid(valid, 1)))
             o = self._l("proj", i)(o.reshape(b, -1))
-            return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
+            return self._residual(i, x, self._attn_out(i, o))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         q_flat = F.merge_heads(qh).reshape(b, -1)
         o = fused_decode_attention(
@@ -192,7 +198,7 @@ class LlamaDecoder(TextDecoder):
             Tensor(k_cache, ks, kzp), Tensor(v_cache, vs, vzp), valid,
             self.head_dim)
         o = self._l("proj", i)(o)
-        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
+        return self._residual(i, x, self._attn_out(i, o))
 
     def _block_extend(self, i, x, b, m, valid, pos, k_cache, v_cache):
         """m-row cached block: RoPE at positions pos..pos+m-1 (per-row
@@ -212,14 +218,14 @@ class LlamaDecoder(TextDecoder):
             o = F.merge_heads(self._float_attention(
                 i, qh, k_cache, v_cache, self._float_valid(valid, m)))
             o = self._l("proj", i)(o.reshape(b * m, -1))
-            return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
+            return self._residual(i, x, self._attn_out(i, o))
         (ks, kzp), (vs, vzp) = self._kv_scales(i)
         o = fused_extend_attention(
             self._l("attn", i), self._l("smax", i), self._l("av", i),
             F.merge_heads(qh), Tensor(k_cache, ks, kzp),
             Tensor(v_cache, vs, vzp), valid, self.head_dim)
         o = self._l("proj", i)(o.reshape(b * m, -1))
-        return self._mlp(i, self._l("add1_", i)(x, self._attn_out(i, o)))
+        return self._residual(i, x, self._attn_out(i, o))
 
 
 def torch_llama(vocab_size: int = 1000, max_len: int = 64, dim: int = 128,

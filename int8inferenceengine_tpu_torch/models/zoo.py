@@ -1,7 +1,8 @@
 """Model zoo: the reference's sample models, the CNN families and the
-GPT-style and llama decoders as framework Modules (counterpart of
+decoder families as framework Modules (counterpart of
 ``int8inferenceengine_tpu.models.zoo``: every CNN name of its ``build()``,
-``gpt_tiny``, ``llama_tiny``, ``mistral_tiny`` and ``gemma_tiny``).
+``gpt_tiny``, ``opt_tiny``, ``llama_tiny``, ``mistral_tiny``,
+``gemma_tiny``, ``moe_tiny``, ``neox_tiny`` and ``bloom_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
@@ -13,9 +14,13 @@ The CNNs take NCHW float input via ``tensor()`` and return logits
 [batch, classes]; ``gpt_tiny`` (``models.text_decoder.TextDecoder``) takes
 token ids [batch, T] and returns logits [batch, T, vocab], as does
 ``llama_tiny`` (``models.llama.LlamaDecoder``, 4 query heads over 2 kv heads
-by default), ``mistral_tiny`` (the same with a sliding window of 16) and
+by default), ``mistral_tiny`` (the same with a sliding window of 16),
 ``gemma_tiny`` (``models.gemma.GemmaDecoder``, 2 kv heads, a window of 32 on
-its odd blocks).
+its odd blocks), ``opt_tiny`` (``TextDecoder(act="relu")``: learned
+positions, pre-LN, a ReLU MLP), ``moe_tiny`` (``models.moe.MoEDecoder``, 2
+kv heads, 4 experts, top-2), ``neox_tiny`` (``models.neox.NeoXDecoder``:
+parallel residual, rotary on a quarter of each head) and ``bloom_tiny``
+(``models.bloom.BloomDecoder``: ALiBi, an embedding LayerNorm).
 """
 
 from __future__ import annotations
@@ -26,12 +31,16 @@ from ..module import Module
 from ..ops import functional as F
 from . import (densenet, efficientnet, googlenet, mobilenet, mobilenet_v3,
                resnet, shufflenet, squeezenet)
+from .bloom import BloomDecoder, torch_bloom
 from .gemma import GemmaDecoder, torch_gemma
 from .llama import LlamaDecoder, torch_llama
+from .moe import MoEDecoder, torch_moe
+from .neox import NeoXDecoder, torch_neox
 from .text_decoder import TextDecoder, torch_text_decoder
 
 __all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "VGG11", "VGG16",
-           "VGG19", "TextDecoder", "LlamaDecoder", "GemmaDecoder", "build",
+           "VGG19", "TextDecoder", "LlamaDecoder", "GemmaDecoder",
+           "MoEDecoder", "NeoXDecoder", "BloomDecoder", "build",
            "torch_twin", "MODEL_SPECS"]
 
 
@@ -212,6 +221,17 @@ def _gemma_tiny(**kw):
     return GemmaDecoder(**kw)
 
 
+def _moe_tiny(**kw):
+    kw.setdefault("kv_heads", 2)
+    return MoEDecoder(**kw)
+
+
+def _opt_tiny(**kw):
+    # OPT: the gpt block (learned positions, pre-LN) with a ReLU MLP
+    kw.setdefault("act", "relu")
+    return TextDecoder(**kw)
+
+
 def _mobilenet_v3(variant):
     def make(**kw):
         return mobilenet_v3.MobileNetV3(variant=variant, **kw)
@@ -244,10 +264,23 @@ MODEL_SPECS = {
     "llama_tiny": _llama_tiny,
     "mistral_tiny": _mistral_tiny,
     "gemma_tiny": _gemma_tiny,
+    "moe_tiny": _moe_tiny,
+    "neox_tiny": NeoXDecoder,
+    "opt_tiny": _opt_tiny,
+    "bloom_tiny": BloomDecoder,
 }
 
 # the families whose torch twins live in their own modules
 _TWINS = {
+    "gpt_tiny": lambda seed: torch_text_decoder(seed=seed),
+    "opt_tiny": lambda seed: torch_text_decoder(seed=seed, act="relu"),
+    "llama_tiny": lambda seed: torch_llama(kv_heads=2, seed=seed),
+    "mistral_tiny": lambda seed: torch_llama(kv_heads=2, sliding_window=16,
+                                             seed=seed),
+    "gemma_tiny": lambda seed: torch_gemma(kv_heads=2, seed=seed),
+    "moe_tiny": lambda seed: torch_moe(kv_heads=2, seed=seed),
+    "neox_tiny": lambda seed: torch_neox(seed=seed),
+    "bloom_tiny": lambda seed: torch_bloom(seed=seed),
     "resnet18": lambda seed: resnet.torch_resnet18(seed=seed),
     "resnet34": lambda seed: resnet.torch_resnet34(seed=seed),
     "resnet50": lambda seed: resnet.torch_resnet50(seed=seed),
@@ -286,14 +319,6 @@ def torch_twin(name: str, seed: int = 42):
     import torch.nn as nn
     import torch.nn.functional as tF
 
-    if name == "gpt_tiny":
-        return torch_text_decoder(seed=seed)
-    if name == "llama_tiny":
-        return torch_llama(kv_heads=2, seed=seed)
-    if name == "mistral_tiny":
-        return torch_llama(kv_heads=2, sliding_window=16, seed=seed)
-    if name == "gemma_tiny":
-        return torch_gemma(kv_heads=2, seed=seed)
     if name in _TWINS:
         return _TWINS[name](seed)
 

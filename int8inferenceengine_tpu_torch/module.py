@@ -65,14 +65,16 @@ class Module(nn.Module):
 
     # -- reference lifecycle API ----------------------------------------------
     def load(self, state_dict):
-        """Ingest a torch-style flat state_dict ('name.weight'/'name.bias');
-        dotted paths reach into sub-Modules."""
+        """Ingest a torch-style flat state_dict ('name.weight'/'name.bias',
+        or any 'name.<param>' with a ``load_<param>`` setter, as
+        ``QuantMoE``'s router and expert stacks); dotted paths reach into
+        sub-Modules."""
         for key, value in state_dict.items():
             path, attr = key.rsplit(".", 1)
             obj = self
             for part in path.split("."):
                 obj = getattr(obj, part)
-            if attr in ("weight", "bias") and isinstance(obj, Layer):
+            if isinstance(obj, Layer) and hasattr(obj, "load_" + attr):
                 getattr(obj, "load_" + attr)(value)
             else:
                 raise KeyError(f"unrecognized state_dict key: {key}")

@@ -25,6 +25,12 @@ exactly zero, so garbage in unwritten cache rows never reaches the output.
   (``csrc/decode_attn.cu``) and adds one to ``decode_attention_flat
   .launches``; on a CPU tensor, or with ``backend='xla'`` (the caller's
   explicit choice of the composed path), it runs ``decode_attention_xla``.
+* ALiBi (the BLOOM family's per-head score bias ``m_h * (col - (valid +
+  j - 1))``, added after the softcap and before the mask) runs the
+  composed path on every device, as in the JAX package, whose kernel has
+  no bias tail: ``decode_attention_alibi``, a library route that counts
+  its ``calls``.  It reads all T cache rows; ``backend='pallas'`` with
+  ALiBi raises ``ValueError``.
 
 The JAX package has two Pallas revisions of the kernel, the merged-dot one
 (``merged=True``) and the block walk it keeps as its oracle
@@ -89,16 +95,18 @@ def decode_attention_xla(q_u8, k_u8, v_u8, valid, *, scale_q, zp_q,
                          scale_k, zp_k, scale_v, zp_v, scale_s, zp_s,
                          scale_p, zp_p, scale_c, zp_c, alpha: float,
                          rounding: str = "trunc", window: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
+                         softcap: float | None = None,
+                         alibi: torch.Tensor | None = None) -> torch.Tensor:
     """Composed decode attention (the plain version): QuantMatmul ->
     QuantSoftmax(valid_len) -> QuantMatmul on [..., R, T] scores.
 
     ``valid`` broadcasts against the score columns: an int, a 0-dim tensor,
-    [B, 1, 1, 1] per sequence, or [B, 1, R, 1] per row."""
+    [B, 1, 1, 1] per sequence, or [B, 1, R, 1] per row.  ``alibi`` (float32
+    [Hkv, R]) is the ALiBi slope of each score row's query head."""
     f = _masked_scores(q_u8, k_u8, valid, scale_q=scale_q, zp_q=zp_q,
                        scale_k=scale_k, zp_k=zp_k, scale_s=scale_s, zp_s=zp_s,
                        alpha=alpha, rounding=rounding, window=window,
-                       softcap=softcap)
+                       softcap=softcap, alibi=alibi)
     p = quantize_u8(softmax_last(f), scale_p, zp_p, rounding)
     return qmatmul_act(p, v_u8, scale_a=scale_p, zp_a=zp_p, scale_b=scale_v,
                        zp_b=zp_v, scale_c=scale_c, zp_c=zp_c,
@@ -106,9 +114,10 @@ def decode_attention_xla(q_u8, k_u8, v_u8, valid, *, scale_q, zp_q,
 
 
 def _masked_scores(q_u8, k_u8, valid, *, scale_q, zp_q, scale_k, zp_k,
-                   scale_s, zp_s, alpha, rounding, window, softcap):
-    """The requantized, dequantized (softcapped) scores [..., R, T], -inf
-    outside each row's horizon."""
+                   scale_s, zp_s, alpha, rounding, window, softcap,
+                   alibi=None):
+    """The requantized, dequantized (softcapped, ALiBi-biased) scores [...,
+    R, T], -inf outside each row's horizon."""
     s = qmatmul_act(q_u8, k_u8, scale_a=scale_q, zp_a=zp_q, scale_b=scale_k,
                     zp_b=zp_k, scale_c=scale_s, zp_c=zp_s, alpha=alpha,
                     transpose_b=True, rounding=rounding)
@@ -116,6 +125,11 @@ def _masked_scores(q_u8, k_u8, valid, *, scale_q, zp_q, scale_k, zp_k,
     if softcap is not None:
         f = softcap_(f, softcap)
     col = torch.arange(f.shape[-1], device=f.device, dtype=torch.int32)
+    if alibi is not None:
+        # the query's absolute position is valid - 1: 0 at itself, negative
+        # into the past (future columns are masked below)
+        m = alibi.reshape(1, alibi.shape[0], alibi.shape[1], 1)
+        f = f + m * (col - (valid - 1)).to(torch.float32)
     keep = col < valid
     if window is not None:
         keep = keep & (col >= valid - int(window))
@@ -238,7 +252,8 @@ def _head_major(q, k3, v3, n_kv, mq):
     return q4, to4(k3), to4(v3)
 
 
-def _composed(q, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, kw):
+def _composed(q, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, kw,
+              alibi=None):
     bsz, t, c = k3.shape
     d = c // n_kv
     grp = n_heads // n_kv
@@ -248,8 +263,12 @@ def _composed(q, k3, v3, v, *, n_heads, n_kv, mq, window, softcap, kw):
         rowj = (torch.arange(mq * grp, device=q.device, dtype=torch.int32)
                 // grp).reshape(1, 1, mq * grp, 1)
         vmask = vmask + rowj
+    if alibi is not None:
+        # rows (j, g) of kv group kv hold query head kv * grp + g
+        alibi = alibi.reshape(n_kv, 1, grp).expand(n_kv, mq, grp).reshape(
+            n_kv, mq * grp)
     out4 = decode_attention_xla(q4, k4, v4, vmask, window=window,
-                                softcap=softcap, **kw)
+                                softcap=softcap, alibi=alibi, **kw)
     return out4.reshape(bsz, n_kv, mq, grp, d).permute(0, 2, 1, 3, 4)
 
 
@@ -271,14 +290,20 @@ def decode_attention_flat(q2_u8, k3_u8, v3_u8, valid, *, n_heads: int,
     the scores (s), the probabilities (p) and the output (c), ``alpha`` and
     ``rounding``.  ``merged`` selects the JAX kernel revision; both are the
     one CUDA kernel here.  ``plan`` is the kernel's (by default
-    ``plan_decode_attn``'s; one it cannot run raises)."""
-    if alibi is not None:
-        raise NotImplementedError(
-            "decode_attention_flat: ALiBi is composed-only in the JAX "
-            "package too; the port has no ALiBi model yet")
+    ``plan_decode_attn``'s; one it cannot run raises).  ``alibi`` (one
+    slope a query head: a sequence, or a float32 tensor, which a captured
+    step needs) sends the call to ``decode_attention_alibi``."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown decode attention backend {backend!r}; "
                          f"one of {BACKENDS}")
+    if alibi is not None:
+        if backend == "pallas":
+            raise ValueError("decode_attention_flat: ALiBi has no kernel "
+                             "route (as in the JAX package); use "
+                             "backend='auto' or 'xla'")
+        if len(alibi) != n_heads:
+            raise ValueError(f"alibi slopes ({len(alibi)}) != query heads "
+                             f"{n_heads}")
     del merged                                   # one kernel serves both
     bsz, t, c = k3_u8.shape
     n_kv = n_heads if n_kv_heads is None else int(n_kv_heads)
@@ -305,6 +330,12 @@ def decode_attention_flat(q2_u8, k3_u8, v3_u8, valid, *, n_heads: int,
     v = _valid_tensor(valid, bsz, dev)
     if window is not None:
         window = int(window)
+    if alibi is not None:
+        return decode_attention_alibi(
+            q2_u8, k3_u8, v3_u8, v, torch.as_tensor(
+                alibi, dtype=torch.float32, device=dev),
+            n_heads=n_heads, n_kv=n_kv, mq=mq, window=window,
+            softcap=softcap, kw=kw)
     if dev.type == "cpu" or backend == "xla":
         out = _composed(q2_u8, k3_u8, v3_u8, v, n_heads=n_heads, n_kv=n_kv,
                         mq=mq, window=window, softcap=softcap, kw=kw)
@@ -318,6 +349,21 @@ def decode_attention_flat(q2_u8, k3_u8, v3_u8, valid, *, n_heads: int,
 
 
 decode_attention_flat.launches = 0
+
+
+def decode_attention_alibi(q, k3, v3, v, alibi, *, n_heads, n_kv, mq, window,
+                           softcap, kw) -> torch.Tensor:
+    """The ALiBi decode attention: the composed chain over all T rows of the
+    cache with each score row biased by its query head's slope (``alibi``
+    float32 [H]), on any device.  The JAX package leaves it to XLA (no
+    ``pallas_call``); here it is stock PyTorch, counted in ``.calls``."""
+    decode_attention_alibi.calls += 1
+    out = _composed(q, k3, v3, v, n_heads=n_heads, n_kv=n_kv, mq=mq,
+                    window=window, softcap=softcap, kw=kw, alibi=alibi)
+    return out.reshape(q.shape)
+
+
+decode_attention_alibi.calls = 0
 
 
 class DecodeAttnPlan(NamedTuple):

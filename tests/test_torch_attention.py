@@ -123,8 +123,11 @@ def test_scalar_valid_forms_agree_and_cpu_launches_nothing():
 def test_rejects_what_it_does_not_take():
     q, k, v = (torch.tensor(x) for x in _case(2, 64, 4, 4, 16, 1, seed=3))
     kw = dict(PARAMS, alpha=0.25, n_heads=4)
-    with pytest.raises(NotImplementedError, match="ALiBi"):
-        TA.decode_attention_flat(q, k, v, 5, alibi=(0.5,) * 4, **kw)
+    with pytest.raises(ValueError, match="ALiBi"):
+        TA.decode_attention_flat(q, k, v, 5, alibi=(0.5,) * 4,
+                                 backend="pallas", **kw)
+    with pytest.raises(ValueError, match="slopes"):
+        TA.decode_attention_flat(q, k, v, 5, alibi=(0.5,) * 3, **kw)
     with pytest.raises(ValueError, match="backend"):
         TA.decode_attention_flat(q, k, v, 5, backend="triton", **kw)
     with pytest.raises(ValueError, match="kv heads"):
