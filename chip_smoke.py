@@ -14,6 +14,9 @@
                                          # (29-33), no result line
     python3 chip_smoke.py --families  # only the other decoder families'
                                       # phases (34-38), no result line
+    python3 chip_smoke.py --encoders  # only the encoders' and the lifecycle
+                                      # levers' phases (39-43), no result
+                                      # line
 
 Phases, in order (any failure exits non-zero):
 
@@ -266,6 +269,28 @@ Phases, in order (any failure exits non-zero):
    (expert GEMMs, router and combine, B1/B2/B3, glue) beside the step's
    bound.  In 11, B1, B2 and B3 at both models' shapes, the MoE experts
    and the ALiBi decode attention (library routes) each beside its bound.
+39. B1 and B2 bit for bit against their plain versions at every GEMM of
+   the ViT-B/16 and BERT-width forwards at batch 64: the patch stem's conv
+   (16 x 16 / 16 over 3 channels) against im2col + ``qgemm_plain``, proj,
+   fc1 with its gelu epilogue, fc2, the head, the merged QKV;
+40. ViT and the text encoder at dim 256, depth 2 (``SMALL_ENCODERS``),
+   calibrated on the card, against a CPU copy of their state: logit codes
+   within the contract;
+41. the lifecycle levers: AlexNet-224 b100 with its fc3 an FP32 island
+   (``convert(skip=)``: 7 B1 and one island a forward, 4 images against a
+   CPU copy within the contract), ``QuantAct(backend='lut')`` equal to
+   'elementwise' on every code for each activation, a ``bias_correction``
+   LeNet calibrated on the card equal to a CPU copy;
+42. ViT-B/16 at its published widths (``VIT_B16``; weights from a
+   ``torch.Generator`` on the card), batch 64: FP32 forward against its
+   twin, calibrate, convert, one INT8 forward with exactly 38 B1, 12 B2 and
+   12 composed attentions; INT8 and FP32 ms/batch, images/s, the busy
+   split (B1, B2, the composed attention, glue) beside the forward's
+   bound; its ``InferenceEngine`` as in 14;
+43. the BERT-width text encoder (``BERT_BASE``), batch 64 x 128 tokens, the
+   same protocol with 37 B1 and 12 B2 a forward.  In 11, B1 and B2 at both
+   encoders' shapes, the composed attention and the FP32 island (library
+   routes) each beside its bound.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -2039,13 +2064,21 @@ def executions(rows):
 
 
 @contextlib.contextmanager
-def kernel_profile(torch):
+def kernel_profile(torch, warm):
     """Profile the card while the block runs; yields a dict that holds
-    ``executions`` when the block ends."""
+    ``executions`` when the block ends.  ``warm()`` runs first in the same
+    session, left out of the rows (``profiled``: late in this script a
+    session's first records go missing)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import schedule
     res = {}
     with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+                                   ProfilerActivity.CUDA],
+                       schedule=schedule(wait=0, warmup=1, active=1,
+                                         repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
         yield res
         torch.cuda.synchronize()
     res.update(executions(profile_rows(torch, prof)))
@@ -2508,11 +2541,11 @@ def small_engines_vs_cpu(torch, q, zoo, TD, LL, dev):
 
 
 def serve_cnn(torch, q, model, kernel_fns, label="alexnet"):
-    """A 224 x 224 CNN's InferenceEngine (max_batch 100, one captured
-    forward per tile; AlexNet's and ResNet-50's): requests of ALEX_REQUESTS
-    images equal the direct call on the same images exactly, and their
-    launches (eager first batches and replays) equal the kernels that a
-    profile of them saw run; then ALEX_LOAD batches of 100 at once,
+    """A 224 x 224 model's InferenceEngine (max_batch 100, one captured
+    forward per tile; AlexNet's, ResNet-50's and ViT-B/16's): requests of
+    ALEX_REQUESTS images equal the direct call on the same images exactly,
+    and their launches (eager first batches and replays) equal the kernels
+    that a profile of them saw run; then ALEX_LOAD batches of 100 at once,
     images/s beside the direct calls' (host input and output both ways).
     Returns the requests' launches."""
     from int8inferenceengine_tpu_torch.serve import InferenceEngine
@@ -2521,8 +2554,9 @@ def serve_cnn(torch, q, model, kernel_fns, label="alexnet"):
           for n in ALEX_REQUESTS]
     eng = InferenceEngine(model, max_batch=100)
     try:
-        reset_counts(kernel_fns)
-        with kernel_profile(torch) as executed:
+        with kernel_profile(torch, lambda: model(q.tensor(xs[0]))) \
+                as executed:
+            reset_counts(kernel_fns)
             got = results([eng.submit(x) for x in xs])
         counts = read_counts(kernel_fns)
         if counts != {k: executed.get(k, 0) for k in counts}:
@@ -4497,6 +4531,16 @@ LIBRARY_INFO = {
         route="composed QK^T, ALiBi bias, masked softmax, P@V over all "
               "T_max rows of the u8 cache",
         replaces="int8inferenceengine_tpu/ops/attention.py:787-801 (XLA)"),
+    # the encoders' and the lifecycle levers' (phases 39-43)
+    "encoder_attention": dict(
+        route="composed QK^T, softmax, P@V on head-split u8 codes: exact "
+              "float64 torch.matmul products, a float64-sum softmax",
+        replaces="int8inferenceengine_tpu/ops/attention.py:64-113 (XLA)"),
+    "fp32_island": dict(
+        route="dequantize, F.linear / F.conv2d in float32 (TF32 off), "
+              "requantize",
+        replaces="int8inferenceengine_tpu/layers.py:474-490, 799-812 "
+                 "(XLA)"),
 }
 
 
@@ -5859,6 +5903,488 @@ def families_paths(torch, q, zoo, kernel_fns, route_fns, dev):
     return counts
 
 
+# -- phases 39-43: the encoders and the lifecycle levers ----------------------
+
+# ViT-B/16 at 224 (Dosovitskiy et al. 2021, Table 1 "ViT-Base", as
+# google/vit-base-patch16-224's config.json gives it): hidden 768, 12
+# layers, 12 heads of 64, intermediate 3,072, patch 16 (196 patches and the
+# class token: 197 tokens), 1,000 classes; nothing cut
+VIT_B16 = dict(img_size=224, patch=16, dim=768, depth=12, heads=12,
+               mlp_ratio=4, num_classes=1000)
+# bert-base-uncased's config.json widths: vocab 30,522, hidden 768, 12
+# layers of 12 heads, intermediate 3,072; 128 tokens (and the class token:
+# 129) and 2 classes.  Only the widths are BERT's: the block is the JAX
+# package's pre-LN TextTransformer block
+BERT_BASE = dict(vocab_size=30_522, max_len=128, dim=768, depth=12,
+                 heads=12, mlp_ratio=4, num_classes=2)
+ENCODERS = [("vit_b16_b64", "vit_tiny", VIT_B16),
+            ("text_bert_base_b64", "text_tiny", BERT_BASE)]
+ENC_BATCH = 64
+ENC_CFG = dict(rounding="nearest")
+# the encoders' card-vs-CPU gate at dim 256, depth 2 (batch 4)
+SMALL_ENCODERS = [("vit_tiny", dict(img_size=64, patch=16, dim=256, depth=2,
+                                    heads=4, mlp_ratio=4, num_classes=10)),
+                  ("text_tiny", dict(vocab_size=4096, max_len=32, dim=256,
+                                     depth=2, heads=4, mlp_ratio=4,
+                                     num_classes=10))]
+# the lifecycle gates: AlexNet's last layer (its eighth, fc3) kept an FP32
+# island at batch 100; the images of its CPU copy
+ISLAND_SKIP = ("fc3",)
+ISLAND_BATCH, ISLAND_CPU_BATCH = 100, 4
+
+
+def encoder_tokens(geo) -> int:
+    """The tokens an encoder's blocks see: the patches or the ids, and the
+    class token."""
+    if "img_size" in geo:
+        return (geo["img_size"] // geo["patch"]) ** 2 + 1
+    return geo["max_len"] + 1
+
+
+def encoder_gemms(geo, batch=ENC_BATCH):
+    """One forward's B1 GEMMs (layer, M, K, N, launches, act), its B2 (M, K,
+    per-head widths, launches) and the patch stem's conv geometry (batch,
+    h, w, c, k, stride, pad) or None."""
+    m, c, d = batch * encoder_tokens(geo), geo["dim"], geo["depth"]
+    h = geo["mlp_ratio"] * c
+    gemms = [("proj", m, c, c, d, None), ("fc1+gelu", m, c, h, d, "gelu"),
+             ("fc2", m, h, c, d, None),
+             ("head", batch, c, geo["num_classes"], 1, None)]
+    patch = None
+    if "img_size" in geo:
+        s, p = geo["img_size"], geo["patch"]
+        patch = (batch, s, s, 3, p, p, 0)
+    return gemms, (m, c, (c, c, c), d), patch
+
+
+def encoder_launches(geo) -> dict:
+    """B1 and B2 launches of one INT8 forward, from the model's code: the
+    patch stem (ViT), proj, fc1 with gelu in its epilogue
+    (``fused_linear_act``) and fc2 a block, the head; the merged QKV
+    (``fused_qkv``) a block."""
+    d = geo["depth"]
+    return {"qgemm_u8s8": 3 * d + 1 + ("img_size" in geo),
+            "qgemm_u8s8_vzp": d}
+
+
+def check_encoder_kernels(torch, G, C, gen, dev):
+    """Phase 39: B1 and B2 bit for bit against their plain versions at
+    every GEMM of the ViT-B/16 and BERT-width forwards at batch 64: the
+    patch stem's conv (16 x 16 / 16 over 3 channels, B1's conv route)
+    against im2col + ``qgemm_plain``, proj, fc2, the head, fc1 with its
+    gelu epilogue, and the merged QKV.  Returns {kernel: max |code
+    difference|}."""
+    for label, _, geo in ENCODERS:
+        gemms, (m, k, widths, per), patch = encoder_gemms(geo)
+        shapes = {}
+        if patch is not None:
+            shapes[("conv", patch, geo["dim"])] = ("patch", 1)
+        for layer, mm, kk, n, count, act_name in gemms:
+            if act_name is None:
+                shapes[("gemm", (mm, kk), n)] = (layer, count)
+            else:
+                check_b1_act_exact(torch, G, gen, dev, mm, kk, n, act_name)
+        check_b1_shapes(torch, G, C, gen, dev, shapes, label)
+        check_b2(torch, G, gen, dev, [(m, k, widths)])
+    return {"qgemm_u8s8": 0, "qgemm_u8s8_vzp": 0}
+
+
+def encoder_twin(name):
+    from int8inferenceengine_tpu_torch.models import text_transformer, vit
+    return {"vit_tiny": vit.torch_vit,
+            "text_tiny": text_transformer.torch_text_transformer}[name]
+
+
+def encoder_state(torch, name, geo, seed: int, dev):
+    """Random weights on the card from a ``torch.Generator``, scaled as the
+    twins' are: the patch conv He-scaled, the LayerNorms' gains 1 + N(0,
+    0.02) and biases N(0, 0.02), the class token, the positions and the
+    embedding N(0, 0.02), the Linears N(0, 0.02) (the residual projections
+    proj and fc2 0.02 / sqrt(2 depth)) with N(0, 0.01) biases."""
+    with torch.device("meta"):
+        twin = encoder_twin(name)(**geo, seed=0)
+    shapes = {k: tuple(v.shape) for k, v in twin.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = {}
+    for key, shape in shapes.items():
+        lname, attr = key.rsplit(".", 1)
+        z = torch.randn(shape, generator=gen, device=dev)
+        if lname.startswith("ln"):
+            state[key] = z.mul_(0.02).add_(1.0) if attr == "weight" \
+                else z.mul_(0.02)
+        elif lname == "patch" and attr == "weight":
+            state[key] = z.mul_(math.sqrt(2.0 / math.prod(shape[1:])))
+        elif lname in ("pe", "embed"):
+            state[key] = z.mul_(0.02)
+        elif attr == "bias":
+            state[key] = z.mul_(0.01)
+        elif lname.startswith(("proj", "fc2_")):
+            state[key] = z.mul_(0.02 / math.sqrt(2 * geo["depth"]))
+        else:
+            state[key] = z.mul_(0.02)
+    return state
+
+
+def encoder_inputs(geo, batch: int, seed: int) -> np.ndarray:
+    """N(0, 1) images, or token ids uniform over the vocabulary."""
+    rng = np.random.default_rng(seed)
+    if "img_size" in geo:
+        s = geo["img_size"]
+        return rng.standard_normal((batch, 3, s, s)).astype(np.float32)
+    return rng.integers(0, geo["vocab_size"], (batch, geo["max_len"])
+                        ).astype(np.float32)
+
+
+def build_encoder(torch, q, zoo, name, geo, dev, calib, seed=0):
+    """An encoder of ``geo`` on ``dev`` with ``encoder_state`` weights,
+    calibrated on ``calib`` and converted."""
+    model = zoo.build(name, config=q.QuantConfig(**ENC_CFG), device=dev,
+                      **geo)
+    model.load(encoder_state(torch, name, geo, seed, dev))
+    model.prepare()
+    model(q.tensor(calib, device=dev))
+    model.convert()
+    return model
+
+
+def steps_apart(torch, got, want, scale):
+    """(max |code difference|, share of codes that differ) of two
+    dequantized outputs on one grid."""
+    d = torch.round((got.cpu() - want.cpu()).abs() / scale)
+    return int(d.max()), float((d > 0).float().mean())
+
+
+def encoders_small_vs_cpu(torch, q, zoo, dev):
+    """Phase 40: the two encoders at dim 256, depth 2 (``SMALL_ENCODERS``),
+    calibrated and converted on the card, against a CPU copy of their
+    state (``export_state`` -> ``load_jax_state``) on the same batch of 4:
+    the logit codes within the reference's contract (at most 1 code off on
+    at most 0.2%); bit-equality recorded."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    for name, geo in SMALL_ENCODERS:
+        x = encoder_inputs(geo, SMALL_BATCH, 6)
+        model = build_encoder(torch, q, zoo, name, geo, dev,
+                              encoder_inputs(geo, SMALL_BATCH, 5), seed=2)
+        cpu = zoo.build(name, config=model.config, device="cpu", **geo)
+        load_jax_state(cpu, export_state(model))
+        got = model(q.tensor(x, device=dev)).data
+        want = cpu(q.tensor(x, device="cpu")).data
+        mx, share = steps_apart(torch, got, want, model.head.scale)
+        ok = mx <= CPU_MAX_CODE and share <= CPU_MAX_SHARE
+        log(json.dumps({"phase": "encoder_card_vs_cpu", "model": name, **geo,
+                        "batch": SMALL_BATCH, "codes": int(want.numel()),
+                        "max_abs_err": mx, "share_differing": share,
+                        "bitwise_equal": mx == 0, "ok": ok}))
+        if not ok:
+            fail(f"{name} at dim 256: the card's codes differ from a CPU "
+                 f"copy's beyond the contract ({mx} codes, share {share})")
+        del model, cpu
+
+
+def lifecycle_gates(torch, q, zoo, kernel_fns, route_fns, dev):
+    """Phase 41, the lifecycle levers on the card: AlexNet-224 b100 with
+    ``convert(skip=ISLAND_SKIP)`` (one INT8 forward: 7 B1 and one FP32
+    island; 4 images' codes against a CPU copy within the contract);
+    ``QuantAct(backend='lut')`` equal to 'elementwise' bit for bit on every
+    code of two input grids for each activation; a LeNet with
+    ``bias_correction=True`` calibrated on the card equal to a CPU copy of
+    its state, its corrected s8 biases beside those of the same lifecycle
+    on the CPU (recorded).  Returns the island forward's launches."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.layers import QuantAct
+    from int8inferenceengine_tpu_torch.ops.functional import ACTIVATIONS
+    rng = np.random.default_rng(7)
+    shape = (ISLAND_BATCH, 3, 224, 224)
+    x_calib = rng.standard_normal(shape).astype(np.float32)
+    x_test = rng.standard_normal(shape).astype(np.float32)
+    model = zoo.AlexNet(device=dev)
+    model.load(he_state(torch, zoo.torch_twin("alexnet"), seed=0))
+    model.prepare()
+    model(q.tensor(x_calib, device=dev))
+    model.convert(skip=ISLAND_SKIP)
+    fns = dict(kernel_fns, **route_fns)
+    reset_counts(fns)
+    out = model(q.tensor(x_test, device=dev)).data
+    torch.cuda.synchronize()
+    counts = read_counts(fns)
+    want = dict.fromkeys(fns, 0) | {"qgemm_u8s8": 7, "fp32_island": 1}
+    if counts != want:
+        fail(f"AlexNet with an FP32 {ISLAND_SKIP} launched {counts}, want "
+             f"{want}")
+    cpu = zoo.AlexNet(device="cpu")
+    load_jax_state(cpu, export_state(model))
+    out_cpu = cpu(q.tensor(x_test[:ISLAND_CPU_BATCH], device="cpu")).data
+    mx, share = steps_apart(torch, out[:ISLAND_CPU_BATCH], out_cpu,
+                            model.fc3.scale)
+    ok = mx <= CPU_MAX_CODE and share <= CPU_MAX_SHARE
+    log(json.dumps({"phase": "alexnet_fp32_island_vs_cpu",
+                    "skip": list(ISLAND_SKIP), "launches": counts,
+                    "images": ISLAND_CPU_BATCH, "max_abs_err": mx,
+                    "share_differing": share, "ok": ok}))
+    if not ok:
+        fail(f"AlexNet's FP32 island: card differs from a CPU copy ({mx} "
+             f"codes, share {share})")
+    del model, cpu
+    xa = torch.tensor(rng.uniform(-4, 4, (2, 300)).astype(np.float32),
+                      device=dev)
+    codes = torch.arange(256, dtype=torch.uint8, device=dev).flip(0)
+    for name in ACTIVATIONS:
+        pair = [QuantAct(name, device=dev),
+                QuantAct(name, backend="lut", device=dev)]
+        for act in pair:
+            act.prepare()
+            act(q.Tensor(xa))
+            act.convert()
+        for scale, zp in ((0.03, 128), (0.011, 7)):
+            u8 = q.Tensor(codes.reshape(4, 64), scale, zp)
+            e, lut = (act(u8).data for act in pair)
+            if not torch.equal(e, lut):
+                fail(f"QuantAct({name!r}) LUT differs from elementwise on "
+                     f"the card on {int((e != lut).sum())} codes")
+    log(json.dumps({"phase": "quant_act_lut_vs_elementwise",
+                    "activations": sorted(ACTIVATIONS), "grids": 2,
+                    "codes": 256, "bitwise_equal": True}))
+    cfg = q.QuantConfig(bias_correction=True)
+    sd = zoo.torch_twin("lenet").state_dict()
+    x = rng.uniform(-1, 1, (32, 1, 28, 28)).astype(np.float32)
+    lenets = {}
+    for where in (dev, "cpu"):
+        m = zoo.build("lenet", config=cfg, device=where)
+        m.load(sd)
+        m.prepare()
+        m(q.tensor(x, device=where))
+        m.convert()
+        lenets[str(where)] = m
+    card = lenets[str(dev)]
+    copy = zoo.build("lenet", config=cfg, device="cpu")
+    load_jax_state(copy, export_state(card))
+    got = card(q.tensor(x, device=dev)).data.cpu()
+    equal = bool(torch.equal(got, copy(q.tensor(x, device="cpu")).data))
+    on_cpu = dict(lenets["cpu"].named_layers())
+    same_bias = {n: bool(torch.equal(l.q_bias.cpu(), on_cpu[n].q_bias))
+                 for n, l in card.named_layers()}
+    log(json.dumps({"phase": "lenet_bias_correction_vs_cpu",
+                    "card_equals_cpu_copy": equal,
+                    "q_bias_equal_to_cpu_lifecycle": same_bias}))
+    if not equal:
+        fail("bias-corrected LeNet: the card's codes differ from a CPU copy")
+    return {"alexnet_fp32_island_b100": counts}
+
+
+def attention_bound_ms(b, h, t, d):
+    """The encoder attention's bound: q, k, v and the output (u8 [B, T, H
+    D]) moved once; QK^T and P@V as int8 operations."""
+    return bound(4 * b * t * h * d, 4.0 * b * h * t * t * d)
+
+
+def encoder_bound_ms(geo, batch=ENC_BATCH) -> float:
+    """One INT8 forward's bound: every B1 and B2 launch's (the patch stem's
+    conv bound) and the attention's at the int8 peak; the glue's bytes are
+    not counted."""
+    gemms, (m, k, widths, per), patch = encoder_gemms(geo, batch)
+    tot = sum(bound_ms(mm, kk, n)[0] * count
+              for _, mm, kk, n, count, _ in gemms)
+    tot += bound_ms(m, k, sum(widths), vectors=3)[0] * per
+    if patch is not None:
+        tot += conv_bound_ms(patch, geo["dim"])[0]
+    h = geo["heads"]
+    tot += attention_bound_ms(batch, h, encoder_tokens(geo),
+                              geo["dim"] // h)[0] * geo["depth"]
+    return tot
+
+
+def encoder_attention_case(torch, gen, geo, dev, batch=ENC_BATCH):
+    """Random head-split codes [B, H, T, D] and the grids of one encoder
+    attention."""
+    h, t = geo["heads"], encoder_tokens(geo)
+    qkv = [torch.randint(0, 256, (batch, h, t, geo["dim"] // h),
+                         generator=gen, dtype=torch.uint8, device=dev)
+           for _ in range(3)]
+    kw = dict(ATTN_PARAMS, alpha=(geo["dim"] // h) ** -0.5,
+              rounding="nearest")
+    return qkv, kw
+
+
+def encoder_leg(torch, q, zoo, label, name, geo, kernel_fns, route_fns,
+                dev):
+    """Phases 42-43: an encoder at its published widths (``ENCODERS``),
+    batch 64, weights from a ``torch.Generator`` on the card: the FP32
+    forward against its twin on the card (1e-4 of the largest logit) and
+    its ms/batch, calibrate on one batch, convert, one INT8 forward with
+    exactly the B1 and B2 launches of ``encoder_launches`` and one composed
+    attention a block; INT8 ms/batch (CUDA events around 20 forwards, input
+    on the card) and items/s, a profiled forward's busy split (B1, B2, the
+    composed attention timed alone at its shape, the glue) beside the
+    forward's bound.  Returns (model, the forward's launches)."""
+    from int8inferenceengine_tpu_torch.ops import attention as A
+    from int8inferenceengine_tpu_torch.ops.qmatmul import qmatmul_act
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batch = ENC_BATCH
+    x_calib = encoder_inputs(geo, batch, 1)
+    x_test = encoder_inputs(geo, batch, 2)
+    state = encoder_state(torch, name, geo, 0, dev)
+    with torch.device(dev):
+        twin = encoder_twin(name)(**geo, seed=0)
+    twin.load_state_dict(state)
+    twin.eval()
+    model = zoo.build(name, config=q.QuantConfig(**ENC_CFG), device=dev,
+                      **geo)
+    model.load(state)
+    del state
+    xt = q.tensor(x_test, device=dev)
+    fp32 = model(xt).data
+    with torch.no_grad():
+        ref = twin(torch.tensor(x_test, device=dev))
+    del twin
+    fp_err = float((fp32 - ref).abs().max()) / float(ref.abs().max())
+    log(json.dumps({"phase": f"{label}_fp32_vs_twin",
+                    "max_err_rel_to_max": fp_err}))
+    if tuple(fp32.shape) != tuple(ref.shape) or fp_err > 1e-4:
+        fail(f"FP32 {label} differs from its torch twin: {fp_err}")
+    fp32_ms = time_cuda(torch, lambda: model(xt), iters=5)
+    model.prepare()
+    model(q.tensor(x_calib, device=dev))
+    model.convert()
+    torch.cuda.synchronize()
+    lifecycle_s = time.perf_counter() - t0
+    fns = dict(kernel_fns, **route_fns)
+    reset_counts(fns)
+    out = model(xt).data
+    torch.cuda.synchronize()
+    counts = read_counts(fns)
+    want = dict.fromkeys(fns, 0) | encoder_launches(geo) | {
+        "encoder_attention": geo["depth"]}
+    if counts != want:
+        fail(f"INT8 {label} forward launched {counts}, want {want}")
+    if tuple(out.shape) != (batch, geo["num_classes"]) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"INT8 {label} output {tuple(out.shape)} or non-finite")
+    top1 = float((out.argmax(1) == ref.argmax(1)).float().mean())
+    del fp32, ref, out
+    int8_ms = time_cuda(torch, lambda: model(xt), iters=20)
+    rows, wall_us = profiled(torch, lambda: model(xt), 3, lambda: model(xt))
+    busy = sum(e.self_device_time_total for e in rows) / 3
+    split = by_kernel(rows, 3)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    (qq, kk, vv), kw = encoder_attention_case(torch, gen, geo, dev)
+    attn_ms = time_cuda(torch, lambda: A.attention_xla(qq, kk, vv, **kw),
+                        iters=5)
+    mm = dict(scale_a=kw["scale_q"], zp_a=kw["zp_q"], scale_b=kw["scale_k"],
+              zp_b=kw["zp_k"], scale_c=kw["scale_s"], zp_c=kw["zp_s"])
+    qk_ms = time_cuda(torch, lambda: qmatmul_act(qq, kk, transpose_b=True,
+                                                 **mm), iters=5)
+    pp = torch.randint(0, 256, qq.shape[:3] + qq.shape[2:3], generator=gen,
+                       dtype=torch.uint8, device=dev)
+    pv_ms = time_cuda(torch, lambda: qmatmul_act(pp, vv, **mm), iters=5)
+    del qq, kk, vv, pp
+    us = {"B1": split.get("qgemm_u8s8", {}).get("us", 0.0),
+          "B2": split.get("qgemm_u8s8_vzp", {}).get("us", 0.0),
+          "composed attention": 1e3 * attn_ms * geo["depth"]}
+    us["glue"] = busy - sum(us.values())
+    bound_fwd = encoder_bound_ms(geo)
+    log(json.dumps({"phase": f"{label}_summary", "card": nvidia_smi(),
+                    **geo, "batch": batch, "tokens": encoder_tokens(geo),
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "prepare_calibrate_convert_s": lifecycle_s,
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "top1_agreement_vs_fp32": top1,
+                    "fp32_ms_per_batch": fp32_ms,
+                    "int8_ms_per_batch": int8_ms,
+                    "int8_items_per_s": batch * 1e3 / int8_ms,
+                    "fp32_items_per_s": batch * 1e3 / fp32_ms,
+                    "forward_bound_ms": bound_fwd,
+                    "share_of_bound": bound_fwd / int8_ms,
+                    "device_busy_ms": busy / 1e3,
+                    "device_idle_share": 1 - busy / (int8_ms * 1e3),
+                    "wall_us_profiled": wall_us,
+                    "busy_split_us": us,
+                    "attention_ms_per_layer": attn_ms,
+                    "attention_f64_products_ms_per_layer": {
+                        "qk": qk_ms, "pv": pv_ms},
+                    "profile_by_kernel": split, "gated": False}))
+    mark(f"{label} main path")
+    return model, counts
+
+
+def encoders_paths(torch, q, zoo, kernel_fns, route_fns, dev):
+    """Phases 40-43 in order: the small encoders against a CPU copy, the
+    lifecycle gates, ViT-B/16 with its ``InferenceEngine``, the BERT-width
+    text encoder.  Returns the launches of the main paths."""
+    encoders_small_vs_cpu(torch, q, zoo, dev)
+    counts = lifecycle_gates(torch, q, zoo, kernel_fns, route_fns, dev)
+    mark("encoders: small gates, lifecycle gates")
+    for label, name, geo in ENCODERS:
+        model, counts[label] = encoder_leg(torch, q, zoo, label, name, geo,
+                                           kernel_fns, route_fns, dev)
+        if name == "vit_tiny":
+            counts["vit_b16_engine"] = serve_cnn(torch, q, model, kernel_fns,
+                                                 label="vit_b16")
+        del model
+        torch.cuda.empty_cache()
+    mark("encoders")
+    return counts
+
+
+def time_encoder_kernels(torch, q, G, C, A, gen, dev, flush):
+    """B1 and B2 at one ViT-B/16 and one BERT-width b64 forward's shapes
+    (``time_gemms``, the patch stem's conv through ``time_cnn_gemms``):
+    kernel rows a forward.  Then the library routes: the composed encoder
+    attention at both shapes (a forward's 12 layers; the bound: q, k, v and
+    the output moved once, the products at the int8 peak) and the FP32
+    island at AlexNet's fc3 (M = 100, K = 4,096, N = 10; the bound: its
+    float32 weight and the u8 codes moved once, 2MNK at the float32
+    peak)."""
+    from int8inferenceengine_tpu_torch import layers as L
+    rows, crows, lrows = [], [], []
+    for label, _, geo in ENCODERS:
+        gemms, qkv, patch = encoder_gemms(geo)
+        rows += time_gemms(torch, G, gen, dev, flush, label, gemms, qkv,
+                           rounding="nearest")
+        if patch is not None:
+            crows += time_cnn_gemms(torch, G, C, gen, dev, flush, {
+                ("conv", patch, geo["dim"]): ("patch", 1)}, label)
+        (qq, kk, vv), kw = encoder_attention_case(torch, gen, geo, dev)
+        ms = time_cuda(torch, lambda: A.attention_xla(qq, kk, vv, **kw),
+                       iters=5, flush=flush)
+        h = geo["heads"]
+        b_ms, b_by, _, _ = attention_bound_ms(ENC_BATCH, h,
+                                              encoder_tokens(geo),
+                                              geo["dim"] // h)
+        lrows.append(dict(kernel="encoder_attention", path=label,
+                          layer=f"b{ENC_BATCH} H{h} T{encoder_tokens(geo)} "
+                                f"D{geo['dim'] // h}",
+                          launches_per_unit=geo["depth"], ms=ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        del qq, kk, vv
+    log_rows(rows)
+    rows += crows
+    for path in sorted({r["path"] for r in rows}):
+        mine = [r for r in rows if r["path"] == path]
+        log(json.dumps({"kernels_per_unit": path} | {
+            key: sum(r[key] * r["launches_per_unit"] for r in mine)
+            for key in ("ms", "bound_ms", "plain_ms", "library_ms")}))
+    m, k, n = 100, 4096, 10
+    layer = L.Linear(k, n, device=dev)
+    layer.load_weight(torch.randn((n, k), generator=gen, device=dev) * 0.02)
+    layer.quant_fallback = layer.is_quantized = True
+    layer.scale, layer.zero_point = 0.05, 120
+    x = q.Tensor(torch.randint(0, 256, (m, k), generator=gen,
+                               dtype=torch.uint8, device=dev), 0.02, 128)
+    ms = time_cuda(torch, lambda: L.fp32_island(layer, x), iters=10,
+                   flush=flush)
+    b_ms, b_by, _, _ = bound(m * k + 4 * n * k + 4 * n + m * n,
+                             2.0 * m * n * k, PEAK_FP32_OPS)
+    lrows.append(dict(kernel="fp32_island", path="alexnet_fp32_island_b100",
+                      layer=f"fc3 M {m} K {k} N {n}", launches_per_unit=1,
+                      ms=ms, bound_ms=b_ms, bound_by=b_by))
+    for r in lrows:
+        log(json.dumps(r | {"share_of_bound": r["bound_ms"] / r["ms"]}))
+    return rows, lrows
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -5930,6 +6456,10 @@ def main(argv=None) -> int:
                     help="only build and run the other decoder families' "
                          "phases (34-38) with their checks and times (no "
                          "result line)")
+    ap.add_argument("--encoders", action="store_true",
+                    help="only build and run the encoders' and the "
+                         "lifecycle levers' phases (39-43) with their "
+                         "checks and times (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5960,7 +6490,9 @@ def main(argv=None) -> int:
     route_fns = {"w8f_matmul": WO.w8f_matmul, "s8_matmul": WO.s8_matmul,
                  "w8f_conv2d": C.w8f_conv2d, "conv2d_s8": C.conv2d_s8,
                  "moe_experts": MO.experts,
-                 "alibi_attention": A.decode_attention_alibi}
+                 "alibi_attention": A.decode_attention_alibi,
+                 "encoder_attention": A.attention,
+                 "fp32_island": layers_mod.fp32_island}
     t_start = time.perf_counter()
 
     # -- 1. the card -----------------------------------------------------------
@@ -6011,6 +6543,19 @@ def main(argv=None) -> int:
                                        flush_buf.zero_)
         log(json.dumps({"library_routes": library_line(lrows, counts)}))
         log(json.dumps({"phase": "families_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.encoders:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        check_encoder_kernels(torch, G, C, gen, dev)
+        mark("encoders: kernel checks")
+        counts = encoders_paths(torch, q, zoo, kernel_fns, route_fns, dev)
+        flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        _, lrows = time_encoder_kernels(torch, q, G, C, A, gen, dev,
+                                        flush_buf.zero_)
+        log(json.dumps({"library_routes": library_line(lrows, counts)}))
+        log(json.dumps({"phase": "encoders_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -6072,6 +6617,10 @@ def main(argv=None) -> int:
 
     # -- 34. B1, B2 and B3 at Pythia-1.4B's and Mixtral's shapes ------------
     for name, err in check_family_kernels(torch, G, C, A, gen, dev).items():
+        max_err[name] = max(max_err[name], err)
+
+    # -- 39. B1 and B2 at ViT-B/16's and the BERT-width encoder's shapes ----
+    for name, err in check_encoder_kernels(torch, G, C, gen, dev).items():
         max_err[name] = max(max_err[name], err)
 
     # -- 15. B3 at the extend shapes against its plain version ----------------
@@ -6221,6 +6770,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mark("families")
 
+    # -- 40-43. the encoders: the small gates, the lifecycle levers, ViT-B/16
+    # and its engine, the BERT-width text encoder ------------------------------
+    counts_by_path.update(encoders_paths(torch, q, zoo, kernel_fns,
+                                         route_fns, dev))
+    torch.cuda.empty_cache()
+
     # -- 11. per-kernel times --------------------------------------------------
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
@@ -6240,6 +6795,9 @@ def main(argv=None) -> int:
     frows, flrows = time_family_kernels(torch, G, A, WO, gen, dev, flush)
     rows += frows
     lrows += flrows
+    erows, elrows = time_encoder_kernels(torch, q, G, C, A, gen, dev, flush)
+    rows += erows
+    lrows += elrows
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)

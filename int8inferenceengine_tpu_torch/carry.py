@@ -14,14 +14,17 @@ with ``params`` in the JAX package's layouts:
   f32), carried as they are (``wsum`` is an f32 sum whose order is part of
   the result, so it is never recomputed); 8-bit weight-only (W8-float and
   ``dynamic_act``) ``q_weight`` ([N, K] s8), the float32 ``bias`` and, per
-  channel, ``w_scale``;
+  channel, ``w_scale``; an FP32 island (a layer that
+  ``Module.convert(skip=...)`` kept float) ``weight`` / ``bias`` with
+  ``is_quantized`` true;
 * Conv2d: ``w_hwio`` / ``bias`` (HWIO, I = in_channels / groups), after
   convert ``qw_hwio`` (HWIO s8) with ``q_bias``, ``rowsum`` and, per
   channel, ``w_scale``; 8-bit weight-only ``q_w_hwio`` (HWIO s8), ``bias``
-  and, per channel, ``w_scale``;
+  and, per channel, ``w_scale``; an FP32 island ``w_hwio`` / ``bias``;
 * QuantEmbed: ``weight`` ([V, C] float32), after convert ``q_weight``
   ([V, C] u8) (a weight-only model keeps ``weight``);
-* QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one);
+* QuantPosEmbed: ``weight`` (and the class token ``bias`` when it has one:
+  the encoders' ``pe``, [T + 1, C] positions and the [C] class token);
 * QuantLayerNorm: ``weight`` and ``bias``; QuantRMSNorm: ``weight`` (a
   unit-offset norm's, gemma's ``ln*``, ``postn1_*``, ``postn2_*`` and
   ``ln_f``, is the delta around 1, as the JAX layer holds it: carried as it
@@ -89,6 +92,8 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
     # a grouped conv's taps span its group's channels
     n = layer.out_channels
     c = layer.in_channels // getattr(layer, "groups", 1)
+    layer.quant_fallback = bool(st["is_quantized"]) and (
+        "weight" in p or "w_hwio" in p)
     if st["is_quantized"] and "w4_packed" in p:
         return _load_w4_layer(name, layer, p)
     if st["is_quantized"] and ("q_weight" in p or "q_w_hwio" in p):
@@ -104,7 +109,7 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
         return layer.set_weight_only(_t(q_w, np.int8),
                                      _t(p["bias"], np.float32),
                                      _weight_scale(st))
-    if not st["is_quantized"]:
+    if not st["is_quantized"] or layer.quant_fallback:
         if isinstance(layer, Conv2d):
             _expect(name, "w_hwio", p["w_hwio"], (k, k, c, n))
             layer.load_weight(np.transpose(p["w_hwio"], (3, 2, 0, 1)))
@@ -205,7 +210,7 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
         if isinstance(ws, torch.Tensor):
             ws = params["w_scale"] = ws.cpu().numpy()
         return params, ws
-    if layer.is_quantized:
+    if layer.is_quantized and not layer.quant_fallback:
         qw = layer.qw.cpu().numpy()
         if isinstance(layer, Conv2d):
             k = layer.kernel_size

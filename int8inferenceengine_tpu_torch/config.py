@@ -43,7 +43,9 @@ class QuantConfig:
     # Float->int conversion: 'trunc' (the reference's C cast) or 'nearest'.
     rounding: str = "trunc"
 
-    # Fold the expected weight-quantization error into the bias.
+    # Fold the expected weight-quantization error E[(W - s_w*W_q) x] into
+    # the bias before its s8 quantization (Linear, and Conv2d with
+    # groups == 1), from the input means observed while preparing.
     bias_correction: bool = False
 
     # INT8 conv lowering: 'auto' runs the quantized GEMM kernel with the
@@ -82,8 +84,12 @@ class QuantConfig:
     # 'pallas' launch kernel B2 on a CUDA tensor, 'xla' runs the merged
     # GEMM's plain version, 'off' the three Linears.
     fuse_qkv: str = "auto"
-    # Fused prefill attention (the JAX package's ViT and text transformer,
-    # not ported yet; the decoder's prefill attention is composed).
+    # The encoders' (ViT, text transformer) converted QK^T -> softmax ->
+    # P@V chain: 'auto' / 'xla' run it through ``layers.fused_attention``
+    # (the composed path, ``ops/attention.attention``), 'off' through the
+    # three layers; 'pallas' raises at the call, as in the JAX package,
+    # whose prefill kernel was removed.  The decoders' prefill attention is
+    # composed either way.
     fused_attention: str = "auto"
     # Cached-decode attention: 'auto' / 'pallas' launch kernel B3 on a CUDA
     # tensor, 'xla' / 'off' run the composed plain version.
@@ -99,11 +105,9 @@ DEFAULT_CONFIG = QuantConfig()
 
 # field -> the only value this package implements so far
 _IMPLEMENTED = {
-    "bias_correction": False,
     "glue_dtype": "float32",
     "epilogue_dtype": "float32",
     "fp_dtype": "float32",
-    "fused_attention": "auto",
 }
 
 # field -> the values this package accepts
@@ -111,6 +115,8 @@ _CHOICES = {
     "kernel_backend": ("auto", "pallas", "xla"),
     "fuse_qkv": ("auto", "pallas", "xla", "off"),
     "decode_attention": ("auto", "pallas", "xla", "off"),
+    # 'pallas' is accepted here and refused where it runs, as in JAX
+    "fused_attention": ("auto", "pallas", "xla", "off"),
     # 'auto' / 'pallas': kernels B6 (W4A8 v2 envelope), B7 (other W4A8
     # shapes) and B5 (weight-only) on a CUDA tensor; 'xla': the plain
     # versions of B7's and B5's functions on any device

@@ -56,14 +56,17 @@ _local = threading.local()
 
 def launch_counters():
     """The kernel wrappers' launch counters and the library routes' call
-    counters (the weight modes', the MoE experts', the ALiBi attention's),
-    as (function, attribute) pairs."""
+    counters (the weight modes', the MoE experts', the ALiBi attention's,
+    the encoders' attention's and the FP32 islands'), as (function,
+    attribute) pairs."""
+    from . import layers
     from .ops import attention, conv, gemm_int8, moe, w4, weight_only
     fns = (gemm_int8.qgemm, gemm_int8.qgemm_multi,
            attention.decode_attention_flat, w4.w4_gemm, w4.w4a8_v1,
            w4.w4a8_v2, conv.conv2d_int8_grouped, weight_only.w8f_matmul,
            weight_only.s8_matmul, conv.w8f_conv2d, conv.conv2d_s8,
-           moe.experts, attention.decode_attention_alibi)
+           moe.experts, attention.decode_attention_alibi,
+           attention.attention, layers.fp32_island)
     return [(fn, attr) for fn in fns
             for attr in ("launches", "merged_launches", "calls")
             if hasattr(fn, attr)]

@@ -29,6 +29,14 @@ own scale (``ops/quant.quantize_dynamic``), the product accumulates
 exactly in s32 (``ops/weight_only.s8_matmul``, ``ops/conv.conv2d_s8``) and
 ``acc * (s_a * s_w) + bias`` dequantizes it.
 
+Two lifecycle levers shape a ``Linear``/``Conv2d``'s conversion:
+``QuantConfig.bias_correction`` folds the expected weight-quantization
+error ``E[(W - s_w*W_q) x]``, from the input means observed while
+preparing, into the bias before its s8 quantization (``groups == 1``
+convs only); and ``Module.convert(skip=...)`` leaves a layer an FP32
+island (``quant_fallback``): it keeps its float weights and takes u8 codes
+to u8 codes through a float product (``fp32_island``).
+
 The transformer layers (``QuantEmbed``, ``QuantPosEmbed``,
 ``QuantLayerNorm``, ``QuantMatmul``, ``QuantSoftmax``, ``QuantAct``,
 ``QuantAdd``) follow the same lifecycle: their FP32 path observes its
@@ -36,11 +44,14 @@ output while preparing, and after convert the INT8 path dequantizes its u8
 inputs, computes in float32 in the JAX package's order and requantizes to
 the calibrated output grid.  ``fused_qkv``, ``fused_linear_act`` and
 ``fused_decode_attention`` run converted layer groups through one kernel
-each (``QuantConfig.fuse_qkv``, ``fuse_linear_act``, ``decode_attention``).
+each (``QuantConfig.fuse_qkv``, ``fuse_linear_act``, ``decode_attention``);
+``fused_attention`` runs the encoders' QK^T -> softmax -> P@V chain as one
+composed op (``QuantConfig.fused_attention``).
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -83,6 +94,11 @@ class Layer(nn.Module):
         self.zero_point = 0
         self.weight_scale = 1.0
         self.fuse_relu = False
+        # Module.convert(skip=...): an FP32 island behind the u8 interface
+        self.quant_fallback = False
+        # bias correction's running input mean (float64) and its count
+        self._in_mean = None
+        self._in_count = 0
         # (input scale, input zp) -> (oc, ep): both depend only on the
         # input grid, which is fixed once the model is converted.
         self._epilogue_cache: dict = {}
@@ -98,6 +114,36 @@ class Layer(nn.Module):
         if self.is_preparing:
             self.calibrator.sample(out)
 
+    def _observe_in_mean(self, x: torch.Tensor, dims) -> None:
+        """While preparing under ``bias_correction``, fold the batch's
+        per-input-channel mean of ``x`` over ``dims`` into the running mean
+        (the JAX package's count-weighted merge), in float64 on the
+        layer's device."""
+        if not (self.is_preparing and self.config.bias_correction):
+            return
+        count = math.prod(int(x.shape[d]) for d in dims)
+        mean = x.to(torch.float64).mean(dim=dims)
+        if self._in_mean is None:
+            self._in_mean, self._in_count = mean, count
+            return
+        total = self._in_count + count
+        self._in_mean = (self._in_mean * self._in_count + mean * count) / total
+        self._in_count = total
+
+    def _bias_error(self, deq: torch.Tensor) -> torch.Tensor:
+        """``(W - deq) @ E[x]``, the bias correction's term (float32 [N]):
+        the difference is taken in float32 as the JAX package takes it, the
+        reduction in float64, rounded once.  A conv's taps sum over the
+        kernel window first."""
+        diff = (self.weight - deq).to(torch.float64)
+        if diff.dim() == 4:
+            diff = diff.sum(dim=(2, 3))
+        return torch.matmul(diff, self._in_mean).to(torch.float32)
+
+    def _corrects_bias(self) -> bool:
+        return (self.config.bias_correction and self._in_mean is not None
+                and getattr(self, "groups", 1) == 1)
+
     # -- lifecycle (reference: src/layer.cc:28-54) ---------------------------
     def prepare(self):
         if self.is_quantized:
@@ -109,6 +155,8 @@ class Layer(nn.Module):
             method=self.config.calib_method,
             rounding=self.config.rounding,
         )
+        self._in_mean = None
+        self._in_count = 0
         self.is_preparing = True
 
     def convert(self):
@@ -133,6 +181,8 @@ class Layer(nn.Module):
         return q_w
 
     def _quantize_weights(self):
+        if self.quant_fallback:
+            return                      # FP32 island: weights stay float
         rnd = self.config.rounding
         if self.config.weight_per_channel:
             q_w, q_b, s_w = quant_ops.quantize_weight_per_channel(
@@ -145,6 +195,11 @@ class Layer(nn.Module):
             # W8-float / dynamic: the bias stays float32, unquantized
             self.set_weight_only(q_w, self.bias, s_w)
             return
+        if self._corrects_bias():
+            s = f32(s_w, self.device).reshape((-1,) + (1,) * (q_w.dim() - 1))
+            q_b = quant_ops.quantize_s8(
+                self.bias + self._bias_error(s * q_w.to(torch.float32)), s_w,
+                rnd)
         qw = self._kernel_weight(q_w).contiguous()
         self.set_quantized(qw, q_b, s_w)
 
@@ -217,7 +272,8 @@ class Layer(nn.Module):
             raise ValueError(f"input on {x.device}, layer on {w.device}")
 
     def _check_fp32(self):
-        if self.is_quantized and not self.config.weight_only:
+        if self.is_quantized and not self.config.weight_only \
+                and not self.quant_fallback:
             raise RuntimeError(
                 "layer already converted to INT8 — quantize the input "
                 "(FP32 weights were freed, as in the reference)")
@@ -258,16 +314,21 @@ class Linear(Layer):
             w, (self.out_channels, self.in_channels), "load_weight")
 
     def _quantize_weights(self):
-        if self.config.weight_bits != 4:
+        if self.config.weight_bits != 4 or self.quant_fallback:
             return super()._quantize_weights()
         if self.config.dynamic_act:
             raise ValueError(
                 "dynamic_act requires s8 weights (weight_bits=8)")
         packed, scales = w4_ops.pack_w4(self.weight, self.config.w4_group,
                                         optimize=self.config.w4_mse_scales)
-        wsum = None if self.config.weight_only else w4_ops.weight_rowsum(
-            packed, scales, self.in_channels, self.config.w4_group)
-        self.set_w4(packed, scales, self.bias, wsum)
+        bias, wsum = self.bias, None
+        if not self.config.weight_only:
+            wsum = w4_ops.weight_rowsum(packed, scales, self.in_channels,
+                                        self.config.w4_group)
+            if self._corrects_bias():
+                bias = bias + self._bias_error(w4_ops.dequant_w4(
+                    packed, scales, self.in_channels, self.config.w4_group))
+        self.set_w4(packed, scales, bias, wsum)
 
     def set_w4(self, packed: torch.Tensor, scales: torch.Tensor,
                bias: torch.Tensor, wsum: torch.Tensor | None = None):
@@ -292,12 +353,17 @@ class Linear(Layer):
             return self._forward_int8(x)
         return self._forward_fp32(x)
 
+    def _float(self, x: torch.Tensor) -> torch.Tensor:
+        """The FP32 product ``x @ W^T + b`` (float32 [M, K] -> [M, N])."""
+        return torch.matmul(x, self.weight.t()) + self.bias.reshape(1, -1)
+
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
-        if self.is_quantized:                    # weight-only
+        if self.is_quantized and not self.quant_fallback:   # weight-only
             return Tensor(self._forward_weight_only(x.data))
-        out = torch.matmul(x.data, self.weight.t()) + self.bias.reshape(1, -1)
+        out = self._float(x.data)
         self._observe(out)
+        self._observe_in_mean(x.data, (0,))
         return Tensor(out)
 
     def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
@@ -337,6 +403,8 @@ class Linear(Layer):
         """``act=(name, act_scale, act_zp)`` folds a following QuantAct
         into the epilogue (``fused_linear_act``)."""
         self._check_int8(x)
+        if self.quant_fallback:
+            return fp32_island(self, x)
         if self.config.weight_bits == 4:
             if act is not None:
                 raise RuntimeError("W4A8 has no fused-act epilogue; "
@@ -369,8 +437,8 @@ class Conv2d(Layer):
     the CPU).  8-bit ``weight_only`` (the only weight-only conv: the JAX
     package's ``weight_bits`` shapes Linears alone) runs W8F, or DAC with
     per-image scales under ``dynamic_act``, on NCHW floats.
-    ``bias_correction`` is refused by the configuration check (the JAX
-    package applies it at ``groups == 1`` only)."""
+    ``bias_correction`` applies at ``groups == 1`` only (a grouped conv
+    observes no input means), as in the JAX package."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -421,15 +489,21 @@ class Conv2d(Layer):
             return self._forward_int8(x)
         return self._forward_fp32(x)
 
+    def _float(self, x: torch.Tensor) -> torch.Tensor:
+        """The FP32 conv + bias (float32 NCHW -> NCHW)."""
+        return conv_ops.conv2d_fp32(x, self.weight, self.bias, self.stride,
+                                    self.padding, self.groups)
+
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
-        if self.is_quantized:                    # weight-only
+        if self.is_quantized and not self.quant_fallback:   # weight-only
             return Tensor(self._forward_weight_only(x.logical_data))
-        out = conv_ops.conv2d_fp32(x.logical_data, self.weight, self.bias,
-                                   self.stride, self.padding, self.groups)
+        out = self._float(x.logical_data)
         # sampled in NHWC element order, the order the JAX package's
         # reservoir sees
         self._observe(out.permute(0, 2, 3, 1))
+        if self.groups == 1:
+            self._observe_in_mean(x.logical_data, (0, 2, 3))
         return Tensor(out)
 
     def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
@@ -446,6 +520,8 @@ class Conv2d(Layer):
 
     def _forward_int8(self, x: Tensor) -> Tensor:
         self._check_int8(x)
+        if self.quant_fallback:
+            return fp32_island(self, x)
         order = self._order()
         oc, ep = self._epilogue(x, order)
         k = self.kernel_size
@@ -466,6 +542,24 @@ class Conv2d(Layer):
         return Tensor(out, self.scale, self.zero_point, _nhwc=True)
 
 
+def fp32_island(layer, x: Tensor) -> Tensor:
+    """A skipped ``Linear``/``Conv2d``'s forward after convert
+    (``Module.convert(skip=...)``): u8 codes in, dequantized at their grid,
+    the layer's float32 product on its float weights (``F.linear`` /
+    ``F.conv2d``, TF32 off), requantized at the layer's calibrated grid
+    (relu at the zero point where fused).  The JAX package leaves this to
+    XLA; it is stock PyTorch here, counted in ``.calls``."""
+    fp32_island.calls += 1
+    out = layer._float(dequantize_u8(x.logical_data, x.scale, x.zero_point))
+    q = quantize_u8(out, layer.scale, layer.zero_point, layer.config.rounding)
+    if layer.fuse_relu:
+        q = q.clamp_min(layer.zero_point)
+    return Tensor(q, layer.scale, layer.zero_point)
+
+
+fp32_island.calls = 0
+
+
 # -- transformer layers ------------------------------------------------------
 
 class _Weightless(Layer):
@@ -481,8 +575,13 @@ class _Weightless(Layer):
 class QuantAct(_Weightless):
     """Calibrated activation in the quantized domain: ``u8 -> dequant -> fn
     -> requant -> u8`` at this layer's calibrated output grid.  ``fn`` is an
-    ``ops/functional.ACTIVATIONS`` name or a callable; the JAX package's
-    256-entry ``lut`` backend is not ported."""
+    ``ops/functional.ACTIVATIONS`` name or a callable.
+
+    Two INT8 backends, bit-identical by construction: 'elementwise' maps
+    every code through those ops; 'lut' runs the same ops once on the 256
+    codes of the input's grid, on the input's device, and gathers the
+    table with the codes.  The table is built at the first call on a grid
+    and kept (``_luts``), since the input's grid is known only then."""
 
     def __init__(self, fn="hardswish", config: QuantConfig = DEFAULT_CONFIG,
                  backend: str = "elementwise", device=None):
@@ -498,14 +597,23 @@ class QuantAct(_Weightless):
                     f"unknown activation {fn!r}; available: "
                     f"{sorted(ACTIVATIONS)} (or pass a callable)")
             self.fn_name = fn
-        if backend == "lut":
-            raise NotImplementedError(
-                "QuantAct(backend='lut') is not implemented by the PyTorch "
-                "port yet; 'elementwise' gives the same codes")
-        if backend != "elementwise":
+        if backend not in ("elementwise", "lut"):
             raise ValueError(f"backend must be 'elementwise' or 'lut', got "
                              f"{backend!r}")
         self.backend = backend
+        self._luts: dict = {}
+
+    def _map(self, codes: torch.Tensor, scale, zero_point) -> torch.Tensor:
+        return self._requant(self.fn(dequantize_u8(codes, scale, zero_point)))
+
+    def _lut(self, x: Tensor) -> torch.Tensor:
+        """The 256-entry u8 table of input grid (x.scale, x.zero_point)."""
+        key = (x.scale, x.zero_point, x.device)
+        lut = self._luts.get(key)
+        if lut is None:
+            codes = torch.arange(256, dtype=torch.uint8, device=x.device)
+            lut = self._luts[key] = self._map(codes, x.scale, x.zero_point)
+        return lut
 
     def forward(self, x: Tensor) -> Tensor:
         if not x.quantized:
@@ -513,9 +621,11 @@ class QuantAct(_Weightless):
             self._observe(out)
             return Tensor(out, _nhwc=x._nhwc)
         self._check_converted()
-        f = self.fn(dequantize_u8(x.data, x.scale, x.zero_point))
-        return Tensor(self._requant(f), self.scale, self.zero_point,
-                      _nhwc=x._nhwc)
+        if self.backend == "lut":
+            out = self._lut(x)[x.data.to(torch.int64)]
+        else:
+            out = self._map(x.data, x.scale, x.zero_point)
+        return Tensor(out, self.scale, self.zero_point, _nhwc=x._nhwc)
 
 
 class QuantAdd(_Weightless):
@@ -1190,7 +1300,8 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
         if merged is not None:
             return merged
     if not (x.quantized and cfg.weight_bits == 8 and not cfg.weight_only
-            and all(l.is_quantized and not l.fuse_relu for l in heads)):
+            and all(l.is_quantized and not l.fuse_relu
+                    and not l.quant_fallback for l in heads)):
         return wq(x), wk(x), wv(x)
     key = (x.scale, x.zero_point, id(wk), id(wv))
     merged = wq._merged_cache.get(key)
@@ -1219,7 +1330,7 @@ def fused_w4a8_multi(layers, x: Tensor):
     cfg = first.config
     if not (x.quantized and cfg.weight_bits == 4 and not cfg.weight_only
             and all(l.is_quantized and not l.fuse_relu
-                    and l.w4_packed is not None
+                    and not l.quant_fallback and l.w4_packed is not None
                     and l.in_channels == first.in_channels for l in layers)):
         return None
     key = (x.scale, x.zero_point) + tuple(id(l) for l in layers[1:])
@@ -1239,8 +1350,10 @@ def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
     the requant epilogue: the same codes as ``act(linear(x))`` (the
     intermediate u8 grid is replayed in registers), without the standalone
     pass over the Linear's output.  Pairs the kernel cannot fuse (a custom
-    fn, the lut backend, 4-bit or weight-only layers) run composed."""
-    fusable = (linear.is_quantized and act.is_quantized and x.quantized
+    fn, the lut backend, 4-bit or weight-only layers, an FP32 island) run
+    composed."""
+    fusable = (linear.is_quantized and not linear.quant_fallback
+               and act.is_quantized and x.quantized
                and linear.config.weight_bits == 8
                and not linear.config.weight_only
                and act.fn_name in KERNEL_ACTS
@@ -1250,6 +1363,35 @@ def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
         return act(linear(x))
     return linear._forward_int8(x, act=(act.fn_name, act.scale,
                                         act.zero_point))
+
+
+def fused_attention(attn: QuantMatmul, smax: QuantSoftmax, av: QuantMatmul,
+                    qh: Tensor, kh: Tensor, vh: Tensor) -> Tensor:
+    """A converted QK^T -> softmax -> P@V chain over head-split [B, H, T, D]
+    tensors as one op: the same codes as ``av(smax(attn(qh, kh)), vh)`` at
+    the same calibrated grids (``ops/attention.attention``, composed on any
+    device; ``fused_attention='pallas'`` raises there, as in the JAX
+    package).  Models gate on ``QuantConfig.fused_attention``."""
+    if not (attn.is_quantized and smax.is_quantized and av.is_quantized):
+        raise RuntimeError("fused_attention requires converted layers")
+    if not attn.transpose_b or av.transpose_b or av.alpha != 1.0 \
+            or smax.causal or smax.window is not None \
+            or smax.softcap is not None or smax.alibi is not None:
+        raise ValueError("fused_attention expects attn=QK^T (transpose_b), "
+                         "a plain P@V, and non-causal softmax without a "
+                         "window, softcap or ALiBi")
+    backend = attn.config.fused_attention
+    out = attn_ops.attention(
+        qh.data, kh.data, vh.data,
+        backend="auto" if backend in ("auto", "off") else backend,
+        scale_q=qh.scale, zp_q=qh.zero_point,
+        scale_k=kh.scale, zp_k=kh.zero_point,
+        scale_v=vh.scale, zp_v=vh.zero_point,
+        scale_s=attn.scale, zp_s=attn.zero_point,
+        scale_p=smax.scale, zp_p=smax.zero_point,
+        scale_c=av.scale, zp_c=av.zero_point,
+        alpha=attn.alpha, rounding=attn.config.rounding)
+    return Tensor(out, av.scale, av.zero_point)
 
 
 def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,

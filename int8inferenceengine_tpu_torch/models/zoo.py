@@ -2,7 +2,8 @@
 decoder families as framework Modules (counterpart of
 ``int8inferenceengine_tpu.models.zoo``: every CNN name of its ``build()``,
 ``gpt_tiny``, ``opt_tiny``, ``llama_tiny``, ``mistral_tiny``,
-``gemma_tiny``, ``moe_tiny``, ``neox_tiny`` and ``bloom_tiny``).
+``gemma_tiny``, ``moe_tiny``, ``neox_tiny``, ``bloom_tiny``, and the
+encoders ``vit_tiny`` and ``text_tiny``).
 
 ``torch_twin(name)`` builds the matching ``torch.nn`` model, with layer
 attribute names equal to the framework model's, so
@@ -20,7 +21,12 @@ its odd blocks), ``opt_tiny`` (``TextDecoder(act="relu")``: learned
 positions, pre-LN, a ReLU MLP), ``moe_tiny`` (``models.moe.MoEDecoder``, 2
 kv heads, 4 experts, top-2), ``neox_tiny`` (``models.neox.NeoXDecoder``:
 parallel residual, rotary on a quarter of each head) and ``bloom_tiny``
-(``models.bloom.BloomDecoder``: ALiBi, an embedding LayerNorm).
+(``models.bloom.BloomDecoder``: ALiBi, an embedding LayerNorm).  The
+encoders return class logits [batch, classes]: ``vit_tiny``
+(``models.vit.ViT``: NCHW images, 224 x 224, patch 16, dim 192, 12 blocks
+of 3 heads by default) and ``text_tiny``
+(``models.text_transformer.TextTransformer``: token ids [batch, 64], vocab
+1,000, dim 128, 2 blocks of 2 heads).
 """
 
 from __future__ import annotations
@@ -37,10 +43,13 @@ from .llama import LlamaDecoder, torch_llama
 from .moe import MoEDecoder, torch_moe
 from .neox import NeoXDecoder, torch_neox
 from .text_decoder import TextDecoder, torch_text_decoder
+from .text_transformer import TextTransformer, torch_text_transformer
+from .vit import ViT, torch_vit
 
 __all__ = ["FCMnist", "SimpleConv", "AlexNet", "LeNet", "VGG11", "VGG16",
            "VGG19", "TextDecoder", "LlamaDecoder", "GemmaDecoder",
-           "MoEDecoder", "NeoXDecoder", "BloomDecoder", "build",
+           "MoEDecoder", "NeoXDecoder", "BloomDecoder", "ViT",
+           "TextTransformer", "build",
            "torch_twin", "MODEL_SPECS"]
 
 
@@ -268,6 +277,8 @@ MODEL_SPECS = {
     "neox_tiny": NeoXDecoder,
     "opt_tiny": _opt_tiny,
     "bloom_tiny": BloomDecoder,
+    "vit_tiny": ViT,
+    "text_tiny": TextTransformer,
 }
 
 # the families whose torch twins live in their own modules
@@ -281,6 +292,8 @@ _TWINS = {
     "moe_tiny": lambda seed: torch_moe(kv_heads=2, seed=seed),
     "neox_tiny": lambda seed: torch_neox(seed=seed),
     "bloom_tiny": lambda seed: torch_bloom(seed=seed),
+    "vit_tiny": lambda seed: torch_vit(seed=seed),
+    "text_tiny": lambda seed: torch_text_transformer(seed=seed),
     "resnet18": lambda seed: resnet.torch_resnet18(seed=seed),
     "resnet34": lambda seed: resnet.torch_resnet34(seed=seed),
     "resnet50": lambda seed: resnet.torch_resnet50(seed=seed),

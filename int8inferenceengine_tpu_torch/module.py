@@ -84,27 +84,41 @@ class Module(nn.Module):
             layer.prepare()
 
     def convert(self, skip=()):
-        """PTQ-convert every layer.  FP32 fallback islands (``skip``) are
-        not implemented by the port yet."""
-        if skip:
-            raise NotImplementedError(
-                "Module.convert(skip=...) (FP32 fallback islands) is not "
-                "implemented by the PyTorch port yet")
+        """PTQ-convert every layer.  ``skip``: names of ``Linear``/``Conv2d``
+        layers to keep as FP32 fallback islands: they stay u8 in and u8 out
+        (dequantize, float32 product on their float weights, requantize at
+        their calibrated range, ``layers.fp32_island``), so the rest of the
+        graph is unchanged.  An unknown name raises ``KeyError``, a layer of
+        another type ``TypeError``, as in the JAX package."""
+        from .layers import Conv2d, Linear
         by_name = dict(self.named_layers())
-        self._warn_trunc_depth(by_name)
-        for layer in by_name.values():
+        unknown = set(skip) - set(by_name)
+        if unknown:
+            raise KeyError(f"convert(skip=...): unknown layers {unknown}")
+        unsupported = sorted(n for n in skip
+                             if not isinstance(by_name[n], (Linear, Conv2d)))
+        if unsupported:
+            raise TypeError(
+                f"convert(skip=...): FP32 fallback islands are implemented "
+                f"for Linear/Conv2d only; {unsupported} are "
+                f"{[type(by_name[n]).__name__ for n in unsupported]}")
+        self._warn_trunc_depth(by_name, skip)
+        for name, layer in by_name.items():
+            if name in skip:
+                layer.quant_fallback = True
             layer.convert()
         self.is_quant = True
 
-    def _warn_trunc_depth(self, by_name):
+    def _warn_trunc_depth(self, by_name, skip=()):
         """Advisory for the deep-model 'trunc' footgun: every requant
         boundary under round-toward-zero carries a -s/2 bias that compounds
-        over many serial boundaries.  Suppressed by any engaged lever."""
+        over many serial boundaries.  Suppressed by any engaged lever or a
+        mixed-precision skip set."""
         cfg = self.config
-        if cfg.rounding != "trunc":
+        if cfg.rounding != "trunc" or skip:
             return
-        if cfg.weight_per_channel or cfg.calib_method == "mse" \
-                or cfg.weight_only:
+        if (cfg.bias_correction or cfg.weight_per_channel
+                or cfg.calib_method == "mse" or cfg.weight_only):
             return
         n = len(by_name)
         if n > self.TRUNC_DEPTH_ADVISORY:
@@ -114,8 +128,9 @@ class Module(nn.Module):
                 f"per-boundary -scale/2 truncation bias compounds with "
                 f"depth.  For deep models not bound to reference "
                 f"bit-parity, pass QuantConfig(rounding='nearest') or "
-                f"engage another accuracy lever (weight_per_channel, "
-                f"calib_method='mse').", TruncDepthWarning, stacklevel=3)
+                f"engage another accuracy lever (bias_correction, "
+                f"weight_per_channel, calib_method='mse').",
+                TruncDepthWarning, stacklevel=3)
 
     # -- execution -------------------------------------------------------------
     def forward(self, x: Tensor) -> Tensor:  # overridden by the user

@@ -1,5 +1,14 @@
-"""Cached-decode INT8 attention over the T-major flat u8 KV cache
-(counterpart of ``int8inferenceengine_tpu.ops.attention``'s decode path).
+"""INT8 attention: the encoders' composed prefill attention and the
+cached-decode attention over the T-major flat u8 KV cache (counterpart of
+``int8inferenceengine_tpu.ops.attention``).
+
+The encoders' (ViT, the text transformer) full-sequence attention is
+``attention``: QuantMatmul -> QuantSoftmax -> QuantMatmul run back to back
+(``attention_xla``).  The JAX package sends 'auto' there too and raises for
+'pallas': its prefill Pallas kernel lost to the composed path and was
+deleted, so there is no TPU kernel to port.  It is stock PyTorch here (the
+exact float64 products of ``ops/qmatmul``), a library route that counts its
+``calls``.
 
 The decode step's attention is one query row per sequence (``mq`` rows on a
 multi-position extend) against the cache ``k``/``v`` u8 [B, T, Hkv*D], in
@@ -89,6 +98,42 @@ def softmax_last(f: torch.Tensor) -> torch.Tensor:
 def softcap_(f: torch.Tensor, softcap) -> torch.Tensor:
     c = f32(softcap, f.device)
     return c * torch.tanh(f / c)
+
+
+def attention_xla(q_u8, k_u8, v_u8, *, scale_q, zp_q, scale_k, zp_k,
+                  scale_v, zp_v, scale_s, zp_s, scale_p, zp_p, scale_c, zp_c,
+                  alpha: float, rounding: str = "trunc") -> torch.Tensor:
+    """Composed attention over [..., T, D] heads: bit for bit
+    ``QuantMatmul(alpha, transpose_b) -> QuantSoftmax -> QuantMatmul`` run
+    back to back at the same grids."""
+    s = qmatmul_act(q_u8, k_u8, scale_a=scale_q, zp_a=zp_q, scale_b=scale_k,
+                    zp_b=zp_k, scale_c=scale_s, zp_c=zp_s, alpha=alpha,
+                    transpose_b=True, rounding=rounding)
+    p = quantize_u8(softmax_last(dequantize_u8(s, scale_s, zp_s)), scale_p,
+                    zp_p, rounding)
+    return qmatmul_act(p, v_u8, scale_a=scale_p, zp_a=zp_p, scale_b=scale_v,
+                       zp_b=zp_v, scale_c=scale_c, zp_c=zp_c,
+                       rounding=rounding)
+
+
+def attention(q_u8, k_u8, v_u8, *, backend: str = "auto", **kw
+              ) -> torch.Tensor:
+    """The encoders' fused-attention dispatch (``QuantConfig
+    .fused_attention``): 'auto' and 'xla' run ``attention_xla`` on any
+    device; 'pallas' raises, as in the JAX package, whose prefill kernel
+    was removed after the composed path beat it at every shape it
+    measured."""
+    if backend == "pallas":
+        raise ValueError(
+            "the prefill fused-attention Pallas kernel was removed from the "
+            "JAX package (the composed path beat it at every measured "
+            "shape), so the port has none either; use 'auto', 'xla' or "
+            "'off' (the cached-decode kernel is unaffected)")
+    attention.calls += 1
+    return attention_xla(q_u8, k_u8, v_u8, **kw)
+
+
+attention.calls = 0
 
 
 def decode_attention_xla(q_u8, k_u8, v_u8, valid, *, scale_q, zp_q,

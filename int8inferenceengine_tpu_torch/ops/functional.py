@@ -1,5 +1,6 @@
 """Functional tensor ops: relu, the pools, argmax, module-level quant ops,
-the activation table, the channel layout ops (shuffle, split) and the
+the activation table, the channel layout ops (shuffle, split), the token
+layout ops of the encoders (``to_tokens``, ``select_token``) and the
 attention head layout ops (split, merge and the grouped-query
 ``repeat_kv``) (counterpart of ``int8inferenceengine_tpu.ops.functional``).
 
@@ -187,6 +188,25 @@ def split_channels(x: Tensor, sections: int) -> tuple:
         raise ValueError(f"channels {c} not divisible into {sections} parts")
     return tuple(Tensor(p, x.scale, x.zero_point, _nhwc=x._nhwc)
                  for p in torch.split(x.data, c // sections, dim=axis))
+
+
+def to_tokens(x: Tensor) -> Tensor:
+    """Image feature map -> token sequence [B, H*W, C] (the ViT patch
+    stem).  A converted conv's output is NHWC internally, which is already
+    token-major: a reshape; a logical NCHW tensor (the FP32 path) is
+    transposed first.  (scale, zp) pass through."""
+    if x._nhwc:
+        n, h, w, c = x.data.shape
+        d = x.data.reshape(n, h * w, c)
+    else:
+        n, c, h, w = x.data.shape
+        d = x.data.permute(0, 2, 3, 1).reshape(n, h * w, c)
+    return Tensor(d, x.scale, x.zero_point)
+
+
+def select_token(x: Tensor, index: int) -> Tensor:
+    """[B, T, C] -> [B, C]: one token (the class token at 0) for the head."""
+    return Tensor(x.data[:, index, :], x.scale, x.zero_point)
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:

@@ -6,7 +6,8 @@
   running on the CPU.
 * Misuse raises: FP32 input to a converted layer, u8 input to an
   unconverted one, a wrongly shaped weight, a configuration value the port
-  does not implement.
+  does not implement, an FP32 island of an unknown layer or of one that is
+  not a Linear/Conv2d, the removed prefill attention kernel.
 * Converting a model deeper than the advisory depth under 'trunc' rounding
   warns (``TruncDepthWarning``).
 """
@@ -65,7 +66,7 @@ def test_port_imports_without_jax():
                 "models.resnet", "models.mobilenet", "models.mobilenet_v3",
                 "models.efficientnet", "models.shufflenet",
                 "models.squeezenet", "models.googlenet", "models.densenet",
-                "models.gemma"):
+                "models.gemma", "models.vit", "models.text_transformer"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 
@@ -123,8 +124,37 @@ def test_misuse_raises():
     m2.prepare()
     with pytest.raises(ValueError, match="float input while preparing"):
         m2(qt.Tensor(torch.zeros((1, 1, 28, 28), dtype=torch.uint8)))
-    with pytest.raises(NotImplementedError, match="skip"):
-        m2.convert(skip=("fc1",))
+
+
+def _converted_vit(cfg):
+    m = zoo.build("vit_tiny", config=qt.QuantConfig(**cfg), device="cpu",
+                  img_size=16, patch=8, dim=16, depth=1, heads=2)
+    m.prepare()
+    m(qt.tensor(np.zeros((1, 3, 16, 16), np.float32), device="cpu"))
+    m.convert()
+    return m
+
+
+@pytest.mark.parametrize("case", ["unknown_skip", "softmax_skip",
+                                  "pallas_attention"])
+def test_still_refused(case):
+    """What the port still refuses, as the JAX package does: an FP32 island
+    of an unknown layer (``KeyError``) or of a layer that is not a
+    Linear/Conv2d (``TypeError``), and ``fused_attention='pallas'`` (the
+    prefill kernel was removed), at the call."""
+    if case == "pallas_attention":
+        m = _converted_vit(dict(fused_attention="pallas"))
+        with pytest.raises(ValueError, match="Pallas kernel was removed"):
+            m(qt.tensor(np.zeros((1, 3, 16, 16), np.float32), device="cpu"))
+        return
+    m = zoo.build("vit_tiny", device="cpu", img_size=16, patch=8, dim=16,
+                  depth=1, heads=2)
+    m.prepare()
+    skip, error = {"unknown_skip": (("nope",), KeyError),
+                   "softmax_skip": (("smax1",), TypeError)}[case]
+    with pytest.raises(error, match="convert.skip"):
+        m.convert(skip=skip)
+    assert not m.is_quant
 
 
 @pytest.mark.parametrize("rounding,warns", [("trunc", True),
@@ -151,9 +181,9 @@ def test_deep_trunc_model_warns_on_convert(rounding, warns):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("weight_bits", 2), ("bias_correction", True), ("glue_dtype", "bfloat16"),
+    ("weight_bits", 2), ("glue_dtype", "bfloat16"),
     ("epilogue_dtype", "bfloat16"), ("fp_dtype", "bfloat16"),
-    ("conv_backend", "xla_conv"), ("fused_attention", "xla"),
+    ("conv_backend", "xla_conv"),
 ])
 def test_unimplemented_config_fields_raise(field, value):
     cfg = qt.QuantConfig(**{field: value})
