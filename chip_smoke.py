@@ -17,6 +17,8 @@
     python3 chip_smoke.py --encoders  # only the encoders' and the lifecycle
                                       # levers' phases (39-43), no result
                                       # line
+    python3 chip_smoke.py --levers    # only the accuracy levers' phases
+                                      # (44-47), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -290,7 +292,29 @@ Phases, in order (any failure exits non-zero):
 43. the BERT-width text encoder (``BERT_BASE``), batch 64 x 128 tokens, the
    same protocol with 37 B1 and 12 B2 a forward.  In 11, B1 and B2 at both
    encoders' shapes, the composed attention and the FP32 island (library
-   routes) each beside its bound.
+   routes) each beside its bound;
+44. the accuracy levers (``utils``) on AlexNet-224 b100: cross-layer
+   equalization over ``ALEX_CLE_PAIRS`` (card = CPU copy bit for bit), then
+   prepare, calibrate, AdaRound (``ADAROUND_ARGS``; summed layer-output
+   MSE no higher than nearest's), convert and forwards of 8 B1, equal bit
+   for bit to B1's plain version; lever seconds, ms/batch and INT8-vs-FP32
+   agreement with and without the levers;
+45. gemma-2-2b at its published widths in the outlier regime (4 hot
+   channels a norm, x30, the consumers' columns /30): no lever, smooth,
+   smooth + GPTQ (``GPTQ_ARGS``); smoothing keeps the FP32 logits within
+   ``SMOOTH_FP32_RTOL``, the GPTQ sweep over block 1's wq equals a CPU
+   sweep given the same inverse Hessian, the captured ``generate`` runs
+   105 B1, 26 B2 and 26 B3 a step and a prefill and 4 steps give the
+   plain path's codes; lever seconds, ms/step and each way's INT8-vs-FP32
+   logit error and greedy agreement;
+46. the llama legs of 9-10 under GPTQ's 4-bit codes: W4A8 ``generate``
+   (B7, 49 B6 and 12 B3 a step; every W4 launch of a prefill and 16 steps
+   replayed against its plain version) and the W4 weight-only forward (85
+   B5), every Linear's GPTQ output error below ``pack_w4``'s nearest;
+47. the dim-256 gemma, llama and text encoder under smooth + GPTQ and LeNet
+   under CLE + AdaRound, on the card against a CPU copy handed the card's
+   tapped inputs: equal weights and codes where the arithmetic is exact,
+   AdaRound's codes equal on at least ``ADAROUND_MIN_EQUAL``.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -309,6 +333,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -6385,6 +6410,603 @@ def time_encoder_kernels(torch, q, G, C, A, gen, dev, flush):
     return rows, lrows
 
 
+# -- phases 44-47: the accuracy levers -----------------------------------------
+
+# AlexNet's CLE chain: ReLU / max-pool between each pair; the flatten stops
+# conv5 -> fc1
+ALEX_CLE_PAIRS = [("conv1", "conv2"), ("conv2", "conv3"), ("conv3", "conv4"),
+                  ("conv4", "conv5"), ("fc1", "fc2"), ("fc2", "fc3")]
+ADAROUND_ARGS = dict(iters=400, max_images=8, max_rows=2048)
+GPTQ_ARGS = dict(max_rows=4096, damp=0.01)
+# the outlier regime of tests/test_smooth.py: hot channels a norm, their gain
+OUTLIER_HOT, OUTLIER_GAIN = 4, 30.0
+# smoothing keeps the FP32 function: largest |logit| difference over the
+# largest |logit|
+SMOOTH_FP32_RTOL = 1e-3
+# the kernel path against the plain path under the levers' codes: a
+# prefill and this many decode steps
+LEVER_PLAIN_STEPS = 4
+# AdaRound on the card against a CPU copy given the same tapped inputs:
+# the share of equal codes the port's tests state against the JAX package
+ADAROUND_MIN_EQUAL = 0.99
+SMALL_LEVER_GEO = dict(vocab_size=4096, max_len=128, dim=256, depth=2,
+                       heads=4)
+# torch's CPU threads while the CPU sweep of phase 45 runs beside the card's
+# work (the rest of the host's cores feed the card)
+CPU_SWEEP_THREADS = 4
+
+
+def outlier_regime(state, pairs, dim, unit_offset, seed=5):
+    """Put a decoder's state into the activation-outlier regime in place: on
+    every smoothed norm, OUTLIER_HOT channels get OUTLIER_GAIN times the
+    gain (the effective gain ``1 + w`` of a unit-offset norm: ``w' = 30 (1
+    + w) - 1``) and bias, the consumers' columns 1/OUTLIER_GAIN.  The FP32
+    function stays the same."""
+    rng = np.random.default_rng(seed)
+    for ln_name, lin_names in pairs:
+        hot = rng.choice(dim, OUTLIER_HOT, replace=False).tolist()
+        g = state[f"{ln_name}.weight"]
+        g[hot] = (OUTLIER_GAIN * (1.0 + g[hot]) - 1.0 if unit_offset
+                  else OUTLIER_GAIN * g[hot])
+        if f"{ln_name}.bias" in state:
+            state[f"{ln_name}.bias"][hot] *= OUTLIER_GAIN
+        for n in lin_names:
+            state[f"{n}.weight"][:, hot] /= OUTLIER_GAIN
+
+
+def lever_seconds(report, kind=lambda name: name.rstrip("0123456789_")):
+    """A lever's per-layer report summed by layer kind (the name without
+    its block number)."""
+    out = {}
+    for name, r in report.items():
+        out[kind(name)] = out.get(kind(name), 0.0) + r["seconds"]
+    return out
+
+
+def plain_gemms(G, layers_mod):
+    """Stand-ins for B1 and B2 (the layers module's names) that run their
+    plain versions on the card."""
+    return swapped(layers_mod, qgemm=G.qgemm_plain,
+                   qgemm_multi=G.qgemm_multi_plain)
+
+
+def alexnet_levers(torch, q, zoo, G, layers_mod, kernel_fns, dev):
+    """Phase 44: AlexNet-224 b100, the reference's per-tensor 'trunc'
+    config with He-scaled random weights, under CLE over ALEX_CLE_PAIRS
+    (card equal to a CPU copy bit for bit), then prepare, calibrate on a
+    b100 batch, AdaRound (ADAROUND_ARGS; the summed layer-output MSE no
+    higher than nearest's), convert and 20 forwards of 8 B1 each, equal
+    bit for bit to the same model with B1 swapped for its plain version.
+    Records CLE and AdaRound seconds, ms/batch beside the lever-free
+    model's, and each model's INT8-vs-FP32 top-1 agreement and max logit
+    error.  Returns the launches of one forward."""
+    from int8inferenceengine_tpu_torch import utils as U
+    batch = 100
+    state = he_state(torch, zoo.torch_twin("alexnet"), seed=0)
+    rng = np.random.default_rng(0)
+    xc = q.tensor(rng.standard_normal((batch, 3, 224, 224)).astype(
+        np.float32), device=dev)
+    x_calib = xc.data.cpu().numpy()
+    xt = q.tensor(rng.standard_normal((batch, 3, 224, 224)).astype(
+        np.float32), device=dev)
+
+    plain = zoo.AlexNet(device=dev)
+    plain.load(state)
+    ref = plain(xt).data
+    plain.prepare()
+    plain(xc)
+    plain.convert()
+
+    model = zoo.AlexNet(device=dev)
+    model.load(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U.cross_layer_equalize(model, ALEX_CLE_PAIRS)
+    torch.cuda.synchronize()
+    cle_s = time.perf_counter() - t0
+    cpu = zoo.AlexNet(device="cpu")
+    cpu.load(state)
+    U.cross_layer_equalize(cpu, ALEX_CLE_PAIRS)
+    on_cpu = dict(cpu.named_layers())
+    for name, layer in model.named_layers():
+        for key in ("weight", "bias"):
+            if not torch.equal(getattr(layer, key).cpu(),
+                               getattr(on_cpu[name], key)):
+                fail(f"CLE: AlexNet {name}.{key} on the card differs from "
+                     f"the CPU copy's")
+    del cpu, on_cpu
+    fp32_err = rel_err(torch, model(xt).data, ref)
+    model.prepare()
+    model(xc)
+    report = {}
+    t0 = time.perf_counter()
+    U.adaround(model, x_calib, report=report, **ADAROUND_ARGS)
+    ada_s = time.perf_counter() - t0
+    e_ada = sum(r["mse_adaround"] for r in report.values())
+    e_near = sum(r["mse_nearest"] for r in report.values())
+    if len(report) != 8 or not e_ada <= e_near:
+        fail(f"AdaRound on AlexNet: {len(report)} layers, summed "
+             f"layer-output MSE {e_ada} against nearest's {e_near}")
+    model.convert()
+    reset_counts(kernel_fns)
+    out = model(xt).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    if counts != dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": 8}:
+        fail(f"AlexNet under the levers launched {counts}, want 8 B1")
+    with plain_gemms(G, layers_mod):
+        out_plain = model(xt).data
+    if not torch.equal(out, out_plain):
+        fail("AlexNet under the levers: B1 differs from its plain version")
+    # in turns (levers, none, none, levers): a card's clocks drift
+    ms = {"levers": [], "no_levers": []}
+    for label, m in (("levers", model), ("no_levers", plain),
+                     ("no_levers", plain), ("levers", model)):
+        ms[label].append(time_cuda(torch, lambda: m(xt), iters=20))
+    accuracy = {}
+    for label, m in (("no_levers", plain), ("cle_adaround", model)):
+        o = m(xt).data
+        accuracy[label] = {
+            "top1_agreement_vs_fp32": float(
+                (o.argmax(1) == ref.argmax(1)).float().mean()),
+            "max_logit_err_rel_to_max": rel_err(torch, o, ref)}
+    log(json.dumps({
+        "phase": "alexnet_levers_b100", "batch": batch,
+        "cle_pairs": ALEX_CLE_PAIRS, "cle_s": cle_s,
+        "cle_card_equals_cpu": True, "fp32_after_cle_rel_err": fp32_err,
+        "adaround": ADAROUND_ARGS, "adaround_s": ada_s,
+        "adaround_layers": {n: dict(r, ratio=r["mse_adaround"]
+                                    / r["mse_nearest"])
+                            for n, r in report.items()},
+        "adaround_mse_sum": e_ada, "nearest_mse_sum": e_near,
+        "launches_per_forward": counts, "b1_equals_plain": True,
+        "ms_per_batch": ms,
+        "images_per_s": {k: [batch * 1e3 / t for t in v]
+                         for k, v in ms.items()},
+        "accuracy": accuracy}))
+    return counts
+
+
+class CpuSweep(threading.Thread):
+    """The GPTQ sweep on the CPU in a thread of its own (on CPU_SWEEP_THREADS
+    torch threads), so that the card's work goes on meanwhile."""
+
+    def __init__(self, torch, gptq_mod, w, s, bound, hinv):
+        super().__init__(daemon=True)
+        self.torch, self.gptq_mod = torch, gptq_mod
+        self.args = (w, s, bound, hinv)
+        self.codes = self.error = None
+        self.seconds = 0.0
+
+    def start(self):
+        self.threads = self.torch.get_num_threads()
+        self.torch.set_num_threads(CPU_SWEEP_THREADS)
+        super().start()
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        self.torch.set_num_threads(self.threads)
+
+    def run(self):
+        t0 = time.perf_counter()
+        try:
+            self.codes = self.gptq_mod.gptq_sweep(*self.args)
+        except BaseException as e:       # re-raised by the caller
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+
+def wq1_sweep_gate(torch, gptq_mod, model, ids, dev):
+    """Block 1's wq of a smoothed gemma-2-2b: its tapped rows, the card's
+    inverse Hessian and the card's sweep; a CPU sweep of the same weights
+    and inverse started in a thread (joined and compared by the caller);
+    and the CPU's own Hessian and inverse swept on the card (the card's
+    sweep equals the CPU's given one inverse: the gate).  Returns (card
+    codes, record, the CPU job)."""
+    from int8inferenceengine_tpu_torch.layers import weight_quant_spec
+    from int8inferenceengine_tpu_torch.utils.tap import tapped_forward
+    x = torch.cat(tapped_forward(model, ids)[id(model.wq1)], 0)
+    w, s, bound, _ = weight_quant_spec(model.wq1)
+    hinv = gptq_mod.inverse_hessian(x, GPTQ_ARGS["damp"])
+    card = gptq_mod.gptq_sweep(w, s, bound, hinv).cpu()
+    job = CpuSweep(torch, gptq_mod, w.cpu(), s.cpu(), bound, hinv.cpu())
+    job.start()
+    own = gptq_mod.gptq_sweep(w, s, bound, gptq_mod.inverse_hessian(
+        x.cpu(), GPTQ_ARGS["damp"]).to(dev)).cpu()
+    record = {"layer": "wq1", "n": int(w.shape[0]), "k": int(w.shape[1]),
+              "rows": int(x.shape[0]),
+              "codes_differing_with_own_hessian": int((own != card).sum()),
+              "max_code_diff_with_own_hessian": int(
+                  (own.to(torch.int32) - card).abs().max())}
+    return card, record, job
+
+
+def gemma_levers(torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev):
+    """Phase 45: gemma-2-2b at its published widths (GEMMA2, batch 8, 64 +
+    128 tokens, 'nearest', W8A8) in the outlier regime (``outlier_regime``
+    on its unit-offset norms), three ways: no lever, ``smooth`` alone, and
+    ``smooth`` then ``gptq`` (GPTQ_ARGS) before prepare.  Gates: the
+    smoothed FP32 logits within SMOOTH_FP32_RTOL of the unsmoothed ones;
+    the card's GPTQ sweep over block 1's wq equal to a CPU sweep given the
+    same inverse Hessian; the smooth + GPTQ model's captured ``generate``
+    with 105 B1, 26 B2 and 26 B3 a step, and a prefill and
+    LEVER_PLAIN_STEPS steps equal to the plain path.  Records the levers'
+    seconds, the lever-free and the levers' ms/step (64 captured replays
+    each), and each way's INT8-vs-FP32 last-position logit error and
+    greedy-token agreement (the FP32 model's argmax teacher-forced on the
+    INT8 tokens).  Returns the smooth + GPTQ generate's launches."""
+    from int8inferenceengine_tpu_torch import utils as U
+    gptq_mod = lever_module("gptq")
+    geo, depth = GEMMA2, GEMMA2["depth"]
+    cfg = q.QuantConfig(**GEMMA_CFG)
+    ids = np.random.default_rng(0).integers(
+        0, geo["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    xi = q.tensor(ids, device=dev)
+    state = gemma_state(torch, twin_shapes(torch, GM, twin_kwargs(geo)),
+                        depth, 0, dev)
+
+    def build():
+        m = zoo.build("gemma_tiny", config=cfg, device=dev, **geo)
+        m.load(state)                     # shares the state's storage
+        return m
+
+    fp = build()
+    pairs = U.transformer_smooth_pairs(fp)
+    outlier_regime(state, pairs, geo["dim"], unit_offset=True)
+    with torch.no_grad():
+        ref = fp(xi).data
+    results, seconds = {}, {}
+    for way in ("none", "smooth", "smooth_gptq"):
+        model = build()
+        if way != "none":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            U.smooth(model, pairs, ids)
+            torch.cuda.synchronize()
+            seconds["smooth"] = time.perf_counter() - t0
+        if way == "smooth":
+            with torch.no_grad():
+                fp32_err = rel_err(torch, model(xi).data, ref)
+            if not fp32_err <= SMOOTH_FP32_RTOL:
+                fail(f"gemma-2-2b: smoothing moved the FP32 logits by "
+                     f"{fp32_err} of the largest")
+            card, sweep, cpu_job = wq1_sweep_gate(torch, gptq_mod, model,
+                                                  ids, dev)
+        if way == "smooth_gptq":
+            report = {}
+            t0 = time.perf_counter()
+            U.gptq(model, ids, report=report, **GPTQ_ARGS)
+            seconds["gptq"] = time.perf_counter() - t0
+            seconds["gptq_by_kind"] = lever_seconds(report)
+            if not torch.equal(model.wq1._adaround_qw.cpu(), card):
+                fail("gemma-2-2b wq1: gptq() chose other codes than the "
+                     "sweep alone")
+            worse = [n for n, r in report.items()
+                     if not r["mse_gptq"] < r["mse_nearest"]]
+        model.prepare()
+        model(xi)
+        model.convert()
+        torch.cuda.empty_cache()
+        reset_counts(kernel_fns)
+        tokens = model.generate(ids, DEC_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts(kernel_fns)
+        with torch.no_grad():
+            last = model(xi).data[:, -1]
+            seq = np.concatenate([ids, tokens], 1)[:, :-1]
+            fp_next = fp(q.tensor(seq, device=dev)).data[
+                :, DEC_PROMPT - 1:].argmax(-1)
+        results[way] = {
+            "last_position_logit_err_rel_to_max": rel_err(
+                torch, last, ref[:, -1]),
+            "greedy_agreement_vs_fp32": float(
+                (fp_next.cpu() == torch.from_numpy(tokens).long()).float()
+                .mean())}
+        del last, fp_next
+        if way != "smooth":
+            # the lever-free and the levers' steps, one protocol, one call
+            results[way]["decode_ms_per_step"] = time_captured_steps(
+                torch, model, torch.tensor(ids, dtype=torch.int64,
+                                           device=dev), 64)[0]
+        if way != "smooth_gptq":
+            del model
+            torch.cuda.empty_cache()
+    cpu_job.join()
+    if cpu_job.error is not None:
+        raise cpu_job.error
+    if not torch.equal(card, cpu_job.codes):
+        fail(f"GPTQ sweep over gemma-2-2b wq1: the card differs from the "
+             f"CPU on {int((card != cpu_job.codes).sum())} codes")
+    sweep.update(card_equals_cpu_given_hinv=True, cpu_sweep_s=cpu_job.seconds)
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 4 * depth + 1, "qgemm_u8s8_vzp": depth,
+        "decode_attn_flat": depth}
+    check_captured_launches(torch, "gemma2_2b_levers", counts, model, ids,
+                            dict(per_step, decode_attn_flat=0), per_step,
+                            kernel_fns)
+    prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+    toks = torch.tensor(tokens, dtype=torch.int64, device=dev)
+    got = teacher_forced(torch, model, prompt, toks[:, :LEVER_PLAIN_STEPS + 1])
+    with plain_gemms(G, layers_mod), swapped(A, **plain_attn(A)):
+        want = teacher_forced(torch, model, prompt,
+                              toks[:, :LEVER_PLAIN_STEPS + 1])
+    mx, share = contract(torch, got, want)
+    if mx:
+        fail(f"gemma-2-2b under the levers, kernel path vs plain path: max "
+             f"{mx} codes, share {share}")
+    del got, want
+    log(json.dumps({
+        "phase": "gemma2_2b_levers", **geo, "batch": DEC_BATCH,
+        "prompt": DEC_PROMPT, "steps": DEC_STEPS,
+        "outlier_regime": {"hot_channels": OUTLIER_HOT,
+                           "gain": OUTLIER_GAIN},
+        "smooth_fp32_err_rel_to_max": fp32_err,
+        "limit": SMOOTH_FP32_RTOL, "seconds": seconds, "gptq": GPTQ_ARGS,
+        "gptq_layers": len(report),
+        "gptq_layers_not_below_nearest": worse, "gptq_sweep_gate": sweep,
+        "launches": counts, "launches_per_decode_step": per_step,
+        "kernel_vs_plain": {"steps": LEVER_PLAIN_STEPS, "max_abs_err": mx,
+                            "share_differing": share},
+        "decode_protocol": "64 replays of a captured step between CUDA "
+                           "events", "accuracy": results}))
+    del model, fp, ref, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_levers(torch, q, zoo, LL, W, kernel_fns, dev):
+    """Phase 46: the llama legs of phases 9-10 (bench.py's widths) under
+    GPTQ's 4-bit codes, chosen before prepare with their group scales:
+    W4A8's captured ``generate`` (the prefill's B7, 49 B6 and 12 B3 a
+    step) with every W4 launch of a prefill and 16 steps replayed against
+    its plain version (B6 exact, B7 within its 1-code / 0.2% contract), and
+    the W4 weight-only forward (85 B5, within 1e-4 of its plain version).
+    Gate: every Linear's GPTQ output MSE below ``pack_w4``'s nearest
+    codes'.  Returns the launches of both."""
+    from int8inferenceengine_tpu_torch import utils as U
+    depth = LLAMA["depth"]
+    twin = LL.torch_llama(**LLAMA, seed=0)
+    state = decoder_state(torch, twin, depth, seed=0,
+                          residual=("proj", "down"))
+    ids = np.random.default_rng(0).integers(
+        0, LLAMA["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    out, counts = {}, {}
+    for label, cfg in (("w4a8", LLAMA_W4A8), ("w4", LLAMA_W4)):
+        model = zoo.build("llama_tiny", config=q.QuantConfig(**cfg),
+                          device=dev, **LLAMA)
+        model.load(state)
+        report = {}
+        t0 = time.perf_counter()
+        U.gptq(model, ids, report=report, **GPTQ_ARGS)
+        gptq_s = time.perf_counter() - t0
+        worse = {n: r for n, r in report.items()
+                 if not r["mse_gptq"] < r["mse_nearest"]}
+        if len(report) != 7 * depth + 1 or worse:
+            fail(f"llama {label} GPTQ: {len(report)} layers; output MSE not "
+                 f"below nearest's at {worse}")
+        ratios = [r["mse_gptq"] / r["mse_nearest"] for r in report.values()]
+        xt = q.tensor(ids, device=dev)
+        if label == "w4a8":
+            model.prepare()
+            model(xt)
+            model.convert()
+            reset_counts(kernel_fns)
+            tokens = model.generate(ids, DEC_STEPS)
+            torch.cuda.synchronize()
+            counts["llama_w4a8_gptq_generate"] = read_counts(kernel_fns)
+            per_step = dict.fromkeys(kernel_fns, 0) | {
+                "w4a8_v2_gemm": 4 * depth + 1, "decode_attn_flat": depth}
+            prefill = dict.fromkeys(kernel_fns, 0) | {
+                "w4a8_v1_gemm": 4 * depth + 1}
+            check_captured_launches(torch, "llama_w4a8_gptq",
+                                    counts["llama_w4a8_gptq_generate"],
+                                    model, ids, prefill, per_step,
+                                    kernel_fns)
+            prompt = torch.tensor(ids, dtype=torch.int64, device=dev)
+            toks = torch.tensor(tokens, dtype=torch.int64, device=dev)
+            stats = {}
+            with swapped(W, **replaying(torch, W, stats)):
+                teacher_forced(torch, model, prompt, toks[:, :DEC_SHORT + 1])
+            replayed = {"w4a8_v1_gemm": 4 * depth + 1,
+                        "w4a8_v2_gemm": DEC_SHORT * (4 * depth + 1)}
+            if {k: s["launches"] for k, s in stats.items()} != replayed:
+                fail(f"llama W4A8 GPTQ: replayed {stats}, want {replayed}")
+            extra = {"replayed": stats,
+                     "distinct_tokens": int(np.unique(tokens).size)}
+        else:
+            model.convert()
+            reset_counts(kernel_fns)
+            logits = model(xt).data
+            torch.cuda.synchronize()
+            counts["llama_w4_gptq_forward"] = read_counts(kernel_fns)
+            want = dict.fromkeys(kernel_fns, 0) | {"w4_gemm": 7 * depth + 1}
+            if counts["llama_w4_gptq_forward"] != want:
+                fail(f"llama W4 GPTQ forward launched "
+                     f"{counts['llama_w4_gptq_forward']}, want {want}")
+            with swapped(W, **plain_w4(W)):
+                rel = rel_err(torch, logits, model(xt).data)
+            if not rel <= 1e-4:
+                fail(f"llama W4 GPTQ forward: B5 path {rel} of the largest "
+                     f"|logit| from the plain path")
+            extra = {"b5_vs_plain_rel_to_max": rel, "limit": 1e-4}
+        out[label] = dict(gptq_s=gptq_s, gptq_by_kind=lever_seconds(report),
+                          mse_ratio_max=max(ratios),
+                          mse_ratio_mean=sum(ratios) / len(ratios), **extra)
+        del model
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "llama_levers_gptq", "gptq": GPTQ_ARGS,
+                    "launches": counts, **out}))
+    return counts
+
+
+def lever_module(name: str):
+    """The module ``utils.<name>`` (the package's attribute of that name is
+    the lever's function)."""
+    import importlib
+    return importlib.import_module(f"int8inferenceengine_tpu_torch.utils."
+                                   f"{name}")
+
+
+def lever_state(torch, name, geo, seed=0):
+    """A small family's twin weights (CPU tensors) in the outlier regime."""
+    from int8inferenceengine_tpu_torch.models import (gemma, llama,
+                                                      text_transformer)
+    twin = {"gemma_tiny": gemma.torch_gemma, "llama_tiny": llama.torch_llama,
+            "text_tiny": text_transformer.torch_text_transformer}[name]
+    state = {k: v.clone() for k, v in twin(**geo, seed=seed).state_dict()
+             .items()}
+    return state
+
+
+def card_taps(torch, smooth_or_lever_mod, card, cpu):
+    """Run a lever on ``card`` recording its tapped forward, and return a
+    stand-in ``tapped_forward`` for ``cpu`` that hands the CPU copy the
+    card's inputs (by layer name), so that both take the same maxima and
+    rows."""
+    real = smooth_or_lever_mod.tapped_forward
+    seen = {}
+
+    def recording(net, x, observe=True):
+        seen.update(real(net, x, observe))
+        return seen
+
+    def replay(net, x, observe=True):
+        names = {id(l): n for n, l in card.named_layers()}
+        by_name = dict(cpu.named_layers())
+        return {id(by_name[names[k]]): [t.cpu() for t in v]
+                for k, v in seen.items()}
+
+    return recording, replay
+
+
+def levers_small_gates(torch, q, zoo, dev):
+    """Phase 47: the dim-256 gemma_tiny, llama_tiny and text_tiny in the
+    outlier regime under smooth + GPTQ, and LeNet under CLE + AdaRound, on
+    the card against a CPU copy given the card's tapped inputs (the FP32
+    forwards themselves add in another order): the smoothed and equalized
+    weights equal bit for bit, GPTQ's codes equal given the card's inverse
+    Hessians, and AdaRound's codes equal on at least ADAROUND_MIN_EQUAL of
+    the weights."""
+    from int8inferenceengine_tpu_torch import utils as U
+    ada_mod, gptq_mod, smooth_mod = (lever_module(n) for n in (
+        "adaround", "gptq", "smooth"))
+    rows = {}
+    for name in ("gemma_tiny", "llama_tiny", "text_tiny"):
+        geo = dict(SMALL_LEVER_GEO)
+        if name == "text_tiny":
+            geo["max_len"] = SMALL_PROMPT
+        else:
+            geo["kv_heads"] = 2
+        state = lever_state(torch, name, geo)
+        models = {}
+        for where in (dev, "cpu"):
+            m = zoo.build(name, config=q.QuantConfig(rounding="nearest"),
+                          device=where, **geo)
+            models[str(where)] = m
+        card, cpu = models[str(dev)], models["cpu"]
+        pairs = U.transformer_smooth_pairs(card)
+        outlier_regime(state, pairs, geo["dim"],
+                       unit_offset=name == "gemma_tiny")
+        card.load({k: v.to(dev) for k, v in state.items()})
+        cpu.load(state)
+        ids = np.random.default_rng(3).integers(
+            0, geo["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+                np.int32)
+        recording, replay = card_taps(torch, smooth_mod, card, cpu)
+        with swapped(smooth_mod, tapped_forward=recording):
+            U.smooth(card, pairs, ids)
+        with swapped(smooth_mod, tapped_forward=replay):
+            U.smooth(cpu, pairs, ids)
+        on_cpu = dict(cpu.named_layers())
+        for n, layer in card.named_layers():
+            for key in ("weight", "bias"):
+                t = getattr(layer, key, None)
+                if t is not None and not torch.equal(
+                        t.cpu(), getattr(on_cpu[n], key)):
+                    fail(f"smooth: {name} {n}.{key} on the card differs "
+                         f"from the CPU copy's")
+        hinvs = []
+        real_inv = gptq_mod.inverse_hessian
+
+        def recording_inv(x, damp):
+            h = real_inv(x, damp)
+            hinvs.append(h.cpu())
+            return h
+
+        with swapped(gptq_mod, inverse_hessian=recording_inv):
+            U.gptq(card, ids)
+        handed = iter(hinvs)
+        with swapped(gptq_mod, inverse_hessian=lambda x, damp: next(handed)):
+            U.gptq(cpu, ids)
+        differ = {n: int((l._adaround_qw.cpu()
+                          != on_cpu[n]._adaround_qw).sum())
+                  for n, l in card.named_layers()
+                  if l._adaround_qw is not None}
+        linears = sum(isinstance(l, q.Linear) for _, l in card.named_layers())
+        if any(differ.values()) or len(differ) != linears or \
+                next(handed, None) is not None:
+            fail(f"GPTQ: {name}'s codes on the card differ from the CPU "
+                 f"copy's given the same inverse Hessians: {differ} "
+                 f"({len(hinvs)} sweeps)")
+        rows[name] = {"smoothed_equal": True, "gptq_layers": len(differ),
+                      "gptq_sweeps": len(hinvs), "gptq_codes_equal": True}
+    sd = zoo.torch_twin("lenet").state_dict()
+    x = np.random.default_rng(4).uniform(-1, 1, (32, 1, 28, 28)).astype(
+        np.float32)
+    lenets = {}
+    for where in (dev, "cpu"):
+        m = zoo.build("lenet", device=where)
+        m.load(sd)
+        U.cross_layer_equalize(m, [("conv1", "conv2"), ("fc1", "fc2")])
+        lenets[str(where)] = m
+    card, cpu = lenets[str(dev)], lenets["cpu"]
+    on_cpu = dict(cpu.named_layers())
+    for n, layer in card.named_layers():
+        for key in ("weight", "bias"):
+            if not torch.equal(getattr(layer, key).cpu(),
+                               getattr(on_cpu[n], key)):
+                fail(f"CLE: LeNet {n}.{key} on the card differs from the "
+                     f"CPU copy's")
+    card.prepare()
+    card(q.tensor(x, device=dev))
+    recording, replay = card_taps(torch, ada_mod, card, cpu)
+    with swapped(ada_mod, tapped_forward=recording):
+        U.adaround(card, x, iters=100)
+    with swapped(ada_mod, tapped_forward=replay):
+        U.adaround(cpu, x, iters=100)
+    equal = {}
+    for n, layer in card.named_layers():
+        a, b = layer._adaround_qw.cpu(), on_cpu[n]._adaround_qw
+        equal[n] = {"share_equal": float((a == b).float().mean()),
+                    "max_apart": int((a.to(torch.int32) - b).abs().max())}
+    low = {n: e for n, e in equal.items()
+           if e["share_equal"] < ADAROUND_MIN_EQUAL}
+    rows["lenet"] = {"cle_equal": True, "adaround_vs_cpu": equal,
+                     "min_share_equal": ADAROUND_MIN_EQUAL}
+    log(json.dumps({"phase": "levers_small_vs_cpu", "geometry":
+                    SMALL_LEVER_GEO, **rows}))
+    if low:
+        fail(f"AdaRound on LeNet: the card's codes equal the CPU copy's on "
+             f"too few weights: {low}")
+
+
+def levers_paths(torch, q, zoo, GM, LL, G, A, W, layers_mod, kernel_fns,
+                 dev):
+    """Phases 44-47 in order; returns the launches of their main paths."""
+    counts = {"alexnet_levers_b100": alexnet_levers(
+        torch, q, zoo, G, layers_mod, kernel_fns, dev)}
+    torch.cuda.empty_cache()
+    mark("levers: alexnet cle + adaround")
+    counts["gemma2_2b_levers_generate"] = gemma_levers(
+        torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev)
+    mark("levers: gemma2_2b smooth + gptq")
+    counts.update(llama_levers(torch, q, zoo, LL, W, kernel_fns, dev))
+    mark("levers: llama gptq")
+    levers_small_gates(torch, q, zoo, dev)
+    mark("levers: small gates")
+    return counts
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -6460,6 +7082,10 @@ def main(argv=None) -> int:
                     help="only build and run the encoders' and the "
                          "lifecycle levers' phases (39-43) with their "
                          "checks and times (no result line)")
+    ap.add_argument("--levers", action="store_true",
+                    help="only build and run the accuracy levers' phases "
+                         "(44-47: CLE, SmoothQuant, AdaRound, GPTQ) with "
+                         "their checks (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -6556,6 +7182,13 @@ def main(argv=None) -> int:
                                         flush_buf.zero_)
         log(json.dumps({"library_routes": library_line(lrows, counts)}))
         log(json.dumps({"phase": "encoders_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.levers:
+        counts = levers_paths(torch, q, zoo, GM, LL, G, A, W, layers_mod,
+                              kernel_fns, dev)
+        log(json.dumps({"phase": "levers_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -6774,6 +7407,12 @@ def main(argv=None) -> int:
     # and its engine, the BERT-width text encoder ------------------------------
     counts_by_path.update(encoders_paths(torch, q, zoo, kernel_fns,
                                          route_fns, dev))
+    torch.cuda.empty_cache()
+
+    # -- 44-47. the accuracy levers: AlexNet under CLE + AdaRound, gemma-2-2b
+    # under SmoothQuant + GPTQ, llama W4A8 and W4 under GPTQ, the small gates
+    counts_by_path.update(levers_paths(torch, q, zoo, GM, LL, G, A, W,
+                                       layers_mod, kernel_fns, dev))
     torch.cuda.empty_cache()
 
     # -- 11. per-kernel times --------------------------------------------------

@@ -37,6 +37,12 @@ convs only); and ``Module.convert(skip=...)`` leaves a layer an FP32
 island (``quant_fallback``): it keeps its float weights and takes u8 codes
 to u8 codes through a float product (``fp32_island``).
 
+The accuracy levers of ``utils`` read each ``Linear``/``Conv2d``'s FP32
+input through ``_INPUT_TAP`` and the scale ``convert()`` will use through
+``weight_quant_spec``; AdaRound and GPTQ leave integer codes in
+``_adaround_qw`` (and 4-bit group scales in ``_adaround_scales``), which
+``convert()`` takes in place of rounding in every weight mode.
+
 The transformer layers (``QuantEmbed``, ``QuantPosEmbed``,
 ``QuantLayerNorm``, ``QuantMatmul``, ``QuantSoftmax``, ``QuantAct``,
 ``QuantAdd``) follow the same lifecycle: their FP32 path observes its
@@ -51,6 +57,7 @@ composed op (``QuantConfig.fused_attention``).
 
 from __future__ import annotations
 
+import contextvars
 import math
 import warnings
 
@@ -76,6 +83,19 @@ from .ops.quant import (dequantize_dynamic, dequantize_u8, f32,
                         quantize_dynamic, quantize_u8)
 from .tensor import Tensor, resolve_device
 
+# Input tap (utils.smooth / gptq / adaround): when set, the FP32 forwards of
+# Linear and Conv2d append their input under id(layer): a Linear's [M, K]
+# rows, a Conv2d's NCHW batch (what the levers' layer output reads), on
+# the layer's device.
+_INPUT_TAP: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "i8ie_torch_input_tap", default=None)
+
+
+def _tap(layer, x: torch.Tensor) -> None:
+    tap = _INPUT_TAP.get()
+    if tap is not None:
+        tap.setdefault(id(layer), []).append(x)
+
 
 class Layer(nn.Module):
     """Base layer: weight storage, calibration state, PTQ lifecycle."""
@@ -99,6 +119,11 @@ class Layer(nn.Module):
         # bias correction's running input mean (float64) and its count
         self._in_mean = None
         self._in_count = 0
+        # integer weight codes chosen by utils.adaround / utils.gptq in
+        # ``weight``'s layout (s8 values; 4-bit codes in -7..7 with their
+        # group scales), taken by convert() in place of rounding
+        self._adaround_qw = None
+        self._adaround_scales = None
         # (input scale, input zp) -> (oc, ep): both depend only on the
         # input grid, which is fixed once the model is converted.
         self._epilogue_cache: dict = {}
@@ -191,6 +216,10 @@ class Layer(nn.Module):
         else:
             q_w, q_b, s_w = quant_ops.quantize_weight_joint_scale(
                 self.weight, self.bias, rounding=rnd)
+        if self._adaround_qw is not None:
+            # the levers' codes at the same scale (bias correction below
+            # folds their error, not rounding's)
+            q_w = self._adaround_qw.to(device=self.device, dtype=torch.int8)
         if self.config.weight_only:
             # W8-float / dynamic: the bias stays float32, unquantized
             self.set_weight_only(q_w, self.bias, s_w)
@@ -319,8 +348,17 @@ class Linear(Layer):
         if self.config.dynamic_act:
             raise ValueError(
                 "dynamic_act requires s8 weights (weight_bits=8)")
-        packed, scales = w4_ops.pack_w4(self.weight, self.config.w4_group,
-                                        optimize=self.config.w4_mse_scales)
+        if self._adaround_qw is not None:
+            # the levers' 4-bit codes and group scales, packed in pack_w4's
+            # nibble order (even column high)
+            codes = (self._adaround_qw.to(self.device, torch.int32) + 8).to(
+                torch.uint8)
+            packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).contiguous()
+            scales = self._adaround_scales.to(self.device, torch.float32)
+        else:
+            packed, scales = w4_ops.pack_w4(
+                self.weight, self.config.w4_group,
+                optimize=self.config.w4_mse_scales)
         bias, wsum = self.bias, None
         if not self.config.weight_only:
             wsum = w4_ops.weight_rowsum(packed, scales, self.in_channels,
@@ -361,6 +399,7 @@ class Linear(Layer):
         self._check_fp32()
         if self.is_quantized and not self.quant_fallback:   # weight-only
             return Tensor(self._forward_weight_only(x.data))
+        _tap(self, x.data)
         out = self._float(x.data)
         self._observe(out)
         self._observe_in_mean(x.data, (0,))
@@ -498,6 +537,7 @@ class Conv2d(Layer):
         self._check_fp32()
         if self.is_quantized and not self.quant_fallback:   # weight-only
             return Tensor(self._forward_weight_only(x.logical_data))
+        _tap(self, x.logical_data)
         out = self._float(x.logical_data)
         # sampled in NHWC element order, the order the JAX package's
         # reservoir sees
@@ -540,6 +580,30 @@ class Conv2d(Layer):
                                             order=order, gemm=self._gemm(),
                                             **kw)
         return Tensor(out, self.scale, self.zero_point, _nhwc=True)
+
+
+def weight_quant_spec(layer):
+    """``(weight, scale, bound, group scales or None)``: the scale policy
+    ``convert()`` applies to a ``Linear``/``Conv2d``'s weight, the one
+    source of truth for the levers that choose its integer codes first
+    (``utils.adaround``, ``utils.gptq``).  It mirrors
+    ``Layer._quantize_weights`` and ``Linear._quantize_weights`` above:
+    ``scale`` broadcasts over ``weight`` (its own layout, [N, K] or OIHW)
+    and the codes are ``clip(q, -bound, bound)``; 4-bit Linears (W4A8 and
+    W4 weight-only) repeat their ``pack_w4`` group scales over K."""
+    w, cfg = layer.weight, layer.config
+    if cfg.weight_bits == 4 and isinstance(layer, Linear):
+        _, scales = w4_ops.pack_w4(w, cfg.w4_group,
+                                   optimize=cfg.w4_mse_scales)
+        k = w.shape[1]
+        s_full = scales.repeat_interleave(min(cfg.w4_group, k), dim=1)[:, :k]
+        return w, s_full, 7.0, scales
+    if cfg.weight_per_channel:
+        _, _, sc = quant_ops.quantize_weight_per_channel(w, layer.bias,
+                                                         channel_axis=0)
+        return w, sc.reshape((-1,) + (1,) * (w.dim() - 1)), 127.0, None
+    _, _, sc = quant_ops.quantize_weight_joint_scale(w, layer.bias)
+    return w, f32(sc, w.device), 127.0, None
 
 
 def fp32_island(layer, x: Tensor) -> Tensor:

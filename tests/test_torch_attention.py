@@ -26,6 +26,7 @@ import torch
 
 from int8inferenceengine_tpu.ops import attention as JA
 from int8inferenceengine_tpu_torch.ops import attention as TA
+from test_torch_cnn_zoo import exact_jit
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 PARAMS = dict(scale_q=0.021, zp_q=117, scale_k=0.034, zp_k=131,
@@ -68,9 +69,10 @@ def test_plain_matches_jax_xla(b, t, h, kv, d, mq, window, softcap,
               n_kv_heads=kv, window=window, softcap=softcap)
     per_seq = np.random.default_rng(1).integers(1, t - mq + 2, (b,))
     for valid in (1, 7, t - mq + 1, per_seq.astype(np.int32)):
-        want = np.asarray(JA.decode_attention_flat(
+        want = np.asarray(exact_jit(
+            lambda *a: JA.decode_attention_flat(*a, backend="xla", **kw),
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-            jnp.asarray(valid, jnp.int32), backend="xla", **kw))
+            jnp.asarray(valid, jnp.int32)))
         got = TA.decode_attention_flat(
             torch.tensor(q), torch.tensor(k), torch.tensor(v),
             torch.tensor(np.asarray(valid, np.int32)), **kw)
@@ -196,9 +198,9 @@ def test_split_plain_matches_jax_xla(b, t, h, kv, d, mq, window, softcap):
               n_kv_heads=kv, window=window, softcap=softcap)
     valid = np.random.default_rng(3).integers(1, t - mq + 2, (b,)).astype(
         np.int32)
-    want = np.asarray(JA.decode_attention_flat(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
-        backend="xla", **kw))
+    want = np.asarray(exact_jit(
+        lambda *a: JA.decode_attention_flat(*a, backend="xla", **kw),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid)))
     got = TA.decode_attention_split_plain(
         torch.tensor(q), torch.tensor(k), torch.tensor(v),
         torch.tensor(valid), splits=8, **kw)

@@ -52,6 +52,7 @@ from int8inferenceengine_tpu_torch.models.text_decoder import (
     TextDecoder, torch_text_decoder)
 from int8inferenceengine_tpu_torch.ops import attention as TA
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
+from test_torch_cnn_zoo import exact_jit
 from test_torch_text_decoder import jax_state
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -166,10 +167,12 @@ def test_alibi_decode_attention_equals_jax(n_kv, mq):
     v = rng.integers(0, 256, (b, t, n_kv * d))
     valid = np.array([5, 29 - mq], np.int32)
     slopes = alibi_slopes(h)
-    want = np.asarray(JA.decode_attention_flat(
+    want = np.asarray(exact_jit(
+        lambda q_, k_, v_, n_: JA.decode_attention_flat(
+            q_, k_, v_, n_, n_heads=h, n_kv_heads=n_kv, backend="xla",
+            alibi=slopes, **KW),
         jnp.asarray(q, jnp.uint8), jnp.asarray(k, jnp.uint8),
-        jnp.asarray(v, jnp.uint8), jnp.asarray(valid), n_heads=h,
-        n_kv_heads=n_kv, backend="xla", alibi=slopes, **KW))
+        jnp.asarray(v, jnp.uint8), jnp.asarray(valid)))
     before = TA.decode_attention_alibi.calls
     got = TA.decode_attention_flat(
         torch.tensor(q, dtype=torch.uint8), torch.tensor(k, dtype=torch.uint8),

@@ -85,6 +85,13 @@ def jax_forward(model, x: np.ndarray) -> np.ndarray:
     return np.asarray(program(params, data))
 
 
+def exact_jit(fn, *args):
+    """``fn(*args)`` as one XLA program compiled with ``EXACT_XLA``: the
+    JAX function's float order without the reciprocal rewrite, one compile
+    instead of one per eager op."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=EXACT_XLA)(*args)
+
+
 @pytest.mark.parametrize("name", list(ZOO))
 def test_zoo_model_matches_jax(name):
     shape, atol = ZOO[name]

@@ -66,7 +66,9 @@ def test_port_imports_without_jax():
                 "models.resnet", "models.mobilenet", "models.mobilenet_v3",
                 "models.efficientnet", "models.shufflenet",
                 "models.squeezenet", "models.googlenet", "models.densenet",
-                "models.gemma", "models.vit", "models.text_transformer"):
+                "models.gemma", "models.vit", "models.text_transformer",
+                "utils", "utils.equalize", "utils.smooth", "utils.gptq",
+                "utils.adaround"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 

@@ -34,6 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from int8inferenceengine_tpu.ops import w4 as JW
 from int8inferenceengine_tpu_torch.ops import w4 as TW
+from test_torch_cnn_zoo import exact_jit
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -200,10 +201,12 @@ def _w4a8_case(m, k, n, group, seed=0, vector_mult=False):
 def _jax(fn, c, rounding, **kw):
     mult = jnp.asarray(c["mult"]) if np.ndim(c["mult"]) else \
         jnp.float32(c["mult"])
-    return np.asarray(fn(jnp.asarray(c["x"]), jnp.asarray(c["packed"]),
-                         jnp.asarray(c["scales"]), jnp.asarray(c["zpb"]),
-                         c["k"], c["group"], zp_x=c["zp_x"], mult=mult,
-                         rounding=rounding, **kw))
+    return np.asarray(exact_jit(
+        lambda x, packed, scales, zpb, mult_: fn(
+            x, packed, scales, zpb, c["k"], c["group"], zp_x=c["zp_x"],
+            mult=mult_, rounding=rounding, **kw),
+        jnp.asarray(c["x"]), jnp.asarray(c["packed"]),
+        jnp.asarray(c["scales"]), jnp.asarray(c["zpb"]), mult))
 
 
 def _port(c, rounding, backend="auto"):
