@@ -19,6 +19,8 @@
                                       # line
     python3 chip_smoke.py --levers    # only the accuracy levers' phases
                                       # (44-47), no result line
+    python3 chip_smoke.py --artifact  # only the INT8 artifact's phases
+                                      # (48-50), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -314,7 +316,24 @@ Phases, in order (any failure exits non-zero):
 47. the dim-256 gemma, llama and text encoder under smooth + GPTQ and LeNet
    under CLE + AdaRound, on the card against a CPU copy handed the card's
    tapped inputs: equal weights and codes where the arithmetic is exact,
-   AdaRound's codes equal on at least ``ADAROUND_MIN_EQUAL``.
+   AdaRound's codes equal on at least ``ADAROUND_MIN_EQUAL``;
+48. the INT8 artifact (``utils.save`` / ``utils.load``, the JAX package's
+   .npz format) of the AlexNet-224 model that 5 converts, loaded into a
+   fresh ``zoo.AlexNet()`` on the card: the b100 codes equal bit for bit
+   in one forward of exactly 8 B1, ``validate(model, x) == []``, the
+   quantization report serialisable to JSON, ``roofline.report`` at the
+   H100's peaks with the measured ms (its ``percent_of_sol`` at most 100),
+   and ``trace`` + ``device_op_times`` around one forward listing B1 8
+   times; the artifact's bytes, save and load seconds;
+49. the artifact of the gemma-2-2b model that 26 converts, loaded into a
+   fresh ``GemmaDecoder`` on the card: its 128 greedy tokens equal the
+   saved model's, with 105 B1, 26 B2 and 26 B3 a step; the artifact's
+   bytes, the save and load seconds and the captured ms/step of both;
+50. the artifacts of the llama models of 9 and 10: the reloaded W4A8
+   model's 128 greedy tokens (49 B6 and 12 B3 a step) and the reloaded W4
+   forward (85 B5) equal the saved models', and every B7, B6, B3 and B5
+   launch of a teacher-forced prefill and 16 steps and of the W4 forward
+   returns the saved model's output bit for bit.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -333,6 +352,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -4442,11 +4462,13 @@ def time_gemma_kernels(torch, G, A, gen, dev, flush):
     return rows
 
 
-def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile):
+def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile,
+                   artifact=False):
     """Phases 24-28 in order: (d) the small windowed decoders on the card
     against a CPU copy and their ring engines against ``generate()``, (a)
-    gemma-2-2b's main path, its timing and step profile, (c) its engine,
-    (b) the ring leg.  Returns the launches of the main paths."""
+    gemma-2-2b's main path, its timing and step profile (and, with
+    ``artifact``, phase 49 on its model), (c) its engine, (b) the ring
+    leg.  Returns the launches of the main paths."""
     windowed_small(torch, q, zoo, GM, dev)
     mark("windowed small")
     counts = {}
@@ -4472,6 +4494,10 @@ def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile):
                     "prefill_ms": timing["prefill_ms"],
                     "prefill_bound_ms": b_ms, "prefill_bound_by": b_by,
                     "gated": False}))
+    if artifact:
+        counts["gemma2_2b_artifact_generate"] = artifact_gemma(
+            torch, q, zoo, model, ids, kernel_fns)
+        mark("gemma2_2b artifact")
     counts["gemma2_2b_engine"] = gemma_engine_leg(torch, model, kernel_fns)
     del model
     torch.cuda.empty_cache()
@@ -7007,6 +7033,274 @@ def levers_paths(torch, q, zoo, GM, LL, G, A, W, layers_mod, kernel_fns,
     return counts
 
 
+# -- phases 48-50: the INT8 artifact ------------------------------------------
+
+TRACE_ATTEMPTS = 3
+
+
+def saved_and_loaded(torch, model, fresh_fn, name):
+    """``utils.save`` of ``model`` into a temporary directory and
+    ``utils.load`` into ``fresh_fn()``: (the loaded model, {bytes, save_s,
+    fresh_model_s, load_s})."""
+    from int8inferenceengine_tpu_torch import utils
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / f"{name}.npz")
+        t0 = time.perf_counter()
+        utils.save(model, path)
+        save_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        t0 = time.perf_counter()
+        fresh = fresh_fn()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        utils.load(fresh, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    return fresh, {"artifact_bytes": nbytes, "save_s": save_s,
+                   "fresh_model_s": build_s, "load_s": load_s}
+
+
+def artifact_alexnet(torch, q, zoo, model, x_test, kernel_fns):
+    """Phase 48; returns the reloaded forward's launches."""
+    from int8inferenceengine_tpu_torch import utils
+    from int8inferenceengine_tpu_torch.utils import observe, roofline
+    xt = q.tensor(x_test)
+    want = model(xt).data
+    fresh, io = saved_and_loaded(torch, model,
+                                 lambda: zoo.AlexNet(device="cuda"),
+                                 "alexnet_int8")
+    reset_counts(kernel_fns)
+    got = fresh(xt).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    if counts != dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": 8}:
+        fail(f"reloaded AlexNet forward launched {counts}, want 8 "
+             f"qgemm_u8s8 and nothing else")
+    if not torch.equal(got, want):
+        fail(f"reloaded AlexNet b100 logits differ from the saved model's "
+             f"on {int((got != want).sum())} of {got.numel()}")
+    findings = utils.validate.validate(fresh, x_test)
+    if findings:
+        fail(f"validate(reloaded AlexNet): {findings}")
+    report = json.dumps({"saved": utils.quantization_report(model),
+                         "loaded": utils.quantization_report(fresh)})
+    ms = time_cuda(torch, lambda: fresh(xt), iters=20)
+    roof = roofline.report(fresh, (3, 224, 224), x_test.shape[0],
+                           measured_s=ms / 1e3)
+    if not 0 < roof["percent_of_sol"] <= 100:
+        fail(f"roofline percent_of_sol {roof['percent_of_sol']} not in "
+             f"(0, 100]")
+    # a profiler session's first records can go missing: a trace short of
+    # the 8 launches is taken again
+    seen = []
+    with tempfile.TemporaryDirectory() as d:
+        for attempt in range(TRACE_ATTEMPTS):
+            log_dir = str(Path(d) / f"trace{attempt}")
+            with utils.trace("alexnet_b100_forward", log_dir=log_dir):
+                fresh(xt)
+            ops = observe.device_op_times(log_dir)
+            b1 = sum(v["count"] for k, v in ops.items()
+                     if kernel_of(k) == "qgemm_u8s8")
+            seen.append(b1)
+            if b1 == 8:
+                break
+    if seen[-1] != 8:
+        fail(f"trace of one reloaded AlexNet forward listed B1 {seen} "
+             f"times, want 8")
+    log(json.dumps({"phase": "alexnet_b100_artifact", **io,
+                    "launches": counts, "codes_equal": True,
+                    "validate": findings, "report_json_bytes": len(report),
+                    "int8_ms_per_batch": ms,
+                    "roofline": {k: roof[k] for k in (
+                        "total_flops", "total_bytes", "peak_ops",
+                        "peak_hbm_Bps", "sol_compute_s", "sol_memory_s",
+                        "achieved_ops", "percent_of_peak",
+                        "percent_of_sol")},
+                    "trace_b1_launches": seen,
+                    "trace_kernels": {k[:80]: v for k, v in ops.items()}}))
+    del fresh
+    return counts
+
+
+def artifact_gemma(torch, q, zoo, model, ids, kernel_fns):
+    """Phase 49 on phase 26's converted gemma-2-2b; returns the reloaded
+    ``generate()``'s launches."""
+    dev = model.device
+    prompt = torch.tensor(ids.astype(np.int64), device=dev)
+    tokens = model.generate(ids, DEC_STEPS)
+    ms_before, _ = time_captured_steps(torch, model, prompt, 64)
+    fresh, io = saved_and_loaded(
+        torch, model, lambda: zoo.build(
+            "gemma_tiny", config=q.QuantConfig(**GEMMA_CFG), device=dev,
+            **GEMMA2), "gemma2_2b_int8")
+    reset_counts(kernel_fns)
+    got = fresh.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    depth = GEMMA2["depth"]
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 4 * depth + 1, "qgemm_u8s8_vzp": depth,
+        "decode_attn_flat": depth}
+    want = {k: v * DEC_STEPS - (depth if k == "decode_attn_flat" else 0)
+            for k, v in per_step.items()}
+    if counts != want:
+        fail(f"reloaded gemma2_2b generate launched {counts}, want {want}")
+    if not np.array_equal(got, tokens):
+        fail("reloaded gemma2_2b's greedy tokens differ from the saved "
+             "model's")
+    ms_after, _ = time_captured_steps(torch, fresh, prompt, 64)
+    log(json.dumps({"phase": "gemma2_2b_artifact", **io,
+                    "launches": counts, "tokens_equal": DEC_STEPS,
+                    "captured_ms_per_step_saved": ms_before,
+                    "captured_ms_per_step_loaded": ms_after}))
+    del fresh
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def recording(W, A, outs):
+    """Swap the 4-bit wrappers (and B3's, given ``A``) for stand-ins that
+    launch their kernels and append (kernel, a copy of the output) to
+    ``outs``."""
+    def keep(kernel, fn):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            outs.append((kernel, out.clone()))
+            return out
+        return run
+
+    attn = {} if A is None else dict(decode_attention_flat=keep(
+        "decode_attn_flat", A.decode_attention_flat))
+    with swapped(W, w4a8_v2=keep("w4a8_v2_gemm", W.w4a8_v2),
+                 w4a8_v1=keep("w4a8_v1_gemm", W.w4a8_v1),
+                 w4_gemm=keep("w4_gemm", W.w4_gemm)), \
+            swapped(A, **attn):
+        yield
+
+
+def same_outputs(torch, label, saved, loaded):
+    """Every recorded kernel output of the reloaded model equals the saved
+    model's bit for bit; returns the launches by kernel."""
+    if [k for k, _ in saved] != [k for k, _ in loaded]:
+        fail(f"{label}: the reloaded model launched another kernel sequence")
+    for i, ((kernel, a), (_, b)) in enumerate(zip(saved, loaded)):
+        if not torch.equal(a, b):
+            fail(f"{label}: launch {i} of {kernel} differs from the saved "
+                 f"model's")
+    by = {}
+    for kernel, _ in saved:
+        by[kernel] = by.get(kernel, 0) + 1
+    return by
+
+
+def artifact_llama_w4a8(torch, q, zoo, W, A, model, ids, kernel_fns):
+    """Phase 50 (W4A8) on phase 9's model; returns the reloaded
+    ``generate()``'s launches."""
+    dev = model.device
+    prompt = torch.tensor(ids.astype(np.int64), device=dev)
+    tokens = model.generate(ids, DEC_STEPS)
+    toks = torch.tensor(tokens, dtype=torch.int64, device=dev)
+    saved, loaded = [], []
+    with recording(W, A, saved):
+        teacher_forced(torch, model, prompt, toks[:, :DEC_SHORT + 1])
+    fresh, io = saved_and_loaded(
+        torch, model, lambda: zoo.build(
+            "llama_tiny", config=q.QuantConfig(**LLAMA_W4A8), **LLAMA),
+        "llama_w4a8")
+    reset_counts(kernel_fns)
+    got = fresh.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    depth = LLAMA["depth"]
+    want = dict.fromkeys(kernel_fns, 0) | {
+        "w4a8_v1_gemm": 4 * depth + 1,
+        "w4a8_v2_gemm": (DEC_STEPS - 1) * (4 * depth + 1),
+        "decode_attn_flat": (DEC_STEPS - 1) * depth}
+    if counts != want:
+        fail(f"reloaded llama W4A8 generate launched {counts}, want {want}")
+    if not np.array_equal(got, tokens):
+        fail("reloaded llama W4A8's greedy tokens differ from the saved "
+             "model's")
+    with recording(W, A, loaded):
+        teacher_forced(torch, fresh, prompt, toks[:, :DEC_SHORT + 1])
+    by = same_outputs(torch, "llama W4A8 artifact", saved, loaded)
+    log(json.dumps({"phase": "llama_w4a8_artifact", **io,
+                    "launches": counts, "tokens_equal": DEC_STEPS,
+                    "kernel_outputs_equal": by}))
+    del fresh
+    return counts
+
+
+def artifact_llama_w4(torch, q, zoo, W, model, ids, kernel_fns):
+    """Phase 50 (W4 weight-only) on phase 10's model; returns the reloaded
+    forward's launches."""
+    xt = q.tensor(ids)
+    saved, loaded = [], []
+    with recording(W, None, saved):
+        want = model(xt).data
+    fresh, io = saved_and_loaded(
+        torch, model, lambda: zoo.build(
+            "llama_tiny", config=q.QuantConfig(**LLAMA_W4), **LLAMA),
+        "llama_w4")
+    reset_counts(kernel_fns)
+    got = fresh(xt).data
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    if counts != dict.fromkeys(kernel_fns, 0) | {
+            "w4_gemm": 7 * LLAMA["depth"] + 1}:
+        fail(f"reloaded llama W4 forward launched {counts}")
+    if not torch.equal(got, want):
+        fail("reloaded llama W4 logits differ from the saved model's")
+    with recording(W, None, loaded):
+        fresh(xt)
+    by = same_outputs(torch, "llama W4 artifact", saved, loaded)
+    log(json.dumps({"phase": "llama_w4_artifact", **io, "launches": counts,
+                    "logits_equal": True, "kernel_outputs_equal": by}))
+    del fresh
+    return counts
+
+
+def artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev):
+    """``--artifact``: phases 48-50 on models built here as 5, 26 (no twin
+    check), 9 and 10 build them; returns the reloaded paths' launches."""
+    counts = {}
+    model, x_test, _, _ = alexnet_main_path(torch, q, zoo, kernel_fns, dev)
+    counts["alexnet_b100_artifact"] = artifact_alexnet(
+        torch, q, zoo, model, x_test, kernel_fns)
+    del model
+    mark("artifact: alexnet")
+    ids = np.random.default_rng(0).integers(
+        0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids)
+    counts["gemma2_2b_artifact_generate"] = artifact_gemma(
+        torch, q, zoo, model, ids, kernel_fns)
+    del model
+    torch.cuda.empty_cache()
+    mark("artifact: gemma2_2b")
+    twin = LL.torch_llama(**LLAMA, seed=0)
+    state = decoder_state(torch, twin, LLAMA["depth"], seed=0,
+                          residual=("proj", "down"))
+    del twin
+    ids = np.random.default_rng(0).integers(
+        0, LLAMA["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    model = zoo.build("llama_tiny", config=q.QuantConfig(**LLAMA_W4A8),
+                      **LLAMA)
+    model.load(state)
+    model.prepare()
+    model(q.tensor(ids))
+    model.convert()
+    counts["llama_w4a8_artifact_generate"] = artifact_llama_w4a8(
+        torch, q, zoo, W, A, model, ids, kernel_fns)
+    del model
+    wo, _ = llama_w4_forward_path(torch, q, zoo, W, kernel_fns, state, ids)
+    counts["llama_w4_artifact_forward"] = artifact_llama_w4(
+        torch, q, zoo, W, wo, ids, kernel_fns)
+    mark("artifact: llama")
+    return counts
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -7086,6 +7380,10 @@ def main(argv=None) -> int:
                     help="only build and run the accuracy levers' phases "
                          "(44-47: CLE, SmoothQuant, AdaRound, GPTQ) with "
                          "their checks (no result line)")
+    ap.add_argument("--artifact", action="store_true",
+                    help="only build and run the INT8 artifact's phases "
+                         "(48-50: save, load, validate, report, roofline, "
+                         "trace) with their checks (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -7192,6 +7490,12 @@ def main(argv=None) -> int:
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
+    if args.artifact:
+        counts = artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev)
+        log(json.dumps({"phase": "artifact_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
     if args.weight_only:
         gen = torch.Generator(device=dev).manual_seed(0)
         check_b5_decode(torch, W, gen, dev)
@@ -7278,6 +7582,10 @@ def main(argv=None) -> int:
     model, x_test, state, counts_by_path["alexnet_b100"] = alexnet_main_path(
         torch, q, zoo, kernel_fns, dev)
     alexnet_timing(torch, q, zoo, model, x_test, state, args.profile)
+
+    # -- 48. its INT8 artifact --------------------------------------------------
+    counts_by_path["alexnet_b100_artifact"] = artifact_alexnet(
+        torch, q, zoo, model, x_test, kernel_fns)
 
     # -- 14. the AlexNet engine -----------------------------------------------
     counts_by_path["alexnet_engine"] = serve_cnn(torch, q, model,
@@ -7367,6 +7675,9 @@ def main(argv=None) -> int:
     mark("llama w4a8 extend, speculative, chunked")
     full_context_timing(torch, q, dec,
                         "llama_w4a8_causal_forward_full_context", kernel_fns)
+    # -- 50. its INT8 artifact --------------------------------------------------
+    counts_by_path["llama_w4a8_artifact_generate"] = artifact_llama_w4a8(
+        torch, q, zoo, W, A, dec, ids, kernel_fns)
     del dec
     torch.cuda.empty_cache()
 
@@ -7377,6 +7688,9 @@ def main(argv=None) -> int:
     full_context_timing(torch, q, wo,
                         "llama_w4_weight_only_forward_full_context",
                         kernel_fns)
+    # -- 50. (its INT8 artifact) ------------------------------------------------
+    counts_by_path["llama_w4_artifact_forward"] = artifact_llama_w4(
+        torch, q, zoo, W, wo, ids, kernel_fns)
     del wo, state
     torch.cuda.empty_cache()
     mark("llama")
@@ -7384,7 +7698,7 @@ def main(argv=None) -> int:
     # -- 25-28. the windowed decoders: the small gates, gemma-2-2b, its
     # engine, the ring leg ------------------------------------------------------
     counts_by_path.update(windowed_paths(torch, q, zoo, GM, kernel_fns, dev,
-                                         args.profile))
+                                         args.profile, artifact=True))
     torch.cuda.empty_cache()
     mark("windowed")
 

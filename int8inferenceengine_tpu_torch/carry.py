@@ -39,7 +39,12 @@ with ``params`` in the JAX package's layouts:
   ``zero_point``.
 
 It is what a JAX ``Layer`` holds in ``layer.params`` and its attributes, so
-after ``load_jax_state`` both packages compute the same function.
+after ``load_jax_state`` both packages compute the same function.  The
+params may also be CPU tensors, which are used without a copy
+(``utils.checkpoint.load``: a gemma-2-2b artifact holds 3.2 G one-byte
+codes); numpy arrays are copied once.  Transposes between the layouts
+run on the layer's device, so each array crosses between host and device
+once.
 """
 
 from __future__ import annotations
@@ -47,13 +52,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .layers import (Conv2d, Layer, Linear, QuantEmbed, QuantLayerNorm,
-                     QuantMoE, QuantPosEmbed, QuantRMSNorm)
+from .layers import (Conv2d, Layer, Linear, QuantAct, QuantEmbed,
+                     QuantLayerNorm, QuantMoE, QuantPosEmbed, QuantRMSNorm)
 
 _TABLES = (QuantEmbed, QuantPosEmbed, QuantLayerNorm, QuantRMSNorm)
 
 
+_TORCH_DTYPES = {np.int8: torch.int8, np.uint8: torch.uint8,
+                 np.float32: torch.float32}
+
+
 def _t(arr, dtype) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.to(_TORCH_DTYPES[dtype])
     return torch.tensor(np.asarray(arr, dtype=dtype))
 
 
@@ -102,29 +113,31 @@ def _load_gemm_layer(name: str, layer: Layer, st: dict) -> None:
         _expect(name, "bias", p["bias"], (n,))
         if isinstance(layer, Conv2d):
             _expect(name, "q_w_hwio", p["q_w_hwio"], (k, k, c, n))
-            q_w = np.transpose(p["q_w_hwio"], (3, 2, 0, 1))
+            q_w = _t(p["q_w_hwio"], np.int8).to(layer.device).permute(
+                3, 2, 0, 1)
         else:
             _expect(name, "q_weight", p["q_weight"], (n, c))
-            q_w = p["q_weight"]
-        return layer.set_weight_only(_t(q_w, np.int8),
+            q_w = _t(p["q_weight"], np.int8)
+        return layer.set_weight_only(q_w,
                                      _t(p["bias"], np.float32),
                                      _weight_scale(st))
     if not st["is_quantized"] or layer.quant_fallback:
         if isinstance(layer, Conv2d):
             _expect(name, "w_hwio", p["w_hwio"], (k, k, c, n))
-            layer.load_weight(np.transpose(p["w_hwio"], (3, 2, 0, 1)))
+            layer.load_weight(_t(p["w_hwio"], np.float32).to(
+                layer.device).permute(3, 2, 0, 1))
         else:
             layer.load_weight(p["weight"])
         layer.load_bias(p["bias"])
         return
     if isinstance(layer, Conv2d):
         _expect(name, "qw_hwio", p["qw_hwio"], (k, k, c, n))
-        qw = np.asarray(p["qw_hwio"]).reshape(k * k * c, n).T
+        qw = _t(p["qw_hwio"], np.int8).reshape(k * k * c, n)
     else:
         _expect(name, "qw_kn", p["qw_kn"], (c, n))
-        qw = np.asarray(p["qw_kn"]).T
+        qw = _t(p["qw_kn"], np.int8)
     _expect(name, "q_bias", p["q_bias"], (n,))
-    layer.set_quantized(_t(qw, np.int8), _t(p["q_bias"], np.int8),
+    layer.set_quantized(qw.to(layer.device).t(), _t(p["q_bias"], np.int8),
                         _weight_scale(st))
     rowsum = np.asarray(p["rowsum"], np.int64)
     if not np.array_equal(layer.rowsum.cpu().numpy(), rowsum):
@@ -171,6 +184,11 @@ def _load_layer(name: str, layer: Layer, st: dict) -> None:
     elif st["params"]:
         raise ValueError(f"{name}: {type(layer).__name__} has no params, got "
                          f"{sorted(st['params'])}")
+    # what was derived from the old state: operands built per input grid,
+    # merged groups, activation tables
+    layer._epilogue_cache, layer._merged_cache = {}, {}
+    if isinstance(layer, QuantAct):
+        layer._luts = {}
     layer.is_quantized = bool(st["is_quantized"])
     layer.scale = float(st["scale"])
     layer.zero_point = int(st["zero_point"])
@@ -193,6 +211,11 @@ def load_jax_state(module, state: dict) -> None:
     module.is_quant = quantized == {True}
 
 
+def _host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a C-ordered host array, laid out on its own device first."""
+    return x.contiguous().cpu().numpy()
+
+
 def _gemm_params(layer: Layer) -> tuple[dict, object]:
     if layer.is_quantized and getattr(layer, "w4_packed", None) is not None:
         params = {"w4_packed": layer.w4_packed.cpu().numpy(),
@@ -203,29 +226,29 @@ def _gemm_params(layer: Layer) -> tuple[dict, object]:
         return params, layer.weight_scale
     ws = layer.weight_scale
     if layer.is_quantized and layer.q_weight is not None:
-        q_w = layer.q_weight.cpu().numpy()
-        params = ({"q_w_hwio": np.transpose(q_w, (2, 3, 1, 0)).copy()}
-                  if isinstance(layer, Conv2d) else {"q_weight": q_w})
+        q_w = layer.q_weight
+        params = ({"q_w_hwio": _host(q_w.permute(2, 3, 1, 0))}
+                  if isinstance(layer, Conv2d) else {"q_weight": _host(q_w)})
         params["bias"] = layer.bias.cpu().numpy()
         if isinstance(ws, torch.Tensor):
             ws = params["w_scale"] = ws.cpu().numpy()
         return params, ws
     if layer.is_quantized and not layer.quant_fallback:
-        qw = layer.qw.cpu().numpy()
+        qw = layer.qw.t().contiguous()
         if isinstance(layer, Conv2d):
             k = layer.kernel_size
-            params = {"qw_hwio": qw.T.reshape(
-                k, k, layer.in_channels // layer.groups, layer.out_channels)}
+            params = {"qw_hwio": _host(qw.reshape(
+                k, k, layer.in_channels // layer.groups, layer.out_channels))}
         else:
-            params = {"qw_kn": qw.T.copy()}
+            params = {"qw_kn": _host(qw)}
         params["q_bias"] = layer.q_bias.cpu().numpy()
         params["rowsum"] = layer.rowsum.cpu().numpy()
         if isinstance(ws, torch.Tensor):
             ws = params["w_scale"] = ws.cpu().numpy()
         return params, ws
-    w = layer.weight.cpu().numpy()
-    params = ({"w_hwio": np.transpose(w, (2, 3, 1, 0))}
-              if isinstance(layer, Conv2d) else {"weight": w})
+    w = layer.weight
+    params = ({"w_hwio": _host(w.permute(2, 3, 1, 0))}
+              if isinstance(layer, Conv2d) else {"weight": _host(w)})
     params["bias"] = layer.bias.cpu().numpy()
     return params, layer.weight_scale
 

@@ -97,6 +97,27 @@ def _tap(layer, x: torch.Tensor) -> None:
         tap.setdefault(id(layer), []).append(x)
 
 
+# Cost sink (utils.roofline): when set, layers append (layer, flops, bytes)
+# records as the forward runs, with the JAX package's counts (each input
+# and output once, the weights at their stored width).
+_COST_SINK: contextvars.ContextVar[list | None] = contextvars.ContextVar(
+    "i8ie_torch_cost_sink", default=None)
+
+
+def _record_cost(layer, flops: int, nbytes: int) -> None:
+    sink = _COST_SINK.get()
+    if sink is not None:
+        sink.append((layer, int(flops), int(nbytes)))
+
+
+def _record_int8_linear(layer, x, out: torch.Tensor, per_byte: int) -> None:
+    """A u8-in, u8-out Linear's cost (``per_byte`` weights a byte: 2 for
+    4-bit ones)."""
+    kn = layer.in_channels * layer.out_channels
+    _record_cost(layer, 2 * out.shape[0] * kn,
+                 x.data.numel() + out.numel() + kn // per_byte)
+
+
 class Layer(nn.Module):
     """Base layer: weight storage, calibration state, PTQ lifecycle."""
 
@@ -116,6 +137,9 @@ class Layer(nn.Module):
         self.fuse_relu = False
         # Module.convert(skip=...): an FP32 island behind the u8 interface
         self.quant_fallback = False
+        # the calibrator's observed range, kept at convert() for
+        # ``utils.quantization_report`` (not part of a checkpoint)
+        self.calib_stats: dict | None = None
         # bias correction's running input mean (float64) and its count
         self._in_mean = None
         self._in_count = 0
@@ -196,6 +220,7 @@ class Layer(nn.Module):
         else:
             self.scale, self.zero_point = self.calibrator.get_range(
                 self.config.calib_quantile)
+            self.calib_stats = self.calibrator.stats()
             self.calibrator = None
         self._quantize_weights()
         self.is_preparing = False
@@ -403,22 +428,33 @@ class Linear(Layer):
         out = self._float(x.data)
         self._observe(out)
         self._observe_in_mean(x.data, (0,))
+        _record_cost(self, 2 * out.shape[0] * self.in_channels
+                     * self.out_channels,
+                     4 * (x.data.numel() + out.numel()
+                          + self.in_channels * self.out_channels))
         return Tensor(out)
 
     def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
         """float32 [M, K] -> [M, N]: W4 (kernel B5), W8F or DA."""
+        kn = self.in_channels * self.out_channels
         if self.config.weight_bits == 4:
-            return w4_ops.w4_matmul(x.contiguous(), self.w4_packed,
-                                    self.w4_scales, self.bias,
-                                    self.in_channels, self.config.w4_group,
-                                    backend=self.config.w4_kernel)
-        if not self.config.dynamic_act:
-            return wo_ops.w8f_matmul(x, self.q_weight, self.w_scale,
-                                     self.bias)
-        a, s_a = quantize_dynamic(x, (1,))       # per-token scales [M, 1]
-        acc = wo_ops.s8_matmul(a, self.q_weight)
-        return dequantize_dynamic(acc, s_a, self.w_scale.reshape(1, -1),
-                                  self.bias.reshape(1, -1))
+            out = w4_ops.w4_matmul(x.contiguous(), self.w4_packed,
+                                   self.w4_scales, self.bias,
+                                   self.in_channels, self.config.w4_group,
+                                   backend=self.config.w4_kernel)
+            kn //= 2
+        elif not self.config.dynamic_act:
+            out = wo_ops.w8f_matmul(x, self.q_weight, self.w_scale,
+                                    self.bias)
+        else:
+            a, s_a = quantize_dynamic(x, (1,))   # per-token scales [M, 1]
+            acc = wo_ops.s8_matmul(a, self.q_weight)
+            out = dequantize_dynamic(acc, s_a, self.w_scale.reshape(1, -1),
+                                     self.bias.reshape(1, -1))
+        _record_cost(self, 2 * out.shape[0] * self.in_channels
+                     * self.out_channels,
+                     4 * (x.numel() + out.numel()) + kn)
+        return out
 
     def w4a8_operands(self, x: Tensor) -> dict:
         """This layer's W4A8 operands for input grid (x.scale,
@@ -454,6 +490,7 @@ class Linear(Layer):
                                     rounding=self.config.rounding)
             if self.fuse_relu:
                 out = out.clamp_min(self.zero_point)
+            _record_int8_linear(self, x, out, 2)
             return Tensor(out, self.scale, self.zero_point)
         oc, ep = self._epilogue(x, "gemm")
         out = self._gemm()(x.data.contiguous(), self.qw, oc, ep,
@@ -461,6 +498,7 @@ class Linear(Layer):
                            zp_c=self.zero_point, relu=self.fuse_relu,
                            rounding=self.config.rounding, order="gemm",
                            act=act)
+        _record_int8_linear(self, x, out, 1)
         if act is not None:
             return Tensor(out, act[1], act[2])
         return Tensor(out, self.scale, self.zero_point)
@@ -544,19 +582,30 @@ class Conv2d(Layer):
         self._observe(out.permute(0, 2, 3, 1))
         if self.groups == 1:
             self._observe_in_mean(x.logical_data, (0, 2, 3))
+        _record_cost(self, 2 * out.numel() * self._taps(),
+                     4 * (x.data.numel() + out.numel()
+                          + self.weight.numel()))
         return Tensor(out)
+
+    def _taps(self) -> int:
+        """Multiply-adds an output element takes."""
+        return self.in_channels // self.groups * self.kernel_size ** 2
 
     def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
         """float32 NCHW -> NCHW: W8F, or DAC with one scale per image."""
         geo = (self.stride, self.padding, self.groups)
         if not self.config.dynamic_act:
-            return conv_ops.w8f_conv2d(x, self.q_weight, self.w_scale,
-                                       self.bias, *geo)
-        a, s_a = quantize_dynamic(x, (1, 2, 3))  # per-image [N, 1, 1, 1]
-        acc = conv_ops.conv2d_s8(a, self.q_weight, *geo)
-        return dequantize_dynamic(acc, s_a,
-                                  self.w_scale.reshape(1, -1, 1, 1),
-                                  self.bias.reshape(1, -1, 1, 1))
+            out = conv_ops.w8f_conv2d(x, self.q_weight, self.w_scale,
+                                      self.bias, *geo)
+        else:
+            a, s_a = quantize_dynamic(x, (1, 2, 3))  # per-image [N,1,1,1]
+            acc = conv_ops.conv2d_s8(a, self.q_weight, *geo)
+            out = dequantize_dynamic(acc, s_a,
+                                     self.w_scale.reshape(1, -1, 1, 1),
+                                     self.bias.reshape(1, -1, 1, 1))
+        _record_cost(self, 2 * out.numel() * self._taps(),
+                     4 * (x.numel() + out.numel()) + self.q_weight.numel())
+        return out
 
     def _forward_int8(self, x: Tensor) -> Tensor:
         self._check_int8(x)
@@ -579,6 +628,8 @@ class Conv2d(Layer):
             out = conv_ops.conv2d_int8_gemm(x.as_nhwc_data(), self.qw, oc, ep,
                                             order=order, gemm=self._gemm(),
                                             **kw)
+        _record_cost(self, 2 * out.numel() * self._taps(),
+                     x.data.numel() + out.numel() + self.qw.numel())
         return Tensor(out, self.scale, self.zero_point, _nhwc=True)
 
 
@@ -813,6 +864,8 @@ class QuantMatmul(_Weightless):
             scale_b=b.scale, zp_b=b.zero_point, scale_c=self.scale,
             zp_c=self.zero_point, alpha=self.alpha,
             transpose_b=self.transpose_b, rounding=self.config.rounding)
+        _record_cost(self, 2 * out.numel() * a.data.shape[-1],
+                     a.data.numel() + b.data.numel() + out.numel())
         return Tensor(out, self.scale, self.zero_point)
 
 
@@ -1327,13 +1380,19 @@ class QuantMoE(Layer):
         sparse = self._use_sparse(f.shape[0]) and not (
             f.is_cuda and torch.cuda.is_current_stream_capturing())
         if self.q_gate_w is None:
-            return moe_ops.experts(f, wexp, self.gate_w, self.up_w,
-                                   self.down_w, None, None, None,
-                                   dynamic=False, sparse=sparse)
-        dynamic = self.config.dynamic_act or not self.config.weight_only
-        return moe_ops.experts(f, wexp, self.q_gate_w, self.q_up_w,
-                               self.q_down_w, self.gate_w_s, self.up_w_s,
-                               self.down_w_s, dynamic=dynamic, sparse=sparse)
+            out = moe_ops.experts(f, wexp, self.gate_w, self.up_w,
+                                  self.down_w, None, None, None,
+                                  dynamic=False, sparse=sparse)
+        else:
+            dynamic = self.config.dynamic_act or not self.config.weight_only
+            out = moe_ops.experts(f, wexp, self.q_gate_w, self.q_up_w,
+                                  self.q_down_w, self.gate_w_s, self.up_w_s,
+                                  self.down_w_s, dynamic=dynamic,
+                                  sparse=sparse)
+        ehk = 3 * self.n_experts * self.dim * self.hidden
+        _record_cost(self, 2 * f.shape[0] * ehk,
+                     4 * (f.numel() + out.numel()) + ehk)
+        return out
 
     def forward(self, x: Tensor) -> Tensor:
         if x.shape[-1] != self.dim or len(x.shape) != 2:
@@ -1379,6 +1438,8 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
             parts, scale_a=x.scale, zp_a=x.zero_point)
     gemm = qgemm_multi_plain if wq.config.fuse_qkv == "xla" else qgemm_multi
     outs = gemm(x.data.contiguous(), merged, rounding=wq.config.rounding)
+    for l, o in zip(heads, outs):
+        _record_int8_linear(l, x, o, 1)
     return tuple(Tensor(o, l.scale, l.zero_point) for l, o in zip(heads, outs))
 
 
@@ -1405,6 +1466,8 @@ def fused_w4a8_multi(layers, x: Tensor):
     out = w4_ops.w4a8_apply(x.data.contiguous(), ops, backend=cfg.w4_kernel,
                             rounding=cfg.rounding)
     outs = torch.split(out, ops["widths"], dim=1)
+    for l, o in zip(layers, outs):
+        _record_int8_linear(l, x, o, 2)
     return tuple(Tensor(o, l.scale, l.zero_point)
                  for l, o in zip(layers, outs))
 
@@ -1425,8 +1488,10 @@ def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
                and act.backend == "elementwise")
     if not fusable:
         return act(linear(x))
-    return linear._forward_int8(x, act=(act.fn_name, act.scale,
-                                        act.zero_point))
+    out = linear._forward_int8(x, act=(act.fn_name, act.scale,
+                                       act.zero_point))
+    _record_cost(act, out.data.numel(), 2 * out.data.numel())
+    return out
 
 
 def fused_attention(attn: QuantMatmul, smax: QuantSoftmax, av: QuantMatmul,
@@ -1455,7 +1520,15 @@ def fused_attention(attn: QuantMatmul, smax: QuantSoftmax, av: QuantMatmul,
         scale_p=smax.scale, zp_p=smax.zero_point,
         scale_c=av.scale, zp_c=av.zero_point,
         alpha=attn.alpha, rounding=attn.config.rounding)
+    _record_attention(attn, av, qh.data, kh.data, vh.data, out,
+                      qh.data.shape[-2])
     return Tensor(out, av.scale, av.zero_point)
+
+
+def _record_attention(attn, av, q, k, v, out, t: int) -> None:
+    """QK^T's and P@V's costs over ``t`` key rows."""
+    _record_cost(attn, 2 * q.numel() * t, q.numel() + k.numel())
+    _record_cost(av, 2 * out.numel() * t, v.numel() + out.numel())
 
 
 def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
@@ -1486,6 +1559,8 @@ def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
         scale_c=av.scale, zp_c=av.zero_point,
         alpha=attn.alpha, rounding=attn.config.rounding,
         window=smax.window, softcap=smax.softcap, alibi=smax.alibi)
+    _record_attention(attn, av, q2.data, kc.data, vc.data, out,
+                      kc.data.shape[-2])
     return Tensor(out, av.scale, av.zero_point)
 
 

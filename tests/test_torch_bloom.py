@@ -53,7 +53,8 @@ from int8inferenceengine_tpu_torch.models.text_decoder import (
 from int8inferenceengine_tpu_torch.ops import attention as TA
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from test_torch_cnn_zoo import exact_jit
-from test_torch_text_decoder import jax_state
+from test_torch_text_decoder import (assert_own_gate, jax_state,
+                                     own_calibration_gap)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=97, max_len=48, dim=64, depth=2, heads=4)
@@ -134,6 +135,7 @@ def ref():
         jm(qj.tensor(_ids(4, 16, 0)))
         jm.convert()
         out[name] = dict(state=jax_state(jm), cfg=cfg, geo=geo,
+                         sd=tw.state_dict(),
                          codes=np.asarray(jm(qj.tensor(x)).data),
                          tokens=np.asarray(jm.generate(prompt, 16)))
     return dict(out, x=x, prompt=prompt)
@@ -156,6 +158,36 @@ def test_int8_codes_and_tokens_equal_jax(ref, name):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(m.generate(ref["prompt"], 16),
                                   ref[name]["tokens"])
+
+
+# measured: the scales' largest ULP distance (BLOOM's first min to depart
+# is embed_ln's, OPT's wq1's), every code and token equal
+OWN_GATE = {"bloom_tiny": dict(scale_ulps=4, equal=1.0, max_dist=0,
+                               token_steps=16),
+            "opt_tiny": dict(scale_ulps=2, equal=1.0, max_dist=0,
+                             token_steps=16)}
+
+
+@pytest.mark.parametrize("name", ["bloom_tiny", "opt_tiny"])
+def test_own_calibration_gate(ref, name):
+    """The port's own lifecycle on the JAX one's weights and 4 x 16
+    calibration ids: every zero point equal, the output scales within
+    ``OWN_GATE``'s ULPs of the JAX package's (BLOOM's first departure is
+    its embedding LayerNorm's min, 1 ULP: the float32 mean's summation
+    order and XLA's approximate rsqrt against the port's float64 ones,
+    rounded once), the 3 x 16 forward's codes and the 16 greedy tokens
+    equal."""
+    r = ref[name]
+    m = tzoo.build(name, config=qt.QuantConfig(**r["cfg"]), device="cpu",
+                   **r["geo"])
+    m.load(r["sd"])
+    m.prepare()
+    m(_cpu(_ids(4, 16, 0)))
+    m.convert()
+    gap = own_calibration_gap(m, r["state"], m(_cpu(ref["x"])).data.numpy(),
+                              r["codes"], m.generate(ref["prompt"], 16),
+                              r["tokens"])
+    assert_own_gate(gap, **OWN_GATE[name])
 
 
 @pytest.mark.parametrize("n_kv,mq", [(4, 1), (4, 3), (2, 3)])

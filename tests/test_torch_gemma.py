@@ -15,8 +15,11 @@ dim 64, depth 2, 4 heads over 2 kv heads, a window of 8 on block 1).
   attention softcap moves the tokens; ``build("gemma_tiny")``; the engine
   equal to ``generate()``.
 
-The JAX checkpoint round trip (``test_checkpoint_roundtrip``) waits for the
-port's checkpoint I/O (ROADMAP queue 1 item 9).
+* the checkpoint round trip (``test_checkpoint_roundtrip``): the port's
+  artifact (.safetensors) gives the saved model's 8 greedy tokens; the JAX
+  package's artifact of its converted state equals the port's of the
+  carried state (the unit-offset deltas carried as deltas), and the port
+  loads it with the carried model's codes.
 """
 
 import numpy as np
@@ -32,7 +35,8 @@ from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.models.gemma import (GemmaDecoder,
                                                         torch_gemma)
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
-from test_torch_text_decoder import jax_state
+from test_torch_text_decoder import (assert_own_gate, jax_state,
+                                     own_calibration_gap)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=211, max_len=48, dim=64, depth=2, heads=4, kv_heads=2,
@@ -117,6 +121,22 @@ def test_int8_codes_equal_jax(ref):
     np.testing.assert_array_equal(got, ref["codes"])
 
 
+def test_own_calibration_gate(ref):
+    """The port's own lifecycle (``_calibrated``, the JAX one's weights and
+    ids): every zero point equal, the output scales within 12 float32 ULPs
+    of the JAX package's (the head; the first max to depart is ln1_1's, 1
+    ULP: the RMSNorm's float32 mean of squares and XLA's approximate rsqrt
+    against the port's float64 ones, rounded once; the first scale is
+    wk1's, 3 ULPs), the 3 x 16 forward's codes and the 20 greedy tokens
+    equal."""
+    m = _calibrated()
+    gap = own_calibration_gap(
+        m, ref["state"], m(qt.tensor(ref["x"], device="cpu")).data.numpy(),
+        ref["codes"], m.generate(ref["prompt"], 20), ref["tokens"])
+    assert_own_gate(gap, scale_ulps=12, equal=1.0, max_dist=0,
+                    token_steps=20)
+
+
 def test_generate_tokens_equal_jax(ref):
     got = _carried(ref).generate(ref["prompt"], 20)
     np.testing.assert_array_equal(got, ref["tokens"])
@@ -133,6 +153,31 @@ def test_carry_round_trip_keeps_unit_offset_deltas(ref):
     # the deltas are carried as they are: the gain 1 + w is never folded in
     np.testing.assert_array_equal(back["postn1_1"]["params"]["weight"],
                                   _state()["postn1_1.weight"].numpy())
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    from int8inferenceengine_tpu_torch import utils
+    m, ids = _calibrated(), _ids(2, 16, 0)
+    want = m.generate(ids, 8)
+    path = str(tmp_path / "gemma.safetensors")
+    utils.save(m, path)
+    fresh = GemmaDecoder(**GEO, config=qt.QuantConfig(**NEAREST),
+                         device="cpu")
+    utils.load(fresh, path)
+    np.testing.assert_array_equal(fresh.generate(ids, 8), want)
+
+
+def test_artifact_equals_jax(ref, tmp_path):
+    from int8inferenceengine_tpu_torch import utils
+    from test_torch_checkpoint import assert_same_artifact, install_state
+    m = _carried(ref)
+    jm = install_state(jzoo.build("gemma_tiny",
+                                  config=qj.QuantConfig(**NEAREST), **GEO),
+                       ref["state"])
+    jp, _ = assert_same_artifact(jm, m, tmp_path)
+    x = qt.tensor(ref["x"], device="cpu")
+    got = utils.load(_carried(ref), jp)
+    np.testing.assert_array_equal(got(x).numpy(), m(x).numpy())
 
 
 def test_cached_decode_equals_recompute():

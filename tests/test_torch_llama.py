@@ -42,6 +42,7 @@ from int8inferenceengine_tpu_torch.models.llama import (LlamaDecoder,
 from int8inferenceengine_tpu_torch.ops import functional as TF
 from int8inferenceengine_tpu_torch.ops import rope as TR
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
+from test_torch_text_decoder import assert_own_gate, own_calibration_gap
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=128, max_len=64, dim=128, depth=2, heads=4, kv_heads=2)
@@ -225,6 +226,25 @@ def jax_reference(weights, cfg):
     return out
 
 
+def own_calibrated(weights, cfg):
+    """The port's own lifecycle on the JAX reference's weights and 8 x 32
+    calibration ids."""
+    m = tzoo.build("llama_tiny", config=qt.QuantConfig(**cfg),
+                   device="cpu", **GEO)
+    m.load(weights)
+    m.prepare()
+    m(qt.tensor(_ids(8, 32, 1), device="cpu"))
+    m.convert()
+    return m
+
+
+def own_gap(m, ref, b):
+    return own_calibration_gap(
+        m, ref["state"], m(qt.tensor(ref["x"][b], device="cpu")).data
+        .numpy(), ref["codes"][b], m.generate(ref["prompt"][b], 6),
+        ref["tokens"][b])
+
+
 def carried(ref):
     m = tzoo.build("llama_tiny", config=qt.QuantConfig(**ref["cfg"]),
                    device="cpu", **GEO)
@@ -239,6 +259,22 @@ def test_carried_codes_match_jax(ref, b):
     assert got.shape == want.shape == ref["x"][b].shape + (128,)
     assert len(np.unique(want)) > 64
     assert_contract(got, want)
+
+
+@pytest.mark.parametrize("b", [2, 8])
+def test_own_calibration_gate(weights, ref, b):
+    """The port's own W8A8 lifecycle ('trunc'): every zero point equal,
+    the output scales within 2 float32 ULPs of the JAX package's (the
+    first min or max to depart is wq1's, 1 ULP: the RMSNorm before it
+    reads the same rows, but its float32 mean of squares and XLA's
+    approximate rsqrt are ULPs from the port's float64 ones, rounded
+    once), the forward's head codes all equal at batch 2 and equal on
+    98.67% at batch 8 (within 2 steps: the ULPs move codes on truncation
+    boundaries, and the moves travel), and the 6 greedy tokens equal."""
+    gap = own_gap(own_calibrated(weights, {}), ref, b)
+    equal, dist = {2: (1.0, 0), 8: (0.9867, 2)}[b]
+    assert_own_gate(gap, scale_ulps=2, equal=equal, max_dist=dist,
+                    token_steps=6)
 
 
 @pytest.mark.parametrize("b", [2, 8])
@@ -318,6 +354,26 @@ def test_carry_round_trip_w4_and_rmsnorm(ref, weight_only_ref, kind):
             state["wq1"]["params"])
     assert set(state["ln1_1"]["params"]) == {"weight"}
     assert_round_trip(m, state)
+
+
+def test_w4_weight_only_artifact_equals_jax(weight_only_ref, tmp_path):
+    """W4 weight-only (no ``w4_wsum``): the JAX package's artifact equals
+    the port's of the carried state, and the port loads JAX's with the
+    carried model's logits."""
+    from int8inferenceengine_tpu_torch import utils
+    from test_torch_checkpoint import assert_same_artifact, install_state
+    state = weight_only_ref["state"]
+    cfg = qt.QuantConfig(**WEIGHT_ONLY)
+    m = tzoo.build("llama_tiny", config=cfg, device="cpu", **GEO)
+    load_jax_state(m, state)
+    jm = install_state(jzoo.build("llama_tiny",
+                                  config=qj.QuantConfig(**WEIGHT_ONLY),
+                                  **GEO), state)
+    jp, _ = assert_same_artifact(jm, m, tmp_path)
+    x = qt.tensor(_ids(2, 9, 4), device="cpu")
+    got = utils.load(tzoo.build("llama_tiny", config=cfg, device="cpu",
+                                **GEO), jp)
+    np.testing.assert_array_equal(got(x).numpy(), m(x).numpy())
 
 
 def test_unported_modes_raise():

@@ -36,8 +36,9 @@ from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
 # ``weights`` is the shared module-scoped fixture of the same weights
 from test_torch_llama import (assert_contract, assert_round_trip,  # noqa: F401
-                              carried, jax_reference, jax_state, recompute,
-                              weights)
+                              carried, jax_reference, jax_state,
+                              own_calibrated, own_gap, recompute, weights)
+from test_torch_text_decoder import assert_own_gate
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 W4A8 = dict(weight_bits=4, rounding="nearest", w4_kernel="pallas")
@@ -84,6 +85,16 @@ def test_carried_codes_match_jax(ref, b):
 
 
 @pytest.mark.parametrize("b", [2, 8])
+def test_own_calibration_gate(weights, ref, b):
+    """The port's own W4A8 lifecycle: every zero point equal, the output
+    scales within 2 float32 ULPs of the JAX package's (the first min or
+    max to depart is wq1's, as in W8A8), every code of the forward and the
+    6 greedy tokens equal."""
+    gap = own_gap(own_calibrated(weights, W4A8), ref, b)
+    assert_own_gate(gap, scale_ulps=2, equal=1.0, max_dist=0, token_steps=6)
+
+
+@pytest.mark.parametrize("b", [2, 8])
 def test_generate_tokens_match_jax(ref, b):
     got = carried(ref).generate(ref["prompt"][b], 6)
     assert got.dtype == np.int32 and got.shape == (b, 6)
@@ -96,6 +107,34 @@ def test_cached_decode_equals_full_recompute(ref, b):
     prompt = ref["prompt"][b]
     np.testing.assert_array_equal(m.generate(prompt, 6),
                                   recompute(m, prompt, 6))
+
+
+def test_artifact_equals_jax_and_loads_across(ref, tmp_path):
+    """W4A8 (``w4_packed``, ``w4_scales``, ``bias``, ``w4_wsum``): the JAX
+    package's artifact equals the port's of the carried state; each
+    package loads the other's and gives its codes (the JAX package's
+    interpreted kernels with one compile)."""
+    from int8inferenceengine_tpu import utils as jutils
+    from int8inferenceengine_tpu.models import zoo as jzoo
+    from int8inferenceengine_tpu_torch import utils
+    from int8inferenceengine_tpu_torch.models import zoo as tzoo
+    from test_torch_checkpoint import assert_same_artifact, install_state
+    from test_torch_llama import GEO
+    m = carried(ref)
+    jm = install_state(jzoo.build("llama_tiny",
+                                  config=qj.QuantConfig(**W4A8), **GEO),
+                       ref["state"])
+    jp, tp = assert_same_artifact(jm, m, tmp_path)
+    x = ref["x"][2]
+    got = utils.load(tzoo.build("llama_tiny", config=qt.QuantConfig(**W4A8),
+                                device="cpu", **GEO), jp)
+    np.testing.assert_array_equal(got(qt.tensor(x, device="cpu")).numpy(),
+                                  m(qt.tensor(x, device="cpu")).numpy())
+    jm2 = jutils.load(jzoo.build("llama_tiny",
+                                 config=qj.QuantConfig(**W4A8), **GEO), tp)
+    with pltpu.force_tpu_interpret_mode():
+        np.testing.assert_array_equal(np.asarray(jm2(qj.tensor(x)).data),
+                                      ref["codes"][2])
 
 
 def test_carry_round_trip_w4a8(ref):

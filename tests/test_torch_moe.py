@@ -26,8 +26,13 @@
   JAX's and closer to the FP32 twin than the dynamic mode; ``dispatch``
   and ``top_k`` validation; the registry names.
 
-Left out, as in the rest of the port for now: the checkpoint round trip
-(``test_checkpoint_roundtrip``, ROADMAP item 9a), expert-parallel sharding
+* the checkpoint round trip (``test_checkpoint_roundtrip``): the reloaded
+  artifact's logits and 6 greedy tokens equal the saved model's; the JAX
+  package's artifact of its converted state (the experts' s8 stacks and
+  scales, the float router) equals the port's of the carried state, and
+  the port loads it with the carried model's logits.
+
+Left out, as in the rest of the port for now: expert-parallel sharding
 (``test_expert_parallel_*``, item 10) and the smoothing pairs
 (``test_smooth_pairs_skip_moe_boundary``, item 9b).
 """
@@ -50,7 +55,8 @@ from int8inferenceengine_tpu_torch.ops import moe as moe_ops
 from int8inferenceengine_tpu_torch.ops import weight_only as two
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from int8inferenceengine_tpu_torch.tensor import Tensor
-from test_torch_text_decoder import jax_state
+from test_torch_text_decoder import (assert_own_gate, jax_state,
+                                     own_calibration_gap)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=97, max_len=48, dim=64, depth=2, heads=4, kv_heads=2)
@@ -126,6 +132,7 @@ def ref():
     seq = np.concatenate([prompt, tokens], 1)
     steps = jm(qj.tensor(seq)).numpy()[:, prompt.shape[1] - 1:-1]
     return dict(state=jax_state(jm), x=x, jit=jm(qj.tensor(x)).numpy(),
+                codes=np.asarray(jm(qj.tensor(x)).data),
                 eager=eager, prompt=prompt, tokens=tokens, steps=steps)
 
 
@@ -149,6 +156,28 @@ def test_int8_within_dynamic_contract_of_jax(ref):
 def test_generate_tokens_match_jax(ref):
     got = _carried(ref).generate(ref["prompt"], 12)
     near_tie_ok(got, ref["tokens"], ref["steps"], DYN_RTOL)
+
+
+def test_own_calibration_gate(ref):
+    """The port's own lifecycle on the JAX one's weights and 4 x 16
+    calibration ids: every zero point equal, the output scales within 6
+    float32 ULPs of the JAX package's (wk1; the first min to depart is
+    ln1_1's, 1 ULP: the RMSNorm's float32 mean of squares and XLA's
+    approximate rsqrt against the port's float64 ones, rounded once), the
+    3 x 16 forward's head codes equal to the jitted JAX forward's on
+    96.78% (within 2 steps: the experts' per-token dynamic codes move with
+    an ULP of their input), and the 12 greedy tokens equal."""
+    m = tzoo.build("moe_tiny", config=qt.QuantConfig(**NEAREST),
+                   device="cpu", **GEO)
+    m.load(torch_moe(**GEO).state_dict())
+    m.prepare()
+    m(_cpu(_ids(4, 16, 0)))
+    m.convert()
+    gap = own_calibration_gap(m, ref["state"], m(_cpu(ref["x"])).data.numpy(),
+                              ref["codes"], m.generate(ref["prompt"], 12),
+                              ref["tokens"])
+    assert_own_gate(gap, scale_ulps=6, equal=0.9677, max_dist=2,
+                    token_steps=12)
 
 
 @pytest.mark.parametrize("per_channel", [False, True])
@@ -180,6 +209,33 @@ def test_carry_round_trip(ref):
     fp = export_state(MoEDecoder(**GEO, device="cpu"))
     assert set(fp["moe1"]["params"]) == {"router", "gate_w", "up_w",
                                          "down_w"}
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    from int8inferenceengine_tpu_torch import utils
+    m, ids = _model(), _ids(3, 10, 13)
+    base, base_toks = m(_cpu(ids)).numpy(), m.generate(ids, 6)
+    path = str(tmp_path / "moe_int8.npz")
+    utils.save(m, path)
+    fresh = MoEDecoder(**GEO, config=qt.QuantConfig(**NEAREST),
+                       device="cpu")
+    utils.load(fresh, path)
+    assert fresh.is_quant
+    np.testing.assert_array_equal(fresh(_cpu(ids)).numpy(), base)
+    np.testing.assert_array_equal(fresh.generate(ids, 6), base_toks)
+
+
+def test_artifact_equals_jax(ref, tmp_path):
+    from int8inferenceengine_tpu_torch import utils
+    from test_torch_checkpoint import assert_same_artifact, install_state
+    m = _carried(ref)
+    jm = install_state(jzoo.build("moe_tiny",
+                                  config=qj.QuantConfig(**NEAREST), **GEO),
+                       ref["state"])
+    jp, _ = assert_same_artifact(jm, m, tmp_path)
+    x = _cpu(ref["x"])
+    np.testing.assert_array_equal(utils.load(_carried(ref), jp)(x).numpy(),
+                                  m(x).numpy())
 
 
 def test_cached_decode_equals_recompute():

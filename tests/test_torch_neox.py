@@ -39,7 +39,8 @@ from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.models.neox import NeoXDecoder, torch_neox
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from int8inferenceengine_tpu_torch.tensor import Tensor
-from test_torch_text_decoder import jax_state
+from test_torch_text_decoder import (assert_own_gate, jax_state,
+                                     own_calibration_gap)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=97, max_len=48, dim=64, depth=2, heads=4)
@@ -123,6 +124,23 @@ def test_int8_codes_within_contract_of_jax(ref, parallel):
         steps = np.abs(np.round((got - want) / m.head.scale))
         assert steps.max() <= 2, what
         assert (steps == 0).mean() >= 0.99, what
+
+
+@pytest.mark.parametrize("parallel", [True, False])
+def test_own_calibration_gate(ref, parallel):
+    """The port's own lifecycle (``_calibrated``, the JAX one's weights and
+    4 x 16 ids): every zero point equal, the output scales within 4 float32
+    ULPs of the JAX package's (the first min to depart is ln1_1's, 1 ULP:
+    the LayerNorm's float32 mean and XLA's approximate rsqrt against the
+    port's float64 ones, rounded once), the 3 x 16 forward's codes equal
+    to the jitted JAX forward's and the 20 greedy tokens equal."""
+    m = _calibrated(parallel)
+    gap = own_calibration_gap(
+        m, ref[parallel]["state"], m(_cpu(ref["x"])).data.numpy(),
+        ref[parallel]["jit"], m.generate(ref["prompt"], 20),
+        ref[parallel]["tokens"])
+    assert_own_gate(gap, scale_ulps=4, equal=1.0, max_dist=0,
+                    token_steps=20)
 
 
 @pytest.mark.parametrize("parallel", [True, False])

@@ -33,7 +33,8 @@ from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.models.llama import torch_llama
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
 from int8inferenceengine_tpu_torch.tensor import Tensor as TT
-from test_torch_text_decoder import jax_state
+from test_torch_text_decoder import (assert_own_gate, jax_state,
+                                     own_calibration_gap)
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = dict(vocab_size=128, max_len=64, dim=64, depth=2, heads=4, kv_heads=2)
@@ -80,6 +81,26 @@ def _carried(ref):
     assert m.sliding_window == 16 and m.smax2.window == 16
     load_jax_state(m, ref["state"])
     return m
+
+
+def test_own_calibration_gate(ref):
+    """The port's own mistral lifecycle on the JAX one's weights and 2 x
+    12 calibration ids: every zero point equal, the output scales within 5
+    float32 ULPs of the JAX package's (the first min to depart is ln1_1's,
+    1 ULP: the RMSNorm's float32 mean of squares and XLA's approximate
+    rsqrt against the port's float64 ones, rounded once), the 3 x 40
+    forward's codes and the 30 greedy tokens past the window equal."""
+    m = tzoo.build("mistral_tiny", config=qt.QuantConfig(**NEAREST),
+                   device="cpu", **GEO)
+    m.load(j_torch_llama(**GEO, sliding_window=16).state_dict())
+    m.prepare()
+    m(qt.tensor(_ids(2, 12, 1), device="cpu"))
+    m.convert()
+    gap = own_calibration_gap(
+        m, ref["state"], m(qt.tensor(ref["x"], device="cpu")).data.numpy(),
+        ref["codes"], m.generate(ref["prompt"], 30), ref["tokens"])
+    assert_own_gate(gap, scale_ulps=5, equal=1.0, max_dist=0,
+                    token_steps=30)
 
 
 def test_mistral_codes_equal_jax(ref):

@@ -29,6 +29,10 @@ w) / s - 1``).
   unsmoothed gemma's own lifecycle is already 16 codes apart on 3% of its
   logits, while both packages' converted state carried over gives equal
   codes (``tests/test_torch_gemma.py``).
+* The port's own smoothed lifecycle against the JAX package's
+  (``OWN_GATE``, measured): every zero point equal, the output scales
+  within 3 / 6 / 11 float32 ULPs, every head code equal for text_tiny and
+  llama_tiny and 97.84% for gemma_tiny (within 2 steps).
 * The pairs lists equal the JAX package's (the MoE decoder's ln2 stays
   unsmoothed), and the guards raise the JAX package's types.
 """
@@ -53,6 +57,7 @@ from int8inferenceengine_tpu_torch import utils as tutils
 from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.utils.smooth import smoothing_factor
 from test_torch_cnn_zoo import jax_forward
+from test_torch_text_decoder import assert_own_gate, own_calibration_gap
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 GEO = {
@@ -137,6 +142,9 @@ class _Fixed:
     def get_range(self, quantile=None):
         return self.grid
 
+    def stats(self):
+        return {"count": 0, "min": None, "max": None}
+
 
 @pytest.fixture(scope="module", params=list(GEO))
 def fam(request):
@@ -209,6 +217,27 @@ def test_int8_codes_within_the_contract_of_jax(fam):
     steps = np.abs(got - fam["jax_int8"]) / m.head.scale
     assert steps.max() <= 2 + 1e-3, steps.max()
     assert (steps < 0.5).mean() >= 0.99, (steps < 0.5).mean()
+
+
+# measured: the largest scale distance, the share of equal head codes and
+# their largest distance
+OWN_GATE = {"text_tiny": dict(scale_ulps=3, equal=1.0, max_dist=0),
+            "llama_tiny": dict(scale_ulps=6, equal=1.0, max_dist=0),
+            "gemma_tiny": dict(scale_ulps=11, equal=0.9784, max_dist=2)}
+
+
+def test_own_calibration_gate(fam):
+    """The port's own smoothed lifecycle against the JAX package's on the
+    same state and ids (in the outlier regime): every zero point equal,
+    the output scales within ``OWN_GATE``'s float32 ULPs of the JAX
+    package's and the logit codes within its share and distance (the
+    smoothed weights are themselves ULPs apart, see above)."""
+    m, grids = fam["port_int8"], dict(fam["at_jax_grids"].named_layers())
+    state = {n: dict(scale=g.scale, zero_point=g.zero_point)
+             for n, g in grids.items()}
+    got = m(_cpu(fam["ids_t"])).numpy()
+    gap = own_calibration_gap(m, state, got, fam["jax_int8"])
+    assert_own_gate(gap, **OWN_GATE[fam["name"]])
 
 
 def test_int8_error_falls(fam):

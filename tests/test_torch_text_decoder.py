@@ -14,7 +14,10 @@ depth 2, heads 2, max_len 64) and see the same numpy token ids:
   with the fused and the composed paths, and with per-row positions;
 * the state carries both ways unchanged;
 * speculative decoding with the decoder as its own draft equals its
-  ``generate()`` (``test_torch_speculative`` holds it to the JAX package).
+  ``generate()`` (``test_torch_speculative`` holds it to the JAX package);
+* the port's own ``prepare -> convert`` on the JAX lifecycle's weights and
+  ids gives the JAX package's grids (``own_calibration_gap``; every
+  decoder family's test file gates its own).
 """
 
 import numpy as np
@@ -48,6 +51,54 @@ def jax_state(model) -> dict:
     return state
 
 
+def _ulps(a, b) -> int:
+    """The distance of two float32 values in units in the last place."""
+    ia, ib = (int(np.float32(v).view(np.int32)) for v in (a, b))
+    ia, ib = (-2 ** 31 - i if i < 0 else i for i in (ia, ib))
+    return abs(ia - ib)
+
+
+def _head_codes(logits, grid) -> np.ndarray:
+    """The head's INT8 codes back from its dequantized logits."""
+    scale, zp = grid
+    return np.rint(logits / np.float32(scale)).astype(np.int32) + zp
+
+
+def own_calibration_gap(m, state, got, want, tokens=None,
+                        want_tokens=None) -> dict:
+    """What separates the port's own calibration of ``m`` from the JAX
+    package's converted ``state``: the layers whose zero points differ,
+    the largest output-scale distance in float32 ULPs, the share of equal
+    head codes (``got`` and ``want`` are the two forwards' dequantized
+    logits, each at its own head grid) with their largest distance, and
+    the greedy steps up to the first token that differs (None without
+    ``tokens``)."""
+    zps = [n for n, layer in m.named_layers()
+           if layer.zero_point != state[n]["zero_point"]]
+    ulps = max(_ulps(layer.scale, state[n]["scale"])
+               for n, layer in m.named_layers())
+    head = state["head"]
+    dist = np.abs(_head_codes(got, (m.head.scale, m.head.zero_point))
+                  - _head_codes(want, (head["scale"], head["zero_point"])))
+    steps = None
+    if tokens is not None:
+        off = np.nonzero((tokens != want_tokens).any(0))[0]
+        steps = int(off[0]) if len(off) else tokens.shape[1]
+    return dict(zero_points=zps, scale_ulps=ulps,
+                equal=float((dist == 0).mean()), max_dist=int(dist.max()),
+                token_steps=steps)
+
+
+def assert_own_gate(gap, scale_ulps, equal, max_dist, token_steps=None):
+    """No zero point apart, and the scales, codes and tokens within the
+    bounds a family's gate states."""
+    assert gap["zero_points"] == [], gap
+    assert gap["scale_ulps"] <= scale_ulps, gap
+    assert gap["equal"] >= equal and gap["max_dist"] <= max_dist, gap
+    if token_steps is not None:
+        assert gap["token_steps"] >= token_steps, gap
+
+
 @pytest.fixture(scope="module")
 def ref():
     """The JAX package's decoder lifecycle, run once."""
@@ -63,6 +114,7 @@ def ref():
     prompt = _ids(3, 7, seed=5)
     return dict(sd=sd, x_fp=x_fp, fp32=fp32, x_test=x_test,
                 int8=m(qj.tensor(x_test)).numpy(), prompt=prompt,
+                codes=np.asarray(m(qj.tensor(x_test)).data),
                 tokens=m.generate(prompt, 9), state=jax_state(m), model=m)
 
 
@@ -97,6 +149,46 @@ def test_generate_tokens_match_jax(ref):
     got = _carried(ref).generate(ref["prompt"], 9)
     assert got.dtype == np.int32 and got.shape == (3, 9)
     np.testing.assert_array_equal(got, ref["tokens"])
+
+
+def test_own_calibration_gate(ref):
+    """The port's own lifecycle on the JAX one's weights and 8 x 64
+    calibration ids ('trunc'): every zero point equal, output scales
+    within 6 float32 ULPs (fc2_1; the first min or max to depart is
+    wq1's, 3 ULPs: the LayerNorm before it reads the same rows, but its
+    float32 mean and XLA's approximate rsqrt are ULPs from the port's
+    float64 ones, rounded once, on some rows), the 4 x 32 x 1,000 head
+    codes equal on 99.78% (282 one step apart: an ULP of a grid moves a
+    code on a truncation boundary, and the move travels), and the 9
+    greedy tokens equal."""
+    m = tzoo.build("gpt_tiny", device="cpu")
+    m.load(ref["sd"])
+    m.prepare()
+    _run(m, _ids(8, 64, seed=1))
+    m.convert()
+    gap = own_calibration_gap(
+        m, ref["state"], m(qt.tensor(ref["x_test"], device="cpu")).data
+        .numpy(), ref["codes"], m.generate(ref["prompt"], 9),
+        ref["tokens"])
+    assert_own_gate(gap, scale_ulps=6, equal=0.9977, max_dist=1,
+                    token_steps=9)
+
+
+def test_artifact_equals_jax_and_loads_across(ref, tmp_path):
+    """The JAX package's artifact of its converted model equals the port's
+    of the carried state (meta and arrays); each package loads the other's
+    and gives its codes (the JAX package's with one compile)."""
+    from int8inferenceengine_tpu import utils as jutils
+    from int8inferenceengine_tpu_torch import utils
+    from test_torch_checkpoint import assert_same_artifact
+    m = _carried(ref)
+    jp, tp = assert_same_artifact(ref["model"], m, tmp_path)
+    x = ref["x_test"]
+    got = utils.load(tzoo.build("gpt_tiny", device="cpu"), jp)
+    np.testing.assert_array_equal(_run(got, x), _run(m, x))
+    jm = jutils.load(jzoo.build("gpt_tiny"), tp)
+    np.testing.assert_array_equal(np.asarray(jm(qj.tensor(x)).data),
+                                  ref["codes"])
 
 
 def test_carry_round_trip(ref):

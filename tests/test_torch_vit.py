@@ -142,6 +142,21 @@ def test_carry_round_trip(ref):
                                   ref["int8"])
 
 
+def test_artifact_equals_jax(ref, tmp_path):
+    """The JAX package's artifact of its converted ViT (the encoders'
+    ``pe`` with its class token) equals the port's of the carried state;
+    the port loads it with the carried model's logits."""
+    from int8inferenceengine_tpu_torch import utils
+    from test_torch_checkpoint import assert_same_artifact, install_state
+    m = _carried(ref)
+    jp, _ = assert_same_artifact(
+        install_state(jzoo.build("vit_tiny", **KW), ref["state"]), m,
+        tmp_path)
+    got = utils.load(tzoo.build("vit_tiny", device="cpu", **KW), jp)
+    np.testing.assert_array_equal(_run(got, ref["x_test"]),
+                                  _run(m, ref["x_test"]))
+
+
 def test_token_ops_match_jax():
     """``to_tokens`` on a logical NCHW tensor and on a converted conv's
     NHWC codes, and ``select_token``, equal the JAX package's."""
