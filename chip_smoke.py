@@ -21,6 +21,8 @@
                                       # (44-47), no result line
     python3 chip_smoke.py --artifact  # only the INT8 artifact's phases
                                       # (48-50), no result line
+    python3 chip_smoke.py --hf        # only the HF checkpoint phases
+                                      # (51-53), no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -203,7 +205,8 @@ Phases, in order (any failure exits non-zero):
    three base moves of the ring, greedy tokens; and their engines (4 slots,
    prompts of 5-100 tokens) against ``generate()``, equal;
 26. (a) gemma-2-2b at its published widths (``GEMMA2``; weights from a
-   ``torch.Generator`` on the card), batch 8, a 64-token prompt: FP32
+   ``torch.Generator`` on the card, the head tied to the token table as in
+   the published checkpoint), batch 8, a 64-token prompt: FP32
    forward against its twin on the card, calibrate, convert, greedy
    ``generate(ids, 128)`` captured with exactly 105 B1, 26 B2 and 26 B3 a
    step, the captured decode equal to the eager loop (24 steps); ms/step,
@@ -333,7 +336,28 @@ Phases, in order (any failure exits non-zero):
    model's 128 greedy tokens (49 B6 and 12 B3 a step) and the reloaded W4
    forward (85 B5) equal the saved models', and every B7, B6, B3 and B5
    launch of a teacher-forced prefill and 16 steps and of the W4 forward
-   returns the saved model's output bit for bit.
+   returns the saved model's output bit for bit;
+51. every family's Hugging Face checkpoint directory (``utils/hf``): gpt2,
+   llama (with qwen2-style q/k/v biases; index-sharded safetensors),
+   mistral, gemma2, gpt_neox, phi, opt (``pytorch_model.bin``) and bloom at
+   SMALL_DEC's widths, written from seeded weights under the exporters'
+   names and layouts, read by ``load_pretrained`` on the card: FP32
+   weights equal to the natively named load's bit for bit, then calibrated
+   and converted on the card against a CPU copy of the state as in 6; the
+   llama also under LLAMA_W4A8 (B6 and B7 launch);
+52. gemma-2-2b from an HF directory: phase 26's FP32 weights (drawn again
+   from its seed on the card; the head tied to the table, no ``lm_head``)
+   written as index-sharded safetensors one shard at a time with the
+   published ``config.json``, read by ``load_pretrained`` into a fresh
+   model on the card: the window, softcaps and head_dim from the config,
+   every FP32 weight equal bit for bit, after phase 26's calibration its
+   128 greedy tokens with 105 B1, 26 B2 and 26 B3 a step; the directory's
+   bytes, the write and load seconds, the captured ms/step;
+53. the refusals: a bfloat16 ``pytorch_model.bin`` raises ``TypeError``
+   and a bfloat16 safetensors file reads widened to float32 (both as in
+   the JAX package), a directory without weights or without
+   ``config.json`` raises ``FileNotFoundError``, an unknown HF key
+   ``KeyError``.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -1473,18 +1497,22 @@ def decoder_vs_cpu(torch, q, zoo, TD, LL, family: str, dev, batch=SMALL_BATCH,
                        family)
 
 
-def card_vs_cpu(torch, zoo, model, name, geo, ids, steps, family):
+def card_vs_cpu(torch, zoo, model, name, geo, ids, steps, family,
+                cpu=None):
     """A converted model on the card against a CPU copy of its state
-    (``export_state`` -> ``load_jax_state``): the prefill's logit codes at
-    every prompt position, ``steps`` decode steps teacher-forced on the
-    card's greedy tokens, and the tokens.  Returns one result dict per leg,
-    each with ``ok`` under the contract (at most CPU_MAX_CODE codes off on
-    at most CPU_MAX_SHARE of them; tokens equal)."""
+    (``export_state`` -> ``load_jax_state``; the copy is ``cpu``, a fresh
+    CPU model of the same architecture, or ``zoo.build(name, **geo)``): the
+    prefill's logit codes at every prompt position, ``steps`` decode steps
+    teacher-forced on the card's greedy tokens, and the tokens.  Returns
+    one result dict per leg, each with ``ok`` under the contract (at most
+    CPU_MAX_CODE codes off on at most CPU_MAX_SHARE of them; tokens
+    equal)."""
     from int8inferenceengine_tpu_torch.carry import (export_state,
                                                      load_jax_state)
     from int8inferenceengine_tpu_torch.tensor import Tensor
     dev, batch = model.device, ids.shape[0]
-    cpu = zoo.build(name, config=model.config, device="cpu", **geo)
+    if cpu is None:
+        cpu = zoo.build(name, config=model.config, device="cpu", **geo)
     load_jax_state(cpu, export_state(model))
 
     legs = []
@@ -4060,11 +4088,15 @@ def time_cnn_gemms(torch, G, C, gen, dev, flush, shapes, path):
 
 # -- phases 24-28: the windowed decoders --------------------------------------
 
-def gemma_state(torch, shapes, depth: int, seed: int, dev):
+def gemma_state(torch, shapes, depth: int, seed: int, dev,
+                tied_head=False):
     """Random weights on the card from a ``torch.Generator`` (gemma-2-2b has
     3.2 B parameters: no host draws): N(0, 0.02) for Linears and the
     embedding, 0.02 / sqrt(2 * depth) for the residual projections (proj,
-    down), N(0, 0.02) unit-offset deltas for the RMSNorm gains."""
+    down), N(0, 0.02) unit-offset deltas for the RMSNorm gains.
+    ``tied_head``: the head is a copy of the token table, as in
+    ``google/gemma-2-2b`` (``tie_word_embeddings``: its checkpoint has no
+    ``lm_head``)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = {}
     for key, shape in shapes.items():
@@ -4073,6 +4105,8 @@ def gemma_state(torch, shapes, depth: int, seed: int, dev):
                                                               "down"))
                else 0.02)
         state[key] = z.mul_(std)
+    if tied_head:
+        state["head.weight"] = state["embed.weight"].clone()
     return state
 
 
@@ -4137,15 +4171,15 @@ def check_gemma_kernels(torch, G, C, A, gen, dev):
 
 
 def build_gemma(torch, q, zoo, GM, geo, dev, seed=0, calib=None,
-                twin_check=False):
+                twin_check=False, tied_head=False):
     """A gemma-2-family model of ``geo`` on the card with ``gemma_state``
-    weights, calibrated on ``calib`` ids and converted (the FP32 weights are
-    freed).  ``twin_check``: first the FP32 forward on ``calib`` against
-    ``torch_gemma`` built on the card with the same weights (1e-4 of the
-    largest logit, as the other decoders' twins)."""
+    weights (``tied_head`` there), calibrated on ``calib`` ids and converted
+    (the FP32 weights are freed).  ``twin_check``: first the FP32 forward on
+    ``calib`` against ``torch_gemma`` built on the card with the same
+    weights (1e-4 of the largest logit, as the other decoders' twins)."""
     twin_geo = twin_kwargs(geo)
     state = gemma_state(torch, twin_shapes(torch, GM, twin_geo), geo["depth"],
-                        seed, dev)
+                        seed, dev, tied_head=tied_head)
     model = zoo.build("gemma_tiny", config=q.QuantConfig(**GEMMA_CFG),
                       device=dev, **geo)
     model.load(state)
@@ -4187,7 +4221,7 @@ def gemma_main_path(torch, q, zoo, GM, kernel_fns, dev):
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids,
-                        twin_check=True)
+                        twin_check=True, tied_head=True)
     lifecycle_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     reset_counts(kernel_fns)
@@ -4463,12 +4497,12 @@ def time_gemma_kernels(torch, G, A, gen, dev, flush):
 
 
 def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile,
-                   artifact=False):
+                   whole=False):
     """Phases 24-28 in order: (d) the small windowed decoders on the card
     against a CPU copy and their ring engines against ``generate()``, (a)
-    gemma-2-2b's main path, its timing and step profile (and, with
-    ``artifact``, phase 49 on its model), (c) its engine, (b) the ring
-    leg.  Returns the launches of the main paths."""
+    gemma-2-2b's main path, its timing and step profile (and, in the
+    ``whole`` script, phases 49 and 52 on its model), (c) its engine, (b)
+    the ring leg.  Returns the launches of the main paths."""
     windowed_small(torch, q, zoo, GM, dev)
     mark("windowed small")
     counts = {}
@@ -4494,10 +4528,13 @@ def windowed_paths(torch, q, zoo, GM, kernel_fns, dev, profile,
                     "prefill_ms": timing["prefill_ms"],
                     "prefill_bound_ms": b_ms, "prefill_bound_by": b_by,
                     "gated": False}))
-    if artifact:
+    if whole:
         counts["gemma2_2b_artifact_generate"] = artifact_gemma(
             torch, q, zoo, model, ids, kernel_fns)
         mark("gemma2_2b artifact")
+        counts["gemma2_2b_hf_generate"] = gemma_hf_leg(
+            torch, q, GM, kernel_fns, dev, model, ids)
+        mark("gemma2_2b hf")
     counts["gemma2_2b_engine"] = gemma_engine_leg(torch, model, kernel_fns)
     del model
     torch.cuda.empty_cache()
@@ -7273,7 +7310,8 @@ def artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev):
     mark("artifact: alexnet")
     ids = np.random.default_rng(0).integers(
         0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
-    model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids)
+    model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids,
+                        tied_head=True)
     counts["gemma2_2b_artifact_generate"] = artifact_gemma(
         torch, q, zoo, model, ids, kernel_fns)
     del model
@@ -7298,6 +7336,478 @@ def artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev):
     counts["llama_w4_artifact_forward"] = artifact_llama_w4(
         torch, q, zoo, W, wo, ids, kernel_fns)
     mark("artifact: llama")
+    return counts
+
+
+# -- phases 51-53: Hugging Face checkpoint directories ------------------------
+
+# the port's names -> an HF exporter's, per model_type (``utils/hf.py``'s
+# maps read backwards): the block prefix, the block tails of the port's
+# layer stems (a stem without one is not exported: phi's ln2, which its one
+# norm, ln1, carries), the top-level names (no "head": the head is tied to
+# the table and not exported), the fused q/k/v tail (gpt2's Conv1D [in, 3 *
+# dim]; NeoX's and BLOOM's per-head interleaved [H, 3, D]) and a derived
+# buffer that exports carry (dropped on load)
+_HF_LLAMA = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "proj": "self_attn.o_proj",
+             "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj", "ln1_": "input_layernorm",
+             "ln2_": "post_attention_layernorm"}
+_HF_GPTJ = {"fc1_": "mlp.dense_h_to_4h", "fc2_": "mlp.dense_4h_to_h",
+            "ln1_": "input_layernorm", "ln2_": "post_attention_layernorm"}
+_HF_LLAMA_TOP = {"embed": "model.embed_tokens", "ln_f": "model.norm",
+                 "head": "lm_head"}
+_HF_ROTARY = "self_attn.rotary_emb.inv_freq"
+HF_EXPORT = {
+    "gpt2": ("transformer.h.",
+             {"ln1_": "ln_1", "ln2_": "ln_2", "proj": "attn.c_proj",
+              "fc1_": "mlp.c_fc", "fc2_": "mlp.c_proj"},
+             {"embed": "transformer.wte", "pe": "transformer.wpe",
+              "ln_f": "transformer.ln_f", "head": "lm_head"},
+             "attn.c_attn", "attn.masked_bias"),
+    "llama": ("model.layers.", _HF_LLAMA, _HF_LLAMA_TOP, None, _HF_ROTARY),
+    "mistral": ("model.layers.", _HF_LLAMA, _HF_LLAMA_TOP, None, _HF_ROTARY),
+    "gemma2": ("model.layers.",
+               dict(_HF_LLAMA, ln2_="pre_feedforward_layernorm",
+                    postn1_="post_attention_layernorm",
+                    postn2_="post_feedforward_layernorm"),
+               {"embed": "model.embed_tokens", "ln_f": "model.norm"}, None,
+               _HF_ROTARY),
+    "gpt_neox": ("gpt_neox.layers.", dict(_HF_GPTJ, proj="attention.dense"),
+                 {"embed": "gpt_neox.embed_in",
+                  "ln_f": "gpt_neox.final_layer_norm", "head": "embed_out"},
+                 "attention.query_key_value", "attention.rotary_emb.inv_freq"),
+    "phi": ("model.layers.",
+            {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "proj": "self_attn.dense",
+             "fc1_": "mlp.fc1", "fc2_": "mlp.fc2", "ln1_": "input_layernorm"},
+            {"embed": "model.embed_tokens", "ln_f": "model.final_layernorm",
+             "head": "lm_head"}, None, _HF_ROTARY),
+    "opt": ("model.decoder.layers.",
+            {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "proj": "self_attn.out_proj",
+             "fc1_": "fc1", "fc2_": "fc2", "ln1_": "self_attn_layer_norm",
+             "ln2_": "final_layer_norm"},
+            {"embed": "model.decoder.embed_tokens",
+             "ln_f": "model.decoder.final_layer_norm", "head": "lm_head"},
+            None, None),
+    "bloom": ("transformer.h.", dict(_HF_GPTJ, proj="self_attention.dense"),
+              {"embed": "transformer.word_embeddings",
+               "embed_ln": "transformer.word_embeddings_layernorm",
+               "ln_f": "transformer.ln_f", "head": "lm_head"},
+              "self_attention.query_key_value", None),
+}
+# the only exporter here whose head carries a bias (the others' is zero)
+HF_HEAD_BIAS = ("phi",)
+_PORT_BLOCK = re.compile(r"(wq|wk|wv|proj|gate|up|down|fc1_|fc2_|ln1_|ln2_|"
+                         r"postn1_|postn2_)(\d+)")
+
+
+def hf_export(model_type, state, heads, derived=True) -> dict:
+    """``state`` (the port's names; torch tensors) under an HF exporter's
+    names and layouts (``HF_EXPORT``), as host numpy arrays: gpt2's Conv1D
+    weights transposed, the fused q/k/v, OPT's two leading position rows,
+    and (``derived``) the family's derived buffer."""
+    prefix, tails, top, fused, buffer = HF_EXPORT[model_type]
+    out, qkv = {}, {}
+    for key, v in state.items():
+        stem, attr = key.rsplit(".", 1)
+        a = v.cpu().numpy()
+        if stem == "head" and ("head" not in top or (
+                attr == "bias" and model_type not in HF_HEAD_BIAS)):
+            continue
+        if stem in top:
+            out[f"{top[stem]}.{attr}"] = a
+            continue
+        if stem == "pe":                             # OPT's, offset by 2
+            out["model.decoder.embed_positions.weight"] = np.concatenate(
+                [np.full((2, a.shape[1]), 7.0, np.float32), a])
+            continue
+        kind, n = _PORT_BLOCK.fullmatch(stem).groups()
+        p = f"{prefix}{int(n) - 1}."
+        if fused and kind in ("wq", "wk", "wv"):
+            qkv.setdefault((p, attr), {})[kind] = a
+        elif kind in tails:
+            conv1d = (model_type == "gpt2" and attr == "weight"
+                      and not kind.startswith("ln"))
+            out[f"{p}{tails[kind]}.{attr}"] = (np.ascontiguousarray(a.T)
+                                               if conv1d else a)
+    for (p, attr), t in qkv.items():
+        q_, k_, v_ = t["wq"], t["wk"], t["wv"]
+        if model_type == "gpt2":
+            out[f"{p}{fused}.{attr}"] = (
+                np.concatenate([q_.T, k_.T, v_.T], axis=1)
+                if attr == "weight" else np.concatenate([q_, k_, v_]))
+        else:
+            out[f"{p}{fused}.{attr}"] = np.stack(
+                [x.reshape(heads, -1, *x.shape[1:]) for x in (q_, k_, v_)],
+                axis=1).reshape(-1, *q_.shape[1:])
+    if derived and buffer:
+        out[f"{prefix}0.{buffer}"] = np.ones(8, np.float32)
+    return out
+
+
+def write_hf_dir(torch, d, cfg, parts, form, n_parts=1) -> int:
+    """An HF checkpoint directory ``d``: ``config.json`` and the weights of
+    ``parts`` (an iterable of {HF name: array or tensor}, consumed one at a
+    time) as
+    ``model.safetensors`` ('single'), ``pytorch_model.bin`` ('bin') or
+    ``n_parts`` shards with their ``model.safetensors.index.json``
+    ('sharded').  Returns the directory's bytes."""
+    from safetensors.numpy import save_file
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps(cfg, indent=1))
+    weight_map = {}
+    for i, part in enumerate(parts):
+        if form == "bin":
+            torch.save({k: torch.as_tensor(v).contiguous()
+                        for k, v in part.items()}, d / "pytorch_model.bin")
+            continue
+        part = {k: np.ascontiguousarray(v) for k, v in part.items()}
+        name = (f"model-{i + 1:05d}-of-{n_parts:05d}.safetensors"
+                if form == "sharded" else "model.safetensors")
+        save_file(part, str(d / name))
+        weight_map.update(dict.fromkeys(part, name))
+        del part
+    if form == "sharded":
+        (d / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {}, "weight_map": weight_map}))
+    return sum(p.stat().st_size for p in d.iterdir())
+
+
+def hf_small_legs(TD, LL, GM):
+    """Phase 51's legs at SMALL_DEC's widths: (model_type, config.json, the
+    twin (the weights' shapes), file form, load_pretrained overrides)."""
+    from int8inferenceengine_tpu_torch.models import bloom, neox
+    g = SMALL_DEC
+    common = {"vocab_size": g["vocab_size"],
+              "max_position_embeddings": g["max_len"],
+              "hidden_size": g["dim"], "num_hidden_layers": g["depth"],
+              "num_attention_heads": g["heads"]}
+    hidden = LL.swiglu_hidden(g["dim"])
+    llama = dict(common, model_type="llama", num_key_value_heads=2,
+                 intermediate_size=hidden, rms_norm_eps=1e-6,
+                 rope_theta=10000.0)
+    neox_cfg = dict(common, model_type="gpt_neox", rotary_pct=0.25,
+                    rotary_emb_base=10000, use_parallel_residual=True,
+                    layer_norm_eps=1e-5)
+    return [
+        ("gpt2", {"model_type": "gpt2", "vocab_size": g["vocab_size"],
+                  "n_positions": g["max_len"], "n_embd": g["dim"],
+                  "n_layer": g["depth"], "n_head": g["heads"]},
+         lambda: TD.torch_text_decoder(**g), "single", {}),
+        ("llama", llama,
+         lambda: LL.torch_llama(**g, kv_heads=2, mlp_hidden=hidden),
+         "sharded", {}),
+        ("mistral", dict(llama, model_type="mistral", sliding_window=32),
+         lambda: LL.torch_llama(**g, kv_heads=2, mlp_hidden=hidden),
+         "single", {}),
+        ("gemma2", dict(common, model_type="gemma2", num_key_value_heads=2,
+                        head_dim=g["dim"] // g["heads"],
+                        intermediate_size=4 * g["dim"], sliding_window=32,
+                        attn_logit_softcapping=50.0,
+                        final_logit_softcapping=30.0, rms_norm_eps=1e-6,
+                        rope_theta=10000.0),
+         lambda: GM.torch_gemma(**g, kv_heads=2, sliding_window=32),
+         "single", {}),
+        ("gpt_neox", neox_cfg, lambda: neox.torch_neox(**g), "single", {}),
+        ("phi", dict(common, model_type="phi", partial_rotary_factor=0.5,
+                     rope_theta=10000.0, layer_norm_eps=1e-5),
+         lambda: neox.torch_neox(**g, rotary_pct=0.5), "single", {}),
+        ("opt", dict(common, model_type="opt", ffn_dim=4 * g["dim"],
+                     activation_function="relu", do_layer_norm_before=True),
+         lambda: TD.torch_text_decoder(**g, act="relu"), "bin", {}),
+        # BLOOM's config has no maximum length (ALiBi): the caller's
+        ("bloom", {"model_type": "bloom", "vocab_size": g["vocab_size"],
+                   "hidden_size": g["dim"], "n_layer": g["depth"],
+                   "n_head": g["heads"], "layer_norm_epsilon": 1e-5},
+         lambda: bloom.torch_bloom(**g), "single",
+         {"max_len": g["max_len"]}),
+    ]
+
+
+def hf_small_state(torch, model_type, twin, seed=5) -> dict:
+    """``card_state``'s weights on the CPU for the twin's shapes, made what
+    the family's export can carry: a zero head bias where it has none, the
+    head tied to the table (gemma-2), phi's one norm a block (ln2 = ln1);
+    the llama leg gains qwen2-style q/k/v biases."""
+    with torch.device("meta"):
+        shapes = {k: tuple(v.shape) for k, v in twin().state_dict().items()}
+    depth = SMALL_DEC["depth"]
+    if model_type == "llama":
+        for i in range(1, depth + 1):
+            for w in ("wq", "wk", "wv"):
+                shapes[f"{w}{i}.bias"] = shapes[f"{w}{i}.weight"][:1]
+    state = card_state(torch, shapes, depth, seed, "cpu")
+    if "head.bias" in state and model_type not in HF_HEAD_BIAS:
+        state["head.bias"].zero_()
+    if model_type == "gemma2":
+        state["head.weight"] = state["embed.weight"].clone()
+    if model_type == "phi":
+        for i in range(1, depth + 1):
+            for attr in ("weight", "bias"):
+                state[f"ln2_{i}.{attr}"] = state[f"ln1_{i}.{attr}"].clone()
+    return state
+
+
+def fp32_mismatches(torch, model, state) -> list:
+    """The keys of ``state`` (the port's names) whose FP32 tensor in
+    ``model`` differs from it in any bit."""
+    bad = []
+    for key, v in state.items():
+        stem, attr = key.rsplit(".", 1)
+        got = getattr(getattr(model, stem), attr)
+        if not torch.equal(got, v.to(got.device)):
+            bad.append(key)
+    return bad
+
+
+def hf_small_gates(torch, q, zoo, TD, LL, GM, kernel_fns, dev):
+    """Phase 51: each family's HF directory (SMALL_DEC's widths, seeded
+    weights; llama's index-sharded, OPT's ``pytorch_model.bin``) read by
+    ``load_pretrained`` on the card: FP32 weights equal to a natively named
+    twin load's bit for bit, then prepare / calibrate / convert and the
+    model against a CPU copy of its state (``card_vs_cpu``: prefill codes,
+    16 teacher-forced steps, greedy tokens, within the contract); the llama
+    leg also under LLAMA_W4A8, where B6 and B7 must launch.  Returns the
+    legs' launches."""
+    from int8inferenceengine_tpu_torch.utils import hf
+    ids = np.random.default_rng(5).integers(
+        0, SMALL_DEC["vocab_size"], (SMALL_BATCH, SMALL_PROMPT)).astype(
+            np.int32)
+    legs, total = [], dict.fromkeys(kernel_fns, 0)
+    with tempfile.TemporaryDirectory() as root:
+        for model_type, cfg, twin, form, over in hf_small_legs(TD, LL, GM):
+            state = hf_small_state(torch, model_type, twin)
+            d = Path(root) / model_type
+            nbytes = write_hf_dir(torch, d, cfg, [hf_export(
+                model_type, state, SMALL_DEC["heads"])], form)
+            qcfgs = {model_type: FAMILY_CFG}
+            if model_type == "llama":
+                qcfgs["llama_w4a8"] = LLAMA_W4A8
+            for label, qcfg in qcfgs.items():
+                reset_counts(kernel_fns)
+                model = hf.load_pretrained(d, config=q.QuantConfig(**qcfg),
+                                           **over)
+                bad = fp32_mismatches(torch, model, state)
+                if model.device.type != "cuda" or bad:
+                    fail(f"{label} from its HF directory: on "
+                         f"{model.device}, FP32 weights differ from the "
+                         f"natively named load at {bad}")
+                model.prepare()
+                model(q.tensor(ids, device=dev))
+                model.convert()
+                cpu = hf.build_from_hf(cfg, config=model.config,
+                                       device="cpu", **over)
+                geo = hf.from_hf_config(cfg)[1] | over
+                for r in card_vs_cpu(torch, zoo, model, None, geo, ids,
+                                     SMALL_STEPS, f"hf_{label}", cpu=cpu):
+                    legs.append(dict(r, form=form, dir_bytes=nbytes))
+                counts = read_counts(kernel_fns)
+                need = (("w4a8_v1_gemm", "w4a8_v2_gemm") if
+                        label == "llama_w4a8" else ("qgemm_u8s8",))
+                if not all(counts[k] for k in need):
+                    fail(f"{label} from its HF directory launched {counts}")
+                legs[-1]["launches"] = counts
+                total = {k: total[k] + counts[k] for k in total}
+                del model, cpu
+    for r in legs:
+        log(json.dumps(r))
+    bad = [f"{r['family']} {r['leg']}" for r in legs if not r["ok"]]
+    if bad:
+        fail(f"HF-loaded decoders: card differs from a CPU copy beyond the "
+             f"contract: {bad}")
+    return total
+
+
+def gemma2_hf_config() -> dict:
+    """``google/gemma-2-2b``'s config.json: the keys ``from_hf_config``
+    reads (GEMMA2's values) and the rest of the published ones."""
+    g = GEMMA2
+    return {"architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+            "vocab_size": g["vocab_size"],
+            "max_position_embeddings": g["max_len"],
+            "hidden_size": g["dim"], "num_hidden_layers": g["depth"],
+            "num_attention_heads": g["heads"],
+            "num_key_value_heads": g["kv_heads"], "head_dim": g["head_dim"],
+            "intermediate_size": g["mlp_hidden"],
+            "sliding_window": g["sliding_window"],
+            "attn_logit_softcapping": g["attn_softcap"],
+            "final_logit_softcapping": g["final_softcap"],
+            "rms_norm_eps": g["eps"], "rope_theta": g["rope_base"],
+            "hidden_act": "gelu_pytorch_tanh",
+            "hidden_activation": "gelu_pytorch_tanh",
+            "query_pre_attn_scalar": 256, "attention_bias": False,
+            "attention_dropout": 0.0, "tie_word_embeddings": True,
+            "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+            "initializer_range": 0.02, "cache_implementation": "hybrid",
+            "torch_dtype": "float32"}
+
+
+# phase 52's shards: the table and the final norm, then this many blocks a
+# shard (311 MB a block in float32)
+HF_BLOCKS_PER_SHARD = 6
+
+
+def gemma_hf_leg(torch, q, GM, kernel_fns, dev, saved, ids):
+    """Phase 52 on phase 26's converted gemma-2-2b (``saved``, calibrated on
+    ``ids``): its FP32 weights, drawn again from its seed on the card
+    (``gemma_state``, the head tied), exported as an HF directory
+    (index-sharded safetensors, one shard on the host at a time, no
+    ``lm_head``) and read by ``load_pretrained`` into a fresh model on the
+    card: the config's window, softcaps and head_dim taken, every FP32
+    weight equal bit for bit, and after the same calibration the 128 greedy
+    tokens equal to ``saved``'s with 105 B1, 26 B2 and 26 B3 a step.
+    Returns that ``generate()``'s launches."""
+    from int8inferenceengine_tpu_torch.utils import hf
+    tokens = saved.generate(ids, DEC_STEPS)
+    prompt = torch.tensor(ids.astype(np.int64), device=dev)
+    ms_saved, _ = time_captured_steps(torch, saved, prompt, 64)
+    depth = GEMMA2["depth"]
+    state = gemma_state(torch, twin_shapes(torch, GM, twin_kwargs(GEMMA2)),
+                        depth, 0, dev, tied_head=True)
+    block = {k: int(m.group(2)) for k in state
+             if (m := _PORT_BLOCK.fullmatch(k.rsplit(".", 1)[0]))}
+    groups = [[k for k in state if k not in block]]
+    for lo in range(1, depth + 1, HF_BLOCKS_PER_SHARD):
+        groups.append([k for k, i in block.items()
+                       if lo <= i < lo + HF_BLOCKS_PER_SHARD])
+    cfg = gemma2_hf_config()
+    with tempfile.TemporaryDirectory() as root:
+        d = Path(root) / "gemma-2-2b"
+        t0 = time.perf_counter()
+        nbytes = write_hf_dir(
+            torch, d, cfg, (hf_export("gemma2", {k: state[k] for k in g},
+                                      GEMMA2["heads"], derived=i == 0)
+                            for i, g in enumerate(groups)),
+            "sharded", n_parts=len(groups))
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = hf.load_pretrained(d, config=q.QuantConfig(**GEMMA_CFG))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    kw = hf.from_hf_config(cfg)[1]
+    taken = (model.sliding_window, model.attn_softcap, model.final_softcap,
+             model.head_dim)
+    if kw != GEMMA2 or model.device.type != "cuda" or taken != tuple(
+            GEMMA2[k] for k in ("sliding_window", "attn_softcap",
+                                "final_softcap", "head_dim")):
+        fail(f"gemma2_2b from its HF directory: config read as {kw}, model "
+             f"window/softcaps/head_dim {taken} on {model.device}")
+    bad = fp32_mismatches(torch, model, state)
+    if bad:
+        fail(f"gemma2_2b from its HF directory: FP32 weights differ from "
+             f"phase 26's at {bad[:8]} ({len(bad)} of {len(state)})")
+    n_weights = len(state)
+    del state
+    torch.cuda.empty_cache()
+    model.prepare()
+    model(q.tensor(ids, device=dev))
+    model.convert()
+    reset_counts(kernel_fns)
+    got = model.generate(ids, DEC_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    per_step = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 4 * depth + 1, "qgemm_u8s8_vzp": depth,
+        "decode_attn_flat": depth}
+    want = {k: v * DEC_STEPS - (depth if k == "decode_attn_flat" else 0)
+            for k, v in per_step.items()}
+    if counts != want:
+        fail(f"gemma2_2b from its HF directory: generate launched {counts}, "
+             f"want {want}")
+    if not np.array_equal(got, tokens):
+        fail("gemma2_2b from its HF directory: greedy tokens differ from "
+             "phase 26's model's")
+    ms_loaded, _ = time_captured_steps(torch, model, prompt, 64)
+    log(json.dumps({"phase": "gemma2_2b_hf", "card": nvidia_smi(),
+                    "dir_bytes": nbytes, "shards": len(groups),
+                    "fp32_weights_equal": n_weights, "write_s": write_s,
+                    "load_pretrained_s": load_s,
+                    "load_GBps": nbytes / load_s / 1e9,
+                    "launches": counts, "tokens_equal": DEC_STEPS,
+                    "captured_ms_per_step_phase26": ms_saved,
+                    "captured_ms_per_step_hf": ms_loaded}))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hf_refusals(torch, q, TD, LL, GM):
+    """Phase 53: what ``load_pretrained`` refuses, and bfloat16, on the
+    card's machine: a bfloat16 ``pytorch_model.bin`` raises ``TypeError``
+    (numpy has no bfloat16) and a bfloat16 safetensors file reads widened
+    to float32, both as in the JAX package; a directory without weights,
+    and one without ``config.json``, raise ``FileNotFoundError``; an
+    unknown HF key raises ``KeyError``."""
+    from safetensors.torch import save_file
+    from int8inferenceengine_tpu_torch.utils import hf
+    model_type, cfg, twin, _, _ = next(
+        leg for leg in hf_small_legs(TD, LL, GM) if leg[0] == "llama")
+    state = hf_small_state(torch, model_type, twin)
+    export = hf_export(model_type, state, SMALL_DEC["heads"])
+    bf16 = {k: torch.from_numpy(v).to(torch.bfloat16)
+            for k, v in export.items()}
+    seen = {}
+
+    def expect(what, error, fn):
+        try:
+            fn()
+        except error as e:
+            seen[what] = f"{type(e).__name__}: {str(e)[:120]}"
+            return
+        fail(f"HF refusals: {what} did not raise {error.__name__}")
+
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        write_hf_dir(torch, root / "bf16_bin", cfg, [bf16], "bin")
+        expect("bfloat16 pytorch_model.bin", TypeError,
+               lambda: hf.load_pretrained(root / "bf16_bin"))
+        d = root / "bf16"
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps(cfg))
+        save_file(bf16, str(d / "model.safetensors"))
+        m = hf.load_pretrained(d)
+        want = bf16["model.layers.0.self_attn.q_proj.weight"].float()
+        if m.device.type != "cuda" or not torch.equal(m.wq1.weight.cpu(),
+                                                      want):
+            fail("a bfloat16 safetensors file did not read widened to "
+                 "float32 on the card")
+        del m
+        (root / "no_weights").mkdir()
+        (root / "no_weights" / "config.json").write_text(json.dumps(cfg))
+        expect("directory without weights", FileNotFoundError,
+               lambda: hf.load_pretrained(root / "no_weights"))
+        (root / "no_config").mkdir()
+        expect("directory without config.json", FileNotFoundError,
+               lambda: hf.load_pretrained(root / "no_config"))
+        bogus = dict(export)
+        bogus["model.layers.1.mlp.extra_proj.weight"] = np.zeros(
+            (2, 2), np.float32)
+        write_hf_dir(torch, root / "unknown_key", cfg, [bogus], "single")
+        expect("unknown HF key", KeyError,
+               lambda: hf.load_pretrained(root / "unknown_key"))
+    log(json.dumps({"phase": "hf_refusals", "raised": seen,
+                    "bfloat16_safetensors": "read, widened to float32"}))
+
+
+def hf_paths(torch, q, zoo, TD, LL, GM, kernel_fns, dev):
+    """``--hf``: phases 51-53, phase 52 on a model built as phase 26
+    builds it (no twin check); returns the paths' launches."""
+    counts = {"hf_small_gates": hf_small_gates(torch, q, zoo, TD, LL, GM,
+                                               kernel_fns, dev)}
+    mark("hf: small gates")
+    ids = np.random.default_rng(0).integers(
+        0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
+    model = build_gemma(torch, q, zoo, GM, GEMMA2, dev, calib=ids,
+                        tied_head=True)
+    counts["gemma2_2b_hf_generate"] = gemma_hf_leg(torch, q, GM, kernel_fns,
+                                                   dev, model, ids)
+    del model
+    torch.cuda.empty_cache()
+    mark("hf: gemma2_2b")
+    hf_refusals(torch, q, TD, LL, GM)
     return counts
 
 
@@ -7384,6 +7894,11 @@ def main(argv=None) -> int:
                     help="only build and run the INT8 artifact's phases "
                          "(48-50: save, load, validate, report, roofline, "
                          "trace) with their checks (no result line)")
+    ap.add_argument("--hf", action="store_true",
+                    help="only build and run the HF checkpoint phases "
+                         "(51-53: every family's HF directory, gemma-2-2b "
+                         "from an HF directory, the refusals) with their "
+                         "checks (no result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -7493,6 +8008,12 @@ def main(argv=None) -> int:
     if args.artifact:
         counts = artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev)
         log(json.dumps({"phase": "artifact_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.hf:
+        counts = hf_paths(torch, q, zoo, TD, LL, GM, kernel_fns, dev)
+        log(json.dumps({"phase": "hf_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -7626,6 +8147,12 @@ def main(argv=None) -> int:
     small_engines_vs_cpu(torch, q, zoo, TD, LL, dev)
 
     mark("small decoders vs cpu")
+    # -- 51, 53. every family's HF directory on the card against a CPU copy;
+    # what load_pretrained refuses --------------------------------------------
+    counts_by_path["hf_small_gates"] = hf_small_gates(
+        torch, q, zoo, TD, LL, GM, kernel_fns, dev)
+    hf_refusals(torch, q, TD, LL, GM)
+    mark("hf small gates, refusals")
     # -- 7. the decoder main path ---------------------------------------------
     dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
         torch, q, zoo, TD, kernel_fns, dev)
@@ -7698,7 +8225,7 @@ def main(argv=None) -> int:
     # -- 25-28. the windowed decoders: the small gates, gemma-2-2b, its
     # engine, the ring leg ------------------------------------------------------
     counts_by_path.update(windowed_paths(torch, q, zoo, GM, kernel_fns, dev,
-                                         args.profile, artifact=True))
+                                         args.profile, whole=True))
     torch.cuda.empty_cache()
     mark("windowed")
 

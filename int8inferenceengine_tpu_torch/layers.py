@@ -288,15 +288,23 @@ class Layer(nn.Module):
         self._merged_cache = {}
 
     def _load_array(self, arr, expected_shape, what: str) -> torch.Tensor:
+        """``arr`` (a torch tensor, any view, or an array) as this layer's
+        contiguous float32 tensor.  A host array bound for the card crosses
+        as it is, without a host copy, and converts there."""
         if isinstance(arr, torch.Tensor):
-            a = arr.detach().to(dtype=torch.float32)
+            a = arr.detach()
         else:
-            a = torch.tensor(np.asarray(arr, dtype=np.float32))
+            a = np.asarray(arr)
+            if (self.device.type == "cpu" or not a.flags.writeable
+                    or min(a.strides, default=0) < 0):
+                a = torch.tensor(np.asarray(a, dtype=np.float32))
+            else:
+                a = torch.from_numpy(a)
         if tuple(a.shape) != tuple(expected_shape):
             raise ValueError(
                 f"{type(self).__name__}.{what}: shape {tuple(a.shape)} != "
                 f"expected {tuple(expected_shape)}")
-        return a.to(self.device).contiguous()
+        return a.to(device=self.device, dtype=torch.float32).contiguous()
 
     def load_bias(self, b):
         self.bias = self._load_array(b, (self.out_channels,), "load_bias")

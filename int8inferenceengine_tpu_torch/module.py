@@ -68,7 +68,12 @@ class Module(nn.Module):
         """Ingest a torch-style flat state_dict ('name.weight'/'name.bias',
         or any 'name.<param>' with a ``load_<param>`` setter, as
         ``QuantMoE``'s router and expert stacks); dotted paths reach into
-        sub-Modules."""
+        sub-Modules.  An HF-exported state dict of a decoder family
+        (``model.layers.0.self_attn.q_proj.weight``, gpt2's transposed
+        Conv1D and fused ``c_attn``, tied embeddings, ...) is translated
+        first (``utils/hf.py``)."""
+        from .utils.hf import maybe_from_hf
+        state_dict = maybe_from_hf(state_dict, self)
         for key, value in state_dict.items():
             path, attr = key.rsplit(".", 1)
             obj = self

@@ -139,11 +139,15 @@ def load(model, path: str):
 
 def read_state_dict(path: str) -> dict:
     """A flat ``name.weight`` / ``name.bias`` state dict for ``Module.load``
-    from a .pt/.pth (torch), .npz or .safetensors file, as numpy arrays."""
+    from a .pt/.pth (torch), .npz or .safetensors file, as numpy arrays.
+    A .safetensors file's bfloat16 arrays are widened to float32 (exact):
+    the JAX package reads them too, where jax gives numpy ml_dtypes'
+    bfloat16; a torch file's raise ``TypeError``, as there."""
     p = str(path)
     if p.endswith(".safetensors"):
-        from safetensors.numpy import load_file
-        return load_file(p)
+        from safetensors.torch import load_file
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                for k, v in load_file(p).items()}
     if p.endswith(".npz"):
         with np.load(p) as z:
             return {k: z[k] for k in z.files}

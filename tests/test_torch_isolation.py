@@ -68,7 +68,7 @@ def test_port_imports_without_jax():
                 "models.squeezenet", "models.googlenet", "models.densenet",
                 "models.gemma", "models.vit", "models.text_transformer",
                 "utils", "utils.equalize", "utils.smooth", "utils.gptq",
-                "utils.adaround"):
+                "utils.adaround", "utils.hf"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 
