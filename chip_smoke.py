@@ -23,6 +23,8 @@
                                       # (48-50), no result line
     python3 chip_smoke.py --hf        # only the HF checkpoint phases
                                       # (51-53), no result line
+    python3 chip_smoke.py --ingest    # only the host ingest phases (54-58)
+                                      # in full, no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -35,8 +37,9 @@ Phases, in order (any failure exits non-zero):
    on the narrow-grid shapes (M = 1, 8, 16, 100: the small tiles and the K
    split over a cluster), over both epilogue orders, both roundings, relu
    on/off, per-tensor and per-channel weight scales; B1's gathered conv
-   equals im2col + ``qgemm_plain`` exactly over the same sixteen cases at
-   the five AlexNet batch-100 geometries and eight ragged ones;
+   equals im2col + ``qgemm_plain`` exactly over the same sixteen cases and
+   the bfloat16 epilogue's eight at the five AlexNet batch-100 geometries
+   and eight ragged ones;
 4. the decoder's kernels against their plain versions at its shapes: B1's
    act epilogue with each of its seven activations (exact for the
    piecewise-linear ones, the 1-code/0.2% contract for sigmoid, silu,
@@ -309,7 +312,9 @@ Phases, in order (any failure exits non-zero):
    smooth + GPTQ (``GPTQ_ARGS``); smoothing keeps the FP32 logits within
    ``SMOOTH_FP32_RTOL``, the GPTQ sweep over block 1's wq equals a CPU
    sweep given the same inverse Hessian, the captured ``generate`` runs
-   105 B1, 26 B2 and 26 B3 a step and a prefill and 4 steps give the
+   4 * depth + 1 B1, depth B2 and depth B3 a step (105, 26 and 26 at the
+   published 26 layers, which ``--levers`` runs; the whole run cuts the
+   depth to WHOLE_LEVERS_GEMMA_DEPTH) and a prefill and 4 steps give the
    plain path's codes; lever seconds, ms/step and each way's INT8-vs-FP32
    logit error and greedy agreement;
 46. the llama legs of 9-10 under GPTQ's 4-bit codes: W4A8 ``generate``
@@ -357,7 +362,46 @@ Phases, in order (any failure exits non-zero):
    and a bfloat16 safetensors file reads widened to float32 (both as in
    the JAX package), a directory without weights or without
    ``config.json`` raises ``FileNotFoundError``, an unknown HF key
-   ``KeyError``.
+   ``KeyError``;
+54. the native host ops (``int8inferenceengine_tpu_torch/native``): the
+   library builds with this machine's g++ (torch's thread count unchanged
+   by its OpenMP runtime) and each entry point equals its numpy twin at
+   the AlexNet-224 b100 ingest shapes under ``tests/test_hostops.py``'s
+   tolerance; ``os.cpu_count()`` and each op's host ms;
+55. AlexNet-224 b100 fed by ``DataLoader(resize_to=224, quantize_to=input
+   grid, layout_for=model)`` from 2,000 seeded u8 32 x 32 images (20
+   batches; the whole run feeds 3): every batch's logits equal the same
+   host-quantized batch fed without the pre-layout and a CPU copy's on the
+   pre-laid-out batch (8 images), conv1 runs as B1's gathered 3 x 3 / 1
+   conv over 48 channels (57 x 57) once a batch and the forward launches 8
+   B1; host ms a batch (resize + quantize + space-to-depth), card ms a
+   batch (pre-laid-out, u8 without it, float input), the loader's images/s
+   alone and pipelined with the forward, the card's idle share over the
+   pipelined run;
+56. ``InferenceEngine(quantize_ingest=True)`` with tiles of 32 and 100 for
+   AlexNet-224 and ResNet-18-224 (tag ('s2d', 7, 2, 3, 3): a 115 x 115 x
+   12 input): 200 requests of 1-16 images from 8 threads, every result
+   equal to ``model(...)`` bit for bit, every tile replayed as a captured
+   graph; images/s and the staged bytes a tile, with and without ingest;
+57. ``conv_backend='xla_conv'`` (another name for 'auto') on AlexNet-224
+   b100 equal to 'auto' through as many B1 launches, ms a batch of both;
+   the bfloat16 conv epilogue (``epilogue_dtype='bfloat16'``): B1's
+   gathered-conv instance at AlexNet's five conv geometries and the
+   pre-laid-out conv1, G1's at
+   MobileNetV2's grouped shapes, bit for bit against their plain versions
+   (the whole run runs these checks); AlexNet-224 and MobileNetV2-224 at
+   b100 with every conv launch of a forward held against its plain
+   version on the same operands, codes equal to a CPU copy's, the share
+   of output codes that differ from the float32 epilogue and the largest
+   difference, ms a batch of both epilogues;
+58. EfficientNet-B0-224 b100 under ``glue_dtype='bfloat16'``: codes equal
+   a CPU copy's, every glue layer (fed the float32-glue model's input to
+   it) equal to the CPU copy's same layer and within 3 codes of the
+   float32 glue's (the JAX package's own bfloat16 glue is 3 codes off at
+   the squeeze-excite sigmoids), ms a batch of both; the
+   head-split ``decode_attention`` at gpt2's (12 x 64) and llama GQA's
+   (12 over 2) decode shapes equal to ``decode_attention_flat`` on the
+   same operands, one B3 launch each.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -792,7 +836,7 @@ def check_alexnet_kernel(torch, G, gen, dev):
         oc = G.compute_offset(c["q_bias"], rowsum(torch, c["w"]), c["s_a"],
                               c["zp_a"], recentered=True)
         spread = None
-        for order in G.ORDERS:
+        for order in G.DENSE_ORDERS:
             for per_channel in (False, True):
                 s_w = c["s_w_pc"] if per_channel else 0.01
                 ep = G.epilogue_vector(c["s_a"], s_w, c["s_c"], n, dev, order)
@@ -835,8 +879,9 @@ def conv_case(torch, gen, geom, c_out, dev):
 def check_gathered_conv(torch, G, C, gen, dev):
     """The gathered conv (B1's conv variant, through ``conv2d_int8_gemm`` on
     the card) against im2col + ``qgemm_plain``, bit for bit, at the five
-    AlexNet b100 geometries and ragged ones, over both orders, both
-    roundings, relu on/off and per-tensor and per-channel s_w."""
+    AlexNet b100 geometries and ragged ones, over the three epilogue
+    orders (the bfloat16 one included), both roundings, relu on/off and
+    per-tensor and per-channel s_w."""
     geoms = [(ALEXNET_CONVS[layer], n) for layer, _, _, n in ALEXNET_B100
              if layer in ALEXNET_CONVS]
     geoms += [(g[:7], g[7]) for g in RAGGED_CONVS]
@@ -879,7 +924,8 @@ def check_gathered_conv(torch, G, C, gen, dev):
                         if spread is None:
                             spread = int(torch.unique(want).numel())
         log(json.dumps({"phase": "gathered_conv_vs_plain", "geometry": geom,
-                        "N": n, "M": m, "K": kk, "plan": plan, "cases": 16,
+                        "N": n, "M": m, "K": kk, "plan": plan,
+                        "cases": 8 * len(G.ORDERS),
                         "distinct_codes": spread, "max_abs_err": 0}))
         del x, cs
     log(json.dumps({"phase": "gathered_conv_vs_plain", "cases": n_cases,
@@ -6489,6 +6535,9 @@ SMOOTH_FP32_RTOL = 1e-3
 # the kernel path against the plain path under the levers' codes: a
 # prefill and this many decode steps
 LEVER_PLAIN_STEPS = 4
+# the whole run's phase 45 at this many of gemma-2-2b's 26 layers (GPTQ's
+# time grows with the Linears it sweeps; --levers runs all 26)
+WHOLE_LEVERS_GEMMA_DEPTH = 8
 # AdaRound on the card against a CPU copy given the same tapped inputs:
 # the share of equal codes the port's tests state against the JAX package
 ADAROUND_MIN_EQUAL = 0.99
@@ -6684,15 +6733,17 @@ def wq1_sweep_gate(torch, gptq_mod, model, ids, dev):
     return card, record, job
 
 
-def gemma_levers(torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev):
+def gemma_levers(torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev,
+                 depth=None):
     """Phase 45: gemma-2-2b at its published widths (GEMMA2, batch 8, 64 +
-    128 tokens, 'nearest', W8A8) in the outlier regime (``outlier_regime``
+    128 tokens, 'nearest', W8A8; ``depth`` of its layers, all by default)
+    in the outlier regime (``outlier_regime``
     on its unit-offset norms), three ways: no lever, ``smooth`` alone, and
     ``smooth`` then ``gptq`` (GPTQ_ARGS) before prepare.  Gates: the
     smoothed FP32 logits within SMOOTH_FP32_RTOL of the unsmoothed ones;
     the card's GPTQ sweep over block 1's wq equal to a CPU sweep given the
     same inverse Hessian; the smooth + GPTQ model's captured ``generate``
-    with 105 B1, 26 B2 and 26 B3 a step, and a prefill and
+    with 4 * depth + 1 B1, depth B2 and depth B3 a step, and a prefill and
     LEVER_PLAIN_STEPS steps equal to the plain path.  Records the levers'
     seconds, the lever-free and the levers' ms/step (64 captured replays
     each), and each way's INT8-vs-FP32 last-position logit error and
@@ -6700,7 +6751,8 @@ def gemma_levers(torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev):
     INT8 tokens).  Returns the smooth + GPTQ generate's launches."""
     from int8inferenceengine_tpu_torch import utils as U
     gptq_mod = lever_module("gptq")
-    geo, depth = GEMMA2, GEMMA2["depth"]
+    geo = dict(GEMMA2, depth=depth or GEMMA2["depth"])
+    depth = geo["depth"]
     cfg = q.QuantConfig(**GEMMA_CFG)
     ids = np.random.default_rng(0).integers(
         0, geo["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
@@ -7054,14 +7106,15 @@ def levers_small_gates(torch, q, zoo, dev):
 
 
 def levers_paths(torch, q, zoo, GM, LL, G, A, W, layers_mod, kernel_fns,
-                 dev):
-    """Phases 44-47 in order; returns the launches of their main paths."""
+                 dev, gemma_depth=None):
+    """Phases 44-47 in order, phase 45 at ``gemma_depth`` of gemma-2-2b's
+    layers (all by default); returns the launches of their main paths."""
     counts = {"alexnet_levers_b100": alexnet_levers(
         torch, q, zoo, G, layers_mod, kernel_fns, dev)}
     torch.cuda.empty_cache()
     mark("levers: alexnet cle + adaround")
     counts["gemma2_2b_levers_generate"] = gemma_levers(
-        torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev)
+        torch, q, zoo, GM, G, A, layers_mod, kernel_fns, dev, gemma_depth)
     mark("levers: gemma2_2b smooth + gptq")
     counts.update(llama_levers(torch, q, zoo, LL, W, kernel_fns, dev))
     mark("levers: llama gptq")
@@ -7811,6 +7864,672 @@ def hf_paths(torch, q, zoo, TD, LL, GM, kernel_fns, dev):
     return counts
 
 
+# -- phases 54-58: host ingest, the engine's ingest, xla_conv and the bfloat16
+# epilogue, bfloat16 glue and the head-split decode attention ----------------
+
+# the notebook's normalization (torchvision's ImageNet mean and std) of
+# seeded u8 32 x 32 x 3 images (CIFAR-10's shape) resized to 224
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# phase 55: batches of 100 through the DataLoader (--ingest; the whole run
+# takes the first WHOLE_INGEST_BATCHES), images of each checked on the CPU
+INGEST_BATCHES, WHOLE_INGEST_BATCHES, INGEST_CPU_IMAGES = 20, 3, 8
+# phase 56: requests of 1-16 images from 8 threads, tiles of 32 and 100
+ENGINE_REQUESTS, ENGINE_THREADS, ENGINE_TILES = 200, 8, (32, 100)
+# phase 58: the head-split decode attention at gpt2's (12 x 64) and llama
+# GQA's (12 over 2) decode shapes, batch 8, T = 512, live 128 and a vector
+HEADSPLIT_CASES = [(12, 12), (12, 2)]
+# phase 58: the largest distance, in codes, of a bfloat16 glue layer from
+# the float32 glue on the same input (the JAX package's own bfloat16 glue
+# on EfficientNet-B0's squeeze-excite sigmoids)
+GLUE_BF16_CODES = 3
+
+
+def native_host_ops(torch, timing=True):
+    """Phase 54: the port's native library builds on this machine and each
+    entry point equals its numpy twin under ``tests/test_hostops.py``'s
+    tolerance; with ``timing`` (``--ingest``), host ms of each op at the
+    AlexNet-224 b100 ingest shapes."""
+    import os
+    from int8inferenceengine_tpu_torch import native
+    threads = torch.get_num_threads()
+    t0 = time.perf_counter()
+    if not native.available():
+        try:
+            native.load()
+        except RuntimeError as e:
+            fail(f"the native host ops do not build: {e}")
+    build_s = time.perf_counter() - t0
+    if torch.get_num_threads() != threads:
+        fail(f"loading the native library changed torch's threads "
+             f"{threads} -> {torch.get_num_threads()}")
+    rng = np.random.default_rng(54)
+    img = rng.integers(0, 256, (100, 32, 32, 3), dtype=np.uint8)
+    x = rng.uniform(-5, 5, (100, 3, 224, 224)).astype(np.float32)
+    mean, std = np.float32(IMAGENET_MEAN), np.float32(IMAGENET_STD)
+    big = native.resize_bilinear(img, 224, 224)
+    q = native.quantize_u8(x, 0.025, 127)
+    # (entry point, its twin, tolerance: 'exact', an absolute bound, or
+    # 'rtol' 1e-6)
+    checks = {
+        "quantize_u8": (q, native.quantize_u8_plain(x, 0.025, 127), 0),
+        "dequantize_u8": (native.dequantize_u8(q, 0.1, 90),
+                          native.dequantize_u8_plain(q, 0.1, 90), "rtol"),
+        "normalize_nchw": (native.normalize_nchw(big, mean, std),
+                           native.normalize_nchw_plain(big, mean, std), 1e-5),
+        "resize_bilinear": (big, native.resize_bilinear_plain(img, 224, 224),
+                            1),
+        "preprocess_quantize": (
+            native.preprocess_quantize(big, mean, std, 0.025, 127),
+            native.preprocess_quantize_plain(big, mean, std, 0.025, 127), 1),
+        "s2d_quantized": (native.s2d_quantized(q, 11, 4, 2, 127),
+                          native.s2d_quantized_plain(q, 11, 4, 2, 127), 0),
+    }
+    gaps = {}
+    for name, (got, want, tol) in checks.items():
+        if got.shape != want.shape:
+            fail(f"native {name}: shape {got.shape} != {want.shape}")
+        gap = float(np.abs(got.astype(np.float64)
+                           - want.astype(np.float64)).max())
+        ok = (np.allclose(got, want, rtol=1e-6, atol=0) if tol == "rtol"
+              else gap <= tol)
+        if not ok:
+            fail(f"native {name} differs from its numpy twin by {gap} "
+                 f"(tolerance {tol})")
+        gaps[name] = gap
+
+    def host_ms(fn, reps=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    if not timing:
+        log(json.dumps({"phase": "native_host_ops", "available": True,
+                        "build_or_load_s": build_s,
+                        "cpu_count": os.cpu_count(), "torch_threads": threads,
+                        "library": str(native.library_path().name),
+                        "max_gap_vs_numpy_twin": gaps}))
+        return None
+    pq = native.preprocess_quantize(big, mean, std, 0.025, 127)
+    ms = {"resize_bilinear_32_to_224": host_ms(
+              lambda: native.resize_bilinear(img, 224, 224)),
+          "preprocess_quantize_224": host_ms(
+              lambda: native.preprocess_quantize(big, mean, std, 0.025, 127)),
+          "s2d_quantized_alexnet_conv1": host_ms(
+              lambda: native.s2d_quantized(pq, 11, 4, 2, 127)),
+          "quantize_u8_224": host_ms(
+              lambda: native.quantize_u8(x, 0.025, 127))}
+    log(json.dumps({"phase": "native_host_ops", "available": True,
+                    "build_or_load_s": build_s, "cpu_count": os.cpu_count(),
+                    "torch_threads": threads,
+                    "library": str(native.library_path().name),
+                    "max_gap_vs_numpy_twin": gaps,
+                    "host_ms_batch100": ms}))
+    return ms
+
+
+def conv1_recorder(C):
+    """A stand-in for ``ops/conv.qgemm_conv`` that records each launch's
+    (input shape, window, stride) and runs the kernel."""
+    seen = []
+    orig = C.qgemm_conv
+
+    def recording(x, *args, **kw):
+        seen.append((tuple(x.shape), kw["kh"], kw["stride"]))
+        return orig(x, *args, **kw)
+    return recording, seen
+
+
+def alexnet_ingest(torch, q, zoo, C, model, kernel_fns, batches, smi):
+    """Phase 55: seeded u8 32 x 32 images through ``DataLoader(resize_to=
+    224, quantize_to=the model's input grid, layout_for=model)`` into the
+    converted AlexNet-224 at batch 100.  Every batch's logits equal the
+    same host-quantized batch fed without the pre-layout and the CPU copy's
+    on the pre-laid-out batch (its first INGEST_CPU_IMAGES images); conv1
+    runs as B1's gathered conv over 48 channels, once a batch.  Times: host
+    ms a batch, card ms a batch, the loader's images/s alone and pipelined
+    with the forward, and the card's idle share over the pipelined run.
+    Returns the launches of the loader-fed forwards."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    n = 100
+    rng = np.random.default_rng(55)
+    imgs = rng.integers(0, 256, (batches * n, 32, 32, 3), dtype=np.uint8)
+    grid = (model.config.input_scale, model.config.input_zero_point)
+    tag = model.ingest_descriptor()
+    if tag != ("s2d", 11, 4, 2, 3):
+        fail(f"AlexNet's ingest tag is {tag}")
+    kw = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, resize_to=(224, 224),
+              quantize_to=grid)
+    cpu = zoo.AlexNet(device="cpu")
+    load_jax_state(cpu, export_state(model))
+    recording, seen = conv1_recorder(C)
+    outs = []
+    reset_counts(kernel_fns)
+    with swapped(C, qgemm_conv=recording):
+        for batch in q.DataLoader(imgs, n, layout_for=model, **kw):
+            if tuple(batch.data.shape) != (n, 57, 57, 48):
+                fail(f"pre-laid-out batch {tuple(batch.data.shape)}")
+            outs.append((batch, model(batch).data))
+        torch.cuda.synchronize()
+    counts = read_counts(kernel_fns)
+    want = dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": 8 * batches}
+    if counts != want:
+        fail(f"AlexNet ingest forwards launched {counts}, want {want}")
+    conv1 = [s for s in seen if s[0][-1] == 48]
+    if conv1 != [((n, 57, 57, 48), 3, 1)] * batches:
+        fail(f"conv1 did not run as B1's gathered 3 x 3 / 1 conv over 48 "
+             f"channels once a batch: {seen[:9]}")
+    plain = q.DataLoader(imgs, n, **kw)
+    for i, ((batch, got), ref) in enumerate(zip(outs, plain)):
+        if not torch.equal(got, model(ref).data):
+            fail(f"ingest batch {i}: logits differ from the batch fed "
+                 f"without the pre-layout")
+        c = INGEST_CPU_IMAGES
+        cpu_out = cpu(Tensor(batch.data[:c].cpu(), batch.scale,
+                             batch.zero_point, _ingest=tag)).data
+        if not torch.equal(got[:c].cpu(), cpu_out):
+            fail(f"ingest batch {i}: logits differ from the CPU copy's")
+    log(json.dumps({"phase": "alexnet_ingest_codes", "batches": batches,
+                    "equal_to_no_prelayout": True,
+                    "equal_to_cpu_copy_images": INGEST_CPU_IMAGES,
+                    "conv1": {"input": [n, 57, 57, 48], "window": 3,
+                              "stride": 1, "launches": len(conv1)},
+                    "launches": counts}))
+
+    # -- times (not gated)
+    loader = q.DataLoader(imgs, n, layout_for=model, **kw)
+    chunk = imgs[:n]
+    loader.prepare(chunk)
+    t0 = time.perf_counter()
+    for i in range(batches):
+        loader.prepare(imgs[i * n:(i + 1) * n])
+    host_ms = 1e3 * (time.perf_counter() - t0) / batches
+    batch, _ = outs[0]
+    no_pre = next(iter(plain))
+    card_ms = time_cuda(torch, lambda: model(batch), iters=20)
+    no_pre_ms = time_cuda(torch, lambda: model(no_pre), iters=20)
+    xf = q.tensor(np.zeros((n, 3, 224, 224), np.float32))
+    float_ms = time_cuda(torch, lambda: model(xf), iters=20)
+
+    conv1 = conv1_launch_times(torch, C, model, batch, no_pre)
+
+    def drain(fn):
+        t0 = time.perf_counter()
+        for b in loader:
+            fn(b)
+        torch.cuda.synchronize()
+        return batches * n / (time.perf_counter() - t0)
+
+    drain(lambda b: None)
+    alone = drain(lambda b: None)
+    drain(model)
+    pipelined = drain(model)
+    rows, wall_us = profiled(torch, lambda: drain(model), reps=1,
+                             warm=lambda: model(batch))
+    busy_us = sum(e.self_device_time_total for e in rows
+                  if "emcpy" not in e.key and "emset" not in e.key)
+    copy_us = sum(e.self_device_time_total for e in rows
+                  if "emcpy" in e.key)
+    log(json.dumps({
+        "phase": "alexnet_ingest_times", "card": smi, "batch": n,
+        "batches": batches,
+        "host_ms_per_batch_resize_quantize_s2d": host_ms,
+        "card_ms_per_batch_prelaid": card_ms,
+        "card_ms_per_batch_u8_no_prelayout": no_pre_ms,
+        "card_ms_per_batch_float_input": float_ms,
+        "loader_images_per_s_alone": alone,
+        "loader_images_per_s_pipelined_with_forward": pipelined,
+        "pipelined_wall_ms": wall_us / 1e3,
+        "pipelined_kernel_busy_ms": busy_us / 1e3,
+        "pipelined_copy_ms": copy_us / 1e3,
+        "card_idle_share_pipelined": 1 - busy_us / wall_us,
+        "conv1_launch": conv1,
+        "bytes_to_card_per_batch": {"prelaid_u8": n * 57 * 57 * 48,
+                                    "float32_nchw": n * 3 * 224 * 224 * 4}}))
+    return counts
+
+
+def conv1_launch_times(torch, C, model, pre, plain):
+    """AlexNet conv1's B1 launch (L2 flushed) on the pre-laid-out batch
+    (3 x 3 / 1 over 57 x 57 x 48, K 432) beside the 11 x 11 / 4 launch on
+    the same images' u8 NHWC codes (K 363, 3 channels padded to 4), each
+    with its bound."""
+    layer = model.conv1
+    oc, ep = layer._epilogue(pre, layer._order())
+    kw = dict(scale_a=pre.scale, zp_a=pre.zero_point, scale_c=layer.scale,
+              zp_c=layer.zero_point, relu=layer.fuse_relu,
+              rounding=layer.config.rounding, order=layer._order())
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=pre.device)
+    x11 = plain.data.permute(0, 2, 3, 1).contiguous()
+    out = {}
+    for label, x, w, k, s, p in (
+            ("prelaid_3x3s1_c48", pre.data, layer._s2d_qw(), 3, 1, 0),
+            ("nhwc_11x11s4_c3", x11, layer.qw, 11, 4, 2)):
+        ms = time_cuda(torch, lambda: C.qgemm_conv(
+            x, w, oc, ep, kh=k, kw=k, stride=s, padding=p, **kw), iters=20,
+            flush=flush_buf.zero_)
+        b, h, wd, c = x.shape
+        bound_ms, bound_by, _, _ = conv_bound_ms((b, h, wd, c, k, s, p),
+                                                 layer.out_channels)
+        out[label] = {"ms": ms, "input": [b, h, wd, c], "window": k,
+                      "stride": s, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+    del flush_buf
+    return out
+
+
+def engine_ingest(torch, q, model, label, tag, smi):
+    """Phase 56: ``InferenceEngine(quantize_ingest=True)`` (tiles of 32 and
+    100) against the float engine on one model: ENGINE_REQUESTS requests of
+    1-16 images from ENGINE_THREADS threads each, every result equal to
+    ``model(...)`` on the same images bit for bit, the tiles replayed as
+    captured graphs; images/s and the staged bytes a tile of both."""
+    from int8inferenceengine_tpu_torch.serve import InferenceEngine
+    if model.ingest_descriptor() != tag:
+        fail(f"{label}: ingest tag {model.ingest_descriptor()} != {tag}")
+    rng = np.random.default_rng(56)
+    xs = [rng.standard_normal((int(rng.integers(1, 17)), 3, 224, 224))
+          .astype(np.float32) for _ in range(ENGINE_REQUESTS)]
+    want = [model(q.tensor(x)).numpy() for x in xs]
+    report = {}
+    for ingest in (False, True):
+        eng = InferenceEngine(model, batch_sizes=ENGINE_TILES,
+                              quantize_ingest=ingest)
+        try:
+            got = [None] * len(xs)
+
+            def client(i0):
+                futs = [(i, eng.submit(xs[i]))
+                        for i in range(i0, len(xs), ENGINE_THREADS)]
+                for i, f in futs:
+                    got[i] = f.result(timeout=600)
+
+            for rep in range(2):          # the first round captures
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(ENGINE_THREADS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                rate = sum(x.shape[0] for x in xs) / (
+                    time.perf_counter() - t0)
+                bad = [i for i, (g, w) in enumerate(zip(got, want))
+                       if g is None or not np.array_equal(g, w)]
+                if bad:
+                    fail(f"{label} engine (quantize_ingest={ingest}): "
+                         f"{len(bad)} requests differ from model(...)")
+            fwds = dict(eng._forwards)
+            replays = {str(k[0][0]): f.forward.replays
+                       for k, f in fwds.items()}
+            if not all(replays.values()):
+                fail(f"{label} engine: a tile never replayed {replays}")
+            big = [f for k, f in fwds.items() if k[0][0] == max(ENGINE_TILES)]
+            report["ingest" if ingest else "float"] = {
+                "images_per_s": rate, "replays_by_tile": replays,
+                "static_input": list(big[0].x.shape) if big else None,
+                "staged_bytes_per_tile_100": (big[0].stage[0].numel()
+                                              * big[0].stage[0].element_size()
+                                              if big else None),
+                "steps": eng.stats.steps,
+                "latency_ms": eng.stats.latency_percentiles()}
+        finally:
+            eng.shutdown()
+    log(json.dumps({"phase": f"{label}_engine_ingest", "card": smi,
+                    "tag": list(tag), "requests": ENGINE_REQUESTS,
+                    "threads": ENGINE_THREADS, "tiles": list(ENGINE_TILES),
+                    "equal_to_model": True, **report}))
+
+
+def check_bf16_epilogue_kernels(torch, q, zoo, G, C, gen, dev):
+    """Phase 57's kernel checks: B1's gathered conv under the bfloat16
+    epilogue at AlexNet-224 b100's five conv geometries and the
+    pre-laid-out conv1 (57 x 57 x 48, 3 x 3 / 1), and G1's at every grouped
+    shape of MobileNetV2 (batch 8), against their plain versions bit for
+    bit: per-channel s_w, 'trunc' with relu and 'nearest' without."""
+    outs = {"conv1": 96, "conv2": 256, "conv3": 384, "conv4": 384,
+            "conv5": 256}
+    geoms = [(g, outs[name]) for name, g in ALEXNET_CONVS.items()] + [
+        ((100, 57, 57, 48, 3, 1, 0), 96)]
+    n_cases = 0
+    for geom, n in geoms:
+        x, cs = conv_case(torch, gen, geom, n, dev)
+        oc = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]),
+                              cs["s_a"], cs["zp_a"], recentered=True)
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], n, dev,
+                               "conv_bf16")
+        for rounding, relu in (("trunc", True), ("nearest", False)):
+            kw = dict(kh=geom[4], kw=geom[4], stride=geom[5],
+                      padding=geom[6], zp_a=cs["zp_a"], scale_a=cs["s_a"],
+                      scale_c=cs["s_c"], zp_c=cs["zp_c"], relu=relu,
+                      rounding=rounding, order="conv_bf16")
+            before = G.qgemm.launches
+            got = C.qgemm_conv(x, cs["w"], oc, ep, **kw)
+            launched = G.qgemm.launches - before
+            want = C.conv2d_int8_gemm(x, cs["w"], oc, ep, gemm=G.qgemm_plain,
+                                      **kw)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if launched != 1 or not torch.equal(got, want):
+                fail(f"B1 bf16 epilogue != plain at {tuple(geom)} N={n} "
+                     f"{rounding}: {int((got != want).sum())} codes differ")
+        del x, cs
+    shapes = grouped_shapes(torch, q, zoo, ("mobilenet_v2",), dev)
+    for shape, (first, _) in shapes.items():
+        x, cs = grouped_operands(torch, G, gen, G1_CHECK_BATCH, shape, dev)
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], shape[3],
+                               dev, "conv_bf16")
+        for rounding, relu in (("trunc", True), ("nearest", False)):
+            kw = grouped_kw(cs, shape, rounding, relu)
+            got = C.conv2d_int8_grouped(x, cs["w"], cs["oc"], ep,
+                                        order="conv_bf16", **kw)
+            want = C.conv2d_int8_grouped_plain(x, cs["w"], cs["oc"], ep,
+                                               order="conv_bf16", **kw)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if not torch.equal(got, want):
+                fail(f"G1 bf16 epilogue != plain at {shape} ({first}) "
+                     f"{rounding}: {int((got != want).sum())} codes differ")
+    log(json.dumps({"phase": "bf16_epilogue_kernels_vs_plain",
+                    "b1_geometries": len(geoms), "g1_shapes": len(shapes),
+                    "cases": n_cases, "max_abs_err": 0}))
+
+
+def bf16_instance_times(torch, G, C, gen, dev, smi):
+    """Phase 57's kernel times (L2 flushed): B1's gathered conv at AlexNet
+    conv2 and G1 at MobileNetV2's widest depthwise conv (112 x 112 x 96,
+    stride 2, batch 100), each under the float32 and the bfloat16 conv
+    epilogue, with its bound."""
+    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    geom, n = ALEXNET_CONVS["conv2"], 256
+    x, cs = conv_case(torch, gen, geom, n, dev)
+    oc = G.compute_offset(cs["q_bias"], rowsum(torch, cs["w"]), cs["s_a"],
+                          cs["zp_a"], recentered=True)
+    for order in ("conv", "conv_bf16"):
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], n, dev,
+                               order)
+        rows[f"b1_alexnet_conv2_{order}"] = time_cuda(
+            torch, lambda: C.qgemm_conv(
+                x, cs["w"], oc, ep, kh=5, kw=5, stride=1, padding=2,
+                zp_a=cs["zp_a"], scale_a=cs["s_a"], scale_c=cs["s_c"],
+                zp_c=cs["zp_c"], relu=True, order=order), iters=20,
+            flush=flush_buf.zero_)
+    rows["b1_alexnet_conv2_bound_ms"] = conv_bound_ms(geom, n)[0]
+    shape = (112, 112, 96, 96, 96, 3, 2)
+    x, cs = grouped_operands(torch, G, gen, 100, shape, dev)
+    for order in ("conv", "conv_bf16"):
+        ep = G.epilogue_vector(cs["s_a"], cs["s_w_pc"], cs["s_c"], 96, dev,
+                               order)
+        rows[f"g1_mnv2_112x96_s2_{order}"] = time_cuda(
+            torch, lambda: C.conv2d_int8_grouped(
+                x, cs["w"], cs["oc"], ep, order=order,
+                **grouped_kw(cs, shape, relu=True)), iters=20,
+            flush=flush_buf.zero_)
+    rows["g1_mnv2_112x96_s2_bound_ms"] = g1_bound_ms(100, shape)[0]
+    del flush_buf
+    log(json.dumps({"phase": "bf16_epilogue_instance_times", "card": smi,
+                    "ms": rows}))
+
+
+def exact_launches(torch, G, C):
+    """Stand-ins for ``qgemm_conv`` and ``conv2d_int8_grouped`` that hold
+    each launch of a forward against its plain version on the same
+    operands (the same accumulators), bit for bit; returns them and the
+    count of launches checked."""
+    checked = {"b1": 0, "g1": 0}
+    b1, g1 = C.qgemm_conv, C.conv2d_int8_grouped
+
+    def b1_checked(x, w, oc, ep, **kw):
+        got = b1(x, w, oc, ep, **kw)
+        want = C.conv2d_int8_gemm(x, w, oc, ep, gemm=G.qgemm_plain, **kw)
+        if not torch.equal(got, want):
+            fail(f"B1 ({kw.get('order')}) != plain in a forward at "
+                 f"{tuple(x.shape)}")
+        checked["b1"] += 1
+        return got
+
+    def g1_checked(x, w, oc, ep, **kw):
+        got = g1(x, w, oc, ep, **kw)
+        want = C.conv2d_int8_grouped_plain(x, w, oc, ep, **kw)
+        if not torch.equal(got, want):
+            fail(f"G1 ({kw.get('order')}) != plain in a forward at "
+                 f"{tuple(x.shape)}")
+        checked["g1"] += 1
+        return got
+    return b1_checked, g1_checked, checked
+
+
+def with_config(q, zoo, model, name, **cfg):
+    """A fresh ``name`` on the card under ``model``'s config with ``cfg``
+    changed, holding ``model``'s converted state."""
+    import dataclasses
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    m = zoo.build(name, config=dataclasses.replace(model.config, **cfg),
+                  device="cuda")
+    load_jax_state(m, export_state(model))
+    return m
+
+
+def logit_codes(torch, out, layer):
+    return torch.round(out / layer.scale).to(torch.int64)
+
+
+def xla_conv_and_bf16(torch, q, zoo, G, C, model, mnv2, x_alex, x_mnv2,
+                      smi):
+    """Phase 57: AlexNet-224 b100 under ``conv_backend='xla_conv'`` (another
+    name for 'auto') gives 'auto''s codes through as many B1 launches; under
+    ``epilogue_dtype='bfloat16'`` AlexNet-224 b100 (B1's instance) and
+    MobileNetV2-224 b100 (B1's and G1's) hold every launch of a forward
+    against its plain version on the same operands, bit for bit, and a CPU
+    copy's codes; the share of output codes that differ from the float32
+    epilogue and the largest difference; ms a batch of each."""
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    xa = q.tensor(x_alex)
+    auto = model(xa).data
+    xla = with_config(q, zoo, model, "alexnet", conv_backend="xla_conv")
+    before = G.qgemm.launches
+    got = xla(xa).data
+    torch.cuda.synchronize()
+    b1 = G.qgemm.launches - before
+    want_b1, _ = launches_per_forward(q, xla)
+    if not torch.equal(got, auto) or b1 != want_b1:
+        fail(f"AlexNet under xla_conv: equal={torch.equal(got, auto)}, "
+             f"{b1} B1 launches (want {want_b1})")
+    res = {"alexnet_xla_conv": {
+        "equal_to_auto": True, "b1_launches": b1,
+        "ms_per_batch": time_cuda(torch, lambda: xla(xa), iters=20),
+        "auto_ms_per_batch": time_cuda(torch, lambda: model(xa), iters=20)}}
+    del xla
+    for name, m32, x in (("alexnet", model, x_alex),
+                         ("mobilenet_v2", mnv2, x_mnv2)):
+        xt = q.tensor(x)
+        m16 = with_config(q, zoo, m32, name, epilogue_dtype="bfloat16")
+        b1c, g1c, checked = exact_launches(torch, G, C)
+        with swapped(C, qgemm_conv=b1c, conv2d_int8_grouped=g1c):
+            out16 = m16(xt).data
+            torch.cuda.synchronize()
+        out32 = m32(xt).data
+        cpu = zoo.build(name, config=m16.config, device="cpu")
+        load_jax_state(cpu, export_state(m16))
+        out_cpu = cpu(q.tensor(x[:CNN_CPU_BATCH], device="cpu")).data
+        if not torch.equal(out16[:CNN_CPU_BATCH].cpu(), out_cpu):
+            fail(f"{name} bf16 epilogue: card codes differ from the CPU "
+                 f"copy's")
+        head = list(m16.named_layers())[-1][1]
+        c16 = logit_codes(torch, out16, head)
+        c32 = logit_codes(torch, out32, head)
+        gap = (c16 - c32).abs()
+        _, g1 = launches_per_forward(q, m16)
+        if checked["b1"] != sum(isinstance(l, q.Conv2d) and l.groups == 1
+                                for _, l in m16.named_layers()) \
+                or checked["g1"] != g1:
+            fail(f"{name} bf16: checked launches {checked}")
+        res[f"{name}_bf16_epilogue"] = {
+            "conv_launches_checked_exact": checked,
+            "cpu_copy_equal_images": CNN_CPU_BATCH,
+            "output_codes_differ_share_vs_f32": float(
+                (gap > 0).float().mean()),
+            "output_codes_max_diff_vs_f32": int(gap.max()),
+            "top1_agreement_vs_f32": float(
+                (out16.argmax(1) == out32.argmax(1)).float().mean()),
+            "ms_per_batch": time_cuda(torch, lambda: m16(xt), iters=20),
+            "f32_epilogue_ms_per_batch": time_cuda(torch, lambda: m32(xt),
+                                                   iters=20)}
+        del m16, cpu
+    log(json.dumps({"phase": "xla_conv_and_bf16_epilogue", "card": smi,
+                    **res}))
+
+
+def glue_hooks(model, kinds):
+    """{layer name: [args, output]} of ``kinds`` layers, filled by forward
+    hooks while a forward runs; and the hooks."""
+    seen, hooks = {}, []
+    for name, layer in model.named_layers():
+        if isinstance(layer, kinds):
+            hooks.append(layer.register_forward_hook(
+                lambda mod, args, out, name=name: seen.__setitem__(
+                    name, (args, out))))
+    return seen, hooks
+
+
+def bf16_glue(torch, q, zoo, model, x, smi):
+    """Phase 58 (a): EfficientNet-B0-224 b100 under ``glue_dtype=
+    'bfloat16'``: codes equal a CPU copy's; every glue layer (QuantAct,
+    QuantAdd, QuantMul, QuantConcat), fed the float32-glue model's input to
+    it, equal on its first INGEST_CPU_IMAGES images to the CPU copy's same
+    layer on the same input, and within GLUE_BF16_CODES of the float32
+    glue's output on the same input: the JAX package's own bfloat16 glue is
+    3 codes from its float32 glue at this model's squeeze-excite sigmoids,
+    where the port's equals it exactly
+    (``tests/test_torch_lifecycle_dtypes.py``), so that is the bound here
+    rather than ``tests/test_glue_dtype.py``'s 2 codes; ms a batch of both
+    glue dtypes."""
+    from int8inferenceengine_tpu_torch import layers as L
+    from int8inferenceengine_tpu_torch.carry import (export_state,
+                                                     load_jax_state)
+    from int8inferenceengine_tpu_torch.tensor import Tensor
+    kinds = (L.QuantAct, L.QuantAdd, L.QuantMul, L.QuantConcat)
+    xt = q.tensor(x)
+    m16 = with_config(q, zoo, model, "efficientnet_b0",
+                      glue_dtype="bfloat16")
+    out16 = m16(xt).data
+    cpu = zoo.build("efficientnet_b0", config=m16.config, device="cpu")
+    load_jax_state(cpu, export_state(m16))
+    if not torch.equal(out16[:CNN_CPU_BATCH].cpu(), cpu(q.tensor(
+            x[:CNN_CPU_BATCH], device="cpu")).data):
+        fail("EfficientNet-B0 bf16 glue: card codes differ from the CPU "
+             "copy's")
+    seen, hooks = glue_hooks(model, kinds)
+    try:
+        model(xt)
+    finally:
+        for h in hooks:
+            h.remove()
+    layers16, cpu16 = dict(m16.named_layers()), dict(cpu.named_layers())
+    worst, share, gaps = 0, [], {}
+    c = INGEST_CPU_IMAGES
+    for name, (args, out) in seen.items():
+        got = layers16[name](*args)
+        d = (got.data.to(torch.int32) - out.data.to(torch.int32)).abs()
+        gaps[int(d.max())] = gaps.get(int(d.max()), 0) + 1
+        worst = max(worst, int(d.max()))
+        if int(d.max()) > GLUE_BF16_CODES:
+            fail(f"EfficientNet-B0 bf16 glue: layer {name} is {int(d.max())} "
+                 f"codes from the float32 glue's (bound {GLUE_BF16_CODES})")
+        share.append(float((d > 0).float().mean()))
+        want = cpu16[name](*[Tensor(a.data[:c].cpu(), a.scale, a.zero_point,
+                                    _nhwc=a._nhwc) for a in args])
+        if not torch.equal(got.data[:c].cpu(), want.data):
+            fail(f"EfficientNet-B0 bf16 glue: layer {name} on the card "
+                 f"differs from the CPU copy's on the same input")
+    log(json.dumps({
+        "phase": "efficientnet_b0_bf16_glue", "card": smi,
+        "cpu_copy_equal_images": CNN_CPU_BATCH, "glue_layers": len(seen),
+        "layers_equal_to_cpu_copy": len(seen),
+        "max_code_diff_per_layer_vs_f32": worst,
+        "bound_codes_vs_f32": GLUE_BF16_CODES,
+        "layers_by_max_code_diff_vs_f32": gaps,
+        "mean_share_differing": float(np.mean(share)),
+        "ms_per_batch_bf16_glue": time_cuda(torch, lambda: m16(xt), iters=20),
+        "ms_per_batch_f32_glue": time_cuda(torch, lambda: model(xt),
+                                           iters=20)}))
+
+
+def headsplit_attention(torch, A, gen, dev):
+    """Phase 58 (b): the head-split ``decode_attention`` at gpt2's and
+    llama GQA's decode shapes (batch 8, T = 512, D = 64) equals
+    ``decode_attention_flat`` on the same operands and launches B3."""
+    b, t, d = 8, 512, 64
+    for h, hkv in HEADSPLIT_CASES:
+        q4 = torch.randint(0, 256, (b, h, 1, d), generator=gen,
+                           dtype=torch.uint8, device=dev)
+        k4 = torch.randint(0, 256, (b, hkv, t, d), generator=gen,
+                           dtype=torch.uint8, device=dev)
+        v4 = torch.randint(0, 256, (b, hkv, t, d), generator=gen,
+                           dtype=torch.uint8, device=dev)
+        for valid in (128, torch.arange(1, 2 * b, 2, device=dev,
+                                        dtype=torch.int32) * 31):
+            before = A.decode_attention_flat.launches
+            got = A.decode_attention(q4, k4, v4, valid, **ATTN_PARAMS)
+            launched = A.decode_attention_flat.launches - before
+            want = A.decode_attention_flat(
+                q4.reshape(b, h * d), k4.permute(0, 2, 1, 3).reshape(
+                    b, t, hkv * d).contiguous(),
+                v4.permute(0, 2, 1, 3).reshape(b, t, hkv * d).contiguous(),
+                valid, n_heads=h, n_kv_heads=hkv, **ATTN_PARAMS)
+            torch.cuda.synchronize()
+            if launched != 1 or not torch.equal(got.reshape(b, h * d),
+                                                want):
+                fail(f"head-split decode_attention {h}/{hkv}: "
+                     f"{launched} launches, equal="
+                     f"{torch.equal(got.reshape(b, h * d), want)}")
+    log(json.dumps({"phase": "headsplit_decode_attention",
+                    "cases": [list(c) for c in HEADSPLIT_CASES],
+                    "batch": b, "T": t, "equal_to_flat": True,
+                    "b3_launches_each": 1}))
+
+
+def ingest_paths(torch, q, zoo, G, C, A, kernel_fns, dev, smi):
+    """Phases 54-58 in full (``--ingest``)."""
+    counts = {}
+    native_host_ops(torch)
+    mark("ingest: native host ops")
+    gen = torch.Generator(device=dev).manual_seed(57)
+    check_bf16_epilogue_kernels(torch, q, zoo, G, C, gen, dev)
+    bf16_instance_times(torch, G, C, gen, dev, smi)
+    headsplit_attention(torch, A, gen, dev)
+    mark("ingest: kernel checks")
+    model, x_alex, _, _ = alexnet_main_path(torch, q, zoo, kernel_fns, dev)
+    counts["alexnet_ingest"] = alexnet_ingest(
+        torch, q, zoo, C, model, kernel_fns, INGEST_BATCHES, smi)
+    mark("ingest: alexnet dataloader")
+    engine_ingest(torch, q, model, "alexnet", ("s2d", 11, 4, 2, 3), smi)
+    r18 = cnn_main_path(torch, q, zoo, kernel_fns, dev, "resnet18")[0]
+    engine_ingest(torch, q, r18, "resnet18", ("s2d", 7, 2, 3, 3), smi)
+    del r18
+    mark("ingest: engines")
+    mnv2, x_mnv2, _, _ = cnn_main_path(torch, q, zoo, kernel_fns, dev,
+                                       "mobilenet_v2")
+    xla_conv_and_bf16(torch, q, zoo, G, C, model, mnv2, x_alex, x_mnv2, smi)
+    del mnv2
+    torch.cuda.empty_cache()
+    mark("ingest: xla_conv, bf16 epilogue")
+    eff, x_eff, _, _ = cnn_main_path(torch, q, zoo, kernel_fns, dev,
+                                     "efficientnet_b0")
+    bf16_glue(torch, q, zoo, eff, x_eff, smi)
+    del eff
+    torch.cuda.empty_cache()
+    mark("ingest: bf16 glue")
+    return counts
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -7894,6 +8613,12 @@ def main(argv=None) -> int:
                     help="only build and run the INT8 artifact's phases "
                          "(48-50: save, load, validate, report, roofline, "
                          "trace) with their checks (no result line)")
+    ap.add_argument("--ingest", action="store_true",
+                    help="only build and run the host ingest phases (54-58: "
+                         "native host ops, AlexNet fed by the DataLoader, "
+                         "the engines' quantize_ingest, xla_conv and the "
+                         "bf16 epilogue, bf16 glue and the head-split "
+                         "decode attention) in full (no result line)")
     ap.add_argument("--hf", action="store_true",
                     help="only build and run the HF checkpoint phases "
                          "(51-53: every family's HF directory, gemma-2-2b "
@@ -7947,6 +8672,7 @@ def main(argv=None) -> int:
     kernels.build_all()
     build_s = time.perf_counter() - t0
     log(json.dumps({"phase": "build", "seconds": round(build_s, 3)}))
+    mark("build")
     for name in kernels.SIGNATURES:
         text = (kernels.BUILD_DIR / f"{name}.log")
         if text.exists():
@@ -8008,6 +8734,12 @@ def main(argv=None) -> int:
     if args.artifact:
         counts = artifact_paths(torch, q, zoo, GM, LL, W, A, kernel_fns, dev)
         log(json.dumps({"phase": "artifact_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
+    if args.ingest:
+        counts = ingest_paths(torch, q, zoo, G, C, A, kernel_fns, dev, smi)
+        log(json.dumps({"phase": "ingest_done", "launches": counts,
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
@@ -8111,11 +8843,20 @@ def main(argv=None) -> int:
     # -- 14. the AlexNet engine -----------------------------------------------
     counts_by_path["alexnet_engine"] = serve_cnn(torch, q, model,
                                                  kernel_fns)
+
+    # -- 54, 55. the native host ops; AlexNet fed by the DataLoader (3
+    # batches; --ingest runs 20) ------------------------------------------------
+    native_host_ops(torch, timing=False)
+    counts_by_path["alexnet_ingest"] = alexnet_ingest(
+        torch, q, zoo, C, model, kernel_fns, WHOLE_INGEST_BATCHES, smi)
     del model, state
     mark("alexnet")
 
     # -- 19. G1 against its plain version --------------------------------------
     max_err["conv_grouped_u8s8"] = check_g1(torch, q, zoo, G, C, gen, dev)
+    # -- 57. B1's and G1's bfloat16 epilogue instances against their plain
+    # versions ------------------------------------------------------------------
+    check_bf16_epilogue_kernels(torch, q, zoo, G, C, gen, dev)
 
     # -- 20. B1 at every ResNet-50 and MobileNetV2 conv and Linear shape -------
     cnn_shapes = {name: b1_shapes(torch, q, zoo, name, dev)
@@ -8251,9 +8992,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 44-47. the accuracy levers: AlexNet under CLE + AdaRound, gemma-2-2b
-    # under SmoothQuant + GPTQ, llama W4A8 and W4 under GPTQ, the small gates
-    counts_by_path.update(levers_paths(torch, q, zoo, GM, LL, G, A, W,
-                                       layers_mod, kernel_fns, dev))
+    # under SmoothQuant + GPTQ (WHOLE_LEVERS_GEMMA_DEPTH layers), llama W4A8
+    # and W4 under GPTQ, the small gates
+    counts_by_path.update(levers_paths(
+        torch, q, zoo, GM, LL, G, A, W, layers_mod, kernel_fns, dev,
+        gemma_depth=WHOLE_LEVERS_GEMMA_DEPTH))
     torch.cuda.empty_cache()
 
     # -- 11. per-kernel times --------------------------------------------------
@@ -8278,6 +9021,7 @@ def main(argv=None) -> int:
     erows, elrows = time_encoder_kernels(torch, q, G, C, A, gen, dev, flush)
     rows += erows
     lrows += elrows
+    mark("per-kernel times")
     log(json.dumps({"phase": "done", "seconds": time.perf_counter() - t_start}))
 
     log(smi)

@@ -9,8 +9,10 @@ kernels (``csrc/``): the CNN zoo (the reference's four nets, VGG,
 ResNet, MobileNet V1-V3, EfficientNet-B0, ShuffleNetV2, SqueezeNet,
 GoogLeNet, DenseNet-121), the GPT-style ``TextDecoder`` and the
 llama-family ``LlamaDecoder`` with their u8 KV cache and greedy
-``generate``, and 4-bit weights (W4A8 and W4 weight-only).  Entry points run
-on the card unless the caller passes ``device="cpu"``.
+``generate``, and 4-bit weights (W4A8 and W4 weight-only).  Its input
+pipeline is ``DataLoader`` over the native host ops (``native``: resize,
+normalize, quantize and the first conv's space-to-depth on the host).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 
 TF32 is switched off for float32 matmuls and cuDNN convolutions at import:
 the FP32 calibration forward decides every quantization scale, and TF32
@@ -22,7 +24,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from . import native  # noqa: E402
 from .config import DEFAULT_CONFIG, QuantConfig  # noqa: E402
+from .data import DataLoader  # noqa: E402
 from .layers import (Conv2d, Layer, Linear, QuantAct,  # noqa: E402
                      QuantAdd, QuantConcat, QuantEmbed, QuantLayerNorm,
                      QuantMatmul, QuantMul, QuantPosEmbed, QuantRMSNorm,
@@ -42,4 +46,5 @@ __all__ = [
     "QuantSoftmax",
     "quantize", "dequantize",
     "QuantConfig", "DEFAULT_CONFIG", "TruncDepthWarning",
+    "DataLoader", "native",
 ]

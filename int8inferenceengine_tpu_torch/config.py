@@ -1,10 +1,9 @@
 """Framework-wide configuration (counterpart of ``int8inferenceengine_tpu.config``).
 
 The dataclass is copied whole so that a configuration written for the JAX
-package means the same thing here.  This package implements a slice of it:
-``check_supported`` names every field whose value the slice does not
-implement yet and raises ``NotImplementedError`` for it, instead of
-silently running something else.
+package means the same thing here.  ``check_supported`` raises for a value
+the port does not take: ``ValueError`` for one that neither package knows,
+``NotImplementedError`` for a ``weight_bits`` other than 8 or 4.
 """
 
 from __future__ import annotations
@@ -52,8 +51,9 @@ class QuantConfig:
     # reference's conv epilogue order (bit-identical to the JAX package's
     # native integer conv): on the card as the gathered conv, which reads
     # each patch from the NHWC input; on the CPU through im2col.  'gemm'
-    # uses the GEMM epilogue order (the JAX package's conv2d_int8_gemm);
-    # 'xla_conv' has no counterpart here.
+    # uses the GEMM epilogue order (the JAX package's conv2d_int8_gemm).
+    # 'xla_conv' is another name for 'auto', as in the JAX package, whose
+    # 'auto' is its integer conv (conv2d_int8_xla).
     conv_backend: str = "auto"
 
     # Quantized GEMM backend.  'auto' and 'pallas': the hand-written kernel
@@ -95,7 +95,15 @@ class QuantConfig:
     # tensor, 'xla' / 'off' run the composed plain version.
     decode_attention: str = "auto"
 
-    # Computation dtypes of the FP32 path, the conv epilogue and the glue.
+    # Computation dtypes of the FP32 path, the conv epilogue and the glue,
+    # 'float32' or 'bfloat16'.  epilogue_dtype='bfloat16' runs every conv's
+    # requant in the JAX package's bfloat16 order (ops/quant.requant_bf16;
+    # B1's gathered conv and G1 have kernel instances of it), except under
+    # conv_backend='gemm', which ignores it, as in the JAX package.
+    # glue_dtype='bfloat16' dequantizes and requantizes the pointwise glue
+    # (QuantAct, QuantAdd, QuantMul, QuantConcat) in bfloat16.  fp_dtype is
+    # read nowhere, in the JAX package as here: 'bfloat16' is accepted and
+    # changes nothing.
     fp_dtype: str = "float32"
     epilogue_dtype: str = "float32"
     glue_dtype: str = "float32"
@@ -103,15 +111,12 @@ class QuantConfig:
 
 DEFAULT_CONFIG = QuantConfig()
 
-# field -> the only value this package implements so far
-_IMPLEMENTED = {
-    "glue_dtype": "float32",
-    "epilogue_dtype": "float32",
-    "fp_dtype": "float32",
-}
-
 # field -> the values this package accepts
 _CHOICES = {
+    "conv_backend": ("auto", "gemm", "xla_conv"),
+    "fp_dtype": ("float32", "bfloat16"),
+    "epilogue_dtype": ("float32", "bfloat16"),
+    "glue_dtype": ("float32", "bfloat16"),
     "kernel_backend": ("auto", "pallas", "xla"),
     "fuse_qkv": ("auto", "pallas", "xla", "off"),
     "decode_attention": ("auto", "pallas", "xla", "off"),
@@ -125,25 +130,12 @@ _CHOICES = {
 
 
 def check_supported(config: QuantConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first field set to a value
-    this package does not implement."""
-    for field, value in _IMPLEMENTED.items():
-        got = getattr(config, field)
-        if got != value:
-            raise NotImplementedError(
-                f"QuantConfig.{field}={got!r} is not implemented by the "
-                f"PyTorch port yet (only {value!r})")
+    """Raise for the first field set to a value this package does not
+    take."""
     if config.weight_bits not in (8, 4):
         raise NotImplementedError(
             f"QuantConfig.weight_bits={config.weight_bits!r} is not "
             f"implemented by the PyTorch port (8 or 4)")
-    if config.conv_backend == "xla_conv":
-        raise NotImplementedError(
-            "QuantConfig.conv_backend='xla_conv' is not implemented by the "
-            "PyTorch port ('auto' gives the same codes: the gathered conv "
-            "on the card, im2col on the CPU)")
-    if config.conv_backend not in ("auto", "gemm"):
-        raise ValueError(f"unknown conv_backend {config.conv_backend!r}")
     if config.rounding not in ("trunc", "nearest"):
         raise ValueError(f"unknown rounding {config.rounding!r}")
     for field, allowed in _CHOICES.items():

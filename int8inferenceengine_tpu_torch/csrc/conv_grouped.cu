@@ -19,7 +19,15 @@
 // then clip to [0, 255], +0.5 under 'nearest', truncate, max(., zp_c) under
 // relu.  Every float step is an explicitly rounded intrinsic and the file
 // is built with --fmad=false, so the codes are bit-identical to the plain
-// version (ops/conv.py conv2d_int8_grouped_plain).
+// version (ops/conv.py conv2d_int8_grouped_plain).  A second instance of
+// each kernel (bf16 = 1, QuantConfig.epilogue_dtype 'bfloat16') runs B1's
+// bfloat16 conv epilogue instead, ep then the bfloat16 multiplier:
+//
+//   q = bf16(bf16(bf16(f32(acc + oc)) * mult[o]) + zp_c), clip, + 0.5
+//       rounded to bf16 under 'nearest', truncate, at most 255
+//
+// each op in float and rounded to bfloat16 nearest-even, as
+// ops/quant.requant_bf16 (PyTorch's bfloat16 arithmetic) does.
 //
 // No TPU kernel: the JAX package runs grouped convs on XLA's native integer
 // convolution (int8inferenceengine_tpu/ops/conv.py conv2d_int8_xla with
@@ -45,6 +53,7 @@
 // allow.  Tensor cores, shared-memory tiles of the input and a depthwise
 // weight layout are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -75,11 +84,26 @@ __device__ __forceinline__ int clip_trunc(float q, int nearest) {
   return __float2int_rz(q);
 }
 
-// the conv-order epilogue of one output channel
+// float -> the nearest-even bfloat16, back in float
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the conv-order epilogue of one output channel (kBf16: its bfloat16 form)
+template <bool kBf16>
 __device__ __forceinline__ uint32_t requant(int32_t acc, int o, const Params& p) {
   // s32 wrap-around add, as the reference's int32 arrays do
   const int32_t c = static_cast<int32_t>(static_cast<uint32_t>(acc) +
                                          static_cast<uint32_t>(p.oc[o]));
+  if constexpr (kBf16) {
+    float q = bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(bf16_rn(__int2float_rn(c)), p.sw[o])),
+                                p.zp_f));
+    q = fminf(fmaxf(q, 0.0f), 255.0f);
+    if (p.nearest) q = bf16_rn(__fadd_rn(q, 0.5f));
+    int qi = min(__float2int_rz(q), 255);  // 255.5 rounds to 256: saturate
+    if (p.relu) qi = max(qi, p.zp_c);
+    return static_cast<uint32_t>(qi);
+  }
   const float q = __fadd_rn(
       __fdiv_rn(__fmul_rn(__fmul_rn(__int2float_rn(c), p.s_a), p.sw[o]), p.s_c), p.zp_f);
   int qi = clip_trunc(q, p.nearest);
@@ -118,6 +142,7 @@ __device__ __forceinline__ const uint8_t* tap_row(const Site& s, int ih, int iw,
 }
 
 // Depthwise, C % 4 == 0: four channels a 4-byte word
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads) dw_word_kernel(Params p) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= p.total) return;
@@ -139,13 +164,13 @@ __global__ void __launch_bounds__(kThreads) dw_word_kernel(Params p) {
   }
   uint32_t packed = 0;
 #pragma unroll
-  for (int j = 0; j < kRun; ++j) packed |= requant(acc[j], s.o0 + j, p) << (8 * j);
+  for (int j = 0; j < kRun; ++j) packed |= requant<kBf16>(acc[j], s.o0 + j, p) << (8 * j);
   *reinterpret_cast<uint32_t*>(p.out + static_cast<size_t>(s.pix) * p.O + s.o0) = packed;
 }
 
 // Any grouping; kWords: Cg % 4 == 0 and C % 4 == 0, each channel's taps in
 // 4-byte words through __dp4a; else bytes
-template <bool kWords>
+template <bool kWords, bool kBf16>
 __global__ void __launch_bounds__(kThreads) grouped_kernel(Params p) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= p.total) return;
@@ -177,24 +202,38 @@ __global__ void __launch_bounds__(kThreads) grouped_kernel(Params p) {
         }
       }
     }
-    dst[o] = static_cast<uint8_t>(requant(acc, o, p));
+    dst[o] = static_cast<uint8_t>(requant<kBf16>(acc, o, p));
   }
 }
 
 bool aligned4(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 4 == 0; }
 
+// The first path the shape and the operands' alignment allow
+template <bool kBf16>
+void launch(const Params& p, const dim3 grid, bool words, bool out4, cudaStream_t s) {
+  if (p.cg == 1 && p.og == 1 && words && out4) {
+    dw_word_kernel<kBf16><<<grid, kThreads, 0, s>>>(p);
+  } else if (p.cg % 4 == 0 && words) {
+    grouped_kernel<true, kBf16><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    grouped_kernel<false, kBf16><<<grid, kThreads, 0, s>>>(p);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 when the launch was
 // accepted).  x is u8 NHWC [B, H, W, C], w s8 [O, kh * kw * C / groups], oc
-// s32 [O], ep f32 [O] (s_w), out u8 NHWC [B, OH, OW, O]; all device
+// s32 [O], ep f32 [O] (s_w, or under bf16 the bfloat16 multiplier), out u8
+// NHWC [B, OH, OW, O]; all device
 // pointers, contiguous, checked by the caller (ops/conv.py
 // conv2d_int8_grouped).  The input and the output must hold fewer than 2^31
 // bytes.
 extern "C" int conv_grouped_u8s8(const void* x, const void* w, const void* oc, const void* ep,
                                  void* out, int B, int H, int W, int C, int O, int groups,
                                  int kh, int kw, int stride, int pad, int zp_a, float s_a,
-                                 float s_c, int zp_c, int relu, int nearest, void* stream) {
+                                 float s_c, int zp_c, int relu, int nearest, int bf16,
+                                 void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || O <= 0 || groups <= 0 || C % groups ||
       O % groups || kh <= 0 || kw <= 0 || stride <= 0 || pad < 0 || H + 2 * pad < kh ||
       W + 2 * pad < kw || zp_a < 0 || zp_a > 255 ||
@@ -234,12 +273,10 @@ extern "C" int conv_grouped_u8s8(const void* x, const void* w, const void* oc, c
   const dim3 grid(static_cast<unsigned>((p.total + kThreads - 1) / kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool words = C % 4 == 0 && aligned4(x) && aligned4(w);
-  if (p.cg == 1 && p.og == 1 && words && aligned4(out)) {
-    dw_word_kernel<<<grid, kThreads, 0, s>>>(p);
-  } else if (p.cg % 4 == 0 && words) {
-    grouped_kernel<true><<<grid, kThreads, 0, s>>>(p);
+  if (bf16) {
+    launch<true>(p, grid, words, aligned4(out), s);
   } else {
-    grouped_kernel<false><<<grid, kThreads, 0, s>>>(p);
+    launch<false>(p, grid, words, aligned4(out), s);
   }
   return static_cast<int>(cudaGetLastError());
 }

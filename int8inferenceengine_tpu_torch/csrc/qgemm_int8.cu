@@ -26,7 +26,17 @@
 // patch matrix of a u8 NHWC input, never written out.  Row m is the output
 // pixel (b, oh, ow) and k = (l * kw + mm) * C + c, the patch order of
 // ops/conv.im2col_nhwc; a tap outside the image reads the activation zero
-// point, as the reference's padding does.
+// point, as the reference's padding does.  The gathered conv also has the
+// bfloat16 conv epilogue (conv_order 2, QuantConfig.epilogue_dtype
+// 'bfloat16'; ep = mult, bfloat16 values held in f32):
+//
+//   q = bf16(bf16(bf16(f32(acc + oc)) * mult[n]) + zp_c), clip to [0, 255],
+//       + 0.5 rounded to bf16 under 'nearest', truncate, at most 255
+//
+// each op in float and rounded to bfloat16 nearest-even, as PyTorch's
+// bfloat16 arithmetic and ops/quant.requant_bf16 do (a product of two
+// bfloat16 values is exact in float, so it rounds as __hmul_rn would), and
+// the s32 -> bfloat16 cast through float, as PyTorch's is.
 //
 // qgemm_u8s8_vzp (B2), several weight heads merged along N with their own
 // output grids: q = f32(acc + oc) * mult[n] + zp[n], clip, +0.5 under
@@ -84,6 +94,7 @@
 // work.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -385,10 +396,15 @@ __device__ __forceinline__ int clip_trunc(float q, int nearest) {
 }
 
 // The epilogue a kernel instance is compiled with: B1's requant with its
-// optional relu, B1's requant with the act epilogue, or B2's per-column zero
-// point.  A template parameter, so that the plain B1 epilogue carries none of
-// the act code.
-enum EpilogueMode { kRequant, kAct, kVzp };
+// optional relu, B1's requant with the act epilogue, B2's per-column zero
+// point, or B1's bfloat16 conv epilogue (gathered conv only).  A template
+// parameter, so that the plain B1 epilogue carries none of the act code.
+enum EpilogueMode { kRequant, kAct, kVzp, kBf16 };
+
+// float -> the nearest-even bfloat16, back in float
+__device__ __forceinline__ float bf16_rn(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // zpn is the column's zero point under kVzp, unused otherwise
 template <int kMode>
@@ -399,6 +415,16 @@ __device__ __forceinline__ uint32_t requant(int32_t acc, int32_t oc, float e, fl
   const float x = __int2float_rn(c);
   if (kMode == kVzp) {
     return static_cast<uint32_t>(clip_trunc(__fadd_rn(__fmul_rn(x, e), zpn), p.nearest));
+  }
+  if (kMode == kBf16) {
+    // e is the bfloat16 multiplier; zp_f (an integer <= 255) and 0.5 are
+    // exact in bfloat16
+    float q = bf16_rn(__fadd_rn(bf16_rn(__fmul_rn(bf16_rn(x), e)), p.zp_f));
+    q = fminf(fmaxf(q, 0.0f), 255.0f);
+    if (p.nearest) q = bf16_rn(__fadd_rn(q, 0.5f));
+    int qi = min(__float2int_rz(q), 255);  // 255.5 rounds to 256: saturate
+    if (p.relu) qi = max(qi, p.zp);
+    return static_cast<uint32_t>(qi);
   }
   const float q = p.conv_order
                       ? __fadd_rn(__fdiv_rn(__fmul_rn(__fmul_rn(x, p.s_a), e), p.s_c), p.zp_f)
@@ -673,10 +699,12 @@ int launch(Params p, bool conv, int tile, int slices, int kslice, int loader, vo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (conv) {
-    if constexpr (kMode == kRequant) return launch_loader<true, kMode>(p, tile, slices, loader, s);
+    if constexpr (kMode == kRequant || kMode == kBf16)
+      return launch_loader<true, kMode>(p, tile, slices, loader, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_loader<false, kMode>(p, tile, slices, loader, s);
+  if constexpr (kMode == kBf16) return static_cast<int>(cudaErrorInvalidValue);
+  else return launch_loader<false, kMode>(p, tile, slices, loader, s);
 }
 
 Params gemm_params(const void* a, const void* w, const void* oc, const void* ep, const void* zpv,
@@ -720,6 +748,8 @@ extern "C" int qgemm_u8s8(const void* a, const void* w, const void* oc, const vo
                           int conv_order, int relu, int nearest, int act, float act_scale,
                           float act_zp, int tile, int slices, int kslice, int loader,
                           void* stream) {
+  // the bfloat16 epilogue (conv_order 2) is the gathered conv's alone
+  if (conv_order < 0 || conv_order > 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p = gemm_params(a, w, oc, ep, nullptr, out, M, N, K);
   set_requant(p, s_a, s_c, zp_c, conv_order, relu, nearest);
   p.act = act;
@@ -764,5 +794,7 @@ extern "C" int qgemm_u8s8_conv(const void* x, const void* w, const void* oc, con
   p.OH = OH;
   p.OW = OW;
   p.zp4 = 0x01010101u * static_cast<uint32_t>(zp_a);
+  if (conv_order == 2) return launch<kBf16>(p, true, tile, slices, kslice, loader, stream);
+  if (conv_order < 0 || conv_order > 2) return static_cast<int>(cudaErrorInvalidValue);
   return launch<kRequant>(p, true, tile, slices, kslice, loader, stream);
 }

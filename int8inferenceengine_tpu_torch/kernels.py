@@ -32,7 +32,7 @@ SIGNATURES = {
     "qgemm_int8": {
         # a, w, oc, ep, out, M, N, K, s_a, s_c, zp_c, conv_order, relu,
         # nearest, act, act_scale, act_zp, tile, slices, kslice, loader,
-        # stream
+        # stream (conv_order: an ops/gemm_int8.ORDERS index)
         "qgemm_u8s8": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _I,
                        _I, _I, _F, _F, _I, _I, _I, _I, _P],
         # a, w, oc, mult, zp, out, M, N, K, nearest, tile, slices, kslice,
@@ -68,9 +68,10 @@ SIGNATURES = {
     },
     "conv_grouped": {
         # x, w, oc, ep, out, B, H, W, C, O, groups, kh, kw, stride, pad,
-        # zp_a, s_a, s_c, zp_c, relu, nearest, stream
+        # zp_a, s_a, s_c, zp_c, relu, nearest, bf16, stream
         "conv_grouped_u8s8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I,
+                              _P],
     },
 }
 

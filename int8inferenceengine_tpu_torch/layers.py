@@ -340,6 +340,12 @@ class Layer(nn.Module):
                 "layer already converted to INT8 — quantize the input "
                 "(FP32 weights were freed, as in the reference)")
 
+    def _glue_dtype(self):
+        """Compute dtype of the calibrated pointwise glue
+        (``QuantConfig.glue_dtype``)."""
+        return (torch.bfloat16 if self.config.glue_dtype == "bfloat16"
+                else torch.float32)
+
     def _gemm(self):
         """The quantized GEMM this layer runs: the kernel's wrapper, or its
         plain version when ``QuantConfig.kernel_backend='xla'`` asks for
@@ -523,7 +529,10 @@ class Conv2d(Layer):
     package's ``weight_bits`` shapes Linears alone) runs W8F, or DAC with
     per-image scales under ``dynamic_act``, on NCHW floats.
     ``bias_correction`` applies at ``groups == 1`` only (a grouped conv
-    observes no input means), as in the JAX package."""
+    observes no input means), as in the JAX package.
+    ``conv_backend='xla_conv'`` is another name for 'auto'.  A host-ingest
+    batch pre-laid-out for this conv (``ingest_descriptor``) runs as a
+    stride-1 conv over ``s*s*C`` channels on the space-to-depth weight."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -560,14 +569,46 @@ class Conv2d(Layer):
         return q_w.permute(0, 2, 3, 1).reshape(self.out_channels, -1)
 
     def _order(self) -> str:
-        # 'auto' replays the native integer conv's down_scale float order;
-        # 'gemm' the JAX package's im2col + qgemm path, which it never takes
-        # for a grouped conv
+        # 'auto' (and its alias 'xla_conv') replays the native integer
+        # conv's down_scale float order, in float32 or bfloat16; 'gemm' the
+        # JAX package's im2col + qgemm path, which ignores epilogue_dtype
+        # and which it never takes for a grouped conv
         if self.config.conv_backend == "gemm" and self.groups == 1:
             return "gemm"
-        return "conv"
+        return ("conv_bf16" if self.config.epilogue_dtype == "bfloat16"
+                else "conv")
+
+    def _conv_backend(self) -> str:
+        """The JAX package's name of this conv's backend: its 'auto' is
+        its native integer conv, 'xla_conv' (B1's gathered conv here)."""
+        impl = self.config.conv_backend
+        return "xla_conv" if impl == "auto" else impl
+
+    def ingest_descriptor(self):
+        """Host-ingest pre-layout tag ``("s2d", k, s, p, C)`` for this conv,
+        or None: where the JAX package would space-to-depth the conv
+        (stride > 1, fewer than 32 input channels, ``groups == 1``, the
+        integer-conv backend), the DataLoader may apply the zp-pad and the
+        space-to-depth on the host instead (``data.DataLoader(layout_for=
+        ...)``), and the card's forward starts at a stride-1 conv over
+        ``s*s*C`` channels."""
+        if (self.stride > 1 and self.in_channels < 32 and self.groups == 1
+                and self._conv_backend() == "xla_conv"):
+            return ("s2d", self.kernel_size, self.stride, self.padding,
+                    self.in_channels)
+        return None
 
     def forward(self, x: Tensor) -> Tensor:
+        if x._ingest is not None:
+            if not x.quantized:
+                raise ValueError("pre-laid-out ingest tensors are u8")
+            if x._ingest != self.ingest_descriptor():
+                raise ValueError(
+                    f"ingest pre-layout {x._ingest} does not match this "
+                    f"conv's geometry {self.ingest_descriptor()} — "
+                    "DataLoader layout_for must target the model's first "
+                    "Conv2d")
+            return self._forward_int8(x)
         if len(x.shape) != 4:
             raise ValueError(f"Conv2d expects a 4D input, got {x.shape}")
         if x.quantized:
@@ -615,6 +656,24 @@ class Conv2d(Layer):
                      4 * (x.numel() + out.numel()) + self.q_weight.numel())
         return out
 
+    def _hwio(self) -> torch.Tensor:
+        """The s8 weight as HWIO [k, k, C/g, O] (a view of ``qw``)."""
+        k = self.kernel_size
+        return self.qw.reshape(self.out_channels, k, k, -1).permute(
+            1, 2, 3, 0)
+
+    def _s2d_qw(self) -> torch.Tensor:
+        """The space-to-depth weight [O, (kp, kp, s*s*C)] of a pre-laid-out
+        input (``ops/conv.s2d_weights``), built once for this ``qw``.  Its
+        added taps are zero, so ``rowsum`` and the offset vector stay."""
+        cached = getattr(self, "_s2d_cache", None)
+        if cached is None or cached[0] is not self.qw:
+            w = conv_ops.s2d_weights(self._hwio(), self.stride)
+            cached = self._s2d_cache = (
+                self.qw, w.permute(3, 0, 1, 2).reshape(
+                    self.out_channels, -1).contiguous())
+        return cached[1]
+
     def _forward_int8(self, x: Tensor) -> Tensor:
         self._check_int8(x)
         if self.quant_fallback:
@@ -622,16 +681,24 @@ class Conv2d(Layer):
         order = self._order()
         oc, ep = self._epilogue(x, order)
         k = self.kernel_size
-        kw = dict(kh=k, kw=k, stride=self.stride, padding=self.padding,
-                  scale_a=x.scale, zp_a=x.zero_point, scale_c=self.scale,
-                  zp_c=self.zero_point, relu=self.fuse_relu,
-                  rounding=self.config.rounding)
-        if self.groups > 1:
+        common = dict(scale_a=x.scale, zp_a=x.zero_point, scale_c=self.scale,
+                      zp_c=self.zero_point, relu=self.fuse_relu,
+                      rounding=self.config.rounding)
+        kw = dict(common, kh=k, kw=k, stride=self.stride,
+                  padding=self.padding)
+        if x._ingest is not None:
+            # the pre-laid-out input: a stride-1 VALID conv over s*s*C
+            # channels on the space-to-depth weight
+            kp = -(-k // self.stride)
+            out = conv_ops.conv2d_int8_gemm(
+                x.data, self._s2d_qw(), oc, ep, kh=kp, kw=kp, stride=1,
+                padding=0, order=order, gemm=self._gemm(), **common)
+        elif self.groups > 1:
             grouped = (conv_ops.conv2d_int8_grouped_plain
                        if self.config.kernel_backend == "xla"
                        else conv_ops.conv2d_int8_grouped)
             out = grouped(x.as_nhwc_data(), self.qw, oc, ep,
-                          groups=self.groups, **kw)
+                          groups=self.groups, order=order, **kw)
         else:
             out = conv_ops.conv2d_int8_gemm(x.as_nhwc_data(), self.qw, oc, ep,
                                             order=order, gemm=self._gemm(),
@@ -727,7 +794,8 @@ class QuantAct(_Weightless):
         self._luts: dict = {}
 
     def _map(self, codes: torch.Tensor, scale, zero_point) -> torch.Tensor:
-        return self._requant(self.fn(dequantize_u8(codes, scale, zero_point)))
+        return self._requant(self.fn(dequantize_u8(
+            codes, scale, zero_point, dtype=self._glue_dtype())))
 
     def _lut(self, x: Tensor) -> torch.Tensor:
         """The 256-entry u8 table of input grid (x.scale, x.zero_point)."""
@@ -778,8 +846,9 @@ class QuantAdd(_Weightless):
             self._observe(out)
             return Tensor(out, _nhwc=a._nhwc)
         self._check_converted()
-        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point)
-                          + dequantize_u8(b_data, b.scale, b.zero_point))
+        dt = self._glue_dtype()
+        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point, dt)
+                          + dequantize_u8(b_data, b.scale, b.zero_point, dt))
         if self.fuse_relu:
             q = q.clamp_min(self.zero_point)
         return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
@@ -802,8 +871,9 @@ class QuantMul(_Weightless):
             self._observe(out)
             return Tensor(out, _nhwc=a._nhwc)
         self._check_converted()
-        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point)
-                          * dequantize_u8(b_data, b.scale, b.zero_point))
+        dt = self._glue_dtype()
+        q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point, dt)
+                          * dequantize_u8(b_data, b.scale, b.zero_point, dt))
         return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
 
 
@@ -835,8 +905,9 @@ class QuantConcat(_Weightless):
             self._observe(out)
             return Tensor(out, _nhwc=first._nhwc)
         self._check_converted()
+        dt = self._glue_dtype()
         out = torch.cat([self._requant(dequantize_u8(d, x.scale,
-                                                     x.zero_point))
+                                                     x.zero_point, dt))
                          for d, x in zip(datas, xs)], dim=axis)
         if self.fuse_relu:
             out = out.clamp_min(self.zero_point)
@@ -1493,7 +1564,8 @@ def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
                and not linear.config.weight_only
                and act.fn_name in KERNEL_ACTS
                and act.fn is ACTIVATIONS.get(act.fn_name)
-               and act.backend == "elementwise")
+               and act.backend == "elementwise"
+               and act.config.glue_dtype == "float32")
     if not fusable:
         return act(linear(x))
     out = linear._forward_int8(x, act=(act.fn_name, act.scale,

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from .config import DEFAULT_CONFIG, QuantConfig, check_supported
-from .layers import Layer
+from .layers import Conv2d, Layer, Linear
 from .ops import functional as F
 from .tensor import Tensor, resolve_device, tensor
 
@@ -136,6 +136,20 @@ class Module(nn.Module):
                 f"engage another accuracy lever (bias_correction, "
                 f"weight_per_channel, calib_method='mse').",
                 TruncDepthWarning, stacklevel=3)
+
+    def ingest_descriptor(self):
+        """Host-ingest pre-layout tag for this model's input, or None: the
+        first declared Conv2d's (``layers.Conv2d.ingest_descriptor``), None
+        where a Linear comes first.  ``data.DataLoader(layout_for=model)``
+        and ``serve.InferenceEngine(quantize_ingest=True)`` pre-lay-out
+        quantized batches on the host with it; ``__call__`` hands such a
+        batch, at its own (scale, zp), to the first conv."""
+        for _, layer in self.named_layers():
+            if isinstance(layer, Conv2d):
+                return layer.ingest_descriptor()
+            if isinstance(layer, Linear):
+                return None
+        return None
 
     # -- execution -------------------------------------------------------------
     def forward(self, x: Tensor) -> Tensor:  # overridden by the user

@@ -29,7 +29,8 @@ exactly zero, so garbage in unwritten cache rows never reaches the output.
 
 * ``decode_attention_xla`` is that chain in plain PyTorch on [B, Hkv, R, T]
   scores (the JAX package's composed oracle);
-* ``decode_attention_flat`` is the entry point.  On a CUDA tensor with
+* ``decode_attention_flat`` is the entry point, and ``decode_attention``
+  its head-split ([B, H, 1, D] / [B, Hkv, T, D]) compat wrapper.  On a CUDA tensor with
   ``backend`` 'auto' or 'pallas' it launches the hand-written kernel
   (``csrc/decode_attn.cu``) and adds one to ``decode_attention_flat
   .launches``; on a CPU tensor, or with ``backend='xla'`` (the caller's
@@ -394,6 +395,41 @@ def decode_attention_flat(q2_u8, k3_u8, v3_u8, valid, *, n_heads: int,
 
 
 decode_attention_flat.launches = 0
+
+
+def decode_attention(q_u8, k_u8, v_u8, valid, *, backend: str = "auto",
+                     **kw) -> torch.Tensor:
+    """Cached-decode attention on head-split operands (the JAX package's
+    compat API): q u8 [B, H, 1, D], k/v u8 [B, Hkv, T, D] caches (Hkv
+    dividing H: grouped-query attention), ``valid`` the live length (int,
+    0-dim, [B] or [B, 1, 1, 1]) -> u8 [B, H, 1, D].
+
+    A transpose wrapper over ``decode_attention_flat``: on a CUDA tensor
+    with ``backend`` 'auto' or 'pallas' it runs kernel B3 on the T-major
+    flat layout; on the CPU, or with ``backend='xla'``, the composed
+    ``decode_attention_xla``.  ``kw`` as for ``decode_attention_flat``
+    (the scales and zero points, ``alpha``, ``rounding``, ``window``,
+    ``softcap``)."""
+    bsz, n_heads, one, d = q_u8.shape
+    if one != 1:
+        raise ValueError(f"decode_attention expects one query row, got "
+                         f"{tuple(q_u8.shape)}")
+    if k_u8.dim() != 4 or tuple(k_u8.shape) != tuple(v_u8.shape) \
+            or k_u8.shape[0] != bsz or k_u8.shape[3] != d:
+        raise ValueError(f"decode_attention: k {tuple(k_u8.shape)} and v "
+                         f"{tuple(v_u8.shape)} must be [B, Hkv, T, D] "
+                         f"beside q {tuple(q_u8.shape)}")
+    if isinstance(valid, torch.Tensor) and valid.dim() > 1:
+        valid = valid.reshape(-1)
+
+    def flat(x4):                                    # [B,H,T,D]->[B,T,H*D]
+        return x4.permute(0, 2, 1, 3).reshape(x4.shape[0], x4.shape[2], -1)
+
+    out2 = decode_attention_flat(
+        q_u8.reshape(bsz, n_heads * d).contiguous(),
+        flat(k_u8).contiguous(), flat(v_u8).contiguous(), valid,
+        n_heads=n_heads, n_kv_heads=k_u8.shape[1], backend=backend, **kw)
+    return out2.reshape(bsz, n_heads, 1, d)
 
 
 def decode_attention_alibi(q, k3, v3, v, alibi, *, n_heads, n_kv, mq, window,

@@ -17,6 +17,18 @@
   native integer conv (``conv2d_int8_xla`` with ``feature_group_count``);
   ``conv2d_int8_grouped_plain`` is its plain version.  A grouped conv is
   never space-to-depth'ed.
+* ``s2d_input`` / ``s2d_weights`` — the JAX package's space-to-depth
+  halves.  The input half runs on the host (the ingest pre-layout,
+  ``native.s2d_quantized``'s plain version); a pre-laid-out input then runs
+  as a stride-1 conv over ``s*s*C`` channels on the weight half
+  (``layers.Conv2d``: B1's gathered conv on the card).
+  ``QuantConfig(conv_backend='xla_conv')`` is another name for 'auto'
+  here, as in the JAX package, whose 'auto' is its integer conv.
+
+Every quantized conv but the GEMM-order one also runs the bfloat16
+epilogue order (``epilogue_vector(..., order='conv_bf16')``) under
+``QuantConfig(epilogue_dtype='bfloat16')``: B1's gathered conv and G1 have
+a kernel instance of it.
 
 Zero-point padding parity: the reference pads the patch matrix with the
 activation zero_point, so padded taps contribute nothing after zero-point
@@ -25,10 +37,11 @@ correction.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .gemm_int8 import (ConvGeom, _card_operands, _check_operands,
+from .gemm_int8 import (ORDERS, ConvGeom, _card_operands, _check_operands,
                         _requant_epilogue, conv_gathered, launch_plan,
                         plan_qgemm, qgemm, qgemm_plain, sm_count)
 
@@ -68,6 +81,39 @@ def im2col_nhwc(x_nhwc: torch.Tensor, kh: int, kw: int, stride: int,
     win = windows_nhwc(x_nhwc, kh, kw, stride)
     n, oh, ow, _, _, c = win.shape
     return win.reshape(n, oh, ow, kh * kw * c)
+
+
+def s2d_input(x: np.ndarray, kh: int, kw: int, stride: int, pad_value):
+    """Space-to-depth input half on the host: u8 [n,h,w,c] ->
+    [n,hp/s,wp/s,s*s*c].
+
+    ``x`` is the (already zp-padded) conv input as a numpy array (the
+    host-side ingest pre-layout: ``native.s2d_quantized``'s plain version).
+    Each spatial dim is sliced or padded (with ``pad_value``) to exactly
+    ``s * (out + ceil(k/s) - 1)``: a stride-s VALID conv then equals a
+    stride-1 conv of the result with ``s2d_weights``, because input
+    positions beyond the original read range only meet zero weight taps."""
+    n, h, w, c = x.shape
+    s = stride
+    kp_h, kp_w = -(-kh // s), -(-kw // s)
+    hp, wp = s * ((h - kh) // s + kp_h), s * ((w - kw) // s + kp_w)
+    x = x[:, :hp, :wp, :]
+    if hp > x.shape[1] or wp > x.shape[2]:
+        x = np.pad(x, ((0, 0), (0, hp - x.shape[1]), (0, wp - x.shape[2]),
+                       (0, 0)), constant_values=pad_value)
+    xb = x.reshape(n, hp // s, s, wp // s, s, c).transpose(0, 1, 3, 2, 4, 5)
+    return xb.reshape(n, hp // s, wp // s, s * s * c)
+
+
+def s2d_weights(w_hwio: torch.Tensor, stride: int) -> torch.Tensor:
+    """Space-to-depth weight half: [kh,kw,c,o] -> [kp_h,kp_w,s*s*c,o], the
+    taps past the window zero."""
+    kh, kw, c, o = w_hwio.shape
+    s = stride
+    kp_h, kp_w = -(-kh // s), -(-kw // s)
+    wpad = F.pad(w_hwio, (0, 0, 0, 0, 0, kp_w * s - kw, 0, kp_h * s - kh))
+    wb = wpad.reshape(kp_h, s, kp_w, s, c, o)
+    return wb.permute(0, 2, 1, 3, 4, 5).reshape(kp_h, kp_w, s * s * c, o)
 
 
 def conv2d_int8_gemm(x_u8_nhwc: torch.Tensor, qw_nk: torch.Tensor,
@@ -150,7 +196,7 @@ def qgemm_conv(x_u8_nhwc: torch.Tensor, qw_nk: torch.Tensor, oc: torch.Tensor,
         rc = lib.qgemm_u8s8_conv(
             x_u8_nhwc.data_ptr(), qw_nk.data_ptr(), oc.data_ptr(),
             ep.data_ptr(), out.data_ptr(), *geom, n, int(zp_a),
-            float(scale_a), float(scale_c), int(zp_c), int(order == "conv"),
+            float(scale_a), float(scale_c), int(zp_c), ORDERS.index(order),
             int(bool(relu)), int(rounding == "nearest"),
             *launch_plan(plan, x_u8_nhwc, qw_nk), stream)
     if rc != 0:
@@ -199,8 +245,8 @@ def conv2d_int8_grouped_plain(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
                               oc: torch.Tensor, ep: torch.Tensor, *,
                               groups: int, kh: int, kw: int, stride: int,
                               padding: int, scale_a, zp_a, scale_c, zp_c,
-                              relu=False, rounding: str = "trunc"
-                              ) -> torch.Tensor:
+                              relu=False, rounding: str = "trunc",
+                              order: str = "conv") -> torch.Tensor:
     """The grouped conv in plain PyTorch: u8 NHWC [B, H, W, C] x s8 ``qw``
     [O, kh*kw*C/g] (taps (kh, kw, C/g), output channel o in group
     o // (O/g)) -> u8 NHWC [B, OH, OW, O].
@@ -211,7 +257,8 @@ def conv2d_int8_grouped_plain(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
     the +128*rowsum term over the channel's own group taps), then the conv
     float order ``acc*s_a*s_w / s_c + zp_c``, clip, 'trunc' or 'nearest',
     relu at the zero point: the JAX package's ``conv2d_int8_xla`` with
-    ``feature_group_count``."""
+    ``feature_group_count``.  ``order='conv_bf16'`` takes the bfloat16
+    epilogue instead (``ep`` its multiplier)."""
     cg, o, oh, ow = _grouped_geometry(x_u8_nhwc, qw, oc, ep, groups, kh, kw,
                                       stride, padding)
     n = x_u8_nhwc.shape[0]
@@ -222,7 +269,7 @@ def conv2d_int8_grouped_plain(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
     acc = torch.einsum("mtgc,gotc->mgo", a, wt).to(torch.int32)
     out = _requant_epilogue(acc.reshape(-1, o) + oc.reshape(1, -1), ep,
                             scale_a=scale_a, scale_c=scale_c, zp_c=zp_c,
-                            relu=relu, rounding=rounding, order="conv")
+                            relu=relu, rounding=rounding, order=order)
     return out.reshape(n, oh, ow, o)
 
 
@@ -230,7 +277,8 @@ def conv2d_int8_grouped(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
                         oc: torch.Tensor, ep: torch.Tensor, *, groups: int,
                         kh: int, kw: int, stride: int, padding: int, scale_a,
                         zp_a, scale_c, zp_c, relu=False,
-                        rounding: str = "trunc") -> torch.Tensor:
+                        rounding: str = "trunc",
+                        order: str = "conv") -> torch.Tensor:
     """The grouped INT8 conv (``conv2d_int8_grouped_plain``'s function).
 
     On CUDA tensors this launches kernel G1 (``csrc/conv_grouped.cu``
@@ -238,12 +286,17 @@ def conv2d_int8_grouped(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
     ``conv2d_int8_grouped.launches``; on CPU tensors it is the plain
     version.  ``ep`` is the per-channel ``s_w`` (``epilogue_vector(...,
     order='conv')``): a grouped conv always takes the conv order, as the
-    JAX package's native grouped conv does."""
+    JAX package's native grouped conv does, or its bfloat16 form under
+    ``order='conv_bf16'`` (``ep`` the bfloat16 multiplier), which G1 has as
+    a kernel instance of its own."""
+    if order not in ("conv", "conv_bf16"):
+        raise ValueError(f"grouped conv epilogue order {order!r}: 'conv' or "
+                         f"'conv_bf16'")
     cg, o, oh, ow = _grouped_geometry(x_u8_nhwc, qw, oc, ep, groups, kh, kw,
                                       stride, padding)
     kw_ = dict(groups=groups, kh=kh, kw=kw, stride=stride, padding=padding,
                scale_a=scale_a, zp_a=zp_a, scale_c=scale_c, zp_c=zp_c,
-               relu=relu, rounding=rounding)
+               relu=relu, rounding=rounding, order=order)
     dev = x_u8_nhwc.device
     if dev.type == "cpu":
         return conv2d_int8_grouped_plain(x_u8_nhwc, qw, oc, ep, **kw_)
@@ -268,7 +321,8 @@ def conv2d_int8_grouped(x_u8_nhwc: torch.Tensor, qw: torch.Tensor,
             x_u8_nhwc.data_ptr(), qw.data_ptr(), oc.data_ptr(),
             ep.data_ptr(), out.data_ptr(), n, h, w, c, o, groups, kh, kw,
             stride, padding, int(zp_a), float(scale_a), float(scale_c),
-            int(zp_c), int(bool(relu)), int(rounding == "nearest"), stream)
+            int(zp_c), int(bool(relu)), int(rounding == "nearest"),
+            int(order == "conv_bf16"), stream)
     if rc != 0:
         raise RuntimeError(f"conv_grouped_u8s8 launch failed with CUDA "
                            f"error {rc} ({tuple(x_u8_nhwc.shape)}, O={o}, "

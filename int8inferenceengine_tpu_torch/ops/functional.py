@@ -42,11 +42,12 @@ def _hardsigmoid(x):
 
 def rounded64(fn, x: torch.Tensor) -> torch.Tensor:
     """``fn`` (``torch.exp``, ``torch.erfc``) of float32 ``x`` evaluated in
-    float64 and rounded once to float32: the correctly rounded result, the
+    float64 and rounded once to float32 (a bfloat16 ``x``, the glue under
+    ``QuantConfig.glue_dtype``, to bfloat16): the correctly rounded result, the
     same on the card and on the CPU, whose float32 libms differ by an ULP.
     That ULP moved a code on a truncation boundary and a decoder's logits
     on the card then differed from its CPU copy's (``chip_smoke.py``)."""
-    return fn(x.to(torch.float64)).to(torch.float32)
+    return fn(x.to(torch.float64)).to(x.dtype)
 
 
 def _sigmoid(x):
@@ -85,6 +86,7 @@ ACTIVATIONS = {
 
 
 def relu(x: Tensor) -> Tensor:
+    x._no_ingest("relu")
     if x.quantized:
         out = x.data.clamp_min(x.zero_point)
     else:
@@ -111,6 +113,7 @@ def max_pool2d(x: Tensor, kernel_size: int, stride: int,
     which it does not take on CUDA, take one ``amax`` over the strided
     window view (``conv.windows_nhwc``); padded taps hold the dtype's least
     value (0 for u8 codes), so they never win.  A max is exact either way."""
+    x._no_ingest("max_pool2d")
     if x.dtype.is_floating_point:
         out = F.max_pool2d(x.logical_data, kernel_size, stride, padding,
                            ceil_mode=ceil_mode)
@@ -144,6 +147,7 @@ def avg_pool2d(x: Tensor, kernel_size: int, stride: int) -> Tensor:
     window sum is taken in float32, exact in any order (below 2^24), so the
     one rounding is the division; the truncated mean keeps the input's
     (scale, zp), as the JAX package's does (mean(x) = (mean(q) - zp) * s)."""
+    x._no_ingest("avg_pool2d")
     d = x.as_nhwc_data().to(torch.float32)
     total = windows_nhwc(d, kernel_size, kernel_size, stride).sum(dim=(3, 4))
     if not x._nhwc:
@@ -156,6 +160,7 @@ def adaptive_avg_pool2d_1x1(x: Tensor) -> Tensor:
     float32 sum over H and W divided by H * W, then cast as ``avg_pool2d``
     does.  u8 codes are summed as int32 (exact) before the float32
     division."""
+    x._no_ingest("adaptive_avg_pool2d_1x1")
     axes = (1, 2) if x._nhwc else (2, 3)
     if x.quantized:
         total = x.data.sum(dim=axes, keepdim=True, dtype=torch.int32).to(
@@ -169,6 +174,7 @@ def adaptive_avg_pool2d_1x1(x: Tensor) -> Tensor:
 def channel_shuffle(x: Tensor, groups: int) -> Tensor:
     """ShuffleNet's channel permutation: the channels as [groups, C/groups],
     transposed.  A layout op: (scale, zp) pass through."""
+    x._no_ingest("channel_shuffle")
     axis = 3 if x._nhwc else 1
     shape = tuple(x.data.shape)
     c = shape[axis]
@@ -182,6 +188,7 @@ def channel_shuffle(x: Tensor, groups: int) -> Tensor:
 def split_channels(x: Tensor, sections: int) -> tuple:
     """The channel axis cut into ``sections`` equal parts (ShuffleNetV2's
     channel split), each a view at the input's (scale, zp)."""
+    x._no_ingest("split_channels")
     axis = 3 if x._nhwc else 1
     c = x.data.shape[axis]
     if c % sections:
@@ -195,6 +202,7 @@ def to_tokens(x: Tensor) -> Tensor:
     stem).  A converted conv's output is NHWC internally, which is already
     token-major: a reshape; a logical NCHW tensor (the FP32 path) is
     transposed first.  (scale, zp) pass through."""
+    x._no_ingest("to_tokens")
     if x._nhwc:
         n, h, w, c = x.data.shape
         d = x.data.reshape(n, h * w, c)
@@ -206,11 +214,13 @@ def to_tokens(x: Tensor) -> Tensor:
 
 def select_token(x: Tensor, index: int) -> Tensor:
     """[B, T, C] -> [B, C]: one token (the class token at 0) for the head."""
+    x._no_ingest("select_token")
     return Tensor(x.data[:, index, :], x.scale, x.zero_point)
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
     """[B, T, C] -> [B, H, T, C/H] (quantization-transparent layout op)."""
+    x._no_ingest("split_heads")
     b, t, c = x.data.shape
     if c % num_heads:
         raise ValueError(f"dim {c} not divisible by heads {num_heads}")
@@ -223,6 +233,7 @@ def repeat_kv(x: Tensor, group: int) -> Tensor:
     h // group (grouped-query attention, repeat-interleave order).  Used on
     the prefill path only; the decode attention keeps the cache
     kv-compact."""
+    x._no_ingest("repeat_kv")
     if group == 1:
         return x
     b, hkv, t, d = x.data.shape
@@ -232,6 +243,7 @@ def repeat_kv(x: Tensor, group: int) -> Tensor:
 
 def merge_heads(x: Tensor) -> Tensor:
     """[B, H, T, D] -> [B, T, H*D] (inverse of ``split_heads``)."""
+    x._no_ingest("merge_heads")
     b, h, t, d = x.data.shape
     out = x.data.permute(0, 2, 1, 3).reshape(b, t, h * d)
     return Tensor(out, x.scale, x.zero_point)
@@ -246,11 +258,13 @@ def argmax(x: Tensor, *args, **kwargs) -> Tensor:
 def quantize(x: Tensor, scale: float, zero_point: int,
              rounding: str = "trunc") -> Tensor:
     """Module-level asymmetric u8 quantization."""
+    x._no_ingest("quantize")
     q = quant.quantize_u8(x.data, scale, zero_point, rounding)
     return Tensor(q, scale, zero_point, _nhwc=x._nhwc)
 
 
 def dequantize(x: Tensor) -> Tensor:
     """u8 -> f32 using the tensor's own (scale, zp)."""
+    x._no_ingest("dequantize")
     out = quant.dequantize_u8(x.data, x.scale, x.zero_point)
     return Tensor(out, _nhwc=x._nhwc)

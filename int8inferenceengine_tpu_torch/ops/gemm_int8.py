@@ -16,12 +16,16 @@ one of two float orders (``order``):
   ``mult = s_a * s_w[n] / s_c`` computed once in float32 (``_mult_vector``);
 * ``"conv"`` (Conv2d): ``q = f32(C) * s_a * s_w[n] / s_c + zp_c`` — the
   reference's ``down_scale`` association, which the JAX package's native
-  integer conv uses.
+  integer conv uses;
+* ``"conv_bf16"`` (Conv2d under ``QuantConfig(epilogue_dtype='bfloat16')``):
+  ``q = bf16(C) * mult[n] + bf16(zp_c)`` with ``mult = bf16(s_a * s_w[n] /
+  s_c)``, every op rounded to bfloat16 (``ops/quant.requant_bf16``); the
+  kernel has it for the gathered conv only,
 
 then clip to [0, 255], +0.5 under 'nearest', truncate, optional ReLU at the
 zero point.  ``epilogue_vector`` gives the f32 [N] vector each order reads
-(``mult`` or ``s_w``), so the kernel and ``qgemm_plain`` share it as they
-share ``oc``.
+(``mult``, ``s_w`` or the bfloat16 ``mult``), so the kernel and
+``qgemm_plain`` share it as they share ``oc``.
 
 ``act=(name, act_scale, act_zp)`` (gemm order only) folds a following
 ``QuantAct`` into the epilogue, as ``qgemm_xla`` does: the truncated code is
@@ -49,9 +53,13 @@ from typing import NamedTuple
 
 import torch
 
-from .quant import down_scale, f32, quantize_u8
+from .quant import (bf16_multiplier, down_scale, f32, quantize_u8,
+                    requant_bf16)
 
-ORDERS = ("gemm", "conv")
+# the epilogue orders, by the id the kernels take; the dense GEMM launches
+# the first two (the bfloat16 order is the gathered conv's alone)
+ORDERS = ("gemm", "conv", "conv_bf16")
+DENSE_ORDERS = ORDERS[:2]
 
 # The kernel's output tiles (rows, columns), by the index the launcher takes
 # (csrc/qgemm_int8.cu Tile<0..2>)
@@ -210,11 +218,16 @@ def _mult_vector(scale_a, scale_w, scale_c, n: int, device) -> torch.Tensor:
 def epilogue_vector(scale_a, scale_w, scale_c, n: int, device,
                     order: str = "gemm") -> torch.Tensor:
     """The f32 [N] vector the epilogue of ``order`` reads: ``mult`` for
-    'gemm', ``s_w`` for 'conv'.  ``scale_w`` is a float or an [N] tensor."""
+    'gemm', ``s_w`` for 'conv', ``bf16_multiplier``'s bfloat16 ``mult``
+    (held in float32, exactly) for 'conv_bf16'.  ``scale_w`` is a float or
+    an [N] tensor."""
     if order == "gemm":
         return _mult_vector(scale_a, scale_w, scale_c, n, device)
     if order == "conv":
         return f32(scale_w, device).expand(n).contiguous()
+    if order == "conv_bf16":
+        mult = bf16_multiplier(scale_a, scale_w, scale_c, device)
+        return mult.to(torch.float32).expand(n).contiguous()
     raise ValueError(f"unknown epilogue order {order!r}; one of {ORDERS}")
 
 
@@ -223,8 +236,9 @@ def _requant_epilogue(c: torch.Tensor, ep: torch.Tensor, *, scale_a,
                       order: str = "gemm", act=None) -> torch.Tensor:
     """The requant tail on an s32 accumulator that already includes the
     offset vector.  ``ep`` is ``epilogue_vector(..., order=order)``."""
-    if order == "conv":
-        out = down_scale(c, scale_a, ep, scale_c, zp_c, rounding)
+    if order in ("conv", "conv_bf16"):
+        out = (down_scale(c, scale_a, ep, scale_c, zp_c, rounding)
+               if order == "conv" else requant_bf16(c, ep, zp_c, rounding))
         return out.clamp_min(int(zp_c)) if relu else out
     q = c.to(torch.float32) * ep.reshape(1, -1) + f32(zp_c, c.device)
     q = torch.clamp(q, 0.0, 255.0)
@@ -334,6 +348,9 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
         return qgemm_plain(a_u8, w_s8_nk, oc, ep, scale_a=scale_a,
                            scale_c=scale_c, zp_c=zp_c, relu=relu,
                            rounding=rounding, order=order, act=act)
+    if order not in DENSE_ORDERS:
+        raise ValueError(f"qgemm: the kernel has the {order!r} epilogue for "
+                         f"the gathered conv only (ops/conv.qgemm_conv)")
     m, n, k = a_u8.shape[0], w_s8_nk.shape[0], a_u8.shape[1]
     out = torch.empty((m, n), dtype=torch.uint8, device=dev)
     if m == 0 or n == 0:
@@ -349,7 +366,7 @@ def qgemm(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
         rc = lib.qgemm_u8s8(
             a_u8.data_ptr(), w_s8_nk.data_ptr(), oc.data_ptr(), ep.data_ptr(),
             out.data_ptr(), m, n, k, float(scale_a), float(scale_c),
-            int(zp_c), int(order == "conv"), int(bool(relu)),
+            int(zp_c), ORDERS.index(order), int(bool(relu)),
             int(rounding == "nearest"), act_id, float(act_scale),
             float(act_zp), *launch_plan(plan, a_u8, w_s8_nk), stream)
     if rc != 0:

@@ -21,8 +21,16 @@ to per-request futures.
   the collector waits for that batch's output and resolves its futures.
   ``max_inflight`` bounds the batches in flight.
 
-``quantize_ingest`` (host-side quantization and space-to-depth at ingest)
-needs the native host ops, which the port does not have yet.
+* **Host ingest.**  ``quantize_ingest=True`` (converted models only)
+  quantizes each request's rows on the host with the native ``quantize_u8``
+  at the model's input (scale, zp) and applies the first conv's
+  space-to-depth pre-layout where the model has one
+  (``Module.ingest_descriptor``, ``data.prelayout``): the tile's static
+  input and its pinned staging buffers are u8 of the pre-laid-out shape, a
+  quarter of the float32 tile's bytes, and the padding rows hold the zero
+  point (quantized zeros).  The same codes as the float path under
+  'trunc' rounding (the host quantize truncates, as the JAX package's
+  does).
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from .. import graphs
+from .. import graphs, native
+from ..data import prelayout, wrap_quantized
 from ..tensor import Tensor
 
 __all__ = ["InferenceEngine", "EngineStats"]
@@ -88,36 +97,57 @@ class _Request:
 
 
 class _TileForward:
-    """The forward at one tile on the card: a static float32 input, two
-    pinned host buffers that take turns staging a batch, and the captured
-    forward (``graphs.Captured``: eager on the first batch, then replays)."""
+    """The forward at one tile on the card: a static input, two pinned host
+    buffers that take turns staging a batch, and the captured forward
+    (``graphs.Captured``: eager on the first batch, then replays).
 
-    def __init__(self, model, shape, stream):
+    ``ingest`` is None (a float32 [tile, C, H, W] input) or ``(scale, zp,
+    tag)``: a u8 input quantized on the host at (scale, zp), pre-laid-out
+    for ``tag`` where it is set.  The tag is part of the tile: its captured
+    forward takes only tensors of that tag."""
+
+    def __init__(self, model, shape, stream, ingest=None):
         self.model = model
         self.stream = stream
-        self.x = torch.zeros(shape, dtype=torch.float32, device=model.device)
-        self.stage = [torch.empty(shape, dtype=torch.float32,
-                                  pin_memory=True) for _ in range(2)]
+        self.ingest = ingest
+        dtype, static, fill = torch.float32, tuple(shape), 0
+        if ingest is not None:
+            dtype, fill, tag = torch.uint8, ingest[1], ingest[2]
+            if tag is not None:
+                static = native.s2d_shape(shape, *tag[1:4])
+        self.fill = fill
+        self.x = torch.full(static, fill, dtype=dtype, device=model.device)
+        self.stage = [torch.empty(static, dtype=dtype, pin_memory=True)
+                      for _ in range(2)]
         self.staged = [None, None]        # each buffer's copy-done event
         self.turn = 0
         self.forward = graphs.Captured(self._forward, stream)
 
     def _forward(self) -> torch.Tensor:
-        return self.model(Tensor(self.x)).logical_data.contiguous()
+        t = Tensor(self.x) if self.ingest is None else Tensor(
+            self.x, self.ingest[0], self.ingest[1], _ingest=self.ingest[2])
+        return self.model(t).logical_data.contiguous()
+
+    def _rows(self, data: np.ndarray) -> np.ndarray:
+        """A request's rows as the static input holds them."""
+        if self.ingest is None:
+            return data
+        scale, zp, tag = self.ingest
+        return prelayout(native.quantize_u8(data, scale, zp), zp, tag)
 
     def __call__(self, reqs, rows: int) -> torch.Tensor:
-        """Stage the requests' rows (the rest of the tile is zeros), copy
-        them in and run the forward."""
+        """Stage the requests' rows (the rest of the tile is zeros, or the
+        zero point under ingest), copy them in and run the forward."""
         i, self.turn = self.turn, 1 - self.turn
         if self.staged[i] is not None:
             self.staged[i].synchronize()  # its previous copy has left
         host = self.stage[i].numpy()
         off = 0
         for r in reqs:
-            host[off:off + r.n] = r.data
+            host[off:off + r.n] = self._rows(r.data)
             off += r.n
         self.x[:rows].copy_(self.stage[i][:rows], non_blocking=True)
-        self.x[rows:].zero_()
+        self.x[rows:].fill_(self.fill)
         self.staged[i] = torch.cuda.Event()
         self.staged[i].record(self.stream)
         return self.forward()
@@ -134,15 +164,22 @@ class InferenceEngine:
     def __init__(self, model, max_batch: int = 256,
                  batch_timeout_s: float = 0.002, max_inflight: int = 2,
                  quantize_ingest: bool = False, batch_sizes=None):
-        """``batch_sizes``: optional ascending tile buckets, e.g. ``(32,
+        """``quantize_ingest=True`` (converted models only) quantizes and
+        pre-lays-out each batch on the host (see the module docstring).
+
+        ``batch_sizes``: optional ascending tile buckets, e.g. ``(32,
         256)``; each step pads only up to the smallest tile that fits the
         coalesced rows (one captured forward per tile); the largest tile
         caps request size.  Default: one ``max_batch`` tile."""
-        if quantize_ingest:
-            raise NotImplementedError(
-                "quantize_ingest needs the native host ops "
-                "(native/hostops.cc), which the PyTorch port does not have "
-                "yet (ROADMAP.md queue 1, item 9)")
+        self.quantize_ingest = bool(quantize_ingest)
+        self._ingest = None
+        if self.quantize_ingest:
+            if not getattr(model, "is_quant", False):
+                raise ValueError(
+                    "quantize_ingest requires a converted (INT8) model")
+            cfg = model.config
+            self._ingest = (cfg.input_scale, cfg.input_zero_point,
+                            model.ingest_descriptor())
         if batch_sizes:
             self.tiles = tuple(sorted(int(b) for b in set(batch_sizes)))
             max_batch = self.tiles[-1]
@@ -277,13 +314,20 @@ class InferenceEngine:
             batch = np.concatenate([r.data for r in reqs]
                                    + [np.zeros((pad,) + shape[1:],
                                                np.float32)])
-            out = self.model(Tensor(torch.from_numpy(batch))).logical_data
+            if self._ingest is None:
+                t = Tensor(torch.from_numpy(batch))
+            else:
+                scale, zp, tag = self._ingest
+                t = wrap_quantized(native.quantize_u8(batch, scale, zp),
+                                   scale, zp, tag, device="cpu")
+            out = self.model(t).logical_data
             result = lambda: out[:rows].numpy()          # noqa: E731
         else:
-            fwd = self._forwards.get(shape)
+            key = (shape, self._ingest)
+            fwd = self._forwards.get(key)
             if fwd is None:
-                fwd = self._forwards[shape] = _TileForward(
-                    self.model, shape, self._stream)
+                fwd = self._forwards[key] = _TileForward(
+                    self.model, shape, self._stream, self._ingest)
             out = fwd(reqs, rows)
             host = torch.empty((rows,) + tuple(out.shape[1:]),
                                dtype=out.dtype, pin_memory=True)

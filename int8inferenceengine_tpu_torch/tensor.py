@@ -9,6 +9,11 @@ Quantized convolutions run NHWC internally, while the reference API is NCHW
 ``x.reshape(-1, 9216)``).  A Tensor may therefore hold its data physically as
 NHWC (``_nhwc=True``) while reporting the logical NCHW shape; any op that
 depends on element order (reshape / numpy export) first re-materializes NCHW.
+
+A host-ingest batch (``data.DataLoader(layout_for=...)``) carries the first
+conv's pre-layout tag ``_ingest``: its data is already zp-padded and
+space-to-depth'ed u8 ``[n, h', w', s*s*c]``, which only the Conv2d of that
+geometry may consume; every element-order view of it raises.
 """
 
 from __future__ import annotations
@@ -31,30 +36,41 @@ def resolve_device(device=None) -> torch.device:
 class Tensor:
     """Dense tensor + per-tensor quantization metadata."""
 
-    __slots__ = ("data", "scale", "zero_point", "_nhwc")
+    __slots__ = ("data", "scale", "zero_point", "_nhwc", "_ingest")
 
     def __init__(self, data: torch.Tensor, scale: float = 1.0,
-                 zero_point: int = 0, _nhwc: bool = False):
+                 zero_point: int = 0, _nhwc: bool = False, _ingest=None):
         self.data = data
         self.scale = float(scale)
         self.zero_point = int(zero_point)
         self._nhwc = _nhwc
+        # host-ingest pre-layout tag (a Conv2d.ingest_descriptor), or None
+        self._ingest = _ingest
 
     # -- layout ------------------------------------------------------------
     @property
     def logical_data(self) -> torch.Tensor:
         """Data in the reference's logical (NCHW) element order."""
+        self._no_ingest("logical_data")
         if self._nhwc:
             return self.data.permute(0, 3, 1, 2)
         return self.data
 
     def as_nhwc_data(self) -> torch.Tensor:
         """Physical NHWC data (for conv/pool); input must be 4D."""
+        self._no_ingest("as_nhwc_data")
         if self._nhwc:
             return self.data
         if self.data.dim() != 4:
             raise ValueError(f"expected 4D tensor, got shape {self.shape}")
         return self.data.permute(0, 2, 3, 1)
+
+    def _no_ingest(self, what: str):
+        if self._ingest is not None:
+            raise ValueError(
+                f"{what}: this tensor carries a host-ingest pre-layout "
+                f"{self._ingest} (DataLoader layout_for) — only the first "
+                "Conv2d with matching geometry can consume it")
 
     # -- reference Tensor API ------------------------------------------------
     @property
@@ -99,7 +115,12 @@ class Tensor:
         return id(self)
 
     def __repr__(self):
-        # Reference shows dequantized values: (q - zp) * scale
+        # Reference shows dequantized values: (q - zp) * scale.  Never raise
+        # from __repr__: a pre-laid-out ingest tensor has no NCHW order.
+        if self._ingest is not None:
+            return (f"Tensor(ingest pre-layout {self._ingest}, physical "
+                    f"shape {tuple(self.data.shape)}, scale={self.scale}, "
+                    f"zero_point={self.zero_point})")
         return repr((self.numpy() - self.zero_point) * self.scale)
 
 

@@ -123,7 +123,8 @@ def test_build_accepts_every_cnn_of_the_jax_zoo(name):
     """Every CNN name of the JAX package's ``build()`` builds in the port,
     with the JAX model's layer names in its order."""
     assert name in jzoo.MODEL_SPECS
-    want = [n for n, _ in jzoo.build(name).named_layers()]
+    jm = jzoo.build(name)
     got = tzoo.build(name, device="cpu")
-    assert [n for n, _ in got.named_layers()] == want
-    assert got.INPUT_SHAPE == jzoo.build(name).INPUT_SHAPE
+    assert [n for n, _ in got.named_layers()] == [
+        n for n, _ in jm.named_layers()]
+    assert got.INPUT_SHAPE == jm.INPUT_SHAPE

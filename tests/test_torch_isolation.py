@@ -68,7 +68,7 @@ def test_port_imports_without_jax():
                 "models.squeezenet", "models.googlenet", "models.densenet",
                 "models.gemma", "models.vit", "models.text_transformer",
                 "utils", "utils.equalize", "utils.smooth", "utils.gptq",
-                "utils.adaround", "utils.hf"):
+                "utils.adaround", "utils.hf", "data", "native"):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
 
@@ -182,16 +182,22 @@ def test_deep_trunc_model_warns_on_convert(rounding, warns):
     assert got == warns
 
 
-@pytest.mark.parametrize("field,value", [
-    ("weight_bits", 2), ("glue_dtype", "bfloat16"),
-    ("epilogue_dtype", "bfloat16"), ("fp_dtype", "bfloat16"),
-    ("conv_backend", "xla_conv"),
+@pytest.mark.parametrize("field,value,error", [
+    ("weight_bits", 2, NotImplementedError),
+    ("glue_dtype", "float16", ValueError),
+    ("epilogue_dtype", "float16", ValueError),
+    ("fp_dtype", "float16", ValueError),
+    ("conv_backend", "cudnn", ValueError),
 ])
-def test_unimplemented_config_fields_raise(field, value):
+def test_unimplemented_config_fields_raise(field, value, error):
+    """A value the port does not take raises at construction: a
+    ``weight_bits`` it does not implement ``NotImplementedError``, a dtype
+    or backend neither package knows ``ValueError`` (the bfloat16 dtypes
+    and 'xla_conv' are implemented: tests/test_torch_lifecycle_dtypes.py)."""
     cfg = qt.QuantConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(error, match=field):
         zoo.FCMnist(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(error, match=field):
         qt.Linear(4, 2, config=cfg, device="cpu")
 
 

@@ -193,7 +193,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("order", TG.ORDERS)
+@pytest.mark.parametrize("order", TG.DENSE_ORDERS)
 def test_kernel_matches_plain_on_card(cuda_device, order):
     for m, k, n in SHAPES + [(302, 2400, 256)]:
         _, _, ta, tkw, _ = _both(m, k, n, per_channel=True, order=order)

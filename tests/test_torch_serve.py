@@ -9,8 +9,8 @@ batching) on LeNet with the JAX package's converted state carried over.
   queued and refuses new work, a cancelled future does not stop the engine,
   latencies are recorded, tile buckets pad to the smallest fitting tile,
   and a request that breaks the model fails its own future only.
-* ``quantize_ingest=True`` raises ``NotImplementedError`` (no native host
-  ops in the port yet).
+* ``quantize_ingest=True`` (host quantize on the native host ops) gives
+  the float path's results.
 * On the card (``cuda``-marked): each tile's captured forward, replayed,
   equals the direct call.
 
@@ -27,6 +27,7 @@ import torch
 
 import int8inferenceengine_tpu as qj
 from int8inferenceengine_tpu.models import zoo as jzoo
+import int8inferenceengine_tpu_torch as qt
 from int8inferenceengine_tpu_torch.carry import load_jax_state
 from int8inferenceengine_tpu_torch.models import zoo as tzoo
 from int8inferenceengine_tpu_torch.serve import InferenceEngine
@@ -204,8 +205,16 @@ def test_bad_request_fails_future_not_engine(model):
 
 
 def test_quantize_ingest_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="quantize_ingest"):
-        InferenceEngine(model, quantize_ingest=True)
+    """``quantize_ingest``, refused until the port had its native host
+    ops, now quantizes on the host and gives the float path's results."""
+    x = _rand(6, 5)
+    engine = InferenceEngine(model, max_batch=8, quantize_ingest=True)
+    try:
+        got = engine.submit(x).result(timeout=WAIT)
+    finally:
+        engine.shutdown()
+    np.testing.assert_array_equal(got, model(qt.tensor(x, device="cpu"))
+                                  .numpy())
 
 
 @pytest.fixture
