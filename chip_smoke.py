@@ -25,6 +25,8 @@
                                       # (51-53), no result line
     python3 chip_smoke.py --ingest    # only the host ingest phases (54-58)
                                       # in full, no result line
+    python3 chip_smoke.py --examples  # only the examples' phases (59-65),
+                                      # no result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -314,7 +316,7 @@ Phases, in order (any failure exits non-zero):
    sweep given the same inverse Hessian, the captured ``generate`` runs
    4 * depth + 1 B1, depth B2 and depth B3 a step (105, 26 and 26 at the
    published 26 layers, which ``--levers`` runs; the whole run cuts the
-   depth to WHOLE_LEVERS_GEMMA_DEPTH) and a prefill and 4 steps give the
+   depth to WHOLE_GEMMA_DEPTH) and a prefill and 4 steps give the
    plain path's codes; lever seconds, ms/step and each way's INT8-vs-FP32
    logit error and greedy agreement;
 46. the llama legs of 9-10 under GPTQ's 4-bit codes: W4A8 ``generate``
@@ -401,7 +403,25 @@ Phases, in order (any failure exits non-zero):
    the squeeze-excite sigmoids), ms a batch of both; the
    head-split ``decode_attention`` at gpt2's (12 x 64) and llama GQA's
    (12 over 2) decode shapes equal to ``decode_attention_flat`` on the
-   same operands, one B3 launch each.
+   same operands, one B3 launch each;
+59-64. the examples (``int8inferenceengine_tpu_torch.examples``), each
+   ``main()`` called in-process on the card at the JAX script's defaults,
+   every count set to 0 just before it; its returned checks, wall and
+   launches logged, and the kernels of ``EXAMPLE_KERNELS`` launched: 59
+   ``text_generation`` (each engine request equal to ``generate()``), 60
+   ``alexnet_cifar10`` (2,000 images at batch 100: INT8 argmax agreement
+   with the torch oracle >= 0.9, the u8-ingest leg's codes equal to the
+   float input's, 8 B1 a batch), 61 ``serve_resnet18`` (every reply equal
+   to a direct forward of the loaded model), 62 ``llm_serving`` (every
+   printed boolean true), 63 ``accuracy_synthetic`` as LeNet and deep8
+   (``tests/test_accuracy_synthetic.py``'s bounds: the gated INT8 legs
+   drop <= 1.7 points, engine FP32 within 0.5 of torch), 64
+   ``accuracy_lm`` as llama with ``--spec`` and as gemma
+   (``tests/test_accuracy_lm.py``'s bounds, speculative == greedy);
+65. the port's four notebooks, every code cell in order on the card;
+66. (the whole run only) ``text_generation`` and ``alexnet_cifar10 --images
+   200`` as in 59 and 60; phases 31-32 run gemma-2-2b at
+   WHOLE_GEMMA_DEPTH of its 26 blocks to pay for it.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -4619,6 +4639,19 @@ GEMMA_WO = [("wq", 2304, 2048, 26), ("wk", 2304, 1024, 26),
             ("wv", 2304, 1024, 26), ("proj", 2048, 2304, 26),
             ("gate", 2304, 9216, 26), ("up", 2304, 9216, 26),
             ("down", 9216, 2304, 26), ("head", 2304, 256_000, 1)]
+# the whole run's gemma-2-2b in the weight modes (phases 31-32) and under
+# the levers (phase 45; GPTQ's time grows with the Linears it sweeps): 8 of
+# its 26 layers (``--weight-only`` and ``--levers`` keep all 26), to make
+# room for the examples phase (66)
+WHOLE_GEMMA_DEPTH = 8
+
+
+def gemma_wo_gemms(depth):
+    """GEMMA_WO with ``depth`` blocks' launches a step."""
+    return [(name, k, n, depth if per == 26 else per)
+            for name, k, n, per in GEMMA_WO]
+
+
 # DA (the dynamic Linear's s8 x s8 -> s32) at M = 1, 8, 17, 100: gemma's
 # K x N and odd ones; DAC (the dynamic conv) at ResNet-50's and the zoo's
 # grouped shapes: (batch, C, H, W, O, k, stride, padding, groups)
@@ -4946,19 +4979,19 @@ def wo_small_gates(torch, q, zoo, GM, TD, LL, dev):
         fail(f"weight modes: beyond the float contract: {bad}")
 
 
-def gemma_wo_step_bound_ms(mode, b=DEC_BATCH, valid=DEC_ATTN["valid"]):
-    """One weight-only gemma-2-2b decode step's least time: every weight
-    read once (s8, or packed W4 with its f32 group scales) with the
-    activations, plus the live float K/V rows of 26 layers, against the
-    step's products (f32 ops for W8F, int8 for DA, three bf16 passes for
-    B5); returns (ms, bound by)."""
+def gemma_wo_step_bound_ms(mode, b=DEC_BATCH, valid=DEC_ATTN["valid"],
+                           depth=GEMMA2["depth"]):
+    """One weight-only gemma-2-2b decode step's least time at ``depth``
+    blocks: every weight read once (s8, or packed W4 with its f32 group
+    scales) with the activations, plus the live float K/V rows of every
+    layer, against the step's products (f32 ops for W8F, int8 for DA,
+    three bf16 passes for B5); returns (ms, bound by)."""
     nbytes = ops = 0.0
-    for _, k, n, per in GEMMA_WO:
+    for _, k, n, per in gemma_wo_gemms(depth):
         w = n * k // 2 + 4 * n * (k // 128) if mode == "w4" else n * k
         nbytes += per * (w + 4 * b * k + 4 * b * n + 4 * n)
         ops += per * 2.0 * b * n * k
     h, hkv, d = GEMMA2["heads"], GEMMA2["kv_heads"], GEMMA2["head_dim"]
-    depth = GEMMA2["depth"]
     nbytes += depth * (2 * b * hkv * valid * d * 4 + 2 * 4 * b * h * d)
     peak = {"w8f": PEAK_FP32_OPS, "dynamic": PEAK_INT8_OPS,
             "w4": PEAK_BF16_OPS / 3}[mode]
@@ -5034,27 +5067,31 @@ def wo_busy_split(torch, TD, layers_mod, model, ids, reps=2):
             "glue_us": (busy - gemm - attn) / reps}
 
 
-def gemma_wo_shared_state(torch, GM, dev):
-    """gemma-2-2b's FP32 weights on the card (``gemma_state``, seed 5),
-    built once for the three weight modes: every mode's model loads them
-    without a copy and converts its own s8 or 4-bit weights."""
-    return gemma_state(torch, twin_shapes(torch, GM, twin_kwargs(GEMMA2)),
-                       GEMMA2["depth"], 5, dev)
+def gemma_wo_shared_state(torch, GM, dev, depth):
+    """gemma-2-2b's FP32 weights on the card (``gemma_state``, seed 5) at
+    ``depth`` blocks, built once for the three weight modes: every mode's
+    model loads them without a copy and converts its own s8 or 4-bit
+    weights."""
+    geo = twin_kwargs(dict(GEMMA2, depth=depth))
+    return gemma_state(torch, twin_shapes(torch, GM, geo), depth, 5, dev)
 
 
 def gemma_wo_leg(torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns,
-                 state, mode, ids, fp32_last):
-    """Phase 31 in one weight mode: gemma-2-2b at its published widths,
+                 state, mode, ids, fp32_last, depth):
+    """Phase 31 in one weight mode: gemma-2-2b at its published widths
+    (``depth``: all 26 blocks, or the whole run's WHOLE_GEMMA_DEPTH),
     batch 8, converted without calibration from ``state``; greedy
-    ``generate(ids, 128)`` captured with exactly 183 weight GEMMs a step
-    (B5 launches under W4, W8F or DA calls otherwise), the captured decode
-    bit for bit the eager step loop's, the last prompt position's argmax
-    against the FP32 model's, and ms/step, tokens/s, the eager loop, the
-    prefill, KV bytes, a profiled captured step with its busy split and
-    the step's bound.  Returns (model, launches and calls)."""
+    ``generate(ids, 128)`` captured with exactly 7 * depth + 1 weight GEMMs
+    a step (183 at 26 blocks; B5 launches under W4, W8F or DA calls
+    otherwise), the captured decode bit for bit the eager step loop's, the
+    last prompt position's argmax against the FP32 model's, and ms/step,
+    tokens/s, the eager loop, the prefill, KV bytes, a profiled captured
+    step with its busy split and the step's bound.  Returns (model,
+    launches and calls)."""
     dev = next(iter(state.values())).device
+    geo = dict(GEMMA2, depth=depth)
     model = zoo.build("gemma_tiny", config=wo_config(q, mode), device=dev,
-                      **GEMMA2)
+                      **geo)
     t0 = time.perf_counter()
     model.load(state)
     model.convert()
@@ -5067,7 +5104,7 @@ def gemma_wo_leg(torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns,
     all_counts = read_counts(counters)
     counts = {k: v for k, v in all_counts.items() if v}
     gemm = {"w8f": "w8f_matmul", "dynamic": "s8_matmul", "w4": "w4_gemm"}[mode]
-    per_step = sum(per for _, _, _, per in GEMMA_WO)
+    per_step = sum(per for _, _, _, per in gemma_wo_gemms(depth))
     want = {gemm: per_step * DEC_STEPS}
     if counts != want:
         fail(f"gemma2 {mode} generate: launches and calls {counts}, want "
@@ -5095,14 +5132,14 @@ def gemma_wo_leg(torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns,
     rows, wall_us, _ = replay_profile(torch, model, ids, 8)
     busy = sum(e.self_device_time_total for e in rows) / 8
     split = wo_busy_split(torch, TD, layers_mod, model, ids)
-    b_ms, b_by = gemma_wo_step_bound_ms(mode)
+    b_ms, b_by = gemma_wo_step_bound_ms(mode, depth=depth)
     weights = sum(t.numel() * t.element_size() for _, layer in
                   model.named_layers() for t in (
                       getattr(layer, "q_weight", None),
                       getattr(layer, "w4_packed", None),
                       getattr(layer, "w4_scales", None)) if t is not None)
     log(json.dumps({"phase": "gemma2_2b_weight_only", "mode": mode,
-                    **GEMMA2, "batch": DEC_BATCH, "prompt": DEC_PROMPT,
+                    **geo, "batch": DEC_BATCH, "prompt": DEC_PROMPT,
                     "steps": DEC_STEPS, "ring_cache": False,
                     "launches_and_calls": counts,
                     "weight_gemms_per_step": {gemm: per_step},
@@ -5362,19 +5399,21 @@ def library_line(lrows, counts_by_path):
 
 
 def weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod, kernel_fns,
-                      route_fns, dev):
+                      route_fns, dev, gemma_depth=None):
     """Phases 30-33 in order: the small decoders' float gates, gemma-2-2b
-    in the three weight modes, its W8-float engine, ResNet-50 in W8-float
-    and dynamic.  Returns the launches and calls of the main paths."""
+    in the three weight modes (at ``gemma_depth`` of its blocks, all 26 by
+    default), its W8-float engine, ResNet-50 in W8-float and dynamic.
+    Returns the launches and calls of the main paths."""
     wo_small_gates(torch, q, zoo, GM, TD, LL, dev)
     mark("weight modes: small gates")
     from int8inferenceengine_tpu_torch.tensor import Tensor
     counts = {}
     ids = np.random.default_rng(0).integers(
         0, GEMMA2["vocab_size"], (DEC_BATCH, DEC_PROMPT)).astype(np.int32)
-    state = gemma_wo_shared_state(torch, GM, dev)
+    depth = gemma_depth or GEMMA2["depth"]
+    state = gemma_wo_shared_state(torch, GM, dev, depth)
     fp = zoo.build("gemma_tiny", config=q.QuantConfig(**GEMMA_CFG),
-                   device=dev, **GEMMA2)
+                   device=dev, **dict(GEMMA2, depth=depth))
     fp.load(state)
     with torch.no_grad():
         fp32_last = fp.forward(Tensor(torch.tensor(
@@ -5384,7 +5423,7 @@ def weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod, kernel_fns,
     for mode in WEIGHT_MODES:
         model, counts[f"gemma2_2b_{mode}_generate"] = gemma_wo_leg(
             torch, q, zoo, GM, TD, layers_mod, kernel_fns, route_fns, state,
-            mode, ids, fp32_last)
+            mode, ids, fp32_last, depth)
         mark(f"weight modes: gemma2_2b {mode}")
         if mode == "w8f":
             reset_counts(dict(kernel_fns, **route_fns))
@@ -6535,9 +6574,6 @@ SMOOTH_FP32_RTOL = 1e-3
 # the kernel path against the plain path under the levers' codes: a
 # prefill and this many decode steps
 LEVER_PLAIN_STEPS = 4
-# the whole run's phase 45 at this many of gemma-2-2b's 26 layers (GPTQ's
-# time grows with the Linears it sweeps; --levers runs all 26)
-WHOLE_LEVERS_GEMMA_DEPTH = 8
 # AdaRound on the card against a CPU copy given the same tapped inputs:
 # the share of equal codes the port's tests state against the JAX package
 ADAROUND_MIN_EQUAL = 0.99
@@ -8530,6 +8566,232 @@ def ingest_paths(torch, q, zoo, G, C, A, kernel_fns, dev, smi):
     return counts
 
 
+# -- phases 59-66: the examples (``int8inferenceengine_tpu_torch.examples``) --
+
+# each example's gates: the JAX tests' bounds (tests/test_accuracy_lm.py,
+# tests/test_accuracy_synthetic.py) and the examples' own equalities
+SYNTHETIC_BUDGET_PTS = 1.7      # the reference's README: 77.8% -> 76.1%
+SYNTHETIC_FP32_PTS = 0.5        # engine FP32 against the torch twin
+SYNTHETIC_GATED = {"lenet": ("engine_int8", "engine_int8_per_channel"),
+                   "deep8": ("engine_int8_nearest", "engine_int8_all_levers")}
+SYNTHETIC_LEARNED = {"lenet": 0.80, "deep8": 0.70}
+ALEX_AGREE = 0.9
+# the kernels each example must launch while it runs (a tuple: one of them)
+B6_OR_B7 = ("w4a8_v2_gemm", "w4a8_v1_gemm")
+DECODER_KERNELS = ("qgemm_u8s8", "qgemm_u8s8_vzp", "decode_attn_flat")
+EXAMPLE_KERNELS = {
+    "text_generation": DECODER_KERNELS,
+    "alexnet_cifar10": ("qgemm_u8s8",),
+    "serve_resnet18": ("qgemm_u8s8",),
+    "llm_serving": DECODER_KERNELS + (B6_OR_B7, "moe_experts"),
+    "accuracy_synthetic": ("qgemm_u8s8",),
+    "accuracy_lm": ("qgemm_u8s8", "qgemm_u8s8_vzp", "w4_gemm", B6_OR_B7),
+}
+NOTEBOOK_KERNELS = {"AlexNet_cifar10_resize224": ("qgemm_u8s8",),
+                    "Fully_Connected_mnist": ("qgemm_u8s8",),
+                    "Simple_Convolution_cifar10": ("qgemm_u8s8",),
+                    "Text_Generation": DECODER_KERNELS + ("w4_gemm",)}
+# the whole run's examples phase (66): the two quick ones, AlexNet at 200
+# images (2 batches of 100); ``--examples`` runs 59-65 at the JAX scripts'
+# defaults
+WHOLE_EXAMPLES = [("text_generation", []),
+                  ("alexnet_cifar10", ["--images", "200"])]
+
+
+def _plain(obj):
+    """JSON for an example's checks (numpy scalars, tuples)."""
+    return obj.tolist() if hasattr(obj, "tolist") else str(obj)
+
+
+def missing_kernels(counts, want):
+    """The entries of ``want`` (a name, or a tuple of which one suffices)
+    that launched no time in ``counts``."""
+    return [w for w in want
+            if not any(counts[n] for n in ((w,) if isinstance(w, str)
+                                           else w))]
+
+
+def text_generation_gate(checks, counts):
+    return [] if checks["engine_equals_generate"] else [
+        "an engine request differs from generate() of its prompt alone"]
+
+
+def alexnet_gate(checks, counts):
+    bad = []
+    if checks["engine INT8"]["agreement"] < ALEX_AGREE:
+        bad.append(f"INT8 agreement {checks['engine INT8']['agreement']} < "
+                   f"{ALEX_AGREE}")
+    if not checks["u8_ingest_codes_equal"]:
+        bad.append("the u8-ingest leg's codes differ from the float input's")
+    batches = -(-checks["images"] // checks["batch"])
+    if checks["model"] == "alexnet" and counts["qgemm_u8s8"] != 8 * 2 * \
+            batches:
+        bad.append(f"{counts['qgemm_u8s8']} B1 launches, want 8 a batch "
+                   f"over two INT8 legs of {batches} batches")
+    return bad
+
+
+def serve_resnet18_gate(checks, counts):
+    return [] if checks["replies_equal_direct"] else [
+        "an engine reply differs from the loaded model's direct forward"]
+
+
+def llm_serving_gate(checks, counts):
+    return [f"{k} is false" for k, v in checks.items()
+            if isinstance(v, bool) and not v]
+
+
+def accuracy_synthetic_gate(checks, counts):
+    accs, model = checks["accuracy"], checks["model"]
+    bad = []
+    if accs["torch_fp32"] <= SYNTHETIC_LEARNED[model]:
+        bad.append(f"the twin did not learn the task: {accs['torch_fp32']}")
+    if abs(accs["engine_fp32"] - accs["torch_fp32"]) * 100 > \
+            SYNTHETIC_FP32_PTS:
+        bad.append(f"engine FP32 {accs['engine_fp32']} against torch "
+                   f"{accs['torch_fp32']}")
+    for tag in SYNTHETIC_GATED[model]:
+        drop = checks["drop_pts"][tag]
+        if drop > SYNTHETIC_BUDGET_PTS:
+            bad.append(f"{tag} drops {drop:.2f} pts > "
+                       f"{SYNTHETIC_BUDGET_PTS}")
+    return bad
+
+
+def accuracy_lm_gate(checks, counts):
+    """tests/test_accuracy_lm.py's bounds: the twin learned the chain,
+    engine FP32 within 2% of torch's ppl (and 0.02 of its accuracy), INT8
+    nearest < 1.10x, and, for llama, trunc > 1.01x nearest, W4 and W4 +
+    GPTQ < 1.5x; for gemma, nearest + smooth < 1.05x nearest; with
+    ``--spec``, speculative == greedy."""
+    t_ppl, t_acc = checks["torch"]
+    res = checks["results"]
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(what)
+
+    need(t_ppl < 10.0 and t_acc > 0.30, f"torch ppl {t_ppl}, acc {t_acc}")
+    ppl, acc = res["engine FP32"]
+    need(abs(ppl - t_ppl) < 0.02 * t_ppl and abs(acc - t_acc) < 0.02,
+         f"engine FP32 ppl {ppl} acc {acc} against torch {t_ppl}, {t_acc}")
+    near = res["INT8 nearest"][0]
+    need(near < 1.10 * t_ppl, f"INT8 nearest ppl {near} >= 1.10 x {t_ppl}")
+    if checks["family"] == "llama":
+        trunc = res["INT8 trunc (default)"][0]
+        need(trunc > 1.01 * near, f"trunc ppl {trunc} <= 1.01 x {near}")
+        for leg in ("W4 weight-only", "W4 + GPTQ"):
+            p = res[leg][0]
+            need(np.isfinite(p) and p < 1.5 * t_ppl,
+                 f"{leg} ppl {p} >= 1.5 x {t_ppl}")
+    else:
+        sm = res["INT8 nearest + smooth"][0]
+        need(sm < 1.05 * near, f"nearest + smooth ppl {sm} >= 1.05 x {near}")
+    if "spec" in checks:
+        need(checks["spec"]["spec_equals_greedy"], "speculative != greedy")
+    return bad
+
+
+EXAMPLE_GATES = {"text_generation": text_generation_gate,
+                 "alexnet_cifar10": alexnet_gate,
+                 "serve_resnet18": serve_resnet18_gate,
+                 "llm_serving": llm_serving_gate,
+                 "accuracy_synthetic": accuracy_synthetic_gate,
+                 "accuracy_lm": accuracy_lm_gate}
+
+
+def example_phase(torch, counters, phase, name, argv):
+    """Run ``examples.<name>.main(argv)`` on the card, every count set to 0
+    just before it and read just after; log its checks, wall and launches,
+    and the gates of ``EXAMPLE_GATES`` it failed and the kernels of
+    ``EXAMPLE_KERNELS`` it never launched.  Returns (the counts, those
+    failures)."""
+    import importlib
+    mod = importlib.import_module(
+        f"int8inferenceengine_tpu_torch.examples.{name}")
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    checks = mod.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(counters)
+    bad = EXAMPLE_GATES[name](checks, counts) + [
+        f"{w} never launched" for w in missing_kernels(
+            counts, EXAMPLE_KERNELS[name])]
+    log(json.dumps({"phase": f"{phase}_example_{name}", "argv": argv,
+                    "wall_s": wall,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "checks": checks, "failed": bad}, default=_plain))
+    return counts, [f"example {name} {argv}: {b}" for b in bad]
+
+
+def examples_gate(failures):
+    """Fail once every example phase has run and logged its numbers."""
+    if failures:
+        fail("; ".join(failures))
+
+
+def notebooks_phase(torch, counters):
+    """Phase 65: every code cell of the port's four notebooks, in order, in
+    a namespace of its own, on the card; the notebooks set one torch thread,
+    restored after each.  Returns (each notebook's launches, the kernels
+    each never launched)."""
+    root = Path(__file__).resolve().parent / "int8inferenceengine_tpu_torch" \
+        / "examples" / "notebooks"
+    out, failures = {}, []
+    for name, want in NOTEBOOK_KERNELS.items():
+        cells = [c for c in json.loads((root / f"{name}.ipynb").read_text())
+                 ["cells"] if c["cell_type"] == "code"]
+        threads = torch.get_num_threads()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        ns = {"__name__": "__notebook__"}
+        try:
+            for i, cell in enumerate(cells):
+                exec(compile("".join(cell["source"]), f"{name}[{i}]",
+                             "exec"), ns)
+            torch.cuda.synchronize()
+        finally:
+            torch.set_num_threads(threads)
+        wall = time.perf_counter() - t0
+        counts = read_counts(counters)
+        missing = missing_kernels(counts, want)
+        log(json.dumps({"phase": "65_notebook", "notebook": name,
+                        "cells": len(cells), "wall_s": wall,
+                        "launches": {k: v for k, v in counts.items() if v},
+                        "failed": missing}))
+        failures += [f"notebook {name}: {w} never launched" for w in missing]
+        out[f"notebook_{name}"] = counts
+    return out, failures
+
+
+def examples_paths(torch, counters):
+    """Phases 59-65 (``--examples``): each example's ``main()`` at the JAX
+    script's defaults (accuracy_synthetic as LeNet and deep8, accuracy_lm
+    as llama with ``--spec`` and as gemma), then the notebooks; fails after
+    the last of them if any failed a gate.  Returns each run's launches."""
+    runs = [(59, "text_generation", []), (60, "alexnet_cifar10", []),
+            (61, "serve_resnet18", []), (62, "llm_serving", []),
+            (63, "accuracy_synthetic", []),
+            (63, "accuracy_synthetic", ["--model", "deep8"]),
+            (64, "accuracy_lm", ["--spec"]),
+            (64, "accuracy_lm", ["--family", "gemma"])]
+    counts, failures = {}, []
+    for phase, name, argv in runs:
+        label = "_".join([name] + [a.lstrip("-") for a in argv])
+        counts[f"example_{label}"], bad = example_phase(
+            torch, counters, phase, name, argv)
+        failures += bad
+        torch.cuda.empty_cache()
+        mark(f"examples: {label}")
+    notebook_counts, bad = notebooks_phase(torch, counters)
+    counts.update(notebook_counts)
+    mark("examples: notebooks")
+    examples_gate(failures + bad)
+    return counts
+
+
 def kernels_line(rows, counts_by_path, max_err):
     """One entry per kernel.  ``ms``, ``plain_ms``, ``bound_ms`` and
     ``library_ms`` are sums over the ``work`` named in the entry: every
@@ -8624,6 +8886,11 @@ def main(argv=None) -> int:
                          "(51-53: every family's HF directory, gemma-2-2b "
                          "from an HF directory, the refusals) with their "
                          "checks (no result line)")
+    ap.add_argument("--examples", action="store_true",
+                    help="only build and run the examples' phases (59-65: "
+                         "each example's main() at the JAX script's "
+                         "defaults with its gates, the notebooks; no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -8749,6 +9016,12 @@ def main(argv=None) -> int:
                         "seconds": time.perf_counter() - t_start}))
         return 0
 
+    if args.examples:
+        counts = examples_paths(torch, dict(kernel_fns, **route_fns))
+        log(json.dumps({"phase": "examples_done", "launches": counts,
+                        "seconds": time.perf_counter() - t_start}))
+        return 0
+
     if args.weight_only:
         gen = torch.Generator(device=dev).manual_seed(0)
         check_b5_decode(torch, W, gen, dev)
@@ -8851,6 +9124,17 @@ def main(argv=None) -> int:
         torch, q, zoo, C, model, kernel_fns, WHOLE_INGEST_BATCHES, smi)
     del model, state
     mark("alexnet")
+
+    # -- 66. the quick examples: text_generation, alexnet_cifar10 at 200
+    # images (--examples runs 59-65) -----------------------------------------
+    failures = []
+    for name, argv in WHOLE_EXAMPLES:
+        counts_by_path[f"example_{name}"], bad = example_phase(
+            torch, dict(kernel_fns, **route_fns), 66, name, argv)
+        failures += bad
+    examples_gate(failures)
+    torch.cuda.empty_cache()
+    mark("examples")
 
     # -- 19. G1 against its plain version --------------------------------------
     max_err["conv_grouped_u8s8"] = check_g1(torch, q, zoo, G, C, gen, dev)
@@ -8973,7 +9257,8 @@ def main(argv=None) -> int:
     # -- 30-33. the weight modes: the small float gates, gemma-2-2b in W8F,
     # dynamic and W4, its W8F engine, ResNet-50 in W8F and dynamic ------------
     wo_counts, _ = weight_only_paths(torch, q, zoo, GM, TD, LL, layers_mod,
-                                     kernel_fns, route_fns, dev)
+                                     kernel_fns, route_fns, dev,
+                                     gemma_depth=WHOLE_GEMMA_DEPTH)
     counts_by_path.update(wo_counts)
     torch.cuda.empty_cache()
     mark("weight modes")
@@ -8992,11 +9277,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- 44-47. the accuracy levers: AlexNet under CLE + AdaRound, gemma-2-2b
-    # under SmoothQuant + GPTQ (WHOLE_LEVERS_GEMMA_DEPTH layers), llama W4A8
+    # under SmoothQuant + GPTQ (WHOLE_GEMMA_DEPTH layers), llama W4A8
     # and W4 under GPTQ, the small gates
     counts_by_path.update(levers_paths(
         torch, q, zoo, GM, LL, G, A, W, layers_mod, kernel_fns, dev,
-        gemma_depth=WHOLE_LEVERS_GEMMA_DEPTH))
+        gemma_depth=WHOLE_GEMMA_DEPTH))
     torch.cuda.empty_cache()
 
     # -- 11. per-kernel times --------------------------------------------------

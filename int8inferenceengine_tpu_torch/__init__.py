@@ -29,8 +29,8 @@ from .config import DEFAULT_CONFIG, QuantConfig  # noqa: E402
 from .data import DataLoader  # noqa: E402
 from .layers import (Conv2d, Layer, Linear, QuantAct,  # noqa: E402
                      QuantAdd, QuantConcat, QuantEmbed, QuantLayerNorm,
-                     QuantMatmul, QuantMul, QuantPosEmbed, QuantRMSNorm,
-                     QuantRoPE, QuantSoftmax)
+                     QuantMatmul, QuantMoE, QuantMul, QuantPosEmbed,
+                     QuantRMSNorm, QuantRoPE, QuantSoftmax)
 from .module import Module, TruncDepthWarning  # noqa: E402
 from .ops.functional import (  # noqa: E402
     adaptive_avg_pool2d_1x1, argmax, avg_pool2d, channel_shuffle, dequantize,
@@ -43,8 +43,10 @@ __all__ = [
     "Linear", "Conv2d", "Tensor", "Layer", "Module",
     "QuantAct", "QuantAdd", "QuantConcat", "QuantEmbed", "QuantLayerNorm",
     "QuantMatmul", "QuantMul", "QuantPosEmbed", "QuantRMSNorm", "QuantRoPE",
-    "QuantSoftmax",
+    "QuantSoftmax", "QuantMoE",
     "quantize", "dequantize",
     "QuantConfig", "DEFAULT_CONFIG", "TruncDepthWarning",
     "DataLoader", "native",
 ]
+
+__version__ = "0.1.0"

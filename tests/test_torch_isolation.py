@@ -3,7 +3,7 @@
 * Its package and ``chip_smoke.py`` import with ``jax`` and the JAX package
   blocked.
 * Without CUDA, entry points that default to the card raise instead of
-  running on the CPU.
+  running on the CPU, the examples' ``main()`` among them.
 * Misuse raises: FP32 input to a converted layer, u8 input to an
   unconverted one, a wrongly shaped weight, a configuration value the port
   does not implement, an FP32 island of an unknown layer or of one that is
@@ -12,6 +12,7 @@
   warns (``TruncDepthWarning``).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -27,6 +28,8 @@ from int8inferenceengine_tpu_torch.models import zoo
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = ("text_generation", "alexnet_cifar10", "serve_resnet18",
+            "llm_serving", "accuracy_synthetic", "accuracy_lm")
 
 BLOCKED_IMPORT = r"""
 import sys
@@ -68,8 +71,20 @@ def test_port_imports_without_jax():
                 "models.squeezenet", "models.googlenet", "models.densenet",
                 "models.gemma", "models.vit", "models.text_transformer",
                 "utils", "utils.equalize", "utils.smooth", "utils.gptq",
-                "utils.adaround", "utils.hf", "data", "native"):
+                "utils.adaround", "utils.hf", "data", "native",
+                "examples") + tuple(f"examples.{name}" for name in EXAMPLES):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_needs_a_card_by_default(monkeypatch, name):
+    """Each example's ``main()`` runs on the card unless ``--device cpu``
+    names the CPU: without a card it raises before it builds anything."""
+    module = importlib.import_module(
+        f"int8inferenceengine_tpu_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        module.main([])
 
 
 def test_every_kernel_source_is_bound_and_stands_alone():
