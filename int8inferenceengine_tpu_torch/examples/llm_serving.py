@@ -6,10 +6,11 @@ the accuracy configuration for many-boundary stacks
 speculative decoding (draft model, target-exact greedy), the
 continuous-batching engine with multi-chunk syncing, W4A8 serving (4-bit
 weights on the u8 activation path), the MoE family, and a
-quantized-artifact checkpoint round-trip.  The two sharded legs of the JAX
-package's ``examples/llm_serving.py`` (the engine over a tensor-parallel
-mesh, the expert-parallel forward) print a skip line: the port has no
-``shard()`` yet (ROADMAP.md item 10).
+quantized-artifact checkpoint round-trip, and the expert-parallel forward
+of the MoE in a spawned world of 4 ranks on a (2, 2) mesh (TP attention +
+EP experts; ``parallel/``).  The JAX package's other sharded leg, the
+engine over a tensor-parallel mesh, prints a skip line: the sharded
+engines are the next slice of the port (ROADMAP.md queue 1).
 
     python -m int8inferenceengine_tpu_torch.examples.llm_serving \
         [--device cpu]
@@ -28,6 +29,8 @@ from int8inferenceengine_tpu_torch import QuantConfig, models, utils
 from int8inferenceengine_tpu_torch.examples import add_device_arg, device_of
 from int8inferenceengine_tpu_torch.models.text_decoder import \
     torch_text_decoder
+from int8inferenceengine_tpu_torch.parallel import make_mesh
+from int8inferenceengine_tpu_torch.parallel.launch import run_world
 from int8inferenceengine_tpu_torch.serve import GenerationEngine
 
 _HF_BLOCK = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
@@ -53,6 +56,19 @@ def hf_named(state: dict) -> dict:
         else:
             out[_HF_TOP[k]] = v
     return out
+
+
+def expert_parallel_rank(path: str, prompt: np.ndarray, cfg, device: str
+                         ) -> np.ndarray:
+    """One rank of the expert-parallel leg: the saved MoE loaded and
+    sharded over a (2, 2) mesh (DP x TP attention + EP experts); its
+    forward on ``prompt``."""
+    dev = device_of(device)
+    moe = models.build("moe_tiny", config=cfg, device=dev)
+    utils.load(moe, path)
+    moe.shard(make_mesh((2, 2), devices="cpu" if dev.type == "cpu"
+                        else None))
+    return moe(q.tensor(prompt, device=dev)).numpy()
 
 
 def calibrated(m, cal, dev):
@@ -142,9 +158,9 @@ def main(argv=None) -> dict:
     finally:
         eng.shutdown()
 
-    # --- the engine over a shard()ed decoder: ROADMAP.md item 10 --------
-    print("(no shard() in the port yet, ROADMAP.md item 10: skipping the "
-          "sharded-engine leg)")
+    # --- the engine over a shard()ed decoder: the next slice ------------
+    print("(the sharded engines are the port's next slice, ROADMAP.md "
+          "queue 1: skipping the sharded-engine leg)")
 
     # --- W4A8: 4-bit weights on the static u8 activation path -----------
     w4 = models.build("llama_tiny", device=dev,
@@ -175,8 +191,16 @@ def main(argv=None) -> dict:
     calibrated(moe, cal, dev)
     base = moe(q.tensor(prompt, device=dev)).numpy()
     checks["moe_finite"] = bool(np.isfinite(base).all())
-    print("(no shard() in the port yet, ROADMAP.md item 10: skipping the "
-          "expert-parallel leg)")
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/moe_int8.npz"
+        utils.save(moe, path)
+        outs = run_world(expert_parallel_rank, 4,
+                         args=(path, prompt, cfg, dev.type),
+                         device=dev.type, timeout_s=600)
+    checks["expert_parallel_bit_exact"] = all(
+        np.array_equal(o, base) for o in outs)
+    print(f"expert-parallel forward bit-exact: "
+          f"{checks['expert_parallel_bit_exact']}")
     checks["wall_s"] = time.perf_counter() - t_start
     return checks
 

@@ -153,8 +153,63 @@ class Layer(nn.Module):
         self._epilogue_cache: dict = {}
         # fused_qkv's merged operands, on the first layer of the group
         self._merged_cache: dict = {}
+        # Tensor-parallel roles, set by parallel.sharding (Module.shard):
+        # _tp_sharded — output channels sharded over the model axis (the
+        # output is all-gathered); _tp_local — column-parallel with the
+        # output kept a channel shard (head-local attention, a row-parallel
+        # consumer); _tp_row — input channels sharded, int32 partials summed
+        # before the requant; _tp_expert — a QuantMoE's experts split.
+        # _tp_view holds this rank's slices, bound by
+        # parallel.sharding.local_params while a sharded forward runs.
+        self._tp_sharded = False
+        self._tp_local = False
+        self._tp_row = False
+        self._tp_expert = False
+        self._tp_view: dict = {}
         for name in ("qw", "q_bias", "rowsum", "w_scale"):
             self.register_buffer(name, None)
+
+    def _maybe_gather(self, out: torch.Tensor, channel_axis: int
+                      ) -> torch.Tensor:
+        if self._tp_sharded:
+            from .parallel.sharding import gather_channels
+            return gather_channels(out, channel_axis)
+        return out
+
+    @staticmethod
+    def _overlap_axes():
+        """The active ParallelAxes when overlap mode is on, else None."""
+        from .parallel.context import current_axes
+        pa = current_axes()
+        if pa is not None and pa.overlap and pa.model_size > 1:
+            return pa
+        return None
+
+    @staticmethod
+    def _active_axes():
+        """The active ParallelAxes with a real model axis, else None."""
+        from .parallel.context import current_axes
+        pa = current_axes()
+        if pa is not None and pa.model_size > 1:
+            return pa
+        return None
+
+    def _tp_result(self, out: torch.Tensor, scale, zero_point) -> Tensor:
+        """A column-parallel [M, N_local] output: kept a channel shard in
+        overlap mode or for a sharded consumer (``_tp_local``), else
+        all-gathered (nothing to do without a TP context)."""
+        if self._tp_sharded and (self._overlap_axes() is not None or (
+                self._tp_local and self._active_axes() is not None)):
+            return Tensor(out, scale, zero_point, _tp_sharded=True)
+        return Tensor(self._maybe_gather(out, 1), scale, zero_point)
+
+    @staticmethod
+    def _gathered(x: Tensor) -> Tensor:
+        """``x`` with full channels: a channel shard is all-gathered."""
+        if not x._tp_sharded:
+            return x
+        from .parallel.sharding import gather_channels
+        return Tensor(gather_channels(x.data, 1), x.scale, x.zero_point)
 
     def _buf(self, shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -437,7 +492,13 @@ class Linear(Layer):
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
         if self.is_quantized and not self.quant_fallback:   # weight-only
-            return Tensor(self._forward_weight_only(x.data))
+            x = self._gathered(x)
+            return Tensor(self._maybe_gather(
+                self._forward_weight_only(x.data), 1))
+        pa_row = self._active_axes() if self._tp_row else None
+        if pa_row is not None:
+            return self._forward_fp32_row(x, pa_row)
+        x = self._gathered(x)
         _tap(self, x.data)
         out = self._float(x.data)
         self._observe(out)
@@ -446,6 +507,35 @@ class Linear(Layer):
                      * self.out_channels,
                      4 * (x.data.numel() + out.numel()
                           + self.in_channels * self.out_channels))
+        return Tensor(self._maybe_gather(out, 1))
+
+    def _forward_fp32_row(self, x: Tensor, pa) -> Tensor:
+        """Row-parallel FP32: the weight is this rank's [N, K_local] slice;
+        the float32 partial products are summed over the model group
+        (allclose to the unsharded product — the float32 addition order
+        differs; the INT8 path is the bit-exact one)."""
+        from .parallel.sharding import all_reduce_sum
+        if _INPUT_TAP.get() is not None:
+            raise RuntimeError(
+                "input-tap optimizers (AdaRound/GPTQ) can't observe a "
+                "row-parallel Linear's inputs — run them BEFORE shard(), "
+                "on the unsharded model")
+        if self.is_preparing and self.config.bias_correction:
+            raise RuntimeError(
+                "bias_correction needs full input-mean statistics, which a "
+                "row-parallel Linear only sees a K-shard of — calibrate "
+                "before shard(), or shard after convert()")
+        k_local = self.weight.shape[1]
+        if x._tp_sharded:
+            a = x.data
+        else:
+            a = x.data[:, pa.model_index * k_local:
+                       (pa.model_index + 1) * k_local]
+        out = all_reduce_sum(torch.matmul(a, self.weight.t()), pa.model_group
+                             ) + self.bias.reshape(1, -1)
+        self._observe(out)
+        _record_cost(self, 2 * out.shape[0] * k_local * self.out_channels,
+                     4 * (a.numel() + out.numel()))
         return Tensor(out)
 
     def _forward_weight_only(self, x: torch.Tensor) -> torch.Tensor:
@@ -493,11 +583,21 @@ class Linear(Layer):
         into the epilogue (``fused_linear_act``)."""
         self._check_int8(x)
         if self.quant_fallback:
-            return fp32_island(self, x)
+            out = fp32_island(self, self._gathered(x))
+            return Tensor(self._maybe_gather(out.data, 1), out.scale,
+                          out.zero_point)
         if self.config.weight_bits == 4:
+            # W4A8 accumulates in float: no integer partials to sum, so
+            # parallel/sharding.py keeps these layers replicated
+            if self._tp_row:
+                raise RuntimeError(
+                    "W4A8 Linear does not support row-parallel TP (float "
+                    "partial sums do not add bit-exactly); keep "
+                    "weight_bits=8 on 'row'-role layers")
             if act is not None:
                 raise RuntimeError("W4A8 has no fused-act epilogue; "
                                    "fused_linear_act composes it")
+            x = self._gathered(x)
             out = w4_ops.w4a8_apply(x.data.contiguous(),
                                     self.w4a8_operands(x),
                                     backend=self.config.w4_kernel,
@@ -505,14 +605,67 @@ class Linear(Layer):
             if self.fuse_relu:
                 out = out.clamp_min(self.zero_point)
             _record_int8_linear(self, x, out, 2)
-            return Tensor(out, self.scale, self.zero_point)
+            return Tensor(self._maybe_gather(out, 1), self.scale,
+                          self.zero_point)
+        if self._tp_row:
+            pa_row = self._active_axes()
+            if pa_row is not None:
+                return self._forward_int8_row(x, pa_row, act)
+            raise RuntimeError(
+                "row-parallel Linear called outside an active TP context "
+                "(its rowsum/weight params are shard-structured); run "
+                "through the sharded forward — module(x) after shard() — "
+                "not a direct call")
         oc, ep = self._epilogue(x, "gemm")
+        if x._tp_sharded:
+            pa = self._overlap_axes()
+            if pa is not None and self._tp_sharded and act is None:
+                # ring TP: consume the predecessor's channel shard
+                # directly, the transfers overlapping partial products
+                from .parallel.overlap import ring_qgemm
+                out = ring_qgemm(x.data.contiguous(), self.qw, oc, ep, pa=pa,
+                                 scale_a=x.scale, scale_c=self.scale,
+                                 zp_c=self.zero_point, relu=self.fuse_relu,
+                                 rounding=self.config.rounding)
+                return Tensor(out, self.scale, self.zero_point,
+                              _tp_sharded=True)
+            x = self._gathered(x)
         out = self._gemm()(x.data.contiguous(), self.qw, oc, ep,
                            scale_a=x.scale, scale_c=self.scale,
                            zp_c=self.zero_point, relu=self.fuse_relu,
                            rounding=self.config.rounding, order="gemm",
                            act=act)
         _record_int8_linear(self, x, out, 1)
+        if act is not None:
+            return self._tp_result(out, act[1], act[2])
+        return self._tp_result(out, self.scale, self.zero_point)
+
+    def _forward_int8_row(self, x: Tensor, pa, act=None) -> Tensor:
+        """Row-parallel INT8 forward (``ops/gemm_int8.qgemm_row_parallel``):
+        the weight is this rank's [N, K_local] slice; it consumes the
+        producer's channel shard directly (or slices a replicated input),
+        sums the s32 partial accumulators over the model group and
+        requantizes once — bit-identical to the unsharded layer (integer
+        addition is associative)."""
+        from .ops.gemm_int8 import qgemm_row_parallel
+        k_local = self.qw.shape[1]
+        if x._tp_sharded:
+            if x.data.shape[-1] != k_local:
+                raise ValueError(
+                    f"row-parallel Linear expected a [*, {k_local}] input "
+                    f"shard, got {tuple(x.data.shape)}")
+            a = x.data
+        else:
+            a = x.data[:, pa.model_index * k_local:
+                       (pa.model_index + 1) * k_local]
+        _, ep = self._epilogue(x, "gemm")
+        out = qgemm_row_parallel(
+            a.contiguous(), self.qw, self.rowsum, self.q_bias, ep,
+            group=pa.model_group, scale_a=x.scale, zp_a=x.zero_point,
+            scale_c=self.scale, zp_c=self.zero_point, relu=self.fuse_relu,
+            rounding=self.config.rounding, act=act)
+        _record_cost(self, 2 * out.shape[0] * k_local * self.out_channels,
+                     a.numel() + out.numel() + k_local * self.out_channels)
         if act is not None:
             return Tensor(out, act[1], act[2])
         return Tensor(out, self.scale, self.zero_point)
@@ -623,7 +776,8 @@ class Conv2d(Layer):
     def _forward_fp32(self, x: Tensor) -> Tensor:
         self._check_fp32()
         if self.is_quantized and not self.quant_fallback:   # weight-only
-            return Tensor(self._forward_weight_only(x.logical_data))
+            return Tensor(self._maybe_gather(
+                self._forward_weight_only(x.logical_data), 1))
         _tap(self, x.logical_data)
         out = self._float(x.logical_data)
         # sampled in NHWC element order, the order the JAX package's
@@ -634,7 +788,7 @@ class Conv2d(Layer):
         _record_cost(self, 2 * out.numel() * self._taps(),
                      4 * (x.data.numel() + out.numel()
                           + self.weight.numel()))
-        return Tensor(out)
+        return Tensor(self._maybe_gather(out, 1))
 
     def _taps(self) -> int:
         """Multiply-adds an output element takes."""
@@ -677,7 +831,9 @@ class Conv2d(Layer):
     def _forward_int8(self, x: Tensor) -> Tensor:
         self._check_int8(x)
         if self.quant_fallback:
-            return fp32_island(self, x)
+            out = fp32_island(self, x)
+            return Tensor(self._maybe_gather(out.data, 1), out.scale,
+                          out.zero_point)
         order = self._order()
         oc, ep = self._epilogue(x, order)
         k = self.kernel_size
@@ -705,7 +861,8 @@ class Conv2d(Layer):
                                             **kw)
         _record_cost(self, 2 * out.numel() * self._taps(),
                      x.data.numel() + out.numel() + self.qw.numel())
-        return Tensor(out, self.scale, self.zero_point, _nhwc=True)
+        return Tensor(self._maybe_gather(out, 3), self.scale,
+                      self.zero_point, _nhwc=True)
 
 
 def weight_quant_spec(layer):
@@ -810,13 +967,14 @@ class QuantAct(_Weightless):
         if not x.quantized:
             out = self.fn(x.data)
             self._observe(out)
-            return Tensor(out, _nhwc=x._nhwc)
+            return Tensor(out, _nhwc=x._nhwc, _tp_sharded=x._tp_sharded)
         self._check_converted()
         if self.backend == "lut":
             out = self._lut(x)[x.data.to(torch.int64)]
         else:
             out = self._map(x.data, x.scale, x.zero_point)
-        return Tensor(out, self.scale, self.zero_point, _nhwc=x._nhwc)
+        return Tensor(out, self.scale, self.zero_point, _nhwc=x._nhwc,
+                      _tp_sharded=x._tp_sharded)
 
 
 class QuantAdd(_Weightless):
@@ -840,18 +998,23 @@ class QuantAdd(_Weightless):
         if a.quantized != b.quantized:
             raise ValueError(
                 "QuantAdd: both inputs must be quantized or both float")
+        if a._tp_sharded != b._tp_sharded:
+            raise ValueError(
+                "QuantAdd: operands must agree on channel sharding (one is "
+                "a local channel shard, the other holds every channel)")
         b_data = self._aligned(a, b)
         if not a.quantized:
             out = a.data + b_data
             self._observe(out)
-            return Tensor(out, _nhwc=a._nhwc)
+            return Tensor(out, _nhwc=a._nhwc, _tp_sharded=a._tp_sharded)
         self._check_converted()
         dt = self._glue_dtype()
         q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point, dt)
                           + dequantize_u8(b_data, b.scale, b.zero_point, dt))
         if self.fuse_relu:
             q = q.clamp_min(self.zero_point)
-        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
+        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc,
+                      _tp_sharded=a._tp_sharded)
 
 
 class QuantMul(_Weightless):
@@ -874,7 +1037,8 @@ class QuantMul(_Weightless):
         dt = self._glue_dtype()
         q = self._requant(dequantize_u8(a.data, a.scale, a.zero_point, dt)
                           * dequantize_u8(b_data, b.scale, b.zero_point, dt))
-        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc)
+        return Tensor(q, self.scale, self.zero_point, _nhwc=a._nhwc,
+                      _tp_sharded=a._tp_sharded)
 
 
 class QuantConcat(_Weightless):
@@ -932,11 +1096,15 @@ class QuantMatmul(_Weightless):
         if a._nhwc or b._nhwc:
             raise ValueError("QuantMatmul expects token-major tensors "
                              "(no NHWC image layout)")
+        if a._tp_sharded != b._tp_sharded:
+            raise ValueError(
+                "QuantMatmul: operands must agree on head sharding (one "
+                "is a local head shard, the other is replicated)")
         if not a.quantized:
             bd = b.data.transpose(-1, -2) if self.transpose_b else b.data
             out = f32(self.alpha, a.device) * torch.matmul(a.data, bd)
             self._observe(out)
-            return Tensor(out)
+            return Tensor(out, _tp_sharded=a._tp_sharded)
         self._check_converted()
         out = qmatmul_act(
             a.data, b.data, scale_a=a.scale, zp_a=a.zero_point,
@@ -945,7 +1113,9 @@ class QuantMatmul(_Weightless):
             transpose_b=self.transpose_b, rounding=self.config.rounding)
         _record_cost(self, 2 * out.numel() * a.data.shape[-1],
                      a.data.numel() + b.data.numel() + out.numel())
-        return Tensor(out, self.scale, self.zero_point)
+        # batched per-(b, h) products are exact on a local head shard
+        return Tensor(out, self.scale, self.zero_point,
+                      _tp_sharded=a._tp_sharded)
 
 
 def alibi_slopes(n_heads: int) -> tuple:
@@ -1041,11 +1211,13 @@ class QuantSoftmax(_Weightless):
         if not x.quantized:
             out = attn_ops.softmax_last(self._masked(x.data, valid_len))
             self._observe(out)
-            return Tensor(out)
+            return Tensor(out, _tp_sharded=x._tp_sharded)
         self._check_converted()
         f = dequantize_u8(x.data, x.scale, x.zero_point)
         out = attn_ops.softmax_last(self._masked(f, valid_len))
-        return Tensor(self._requant(out), self.scale, self.zero_point)
+        # softmax rows live within one head: exact on a local head shard
+        return Tensor(self._requant(out), self.scale, self.zero_point,
+                      _tp_sharded=x._tp_sharded)
 
 
 def _mean64(f: torch.Tensor) -> torch.Tensor:
@@ -1213,11 +1385,11 @@ class QuantRoPE(_Weightless):
         if not x.quantized:
             out = self._rotate(x.data, start)
             self._observe(out)
-            return Tensor(out)
+            return Tensor(out, _tp_sharded=x._tp_sharded)
         self._check_converted()
         f = dequantize_u8(x.data, x.scale, x.zero_point)
         return Tensor(self._requant(self._rotate(f, start)), self.scale,
-                      self.zero_point)
+                      self.zero_point, _tp_sharded=x._tp_sharded)
 
 
 class QuantPosEmbed(Layer):
@@ -1454,10 +1626,22 @@ class QuantMoE(Layer):
         return self.n_experts >= 8 and m <= 16
 
     def _moe(self, f: torch.Tensor) -> torch.Tensor:
-        """Route and run the experts on float32 tokens [M, K]."""
+        """Route and run the experts on float32 tokens [M, K].
+
+        Under expert parallelism (``_tp_expert`` in a TP context) this
+        rank holds its [E_local, ...] stacks: it runs them densely on the
+        matching columns of the routing weights, and one sum over the model
+        group combines the ranks' partial outputs.  Bit-exact for top_k <=
+        2: each token has at most two nonzero terms, and a float sum of two
+        numbers and zeros is the same in any order."""
         wexp = moe_ops.route(f, self.router, self.top_k)
-        sparse = self._use_sparse(f.shape[0]) and not (
+        pa = self._active_axes() if self._tp_expert else None
+        sparse = pa is None and self._use_sparse(f.shape[0]) and not (
             f.is_cuda and torch.cuda.is_current_stream_capturing())
+        if pa is not None:
+            e_local = self.n_experts
+            wexp = wexp[:, pa.model_index * e_local:
+                        (pa.model_index + 1) * e_local].contiguous()
         if self.q_gate_w is None:
             out = moe_ops.experts(f, wexp, self.gate_w, self.up_w,
                                   self.down_w, None, None, None,
@@ -1471,6 +1655,9 @@ class QuantMoE(Layer):
         ehk = 3 * self.n_experts * self.dim * self.hidden
         _record_cost(self, 2 * f.shape[0] * ehk,
                      4 * (f.numel() + out.numel()) + ehk)
+        if pa is not None:
+            from .parallel.sharding import all_reduce_sum
+            out = all_reduce_sum(out, pa.model_group)
         return out
 
     def forward(self, x: Tensor) -> Tensor:
@@ -1502,8 +1689,12 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
         if merged is not None:
             return merged
     if not (x.quantized and cfg.weight_bits == 8 and not cfg.weight_only
+            and not x._tp_sharded
             and all(l.is_quantized and not l.fuse_relu
-                    and not l.quant_fallback for l in heads)):
+                    and not l.quant_fallback for l in heads)
+            # under TP the merge runs on the ranks' columns when all three
+            # are sharded alike (their caches are then all local)
+            and len({l._tp_sharded for l in heads}) == 1):
         return wq(x), wk(x), wv(x)
     key = (x.scale, x.zero_point, id(wk), id(wv))
     merged = wq._merged_cache.get(key)
@@ -1519,7 +1710,8 @@ def fused_qkv(wq: Linear, wk: Linear, wv: Linear, x: Tensor) -> tuple:
     outs = gemm(x.data.contiguous(), merged, rounding=wq.config.rounding)
     for l, o in zip(heads, outs):
         _record_int8_linear(l, x, o, 1)
-    return tuple(Tensor(o, l.scale, l.zero_point) for l, o in zip(heads, outs))
+    return tuple(l._tp_result(o, l.scale, l.zero_point)
+                 for l, o in zip(heads, outs))
 
 
 def fused_w4a8_multi(layers, x: Tensor):
@@ -1533,6 +1725,7 @@ def fused_w4a8_multi(layers, x: Tensor):
     first = layers[0]
     cfg = first.config
     if not (x.quantized and cfg.weight_bits == 4 and not cfg.weight_only
+            and not x._tp_sharded
             and all(l.is_quantized and not l.fuse_relu
                     and not l.quant_fallback and l.w4_packed is not None
                     and l.in_channels == first.in_channels for l in layers)):
@@ -1565,7 +1758,11 @@ def fused_linear_act(linear: Linear, act: QuantAct, x: Tensor) -> Tensor:
                and act.fn_name in KERNEL_ACTS
                and act.fn is ACTIVATIONS.get(act.fn_name)
                and act.backend == "elementwise"
-               and act.config.glue_dtype == "float32")
+               and act.config.glue_dtype == "float32"
+               # ring-overlap TP consumes shards through ring_qgemm, which
+               # has no act epilogue — compose there
+               and not (linear._tp_sharded
+                        and Layer._overlap_axes() is not None))
     if not fusable:
         return act(linear(x))
     out = linear._forward_int8(x, act=(act.fn_name, act.scale,
@@ -1602,7 +1799,7 @@ def fused_attention(attn: QuantMatmul, smax: QuantSoftmax, av: QuantMatmul,
         alpha=attn.alpha, rounding=attn.config.rounding)
     _record_attention(attn, av, qh.data, kh.data, vh.data, out,
                       qh.data.shape[-2])
-    return Tensor(out, av.scale, av.zero_point)
+    return Tensor(out, av.scale, av.zero_point, _tp_sharded=qh._tp_sharded)
 
 
 def _record_attention(attn, av, q, k, v, out, t: int) -> None:
@@ -1641,7 +1838,9 @@ def fused_decode_attention(attn: QuantMatmul, smax: QuantSoftmax,
         window=smax.window, softcap=smax.softcap, alibi=smax.alibi)
     _record_attention(attn, av, q2.data, kc.data, vc.data, out,
                       kc.data.shape[-2])
-    return Tensor(out, av.scale, av.zero_point)
+    # head-parallel TP: per-(b, h) attention is exact on a local head
+    # shard; the flag lets the row-parallel out-projection consume it
+    return Tensor(out, av.scale, av.zero_point, _tp_sharded=q2._tp_sharded)
 
 
 def fused_extend_attention(attn: QuantMatmul, smax: QuantSoftmax,

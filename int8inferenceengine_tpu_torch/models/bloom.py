@@ -68,6 +68,16 @@ class BloomDecoder(TextDecoder):
         self.ln_f = QuantLayerNorm(dim, eps, **kw)
         self.head = Linear(dim, vocab_size, **kw)
 
+    def tp_roles(self, model_size: int) -> dict:
+        """No head-local attention: the ALiBi slopes index GLOBAL heads, so
+        QKV stay column-parallel and gathered; the MLP still shards."""
+        roles = {}
+        for i in range(1, self.depth + 1):
+            roles[f"proj{i}"] = "row"
+            roles[f"fc1_{i}"] = "col_local"
+            roles[f"fc2_{i}"] = "row"
+        return roles
+
     def _stem(self, ids: Tensor, start=None) -> Tensor:
         # no position table: ALiBi carries position in the scores, so
         # ``start`` goes unused (absolute positions enter through each

@@ -119,6 +119,24 @@ class LlamaDecoder(TextDecoder):
         self.ln_f = QuantRMSNorm(dim, eps, **kw)
         self.head = Linear(dim, vocab_size, **kw)
 
+    def tp_roles(self, model_size: int) -> dict:
+        """Megatron plan for the llama block: attention head-local only
+        when BOTH head counts divide the model axis (each shard then holds
+        whole kv groups, so its query heads find their kv heads locally);
+        SwiGLU column-parallel with a row-parallel down."""
+        roles = {}
+        head_local = (self.heads % model_size == 0
+                      and self.kv_heads % model_size == 0)
+        for i in range(1, self.depth + 1):
+            if head_local:
+                for w in ("wq", "wk", "wv"):
+                    roles[f"{w}{i}"] = "col_local"
+            roles[f"proj{i}"] = "row"
+            roles[f"gate{i}"] = "col_local"
+            roles[f"up{i}"] = "col_local"
+            roles[f"down{i}"] = "row"
+        return roles
+
     # -- block bodies (the only overrides of the decode machinery) -----------
     def _stem(self, ids: Tensor, start=None) -> Tensor:
         # no position table: positions enter through RoPE in each block

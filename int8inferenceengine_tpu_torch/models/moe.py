@@ -42,6 +42,16 @@ class MoEDecoder(LlamaDecoder):
                 dim, self.mlp_hidden, n_experts, top_k, config=config,
                 dispatch=dispatch, device=self.device))
 
+    def tp_roles(self, model_size: int) -> dict:
+        """The llama plan for attention; each ``moe{i}`` takes the
+        'expert' role (its experts split over the model axis)."""
+        roles = super().tp_roles(model_size)
+        for i in range(1, self.depth + 1):
+            for nm in ("gate", "up", "down"):
+                roles.pop(f"{nm}{i}", None)
+            roles[f"moe{i}"] = "expert"
+        return roles
+
     def _mlp(self, i, x):
         h = self._l("ln2_", i)(x)
         return self._l("add2_", i)(x, self._l("moe", i)(h))

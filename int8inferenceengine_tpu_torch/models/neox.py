@@ -28,6 +28,7 @@ from ..layers import (Linear, QuantAct, QuantAdd, QuantEmbed,
                       fused_linear_act)
 from ..module import Module
 from .llama import LlamaDecoder
+from .text_decoder import TextDecoder
 
 __all__ = ["NeoXDecoder", "torch_neox"]
 
@@ -82,6 +83,9 @@ class NeoXDecoder(LlamaDecoder):
             setattr(self, f"add2_{i}", QuantAdd(**kw))
         self.ln_f = QuantLayerNorm(dim, eps, **kw)
         self.head = Linear(dim, vocab_size, **kw)
+
+    # the gpt block's plan (fc1 / fc2, not llama's gate / up / down)
+    tp_roles = TextDecoder.tp_roles
 
     def _mlp_out(self, i, x):
         """ln2 -> fc1/gelu (fused when converted) -> fc2, without the

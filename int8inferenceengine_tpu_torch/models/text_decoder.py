@@ -65,8 +65,8 @@ import torch
 
 from .. import graphs
 from ..config import DEFAULT_CONFIG, QuantConfig
-from ..layers import (Linear, QuantAct, QuantAdd, QuantEmbed, QuantLayerNorm,
-                      QuantMatmul, QuantPosEmbed, QuantSoftmax,
+from ..layers import (Layer, Linear, QuantAct, QuantAdd, QuantEmbed,
+                      QuantLayerNorm, QuantMatmul, QuantPosEmbed, QuantSoftmax,
                       fused_decode_attention, fused_extend_attention,
                       fused_linear_act, fused_qkv)
 from ..module import Module
@@ -336,6 +336,29 @@ class TextDecoder(Module):
     def _l(self, name: str, i: int):
         return getattr(self, f"{name}{i}")
 
+    def tp_roles(self, model_size: int) -> dict:
+        """Megatron-style transformer TP plan: QKV column-parallel with
+        head-local attention (outputs stay sharded) when heads divide the
+        model axis, attention out-proj and fc2 row-parallel (s32 partials
+        summed), fc1 column-parallel feeding the sharded MLP interior.
+        Two collectives per block instead of a gather after every
+        Linear."""
+        roles = {}
+        head_local = self.heads % model_size == 0
+        for i in range(1, self.depth + 1):
+            if head_local:
+                for w in ("wq", "wk", "wv"):
+                    roles[f"{w}{i}"] = "col_local"
+            roles[f"proj{i}"] = "row"
+            roles[f"fc1_{i}"] = "col_local"
+            roles[f"fc2_{i}"] = "row"
+        return roles
+
+    def _logits(self, x: Tensor) -> torch.Tensor:
+        """The head's codes (floats under weight_only) with every vocabulary
+        column: in overlap mode a sharded head's output is gathered."""
+        return Layer._gathered(self.head(x)).data
+
     # -- shared block body ---------------------------------------------------
     def _stem(self, ids: Tensor, start=None) -> Tensor:
         """Token embedding + learned positions -> [B, T, C]; ``start`` is
@@ -483,7 +506,7 @@ class TextDecoder(Module):
         # u8 logit codes: argmax over codes == argmax over the dequantized
         # logits (one positive scale), so greedy decoding never dequantizes
         # (float logits under weight_only)
-        codes = self.head(x).data.reshape(b, t0, self.vocab_size)
+        codes = self._logits(x).reshape(b, t0, self.vocab_size)
         if last is None:
             return codes[:, -1, :], cache
         return codes.gather(1, (lens - 1).reshape(b, 1, 1).expand(
@@ -494,10 +517,11 @@ class TextDecoder(Module):
         whose flat k or v rows are ``rows`` [B, T0, Hkv*D] (true lengths
         ``lens``): rows [0, T0) of a full-length cache, or a ring layer's
         ``_ring_tail``; zeros elsewhere."""
-        b, t0, _ = rows.shape
+        b, t0, c = rows.shape
         if t < self.max_len:
             return self._head_split(self._ring_tail(rows, i, t, lens))
-        buf = torch.zeros((b, self.kv_heads, t, self.head_dim),
+        # c // head_dim: this rank's kv heads under head-parallel TP
+        buf = torch.zeros((b, c // self.head_dim, t, self.head_dim),
                           dtype=rows.dtype, device=rows.device)
         buf[:, :, :t0] = self._head_split(rows)
         return buf
@@ -505,7 +529,7 @@ class TextDecoder(Module):
     def _head_split(self, rows: torch.Tensor) -> torch.Tensor:
         """Flat [B, T, Hkv*D] rows -> contiguous [B, Hkv, T, D]."""
         b, t, _ = rows.shape
-        return rows.reshape(b, t, self.kv_heads, self.head_dim).transpose(
+        return rows.reshape(b, t, -1, self.head_dim).transpose(
             1, 2).contiguous()
 
     @staticmethod
@@ -569,7 +593,7 @@ class TextDecoder(Module):
                                       valid, ring)
             x = self._block_decode(i, x, vi, pos, rows, at, *cache[i])
         x = self.ln_f(x)
-        return self.head(x).data, cache
+        return self._logits(x), cache
 
     def _write_rows(self, i, t: int, pos, valid, ring: dict):
         """Layer i's cache rows that position ``pos`` writes (int64, [k] for
@@ -678,7 +702,20 @@ class TextDecoder(Module):
 
         On the card the first decode step runs eagerly and the others
         replay it as a CUDA graph (``graphs.run_steps``); on the CPU they
-        run as a loop.  Both give the same tokens."""
+        run as a loop.  Both give the same tokens.
+
+        After ``shard()`` every rank of the mesh calls it with the same
+        arguments: the prompt rows split over the data axis, and the TP
+        roles apply at every step — head-local attention over a
+        head-sharded u8 KV cache (each rank stores and reads only its
+        heads' rows, 1/model_size of the cache), row-parallel proj/fc2
+        summing their s32 partials.  Every rank returns all the rows'
+        tokens; greedy tokens are bit-identical to the unsharded run.  A
+        sampled run folds the data-shard index into the seed, so each shard
+        draws its own stream: valid and repeatable tokens, not the
+        unsharded run's draws.  The steps run eagerly, without a CUDA
+        graph: gloo's collectives (ranks sharing one card) cannot be
+        captured."""
         if not self.is_quant:
             raise RuntimeError("generate() requires a converted model")
         ids = np.asarray(ids)
@@ -692,42 +729,66 @@ class TextDecoder(Module):
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if self._mesh is None:
+            with torch.no_grad():
+                toks, program = self._decode_rows(
+                    ids, steps, temperature, top_k, top_p, seed, True)
+                toks = toks.cpu().numpy().astype(np.int32)
+            del program
+            return toks
+        from ..parallel.sharding import all_gather_cat, data_rows, sharded
+        pa = self._parallel_axes
+        rows = data_rows(pa, b, "generate() batch")
+        with torch.no_grad(), sharded(self):
+            toks, _ = self._decode_rows(
+                ids[rows], steps, temperature, top_k, top_p,
+                seed + (pa.data_index << 32), False)
+        return all_gather_cat(toks, pa.data_group, 0).cpu().numpy().astype(
+            np.int32)
+
+    def _decode_rows(self, ids: np.ndarray, steps: int, temperature, top_k,
+                     top_p, seed: int, capture: bool):
+        """``generate()``'s body on the prompt rows ``ids``: (int64 device
+        tokens [B, steps], the captured program or None).  ``capture``
+        replays the steps as a CUDA graph on the card; without it they
+        run eagerly."""
+        b, t0 = ids.shape
         dev = self.device
-        with torch.no_grad():
-            prompt = torch.tensor(ids.astype(np.int64), device=dev)
-            codes, cache = self._prefill(Tensor(prompt))
-            pos = torch.full((), t0 - 1, dtype=torch.int64, device=dev)
-            if temperature == 0:
-                pick = None
-            else:
-                temps = f32(temperature, dev).expand(b).contiguous()
-                seeds = row_seeds(seed, b, dev)
-                topps = (None if top_p is None or top_p >= 1.0 else
-                         f32(top_p, dev).expand(b).contiguous())
-                topks = (None if top_k is None else torch.full(
-                    (b,), int(top_k), dtype=torch.int64, device=dev))
+        prompt = torch.tensor(ids.astype(np.int64), device=dev)
+        codes, cache = self._prefill(Tensor(prompt))
+        pos = torch.full((), t0 - 1, dtype=torch.int64, device=dev)
+        if temperature == 0:
+            pick = None
+        else:
+            temps = f32(temperature, dev).expand(b).contiguous()
+            seeds = row_seeds(seed, b, dev)
+            topps = (None if top_p is None or top_p >= 1.0 else
+                     f32(top_p, dev).expand(b).contiguous())
+            topks = (None if top_k is None else torch.full(
+                (b,), int(top_k), dtype=torch.int64, device=dev))
 
-                def pick(codes, pos):
-                    return self._pick(codes, temps, seeds, pos.expand(b),
-                                      topps, topks)
-            tok = codes.argmax(-1) if pick is None else pick(codes, pos)
-            out = torch.empty((b, steps), dtype=torch.int64, device=dev)
-            out[:, 0] = tok
-            pos += 1
-            col = torch.ones((1,), dtype=torch.int64, device=dev)
+            def pick(codes, pos):
+                return self._pick(codes, temps, seeds, pos.expand(b),
+                                  topps, topks)
+        tok = codes.argmax(-1) if pick is None else pick(codes, pos)
+        out = torch.empty((b, steps), dtype=torch.int64, device=dev)
+        out[:, 0] = tok
+        pos += 1
+        col = torch.ones((1,), dtype=torch.int64, device=dev)
 
-            def step():
-                codes, _ = self._decode_step(cache, pos, tok)
-                nxt = codes.argmax(-1) if pick is None else pick(codes, pos)
-                out.index_copy_(1, col, nxt[:, None])
-                tok.copy_(nxt)
-                pos.add_(1)
-                col.add_(1)
+        def step():
+            codes, _ = self._decode_step(cache, pos, tok)
+            nxt = codes.argmax(-1) if pick is None else pick(codes, pos)
+            out.index_copy_(1, col, nxt[:, None])
+            tok.copy_(nxt)
+            pos.add_(1)
+            col.add_(1)
 
-            program = graphs.run_steps(step, steps - 1, dev)
-            toks = out.cpu().numpy().astype(np.int32)
-        del program
-        return toks
+        if capture:
+            return out, graphs.run_steps(step, steps - 1, dev)
+        for _ in range(steps - 1):
+            step()
+        return out, None
 
     # -- cached multi-token extend --------------------------------------------
     def _extend_step(self, cache, pos, toks):
@@ -764,7 +825,7 @@ class TextDecoder(Module):
         for i in range(1, self.depth + 1):
             x = self._block_extend(i, x, b, m, valid, pos, *cache[i])
         x = self.ln_f(x)
-        return self.head(x).data.reshape(b, m, self.vocab_size), cache
+        return self._logits(x).reshape(b, m, self.vocab_size), cache
 
     def _block_extend(self, i, x, b, m, valid, pos, k_cache, v_cache):
         """One block over the m rows [B*m, C]: the k/v rows written at
@@ -826,11 +887,12 @@ class TextDecoder(Module):
             raise ValueError(
                 f"draft vocab {draft.vocab_size} != target vocab "
                 f"{self.vocab_size}")
-        if getattr(draft, "_mesh", None) is not None:
+        if self._mesh is not None or getattr(draft, "_mesh", None) \
+                is not None:
             raise NotImplementedError(
-                "speculative decoding needs an UNSHARDED draft (the "
-                "draft is small by construction — shard the target, "
-                "replicate the draft)")
+                "speculative decoding over a shard()ed target or draft is "
+                "the next slice of the port (ROADMAP.md queue 1, the "
+                "sharded engines); decode a sharded model with generate()")
         if draft.device != self.device:
             raise ValueError(f"draft on {draft.device}, target on "
                              f"{self.device}")

@@ -77,9 +77,11 @@ def encoder_forward(model, x):
             q2 = getattr(model, f"wq{i}")(h)
             k2 = getattr(model, f"wk{i}")(h)
             v2 = getattr(model, f"wv{i}")(h)
-        qh = F.split_heads(q2.reshape(b, t, c), model.heads)
-        kh = F.split_heads(k2.reshape(b, t, c), model.heads)
-        vh = F.split_heads(v2.reshape(b, t, c), model.heads)
+        # -1 widths: under head-parallel TP the projections keep their
+        # local channel shard (c / model_size)
+        qh = F.split_heads(q2.reshape(b, t, -1), model.heads)
+        kh = F.split_heads(k2.reshape(b, t, -1), model.heads)
+        vh = F.split_heads(v2.reshape(b, t, -1), model.heads)
         attn = getattr(model, f"attn{i}")
         if attn.is_quantized and qh.quantized \
                 and cfg.fused_attention != "off":
@@ -89,7 +91,7 @@ def encoder_forward(model, x):
             s = attn(qh, kh)
             p = getattr(model, f"smax{i}")(s)
             o = getattr(model, f"av{i}")(p, vh)
-        o = F.merge_heads(o).reshape(b * t, c)
+        o = F.merge_heads(o).reshape(b * t, -1)
         o = getattr(model, f"proj{i}")(o)
         x = getattr(model, f"add1_{i}")(x, o)
         h = getattr(model, f"ln2_{i}")(x)
@@ -132,6 +134,22 @@ class ViT(Module):
         self.pe = QuantPosEmbed(t, dim, config=config, device=d)
         encoder_blocks(self, dim, depth, heads, mlp_ratio, config)
         self.head = Linear(dim, num_classes, config=config, device=d)
+
+    def tp_roles(self, model_size: int) -> dict:
+        """Megatron-style transformer TP plan (see TextDecoder.tp_roles).
+        Where the heads do not divide the model axis (ViT-Tiny's 3 over
+        2) QKV stay plain column-parallel (gathered) and attention runs on
+        full heads, while proj/fc1/fc2 still shard."""
+        roles = {}
+        head_local = self.heads % model_size == 0
+        for i in range(1, self.depth + 1):
+            if head_local:
+                for w in ("wq", "wk", "wv"):
+                    roles[f"{w}{i}"] = "col_local"
+            roles[f"proj{i}"] = "row"
+            roles[f"fc1_{i}"] = "col_local"
+            roles[f"fc2_{i}"] = "row"
+        return roles
 
     def forward(self, x):
         x = self.pe(F.to_tokens(self.patch(x)))

@@ -21,6 +21,14 @@ activations: its input and output pass through as they are.
 Everything runs eagerly.  While preparing, each layer folds its output's
 min/max into on-device running scalars; ``convert()`` reads them on the host
 once.
+
+``shard(mesh)`` (``parallel/``) makes the model one rank of a (data,
+model) mesh over ``torch.distributed``: every rank runs the same user code
+on the same full input, ``__call__`` takes this rank's rows of the data
+axis, runs the forward on the rank's shards and all-gathers the rows, so
+every rank returns the whole output.  Calibration still observes the whole
+batch through the whole weights on every rank, as the JAX package
+calibrates a sharded model on its global arrays.
 """
 
 from __future__ import annotations
@@ -52,6 +60,9 @@ class Module(nn.Module):
         self.config = config
         self.device = resolve_device(device)
         self.is_quant = False
+        self._mesh = None
+        self._parallel_axes = None
+        self._tp_specs = None
 
     # -- layer discovery -----------------------------------------------------
     def named_layers(self, prefix: str = ""):
@@ -113,6 +124,14 @@ class Module(nn.Module):
                 layer.quant_fallback = True
             layer.convert()
         self.is_quant = True
+        if self._mesh is not None:
+            # shard() was called before convert (FP32 serving -> calibrate
+            # -> convert): convert() rebuilt every layer's buffers from the
+            # whole weights, so slice the quantized shards again —
+            # otherwise the sharded forward would run the FP32 slices
+            pa = self._parallel_axes
+            self.shard(self._mesh, data_axis=pa.data_axis,
+                       model_axis=pa.model_axis, overlap=pa.overlap)
 
     def _warn_trunc_depth(self, by_name, skip=()):
         """Advisory for the deep-model 'trunc' footgun: every requant
@@ -155,6 +174,29 @@ class Module(nn.Module):
     def forward(self, x: Tensor) -> Tensor:  # overridden by the user
         raise NotImplementedError
 
+    def tp_roles(self, model_size: int) -> dict:
+        """Per-layer tensor-parallel roles for ``shard()`` (overridden by
+        transformer models): layer name -> 'col' (output-channel sharded,
+        output gathered — the default for every unlisted layer),
+        'col_local' (column-parallel, output STAYS sharded for a sharded
+        consumer), 'row' (row-parallel: input-channel sharded, partial s32
+        accumulators summed before one requant) or 'expert' (a QuantMoE's
+        experts split).  See parallel/sharding.py."""
+        return {}
+
+    def shard(self, mesh, data_axis: str = "data", model_axis: str = "model",
+              overlap: bool = False):
+        """Make this model this rank's part of ``mesh``
+        (``parallel.make_mesh``): weights sharded by output channel per the
+        TP design in parallel/sharding.py, the batch split over the data
+        axis.  ``overlap=True`` enables ring tensor parallelism for Linear
+        chains (transfers overlapping partial products).  Every rank of
+        the mesh must make the same calls on the same inputs."""
+        from .parallel.sharding import shard_module
+        shard_module(self, mesh, data_axis=data_axis, model_axis=model_axis,
+                     overlap=overlap)
+        return self
+
     def _preparing(self) -> bool:
         return any(l.is_preparing for _, l in self.named_layers())
 
@@ -173,20 +215,25 @@ class Module(nn.Module):
                 "calibration observes FP32 activation ranges — feed "
                 "float input while preparing, not a quantized tensor")
         with torch.no_grad():
-            if self.config.weight_only:
-                # weight-only: activations stay float end to end, no input
-                # quantization and nothing to dequantize at the output
-                out = self.forward(t)
-                return Tensor(out.logical_data, out.scale, out.zero_point)
-            if self.is_quant and not t.quantized \
-                    and not self._consumes_ids():
-                # Reference behavior: quantize at the configured input
-                # (scale, zp).  Already-quantized input runs at its own;
-                # token ids pass through untouched.
-                t = F.quantize(t, self.config.input_scale,
-                               self.config.input_zero_point,
-                               self.config.rounding)
-            out = self.forward(t)
-            if self.is_quant:
-                out = F.dequantize(out)
+            if self._mesh is not None and not self._preparing():
+                from .parallel.sharding import sharded_forward
+                return sharded_forward(self, t, self._run)
+            out = self._run(t)
         return Tensor(out.logical_data, out.scale, out.zero_point)
+
+    def _run(self, t: Tensor) -> Tensor:
+        if self.config.weight_only:
+            # weight-only: activations stay float end to end, no input
+            # quantization and nothing to dequantize at the output
+            return self.forward(t)
+        if self.is_quant and not t.quantized and not self._consumes_ids():
+            # Reference behavior: quantize at the configured input
+            # (scale, zp).  Already-quantized input (a host-ingest batch)
+            # runs at its own; token ids pass through untouched.
+            t = F.quantize(t, self.config.input_scale,
+                           self.config.input_zero_point,
+                           self.config.rounding)
+        out = self.forward(t)
+        if self.is_quant:
+            out = F.dequantize(out)
+        return out

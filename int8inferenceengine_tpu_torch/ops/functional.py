@@ -91,7 +91,8 @@ def relu(x: Tensor) -> Tensor:
         out = x.data.clamp_min(x.zero_point)
     else:
         out = x.data.clamp_min(0)
-    return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+    return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc,
+                  _tp_sharded=x._tp_sharded)
 
 
 def _pool_extra_pad(size: int, k: int, s: int, p: int) -> int:
@@ -119,7 +120,8 @@ def max_pool2d(x: Tensor, kernel_size: int, stride: int,
                            ceil_mode=ceil_mode)
         if x._nhwc:
             out = out.permute(0, 2, 3, 1)
-        return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+        return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc,
+                      _tp_sharded=x._tp_sharded)
     d = x.as_nhwc_data()
     eh = ew = 0
     if ceil_mode:
@@ -131,7 +133,8 @@ def max_pool2d(x: Tensor, kernel_size: int, stride: int,
     out = windows_nhwc(d, kernel_size, kernel_size, stride).amax(dim=(3, 4))
     if not x._nhwc:
         out = out.permute(0, 3, 1, 2).contiguous()
-    return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc)
+    return Tensor(out, x.scale, x.zero_point, _nhwc=x._nhwc,
+                  _tp_sharded=x._tp_sharded)
 
 
 def _mean_cast(total: torch.Tensor, count: int, like: Tensor) -> Tensor:
@@ -139,7 +142,8 @@ def _mean_cast(total: torch.Tensor, count: int, like: Tensor) -> Tensor:
     the operand's device, never a Python float), cast back to ``like``'s
     dtype: u8 codes truncate, at ``like``'s (scale, zp)."""
     out = (total / f32(float(count), total.device)).to(like.dtype)
-    return Tensor(out, like.scale, like.zero_point, _nhwc=like._nhwc)
+    return Tensor(out, like.scale, like.zero_point, _nhwc=like._nhwc,
+                  _tp_sharded=like._tp_sharded)
 
 
 def avg_pool2d(x: Tensor, kernel_size: int, stride: int) -> Tensor:
@@ -171,10 +175,22 @@ def adaptive_avg_pool2d_1x1(x: Tensor) -> Tensor:
                       x)
 
 
+def _no_shard(x: Tensor, what: str) -> None:
+    """Channel-manipulating layout ops are undefined on a shard-local
+    tensor: permuting or splitting a channel shard would be silently wrong
+    math, so fail loudly instead."""
+    if x._tp_sharded:
+        raise ValueError(
+            f"{what}: input holds only a local output-channel shard "
+            "(overlap tensor parallelism) — gather channels first or run "
+            "this model without shard(overlap=True)")
+
+
 def channel_shuffle(x: Tensor, groups: int) -> Tensor:
     """ShuffleNet's channel permutation: the channels as [groups, C/groups],
     transposed.  A layout op: (scale, zp) pass through."""
     x._no_ingest("channel_shuffle")
+    _no_shard(x, "channel_shuffle")
     axis = 3 if x._nhwc else 1
     shape = tuple(x.data.shape)
     c = shape[axis]
@@ -189,6 +205,7 @@ def split_channels(x: Tensor, sections: int) -> tuple:
     """The channel axis cut into ``sections`` equal parts (ShuffleNetV2's
     channel split), each a view at the input's (scale, zp)."""
     x._no_ingest("split_channels")
+    _no_shard(x, "split_channels")
     axis = 3 if x._nhwc else 1
     c = x.data.shape[axis]
     if c % sections:
@@ -203,6 +220,7 @@ def to_tokens(x: Tensor) -> Tensor:
     token-major: a reshape; a logical NCHW tensor (the FP32 path) is
     transposed first.  (scale, zp) pass through."""
     x._no_ingest("to_tokens")
+    _no_shard(x, "to_tokens")
     if x._nhwc:
         n, h, w, c = x.data.shape
         d = x.data.reshape(n, h * w, c)
@@ -215,17 +233,36 @@ def to_tokens(x: Tensor) -> Tensor:
 def select_token(x: Tensor, index: int) -> Tensor:
     """[B, T, C] -> [B, C]: one token (the class token at 0) for the head."""
     x._no_ingest("select_token")
+    _no_shard(x, "select_token")
     return Tensor(x.data[:, index, :], x.scale, x.zero_point)
 
 
 def split_heads(x: Tensor, num_heads: int) -> Tensor:
-    """[B, T, C] -> [B, H, T, C/H] (quantization-transparent layout op)."""
+    """[B, T, C] -> [B, H, T, C/H] (quantization-transparent layout op).
+
+    ``num_heads`` is always the model's GLOBAL head count.  On a
+    channel-sharded input (head-parallel attention: a column-parallel QKV
+    projection kept its output sharded) the local channels hold
+    ``num_heads / model_size`` whole heads, which ``parallel/sharding.py``
+    ensures by giving the role only where heads divide the model axis."""
     x._no_ingest("split_heads")
+    heads = num_heads
+    if x._tp_sharded:
+        from ..parallel.context import current_axes
+        pa = current_axes()
+        if pa is None or pa.model_size <= 1:
+            _no_shard(x, "split_heads")
+        elif num_heads % pa.model_size:
+            raise ValueError(
+                f"split_heads on a channel shard: {num_heads} heads do "
+                f"not divide the model axis ({pa.model_size})")
+        heads = num_heads // pa.model_size
     b, t, c = x.data.shape
-    if c % num_heads:
-        raise ValueError(f"dim {c} not divisible by heads {num_heads}")
-    d = x.data.reshape(b, t, num_heads, c // num_heads)
-    return Tensor(d.permute(0, 2, 1, 3), x.scale, x.zero_point)
+    if c % heads:
+        raise ValueError(f"dim {c} not divisible by heads {heads}")
+    d = x.data.reshape(b, t, heads, c // heads)
+    return Tensor(d.permute(0, 2, 1, 3), x.scale, x.zero_point,
+                  _tp_sharded=x._tp_sharded)
 
 
 def repeat_kv(x: Tensor, group: int) -> Tensor:
@@ -238,7 +275,8 @@ def repeat_kv(x: Tensor, group: int) -> Tensor:
         return x
     b, hkv, t, d = x.data.shape
     out = x.data[:, :, None].expand(b, hkv, group, t, d)
-    return Tensor(out.reshape(b, hkv * group, t, d), x.scale, x.zero_point)
+    return Tensor(out.reshape(b, hkv * group, t, d), x.scale, x.zero_point,
+                  _tp_sharded=x._tp_sharded)
 
 
 def merge_heads(x: Tensor) -> Tensor:
@@ -246,7 +284,7 @@ def merge_heads(x: Tensor) -> Tensor:
     x._no_ingest("merge_heads")
     b, h, t, d = x.data.shape
     out = x.data.permute(0, 2, 1, 3).reshape(b, t, h * d)
-    return Tensor(out, x.scale, x.zero_point)
+    return Tensor(out, x.scale, x.zero_point, _tp_sharded=x._tp_sharded)
 
 
 def argmax(x: Tensor, *args, **kwargs) -> Tensor:
@@ -267,4 +305,4 @@ def dequantize(x: Tensor) -> Tensor:
     """u8 -> f32 using the tensor's own (scale, zp)."""
     x._no_ingest("dequantize")
     out = quant.dequantize_u8(x.data, x.scale, x.zero_point)
-    return Tensor(out, _nhwc=x._nhwc)
+    return Tensor(out, _nhwc=x._nhwc, _tp_sharded=x._tp_sharded)

@@ -275,6 +275,51 @@ def qgemm_plain(a_u8: torch.Tensor, w_s8_nk: torch.Tensor, oc: torch.Tensor,
                              act=act)
 
 
+def recentre(a_u8: torch.Tensor) -> torch.Tensor:
+    """u8 codes as s8 ``a - 128`` (the kernels' recentred operand)."""
+    return (a_u8.to(torch.int16) - 128).to(torch.int8)
+
+
+def s8_product(a_s8: torch.Tensor, w_s8_nk: torch.Tensor) -> torch.Tensor:
+    """Exact s8 [M, K] x s8 [N, K]^T -> s32 [M, N]
+    (``ops/weight_only.s8_product``: ``torch._int_mm`` on the card)."""
+    from .weight_only import s8_product as product
+    return product(a_s8, w_s8_nk)
+
+
+def qgemm_row_parallel(a_u8_local: torch.Tensor, w_s8_nk_local: torch.Tensor,
+                       rowsum_local: torch.Tensor, q_bias: torch.Tensor,
+                       ep: torch.Tensor, *, group, scale_a, zp_a, scale_c,
+                       zp_c, relu=False, rounding: str = "trunc", act=None
+                       ) -> torch.Tensor:
+    """Row-parallel (input-channel-sharded) quantized GEMM on one rank of
+    the model group ``group`` (counterpart of the JAX package's
+    ``qgemm_row_parallel``).
+
+    Each rank holds a contiguous K-slice of the weight ([N, K_local]) and
+    the matching activation slice; its partial s32 accumulator plus its
+    LOCAL recentring correction ``(128 - zp_a) * rowsum_local`` are summed
+    over ``group`` — integer addition is associative, so the sum is
+    bit-identical to the unsharded accumulator — and the bias fold and the
+    requant epilogue run once on the result.  The JAX package computes the
+    product with an XLA dot, outside any Pallas kernel; here it is the
+    exact ``s8_product``, counted in ``qgemm_row_parallel.calls``."""
+    from ..parallel.sharding import all_reduce_sum
+    acc = s8_product(recentre(a_u8_local), w_s8_nk_local)
+    corr = (128 - int(zp_a)) * rowsum_local.to(torch.int32)
+    acc = all_reduce_sum(acc + corr.reshape(1, -1), group)
+    bias_term = (q_bias.to(torch.float32) / f32(scale_a, q_bias.device)
+                 ).to(torch.int32)
+    qgemm_row_parallel.calls += 1
+    return _requant_epilogue(acc + bias_term.reshape(1, -1), ep,
+                             scale_a=scale_a, scale_c=scale_c, zp_c=zp_c,
+                             relu=relu, rounding=rounding, order="gemm",
+                             act=act)
+
+
+qgemm_row_parallel.calls = 0
+
+
 def _check_act(act, relu, order):
     if act is None:
         return

@@ -25,8 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dequant_w8", "w8f_matmul", "s8_matmul", "s8_matmul_plain",
-           "int_mm_shape"]
+__all__ = ["dequant_w8", "w8f_matmul", "s8_matmul", "s8_product",
+           "s8_matmul_plain", "int_mm_shape"]
 
 # the operand shape ``torch._int_mm``'s CUDA path takes: rows above this,
 # K and N multiples of INT_MM_ALIGN
@@ -81,11 +81,19 @@ def _check(a: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def s8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """DA: exact s8 [M, K] x s8 [N, K]^T -> s32 [M, N].  On CUDA tensors
-    ``torch._int_mm`` on zero-padded operands (``int_mm_shape``); on CPU
-    tensors ``s8_matmul_plain``."""
-    _check(a, w)
+    """DA: exact s8 [M, K] x s8 [N, K]^T -> s32 [M, N] (``s8_product``),
+    counted in ``.calls``."""
     s8_matmul.calls += 1
+    return s8_product(a, w)
+
+
+def s8_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact s8 [M, K] x s8 [N, K]^T -> s32 [M, N]: on CUDA tensors
+    ``torch._int_mm`` on zero-padded operands (``int_mm_shape``); on CPU
+    tensors ``s8_matmul_plain``.  The tensor-parallel products
+    (``ops/gemm_int8.qgemm_row_parallel``, ``parallel/overlap.ring_qgemm``)
+    use it too, uncounted here."""
+    _check(a, w)
     if a.device.type == "cpu":
         return s8_matmul_plain(a, w)
     m, k = a.shape

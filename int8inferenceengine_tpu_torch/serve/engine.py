@@ -171,6 +171,11 @@ class InferenceEngine:
         256)``; each step pads only up to the smallest tile that fits the
         coalesced rows (one captured forward per tile); the largest tile
         caps request size.  Default: one ``max_batch`` tile."""
+        if getattr(model, "_mesh", None) is not None:
+            raise NotImplementedError(
+                "InferenceEngine over a shard()ed model is the next slice "
+                "of the port (ROADMAP.md queue 1, the sharded engines); "
+                "call the sharded model directly on every rank")
         self.quantize_ingest = bool(quantize_ingest)
         self._ingest = None
         if self.quantize_ingest:

@@ -69,7 +69,9 @@ stream in and out of slots:
   at, so a request's tokens follow ``generate()``'s within the float
   path's tolerance rather than bit for bit.
 
-Not ported, refused with ``NotImplementedError``: meshes.
+Not ported, refused with ``NotImplementedError``: a ``shard()``ed model
+(the sharded engines, with lockstep admission across ranks, are the next
+slice of the port; ``generate()`` runs sharded).
 """
 
 from __future__ import annotations
@@ -179,7 +181,8 @@ class GenerationEngine:
         if not model.is_quant:
             raise RuntimeError("GenerationEngine requires a converted model")
         if getattr(model, "_mesh", None) is not None:
-            raise _unported("serving a sharded model", "item 10")
+            raise _unported("serving a shard()ed model",
+                            "the next slice: the sharded engines")
         if prefill_chunk is not None and not \
                 1 <= int(prefill_chunk) <= model.max_len:
             raise ValueError(f"prefill_chunk must be in [1, max_len="

@@ -36,14 +36,20 @@ def resolve_device(device=None) -> torch.device:
 class Tensor:
     """Dense tensor + per-tensor quantization metadata."""
 
-    __slots__ = ("data", "scale", "zero_point", "_nhwc", "_ingest")
+    __slots__ = ("data", "scale", "zero_point", "_nhwc", "_tp_sharded",
+                 "_ingest")
 
     def __init__(self, data: torch.Tensor, scale: float = 1.0,
-                 zero_point: int = 0, _nhwc: bool = False, _ingest=None):
+                 zero_point: int = 0, _nhwc: bool = False,
+                 _tp_sharded: bool = False, _ingest=None):
         self.data = data
         self.scale = float(scale)
         self.zero_point = int(zero_point)
         self._nhwc = _nhwc
+        # True when this holds only this rank's output-channel shard of a
+        # tensor-parallel layer (head-local attention, overlap mode):
+        # elementwise ops keep the flag; Linears ring-consume or gather.
+        self._tp_sharded = _tp_sharded
         # host-ingest pre-layout tag (a Conv2d.ingest_descriptor), or None
         self._ingest = _ingest
 
@@ -100,8 +106,16 @@ class Tensor:
     def reshape(self, *args):
         if len(args) == 1 and isinstance(args[0], (tuple, list)):
             args = tuple(args[0])
-        return Tensor(self.logical_data.reshape(args), self.scale,
-                      self.zero_point)
+        data = self.logical_data
+        if self._tp_sharded and data.dim() == 4:
+            # flattening a channel-sharded feature map: gather first
+            from .parallel.sharding import gather_channels
+            return Tensor(gather_channels(data, 1).reshape(args), self.scale,
+                          self.zero_point)
+        # a reshape keeps the last axis a local channel shard (transformer
+        # TP flattens and unflattens tokens around the head ops)
+        return Tensor(data.reshape(args), self.scale, self.zero_point,
+                      _tp_sharded=self._tp_sharded)
 
     def sum(self):
         return self.numpy().sum()

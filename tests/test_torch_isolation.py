@@ -29,7 +29,8 @@ from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ("text_generation", "alexnet_cifar10", "serve_resnet18",
-            "llm_serving", "accuracy_synthetic", "accuracy_lm")
+            "llm_serving", "accuracy_synthetic", "accuracy_lm",
+            "multichip_tp")
 
 BLOCKED_IMPORT = r"""
 import sys
@@ -72,6 +73,8 @@ def test_port_imports_without_jax():
                 "models.gemma", "models.vit", "models.text_transformer",
                 "utils", "utils.equalize", "utils.smooth", "utils.gptq",
                 "utils.adaround", "utils.hf", "data", "native",
+                "parallel", "parallel.context", "parallel.mesh",
+                "parallel.sharding", "parallel.overlap", "parallel.launch",
                 "examples") + tuple(f"examples.{name}" for name in EXAMPLES):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 
@@ -85,6 +88,18 @@ def test_example_needs_a_card_by_default(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         module.main([])
+
+
+def test_distributed_needs_a_card_by_default(monkeypatch):
+    """``initialize_distributed`` and ``make_mesh`` put the ranks on the
+    card unless the CPU is named: without a card they raise."""
+    from int8inferenceengine_tpu_torch import parallel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.initialize_distributed("file:///nonexistent", 1, 0)
+    with pytest.raises(RuntimeError, match="initialise"):
+        parallel.make_mesh((1, 1))
+    assert parallel.backend_for("cpu", 4) == "gloo"
 
 
 def test_every_kernel_source_is_bound_and_stands_alone():
