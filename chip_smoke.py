@@ -27,8 +27,9 @@
                                       # in full, no result line
     python3 chip_smoke.py --examples  # only the examples' phases (59-65),
                                       # no result line
-    python3 chip_smoke.py --parallel  # only the parallel roles' phases
-                                      # (67-70), no result line
+    python3 chip_smoke.py --parallel  # only the parallel roles' and the
+                                      # sharded engines' phases (67-73), no
+                                      # result line
 
 Phases, in order (any failure exits non-zero):
 
@@ -431,14 +432,39 @@ Phases, in order (any failure exits non-zero):
    the unsharded forward's, each rank launches 8 B1 a forward in gather
    mode and 6 B1 plus 2 ring products in overlap mode (fc2 and fc3 consume
    their input's channel shard); ms a batch a mesh (through host memory:
-   no interconnect is measured);
+   no interconnect is measured); then, in the same world, the sharded
+   ``InferenceEngine`` on (2, 2) serving 2 batches (replies equal to the
+   unsharded forward, 8 B1 a forward a rank) and, in the whole run (after
+   phase 7, whose gpt2-small-ish model it loads), a sharded
+   ``GenerationEngine`` on (2, 2) serving PAR_GPT2_REQUESTS (tokens equal
+   to ``generate()``);
 68-70. (``--parallel`` only) gemma-2-2b at its published widths, converted
    here and saved, greedy ``generate(ids, 128)`` at b8 on (2, 2) and (1,
    4) in 4 ranks equal to the unsharded tokens, with 53 B1, 26 B2, 26 B3
    and 52 row-parallel products a rank and step, ms/step and the KV-cache
    bytes a rank; the Mixtral-width MoE under expert parallelism on (2, 2)
    equal to the unsharded forward; ``multichip_tp`` and ``llm_serving``
-   (its expert-parallel leg) through their ``main()``.
+   (its expert-parallel and sharded-engine legs) through their ``main()``;
+71-73. (``--parallel`` only) the sharded engines in one world of 4 ranks
+   that load phase 68's gemma-2-2b artifact: 71, ``GenerationEngine``
+   (PAR_ENGINE: 8 slots, chunk 32) on (2, 2) serving PAR_ENGINE_REQUESTS
+   (12 prompts of 17-64 tokens, 16-128 new tokens, more than the slots):
+   every request's tokens equal sharded ``generate()`` of its prompt (rows
+   of one batch a prompt length) and the unsharded captured run's, with
+   53 B1, 26 B2, 26 B3 and 52 row-parallel products a rank and decode
+   step; tokens/s, TTFT p50/p99 and the slot caches' bytes a rank; 72,
+   speculative decoding of the sharded target with a replicated draft at
+   gemma-2's widths and 2 blocks (PAR_SPEC: b8, 64 steps, k = 4; its head
+   the token table on even ids only, the first data group's prompts ending
+   in even ids and the second's in odd) equal to greedy ``generate()``,
+   with fewer than k + 1 tokens emitted a row-step (the draft rejected)
+   and each data group's own macro-step count; 73, one engine with a registered prefix and
+   chunked prefill (prefixed requests equal to the same prompts cold and
+   to ``generate()``) and sampled requests with ``top_p`` and ``top_k``
+   (equal to the unsharded engine's), then the ring leg's 4-block gemma-2
+   (max_len 16,384, ring caches) served on (2, 2) equal to its unsharded
+   ``generate()``.  Every time here is host staging through gloo, not
+   tensor parallelism.
 
 Beside each captured decode ms/step the eager step loop's is timed as
 ``(t(32) - t(16)) / 16``, one run each.  The last lines are the nvidia-smi
@@ -1950,17 +1976,18 @@ def full_context_timing(torch, q, model, label, kernel_fns):
                     "launches_per_forward": launches, "gated": False}))
 
 
-def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
+def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode",
+                   trials=3):
     """Decode ms/step by bench.py's protocol, the prefill, and under
     ``profile`` the device time of decode steps by kernel.  No warm-up
     run: every ``generate()`` captures its own step graph, and the best of
-    3 leaves the first out."""
+    ``trials`` leaves the first out."""
     from int8inferenceengine_tpu_torch.tensor import Tensor
     vocab = model.vocab_size
     times = {}
     for steps in (DEC_SHORT, DEC_STEPS):
         best = float("inf")
-        for trial in range(3):
+        for trial in range(trials):
             p2 = (ids + trial + 1) % vocab
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1978,7 +2005,8 @@ def decoder_timing(torch, model, ids, profile, label="gpt2_small_ish_decode"):
            "eager_step_loop_ms_per_step": eager_ms,
            "generate_s": {str(k): v for k, v in times.items()},
            "protocol": f"(t(generate {DEC_STEPS}) - t(generate {DEC_SHORT}))"
-                       f" / {DEC_STEPS - DEC_SHORT}, best of 3; generate() "
+                       f" / {DEC_STEPS - DEC_SHORT}, best of {trials}; "
+                       f"generate() "
                        f"replays a captured step, the eager loop launches "
                        f"every kernel from Python"}
     log(json.dumps(res))
@@ -2133,13 +2161,14 @@ SPEC_STEPS = 128
 # the chunked engine: SERVE with 64-token prefill chunks; greedy and
 # sampled prompt lengths (100-448 tokens) and new tokens; a prefix of
 # PREFIX_LEN tokens and PREFIX_SUFFIXES requests extending it by 16-64
-# tokens; the 448-token prompt's TTFT over TTFT_REPS requests
+# tokens (8: the gpt2 legs pay for phase 67's sharded engines); the
+# 448-token prompt's TTFT over TTFT_REPS requests
 CHUNK_ENGINE = dict(SERVE, prefill_chunk=PREFILL_CHUNK)
 CHUNK_GREEDY = (100, 150, 200, 256, 300, 350, 400, 448)
 CHUNK_SAMPLED = (120, 230, 333, 448)
 CHUNK_NEW = 32
 PREFIX_LEN = 256
-PREFIX_SUFFIXES = 16
+PREFIX_SUFFIXES = 8
 TTFT_REPS = 5
 
 
@@ -2452,7 +2481,7 @@ def saturated_load(torch, eng, vocab, label, collect=False):
 def bench_engine_load(torch, model):
     """bench.py's engine leg (BENCH_ENGINE, BENCH_ENGINE_LOAD) on a new
     engine: delivered tokens / wall seconds of a round of requests
-    submitted at once, best of 2 after one warm round."""
+    submitted at once, timed once after one warm round."""
     from int8inferenceengine_tpu_torch.serve import GenerationEngine
     n, t_prompt, new = BENCH_ENGINE_LOAD
     rng = np.random.default_rng(7)
@@ -2467,14 +2496,13 @@ def bench_engine_load(torch, model):
             return ntok / (time.perf_counter() - t0)
 
         warm = round_once()
-        rates = [round_once() for _ in range(2)]
+        rate = round_once()
     finally:
         eng.shutdown()
     log(json.dumps({"phase": "gpt2_engine_bench_protocol", "requests": n,
                     "prompt_tokens": t_prompt, "new_tokens": new,
                     **BENCH_ENGINE, "warm_round_tokens_per_s": warm,
-                    "rounds_tokens_per_s": rates,
-                    "tokens_per_s": max(rates)}))
+                    "tokens_per_s": rate}))
 
 
 def serve_decoder(torch, model, label, kernel_fns, sampled_and_eos=True,
@@ -2997,22 +3025,22 @@ def extend_vs_decode(torch, model, ids, label, kernel_fns):
 
 
 def speculative_path(torch, target, draft, ids, label, kernel_fns, k=SPEC_K,
-                     steps=SPEC_STEPS):
+                     steps=SPEC_STEPS, trials=2):
     """``generate_speculative`` of ``ids`` with ``draft`` equal to
-    ``generate()`` token for token; tokens/s of both (best of 2, the same
-    call), the mean tokens emitted per row and macro-step, and the
-    launches per macro-step (past the two prefills).  Returns the
+    ``generate()`` token for token; tokens/s of both (best of ``trials``,
+    the same call), the mean tokens emitted per row and macro-step, and
+    the launches per macro-step (past the two prefills).  Returns the
     launches of the first speculative run."""
     from int8inferenceengine_tpu_torch.tensor import Tensor
     b = ids.shape[0]
     walls = {"generate": [], "speculative": []}
-    for _ in range(2):
+    for _ in range(trials):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = target.generate(ids, steps)
         walls["generate"].append(time.perf_counter() - t0)
     counts = None
-    for _ in range(2):
+    for _ in range(trials):
         reset_counts(kernel_fns)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4195,7 +4223,9 @@ def gemma_state(torch, shapes, depth: int, seed: int, dev,
     down), N(0, 0.02) unit-offset deltas for the RMSNorm gains.
     ``tied_head``: the head is a copy of the token table, as in
     ``google/gemma-2-2b`` (``tie_word_embeddings``: its checkpoint has no
-    ``lm_head``)."""
+    ``lm_head``); "even": on the even token ids only, the odd rows keeping
+    their own draw (a draft that agrees with a tied target on some
+    tokens)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = {}
     for key, shape in shapes.items():
@@ -4205,7 +4235,10 @@ def gemma_state(torch, shapes, depth: int, seed: int, dev,
                else 0.02)
         state[key] = z.mul_(std)
     if tied_head:
-        state["head.weight"] = state["embed.weight"].clone()
+        head = state["embed.weight"].clone()
+        if tied_head == "even":
+            head[1::2] = state["head.weight"][1::2]
+        state["head.weight"] = head
     return state
 
 
@@ -8869,9 +8902,34 @@ PAR_RANKS = 4
 PAR_MESHES = [((4, 1), False), ((2, 2), False), ((1, 4), False),
               ((2, 2), True)]
 PAR_REPS = 3
+# phase 67's sharded engines: the InferenceEngine's batches of 100, and
+# (the whole run) the gpt2-small-ish GenerationEngine's requests (prompt
+# tokens, new tokens)
+PAR_IE_BATCHES = 2
+PAR_GPT2_ENGINE = dict(slots=4, chunk_steps=8, sync_chunks=2)
+PAR_GPT2_REQUESTS = [(24, 12), (40, 8), (64, 10)]
 # gemma-2-2b's sharded generate() (--parallel)
 PAR_GEMMA_MESHES = [(2, 2), (1, 4)]
 PAR_TIMEOUT_S = 900
+# phases 71-73 (--parallel): the sharded engines over gemma-2-2b on (2, 2).
+# 71: 12 requests over 8 slots, (prompt tokens, new tokens), three prompt
+# lengths (sharded generate() takes each length's prompts as one batch)
+PAR_ENGINE = dict(slots=8, chunk_steps=32, sync_chunks=4)
+PAR_ENGINE_REQUESTS = [(17, 16), (17, 40), (17, 24), (17, 32),
+                       (40, 48), (40, 80), (40, 64), (40, 56),
+                       (64, 128), (64, 96), (64, 112), (64, 104)]
+# 72: speculative decoding, b8 x 64 steps at k = 4, the draft at gemma-2's
+# widths and 2 blocks, its head the token table on even ids only; the
+# prompts of the first data group end in even ids, the second's in odd
+PAR_SPEC = dict(steps=64, k=4, draft_depth=2)
+# 73: a 96-token prefix with suffixes of 7 and 40 tokens through chunks of
+# 64, and sampled requests (prompt tokens, new tokens, sampling); the ring
+# leg: one prompt of RING_PROMPT tokens and RING_STEPS new tokens
+PAR_PREFIX = dict(prefix=96, suffixes=(7, 40), new=24, prefill_chunk=64)
+PAR_SAMPLED = [(24, 24, dict(temperature=0.8, top_p=0.9, seed=5)),
+               (33, 24, dict(temperature=1.0, top_k=40, seed=6)),
+               (50, 24, dict(temperature=0.7, top_k=20, top_p=0.8, seed=7))]
+PAR_ENGINES_TIMEOUT_S = 1500
 
 
 def transport(rows) -> str:
@@ -8927,17 +8985,52 @@ def staggered_load(torch, build, path):
     return model
 
 
-def alexnet_rank(path, x_test, want, meshes, reps):
+def served_in_turn(eng, prompts, news, kws=None):
+    """Rank 0 of a sharded engine: every request submitted at once through
+    ``submit_stream``, each read on its own thread; (tokens of each, wall
+    seconds, each request's time to its first token)."""
+    import threading
+    kws = kws or [{}] * len(prompts)
+    toks = [[] for _ in prompts]
+    first = [None] * len(prompts)
+
+    def consume(i, it, t0):
+        for tok in it:
+            if first[i] is None:
+                first[i] = time.perf_counter() - t0
+            toks[i].append(tok)
+
+    t0 = time.perf_counter()
+    streams = [(eng.submit_stream(p, n, **kw), time.perf_counter())
+               for p, n, kw in zip(prompts, news, kws)]
+    threads = [threading.Thread(target=consume, args=(i, it, ts))
+               for i, (it, ts) in enumerate(streams)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    return ([np.asarray(t, np.int32) for t in toks],
+            time.perf_counter() - t0, first)
+
+
+def alexnet_rank(path, x_test, want, meshes, reps, batches, gpt=None):
     """One rank of phase 67: the saved AlexNet INT8 artifact loaded, then
     for each mesh ``shard()``, one forward on the whole batch with the
     counts set to 0 just before it (codes against the unsharded ``want``)
-    and ``reps`` timed forwards.  Returns a row a mesh."""
+    and ``reps`` timed forwards; then the sharded ``InferenceEngine`` on
+    (2, 2) serving ``batches`` batches, and with ``gpt`` (the
+    gpt2-small-ish artifact's path, geometry, engine settings, prompts,
+    new tokens and unsharded tokens) a sharded ``GenerationEngine`` on
+    (2, 2).  Returns (a row a
+    mesh, the engines' rows)."""
     import torch
     import torch.distributed as dist
     import int8inferenceengine_tpu_torch as q
     from int8inferenceengine_tpu_torch import utils
     from int8inferenceengine_tpu_torch.models import zoo
     from int8inferenceengine_tpu_torch.parallel import make_mesh
+    from int8inferenceengine_tpu_torch.serve import (GenerationEngine,
+                                                     InferenceEngine)
     kernel_fns, route_fns = kernel_functions()
     fns = dict(kernel_fns, **route_fns)
     model = zoo.AlexNet(device="cuda")      # 0.24 GB: the ranks load at once
@@ -8966,29 +9059,98 @@ def alexnet_rank(path, x_test, want, meshes, reps):
                          launches=counts, ms_per_batch=ms,
                          shard_bytes=shard_bytes(model),
                          model_bytes=model_bytes(model)))
-    return rows
+    lead = dist.get_rank() == 0
+    model.shard(make_mesh((2, 2)))
+    dist.barrier()
+    t0 = time.perf_counter()
+    reset_counts(fns)
+    eng = InferenceEngine(model, max_batch=x_test.shape[0])
+    try:
+        replies = ([f.result(timeout=WAIT_S) for f in
+                    [eng.submit(x_test) for _ in range(batches)]]
+                   if lead else [])
+    finally:
+        eng.shutdown()
+    torch.cuda.synchronize()
+    engines = {"inference_engine": dict(
+        rank=dist.get_rank(), launches=read_counts(fns),
+        equal=all(np.array_equal(r, want.numpy()) for r in replies),
+        seconds=time.perf_counter() - t0)}
+    if gpt is not None:
+        gpath, geo, engine, prompts, news, want_toks = gpt
+        del model
+        torch.cuda.empty_cache()
+        dec = zoo.build("gpt_tiny", **geo)
+        utils.load(dec, gpath)
+        dec.shard(make_mesh((2, 2)))
+        dist.barrier()
+        t0 = time.perf_counter()
+        reset_counts(fns)
+        eng = GenerationEngine(dec, **engine)
+        try:
+            toks = (served_in_turn(eng, prompts, news)[0] if lead else [])
+        finally:
+            eng.shutdown()
+        torch.cuda.synchronize()
+        engines["generation_engine"] = dict(
+            rank=dist.get_rank(), launches=read_counts(fns),
+            equal=all(np.array_equal(a, b) for a, b in zip(toks, want_toks)),
+            chunks=eng.stats.chunks, seconds=time.perf_counter() - t0)
+    return rows, engines
 
 
-def parallel_alexnet(torch, q, model, x_test, kernel_fns):
+def alexnet_for_world(torch, q, model, x_test):
+    """Phase 67's inputs, from phase 5's model: its INT8 artifact saved in
+    a temporary directory and its unsharded output codes on ``x_test``."""
+    from int8inferenceengine_tpu_torch import utils
+    d = tempfile.mkdtemp(prefix="alexnet_par_")
+    utils.save(model, f"{d}/alexnet_int8.npz")
+    return dict(dir=d, path=f"{d}/alexnet_int8.npz", x_test=x_test,
+                want=model(q.tensor(x_test)).data.cpu())
+
+
+def gpt2_for_world(torch, dec):
+    """The sharded GenerationEngine leg's inputs from phase 7's
+    gpt2-small-ish model: its artifact saved, PAR_GPT2_REQUESTS prompts and
+    their unsharded tokens (one captured ``generate()`` each)."""
+    from int8inferenceengine_tpu_torch import utils
+    d = tempfile.mkdtemp(prefix="gpt2_par_")
+    utils.save(dec, f"{d}/gpt2_int8.npz")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, GPT["vocab_size"], n).astype(np.int32)
+               for n, _ in PAR_GPT2_REQUESTS]
+    news = [n for _, n in PAR_GPT2_REQUESTS]
+    want = [dec.generate(p[None], n)[0] for p, n in zip(prompts, news)]
+    return dict(dir=d, args=(f"{d}/gpt2_int8.npz", GPT, PAR_GPT2_ENGINE,
+                             prompts, news, want))
+
+
+def parallel_alexnet(torch, alex, kernel_fns, gpt=None):
     """Phase 67: AlexNet-224 INT8 b100 on a world of 4 ranks sharing the
     card over gloo, on the meshes PAR_MESHES: every rank's output codes
     equal the unsharded forward's; each rank launches 8 B1 a forward in
     gather mode and ``par_alexnet_launches`` in overlap mode; ms a batch
-    a mesh (through host memory: no interconnect is measured).  Returns
-    the ranks' launches of the checked forwards, summed."""
-    from int8inferenceengine_tpu_torch import utils
+    a mesh (through host memory: no interconnect is measured).  Then, in
+    the same world, the sharded ``InferenceEngine`` (replies equal, 8 B1 a
+    forward a rank) and, with ``gpt`` (``gpt2_for_world``), the sharded
+    ``GenerationEngine`` (tokens equal to ``generate()``).  Returns the
+    ranks' launches of the checked forwards and engines, summed."""
+    import shutil
     from int8inferenceengine_tpu_torch.parallel.launch import run_world
     t0 = time.perf_counter()
-    want = model(q.tensor(x_test)).data.cpu()
-    with tempfile.TemporaryDirectory() as d:
-        path = f"{d}/alexnet_int8.npz"
-        utils.save(model, path)
+    try:
         ranks = run_world(alexnet_rank, PAR_RANKS,
-                          args=(path, x_test, want, PAR_MESHES, PAR_REPS),
+                          args=(alex["path"], alex["x_test"], alex["want"],
+                                PAR_MESHES, PAR_REPS, PAR_IE_BATCHES,
+                                None if gpt is None else gpt["args"]),
                           device="cuda", timeout_s=PAR_TIMEOUT_S)
+    finally:
+        for d in (alex["dir"], None if gpt is None else gpt["dir"]):
+            if d is not None:
+                shutil.rmtree(d, ignore_errors=True)
     total = dict.fromkeys(read_counts(kernel_fns), 0)
     for i, (shape, overlap) in enumerate(PAR_MESHES):
-        rows = [r[i] for r in ranks]
+        rows = [r[0][i] for r in ranks]
         b1, ring = par_alexnet_launches(shape, overlap)
         want_counts = dict.fromkeys(kernel_fns, 0) | {"qgemm_u8s8": b1}
         for r in rows:
@@ -9015,8 +9177,43 @@ def parallel_alexnet(torch, q, model, x_test, kernel_fns):
                                                  for r in rows],
                         "shard_bytes_per_rank": rows[0]["shard_bytes"],
                         "model_bytes_per_rank": rows[0]["model_bytes"]}))
+    ie = [r[1]["inference_engine"] for r in ranks]
+    want_ie = dict.fromkeys(kernel_fns, 0) | {
+        "qgemm_u8s8": 8 * PAR_IE_BATCHES}
+    bad = [r["rank"] for r in ie
+           if {k: r["launches"][k] for k in kernel_fns} != want_ie]
+    if not ie[0]["equal"] or bad:
+        fail(f"the sharded InferenceEngine on (2, 2): replies equal "
+             f"{ie[0]['equal']}; ranks {bad} launched other than 8 B1 a "
+             f"forward ({[r['launches'] for r in ie]})")
+    log(json.dumps({"phase": "alexnet_b100_4ranks_inference_engine",
+                    "mesh": [2, 2], "card": nvidia_smi(),
+                    "batches": PAR_IE_BATCHES, "replies_equal_unsharded":
+                        True, "b1_launches_per_rank": 8 * PAR_IE_BATCHES,
+                    "seconds_by_rank": [r["seconds"] for r in ie]}))
+    for k in total:
+        total[k] += sum(r["launches"][k] for r in ie)
+    if gpt is not None:
+        ge = [r[1]["generation_engine"] for r in ranks]
+        if not ge[0]["equal"]:
+            fail("the sharded GenerationEngine on (2, 2): gpt2-small-ish "
+                 "tokens differ from generate()")
+        log(json.dumps({"phase": "gpt2_4ranks_generation_engine",
+                        "mesh": [2, 2], "card": nvidia_smi(),
+                        **PAR_GPT2_ENGINE,
+                        "requests": PAR_GPT2_REQUESTS,
+                        "tokens_equal_generate": True,
+                        "chunks_by_rank": [r["chunks"] for r in ge],
+                        "launches_by_rank": [r["launches"] for r in ge],
+                        "seconds_by_rank": [r["seconds"] for r in ge]}))
+        for k in total:
+            total[k] += sum(r["launches"][k] for r in ge)
+    legs = max(r[1]["inference_engine"]["seconds"] for r in ranks) + (
+        0.0 if gpt is None else max(r[1]["generation_engine"]["seconds"]
+                                    for r in ranks))
     log(json.dumps({"phase": "alexnet_b100_4ranks_done",
-                    "seconds": time.perf_counter() - t0}))
+                    "seconds": time.perf_counter() - t0,
+                    "engine_legs_seconds": legs}))
     return total
 
 
@@ -9081,8 +9278,9 @@ def parallel_gemma(torch, q, zoo, GM, kernel_fns, dev):
     captured): the tokens equal the unsharded captured ``generate()``'s;
     per rank and step 2 x depth + 1 B1 (gate, up, the gathered head),
     depth B2 (the merged QKV on the rank's columns), depth B3 (its heads)
-    and 2 x depth row-parallel products (proj, down).  Returns the
-    launches."""
+    and 2 x depth row-parallel products (proj, down).  Then phases 71-73
+    (``parallel_engines``) on the same artifact.  Returns the launches of
+    phase 68 and of phases 71-73."""
     import shutil
     from int8inferenceengine_tpu_torch import utils
     from int8inferenceengine_tpu_torch.parallel.launch import run_world
@@ -9097,17 +9295,12 @@ def parallel_gemma(torch, q, zoo, GM, kernel_fns, dev):
     utils.save(model, path)
     unsharded_cache = (2 * GEMMA2["depth"] * DEC_BATCH * GEMMA2["max_len"]
                        * GEMMA2["kv_heads"] * GEMMA2["head_dim"])
+    # phases 71-73's unsharded references, from the same model
+    engines = engines_inputs(torch, q, zoo, GM, model, ids, dev, d)
     del model
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "gemma2_2b_4ranks_saved",
                     "seconds": time.perf_counter() - t0}))
-    try:
-        ranks = run_world(gemma_rank, PAR_RANKS,
-                          args=(path, ids, want, PAR_GEMMA_MESHES,
-                                DEC_STEPS),
-                          device="cuda", timeout_s=PAR_TIMEOUT_S)
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
     depth = GEMMA2["depth"]
     per_step = {"qgemm_u8s8": 2 * depth + 1, "qgemm_u8s8_vzp": depth,
                 "decode_attn_flat": depth, "row_parallel_product": 2 * depth}
@@ -9115,35 +9308,349 @@ def parallel_gemma(torch, q, zoo, GM, kernel_fns, dev):
         k: n * DEC_STEPS - (depth if k == "decode_attn_flat" else 0)
         for k, n in per_step.items()}
     total = dict.fromkeys(kernel_fns, 0)
-    for i, shape in enumerate(PAR_GEMMA_MESHES):
-        rows = [r[i] for r in ranks]
-        for r in rows:
-            if not r["equal"]:
-                fail(f"gemma-2-2b on mesh {shape}: rank {r['rank']}'s greedy "
-                     f"tokens differ from the unsharded generate()'s")
-            got = {k: r["launches"][k] for k in want_counts}
-            if got != want_counts:
-                fail(f"gemma-2-2b on mesh {shape}: rank {r['rank']} "
-                     f"launched {got}, want {want_counts}")
-            for k in total:
-                total[k] += r["launches"][k]
-        steps_s = [r["generate_s"] - r["prefill_s"] for r in rows]
-        log(json.dumps({"phase": "gemma2_2b_4ranks_generate",
-                        "mesh": list(shape), "card": nvidia_smi(),
-                        "transport": transport(rows),
-                        "backend": rows[0]["backend"],
-                        "batch": DEC_BATCH, "prompt": DEC_PROMPT,
-                        "steps": DEC_STEPS, "tokens_equal_unsharded": True,
-                        "launches_per_rank_per_step": per_step,
-                        "ms_per_step_eager_by_rank": [
-                            1e3 * s / (DEC_STEPS - 1) for s in steps_s],
-                        "prefill_ms_by_rank": [1e3 * r["prefill_s"]
-                                               for r in rows],
-                        "cache_bytes_per_rank": rows[0]["cache_bytes"],
-                        "cache_bytes_unsharded": unsharded_cache,
-                        "shard_bytes_per_rank": rows[0]["shard_bytes"],
-                        "model_bytes_per_rank": rows[0]["model_bytes"],
-                        "peak_gib_by_rank": [r["peak_gib"] for r in rows]}))
+    try:
+        ranks = run_world(gemma_rank, PAR_RANKS,
+                          args=(path, ids, want, PAR_GEMMA_MESHES,
+                                DEC_STEPS),
+                          device="cuda", timeout_s=PAR_TIMEOUT_S)
+        for i, shape in enumerate(PAR_GEMMA_MESHES):
+            rows = [r[i] for r in ranks]
+            for r in rows:
+                if not r["equal"]:
+                    fail(f"gemma-2-2b on mesh {shape}: rank {r['rank']}'s "
+                         f"greedy tokens differ from the unsharded "
+                         f"generate()'s")
+                got = {k: r["launches"][k] for k in want_counts}
+                if got != want_counts:
+                    fail(f"gemma-2-2b on mesh {shape}: rank {r['rank']} "
+                         f"launched {got}, want {want_counts}")
+                for k in total:
+                    total[k] += r["launches"][k]
+            steps_s = [r["generate_s"] - r["prefill_s"] for r in rows]
+            log(json.dumps({
+                "phase": "gemma2_2b_4ranks_generate", "mesh": list(shape),
+                "card": nvidia_smi(), "transport": transport(rows),
+                "backend": rows[0]["backend"], "batch": DEC_BATCH,
+                "prompt": DEC_PROMPT, "steps": DEC_STEPS,
+                "tokens_equal_unsharded": True,
+                "launches_per_rank_per_step": per_step,
+                "ms_per_step_eager_by_rank": [
+                    1e3 * s / (DEC_STEPS - 1) for s in steps_s],
+                "prefill_ms_by_rank": [1e3 * r["prefill_s"] for r in rows],
+                "cache_bytes_per_rank": rows[0]["cache_bytes"],
+                "cache_bytes_unsharded": unsharded_cache,
+                "shard_bytes_per_rank": rows[0]["shard_bytes"],
+                "model_bytes_per_rank": rows[0]["model_bytes"],
+                "peak_gib_by_rank": [r["peak_gib"] for r in rows]}))
+        mark("gemma2_2b 4 ranks generate")
+        engines_total = parallel_engines(torch, kernel_fns, path, engines)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return total, engines_total
+
+
+def engines_inputs(torch, q, zoo, GM, model, ids, dev, d):
+    """The inputs of phases 71-73 (``engines_rank``), from phase 68's
+    unsharded gemma-2-2b ``model`` on the card: the engine's prompts and
+    their captured ``generate()`` tokens (one batch a prompt length), the
+    speculative prompts (``ids`` with the last ids' parity set per data
+    group) and their ``generate()`` tokens, the prefix
+    and sampled requests with their unsharded tokens (the sampled ones
+    through the unsharded engine), and the draft and ring models converted
+    and saved in ``d`` with the ring's unsharded tokens."""
+    from int8inferenceengine_tpu_torch import utils
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    vocab = GEMMA2["vocab_size"]
+    rng = np.random.default_rng(31)
+    prompts = {}
+    for t in sorted({t for t, _ in PAR_ENGINE_REQUESTS}):
+        prompts[t] = rng.integers(0, vocab, (4, t)).astype(np.int32)
+    reqs, tokens = [], []
+    for t, batch in prompts.items():
+        news = [n for tt, n in PAR_ENGINE_REQUESTS if tt == t]
+        rows = model.generate(batch, max(news))
+        for i, n in enumerate(news):
+            reqs.append((batch[i], n))
+            tokens.append(rows[i, :n])
+    pre = PAR_PREFIX
+    prefix = rng.integers(0, vocab, pre["prefix"]).astype(np.int32)
+    fulls = [np.concatenate([prefix, rng.integers(0, vocab, n).astype(
+        np.int32)]) for n in pre["suffixes"]]
+    prefix_want = [model.generate(f[None], pre["new"])[0] for f in fulls]
+    sampled = [(rng.integers(0, vocab, t).astype(np.int32), n, kw)
+               for t, n, kw in PAR_SAMPLED]
+    eng = GenerationEngine(model, **PAR_ENGINE)
+    try:
+        sampled_want = results([eng.submit(p, n, **kw)
+                                for p, n, kw in sampled])
+    finally:
+        eng.shutdown()
+    # a random tied gemma's argmax follows the token table, so a tied
+    # draft would agree with the target on every token: this one agrees
+    # on even ids only, and the groups' rows accept at different rates
+    spec_ids = ids.copy()
+    spec_ids[:, -1] = (spec_ids[:, -1] // 2 * 2
+                       + (np.arange(len(ids)) >= len(ids) // 2))
+    spec_want = model.generate(spec_ids, PAR_SPEC["steps"])
+    draft = build_gemma(torch, q, zoo, GM, dict(
+        GEMMA2, depth=PAR_SPEC["draft_depth"]), dev, seed=5, calib=ids,
+        tied_head="even")
+    utils.save(draft, f"{d}/draft_int8.npz")
+    del draft
+    torch.cuda.empty_cache()
+    ring = build_gemma(torch, q, zoo, GM, dict(RING, ring_cache=True), dev,
+                       seed=1, calib=np.random.default_rng(3).integers(
+                           0, RING["vocab_size"], (2, 256)).astype(
+                               np.int32))
+    ring_ids = np.random.default_rng(4).integers(
+        0, RING["vocab_size"], (1, RING_PROMPT)).astype(np.int32)
+    ring_want = ring.generate(ring_ids, RING_STEPS)[0]
+    utils.save(ring, f"{d}/ring_int8.npz")
+    del ring
+    torch.cuda.empty_cache()
+    return dict(geo=GEMMA2, draft_geo=dict(GEMMA2,
+                                           depth=PAR_SPEC["draft_depth"]),
+                ring_geo=dict(RING, ring_cache=True), engine=PAR_ENGINE,
+                spec=PAR_SPEC, prefill_chunk=pre["prefill_chunk"],
+                new=pre["new"], ring_steps=RING_STEPS,
+                requests=reqs, tokens=tokens, spec_ids=spec_ids,
+                spec_want=spec_want, prefix=prefix,
+                fulls=fulls, prefix_want=prefix_want, sampled=sampled,
+                sampled_want=sampled_want, draft=f"{d}/draft_int8.npz",
+                ring=f"{d}/ring_int8.npz", ring_ids=ring_ids[0],
+                ring_want=ring_want)
+
+
+def engines_rank(path, inp):
+    """One rank of phases 71-73: phase 68's gemma-2-2b artifact loaded and
+    sharded on (2, 2); 71, the ``GenerationEngine`` (PAR_ENGINE) serving
+    PAR_ENGINE_REQUESTS from rank 0 (tokens, wall, TTFT), with the counts
+    set to 0 just before it, then sharded ``generate()`` of each prompt
+    length's batch; 72, speculative decoding with the replicated draft;
+    73, one engine with a registered prefix, chunked prefill and the
+    sampled requests; and first of all 73's ring model sharded and
+    served.  Returns the rank's results."""
+    import torch
+    import torch.distributed as dist
+    import int8inferenceengine_tpu_torch as q
+    from int8inferenceengine_tpu_torch import utils
+    from int8inferenceengine_tpu_torch.models import zoo
+    from int8inferenceengine_tpu_torch.parallel import make_mesh
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    kernel_fns, route_fns = kernel_functions()
+    fns = dict(kernel_fns, **route_fns)
+    lead = dist.get_rank() == 0
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(),
+               device=str(torch.device("cuda", torch.cuda.current_device())))
+
+    def gemma(geo, file):
+        return staggered_load(torch, lambda: zoo.build(
+            "gemma_tiny", config=q.QuantConfig(**GEMMA_CFG), device="cuda",
+            **geo), file)
+
+    # 73 (first, while the card holds nothing else: its 8,160-token
+    # prefill is the world's peak): the ring leg's 4-block gemma-2, ring
+    # caches, on (2, 2)
+    ring = gemma(inp["ring_geo"], inp["ring"])
+    ring.shard(make_mesh((2, 2)))
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng = GenerationEngine(ring, slots=2,
+                           chunk_steps=inp["engine"]["chunk_steps"])
+    try:
+        rows = [eng._caches[i][0].shape[1] for i in (1, 2)]
+        got = (eng.submit(inp["ring_ids"], inp["ring_steps"]).result(
+            timeout=WAIT_S) if lead else None)
+    finally:
+        eng.shutdown()
+    out["ring"] = dict(rows=rows, seconds=time.perf_counter() - t0,
+                       equal=None if got is None else bool(
+                           np.array_equal(got, inp["ring_want"])))
+    del eng, ring
+    torch.cuda.empty_cache()
+    model = gemma(inp["geo"], path)
+    model.shard(make_mesh((2, 2)))
+    torch.cuda.reset_peak_memory_stats()
+    # 71: the engine, oversubscribed
+    prompts = [p for p, _ in inp["requests"]]
+    news = [n for _, n in inp["requests"]]
+    dist.barrier()
+    t0 = time.perf_counter()
+    reset_counts(fns)
+    eng = GenerationEngine(model, **inp["engine"])
+    try:
+        toks, wall, first = (served_in_turn(eng, prompts, news) if lead
+                             else (None, None, None))
+    finally:
+        eng.shutdown()
+    torch.cuda.synchronize()
+    out["engine"] = dict(
+        launches=read_counts(fns), chunks=eng.stats.chunks, wall_s=wall,
+        ttft_s=first, seconds=time.perf_counter() - t0,
+        cache_bytes=eng._kv.numel() * eng._kv.element_size(),
+        equal_unsharded=None if toks is None else [
+            bool(np.array_equal(a, b)) for a, b in zip(toks, inp["tokens"])],
+        tokens=None if toks is None else int(sum(len(t) for t in toks)),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del eng
+    t0 = time.perf_counter()
+    sharded_toks = [None] * len(prompts)
+    for t in sorted({len(p) for p in prompts}):
+        idx = [i for i, p in enumerate(prompts) if len(p) == t]
+        batch = [prompts[i] for i in idx]
+        batch += batch[:len(batch) % 2]        # rows split over data 2
+        rows = model.generate(np.stack(batch), max(news[i] for i in idx))
+        for j, i in enumerate(idx):
+            sharded_toks[i] = rows[j, :news[i]]
+    out["engine"]["sharded_generate_s"] = time.perf_counter() - t0
+    if toks is not None:
+        out["engine"]["equal_sharded"] = [
+            bool(np.array_equal(a, b)) for a, b in zip(toks, sharded_toks)]
+    # 72: the sharded target with the replicated draft
+    draft = gemma(inp["draft_geo"], inp["draft"])
+    dist.barrier()
+    t0 = time.perf_counter()
+    reset_counts(fns)
+    spec = model.generate_speculative(draft, inp["spec_ids"],
+                                      inp["spec"]["steps"],
+                                      k=inp["spec"]["k"])
+    torch.cuda.synchronize()
+    out["speculative"] = dict(
+        launches=read_counts(fns), seconds=time.perf_counter() - t0,
+        equal=bool(np.array_equal(spec, inp["spec_want"])),
+        stats=dict(model.speculative_stats))
+    del draft
+    torch.cuda.empty_cache()
+    # 73: a registered prefix, chunked prefill and sampled requests in one
+    # engine
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, **dict(
+        inp["engine"], prefill_chunk=inp["prefill_chunk"]))
+    try:
+        if lead:
+            pid = eng.register_prefix(inp["prefix"])
+            n = inp["new"]
+            got, _, _ = served_in_turn(
+                eng, [*inp["fulls"], *inp["fulls"],
+                      *[p for p, _, _ in inp["sampled"]]],
+                [n] * 2 * len(inp["fulls"])
+                + [m for _, m, _ in inp["sampled"]],
+                [dict(prefix_id=pid)] * len(inp["fulls"])
+                + [{}] * len(inp["fulls"])
+                + [kw for _, _, kw in inp["sampled"]])
+            k = len(inp["fulls"])
+            out["prefix"] = dict(
+                prefixed_equal_generate=[bool(np.array_equal(a, b)) for a, b
+                                         in zip(got[:k], inp["prefix_want"])],
+                cold_equal_generate=[bool(np.array_equal(a, b)) for a, b
+                                     in zip(got[k:2 * k],
+                                            inp["prefix_want"])],
+                prefix_hits=eng.stats.prefix_hits,
+                sampled_equal_unsharded=[
+                    bool(np.array_equal(a, b)) for a, b in
+                    zip(got[2 * k:], inp["sampled_want"])])
+    finally:
+        eng.shutdown()
+    out["prefix_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_engines(torch, kernel_fns, path, inp):
+    """Phases 71-73 (``engines_rank`` in a world of 4 ranks sharing the
+    card over gloo): the gates and the numbers.  Returns the launches of
+    phase 71's engine and 72's speculative run, over the ranks."""
+    import gc
+    from int8inferenceengine_tpu_torch.parallel.launch import run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("sharded engines: the parent's card memory")
+    t0 = time.perf_counter()
+    ranks = run_world(engines_rank, PAR_RANKS, args=(path, inp),
+                      device="cuda", timeout_s=PAR_ENGINES_TIMEOUT_S)
+    lead = ranks[0]
+    depth = GEMMA2["depth"]
+    per = {"qgemm_u8s8": 2 * depth + 1, "qgemm_u8s8_vzp": depth,
+           "decode_attn_flat": depth, "row_parallel_product": 2 * depth}
+    bad = []
+    e = lead["engine"]
+    if not (all(e["equal_unsharded"]) and all(e["equal_sharded"])):
+        bad.append(f"engine tokens equal the unsharded captured run "
+                   f"{e['equal_unsharded']}, sharded generate() "
+                   f"{e['equal_sharded']}")
+    prefills = set()
+    for r in ranks:
+        c, steps = r["engine"]["launches"], (r["engine"]["chunks"]
+                                             * PAR_ENGINE["chunk_steps"])
+        if c["decode_attn_flat"] != per["decode_attn_flat"] * steps:
+            bad.append(f"rank {r['rank']}: {c['decode_attn_flat']} B3 over "
+                       f"{steps} decode steps")
+        # a prefill call launches a step's kernels but B3
+        calls = {(c[k] - n * steps) / n for k, n in per.items()
+                 if k != "decode_attn_flat"}
+        if len(calls) != 1 or min(calls) < 1 or min(calls) % 1:
+            bad.append(f"rank {r['rank']}: launches {c} are not {per} a "
+                       f"step over {steps} steps plus whole prefills")
+        prefills |= calls
+    if not lead["speculative"]["equal"] or not all(
+            r["speculative"]["equal"] for r in ranks):
+        bad.append("speculative decoding differs from greedy generate()")
+    st = lead["speculative"]["stats"]
+    if st["emitted"] >= (PAR_SPEC["k"] + 1) * st["row_steps"]:
+        bad.append(f"the draft was never rejected ({st}): the sharded "
+                   f"target's corrections went untested")
+    p = lead["prefix"]
+    if not (all(p["prefixed_equal_generate"]) and all(
+            p["cold_equal_generate"]) and all(p["sampled_equal_unsharded"])
+            and p["prefix_hits"] == len(PAR_PREFIX["suffixes"])):
+        bad.append(f"prefix / sampled engine: {p}")
+    if not lead["ring"]["equal"]:
+        bad.append("the ring engine's tokens differ from generate()")
+    tokens, wall = e["tokens"], e["wall_s"]
+    ttft = np.asarray(e["ttft_s"], np.float64) * 1e3
+    log(json.dumps({
+        "phase": "gemma2_2b_4ranks_engine", "mesh": [2, 2],
+        "card": nvidia_smi(), "transport": transport(ranks),
+        **PAR_ENGINE, "requests": PAR_ENGINE_REQUESTS,
+        "tokens_equal_unsharded_captured": e["equal_unsharded"],
+        "tokens_equal_sharded_generate": e["equal_sharded"],
+        "launches_per_rank_per_decode_step": per,
+        "prefill_calls_per_rank": sorted(prefills),
+        "chunks_by_rank": [r["engine"]["chunks"] for r in ranks],
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "slot_cache_bytes_per_rank": e["cache_bytes"],
+        "sharded_generate_s_by_rank": [r["engine"]["sharded_generate_s"]
+                                       for r in ranks],
+        "peak_gib_by_rank": [r["engine"]["peak_gib"] for r in ranks],
+        "seconds_by_rank": [r["engine"]["seconds"] for r in ranks]}))
+    sp = lead["speculative"]
+    log(json.dumps({"phase": "gemma2_2b_4ranks_speculative", "mesh": [2, 2],
+                    "card": nvidia_smi(), **PAR_SPEC, "batch": DEC_BATCH,
+                    "tokens_equal_greedy": sp["equal"],
+                    "stats": sp["stats"], "seconds": sp["seconds"],
+                    "tokens_per_s": DEC_BATCH * PAR_SPEC["steps"]
+                    / sp["seconds"],
+                    "launches_by_rank": [r["speculative"]["launches"]
+                                         for r in ranks]}))
+    log(json.dumps({"phase": "gemma2_2b_4ranks_prefix_and_sampled",
+                    "mesh": [2, 2], "card": nvidia_smi(), **PAR_PREFIX,
+                    "sampled": [(t, n) for t, n, _ in PAR_SAMPLED], **p,
+                    "seconds": lead["prefix_seconds"]}))
+    log(json.dumps({"phase": "gemma2_ring_4ranks_engine", "mesh": [2, 2],
+                    "card": nvidia_smi(), "depth": RING["depth"],
+                    "max_len": RING["max_len"], "prompt": RING_PROMPT,
+                    "steps": RING_STEPS, **lead["ring"]}))
+    log(json.dumps({"phase": "sharded_engines_done",
+                    "seconds": time.perf_counter() - t0}))
+    if bad:
+        fail(f"the sharded engines on gemma-2: {bad}")
+    total = dict.fromkeys(kernel_fns, 0)
+    for r in ranks:
+        for k in total:
+            total[k] += (r["engine"]["launches"][k]
+                         + r["speculative"]["launches"][k])
     return total
 
 
@@ -9233,12 +9740,14 @@ def parallel_examples(torch, counters):
 
 
 def parallel_paths(torch, q, zoo, GM, kernel_fns, route_fns, dev):
-    """Phases 68-70 (``--parallel``): gemma-2-2b's sharded generate(), the
-    Mixtral-width MoE under expert parallelism, the examples."""
-    counts = {"gemma2_2b_4ranks_generate": parallel_gemma(
-        torch, q, zoo, GM, kernel_fns, dev)}
+    """Phases 68-73 (``--parallel``): gemma-2-2b's sharded generate() and
+    its sharded engines (71-73), the Mixtral-width MoE under expert
+    parallelism, the examples."""
+    counts = dict(zip(("gemma2_2b_4ranks_generate",
+                       "gemma2_2b_4ranks_engines"),
+                      parallel_gemma(torch, q, zoo, GM, kernel_fns, dev)))
     torch.cuda.empty_cache()
-    mark("gemma2_2b 4 ranks")
+    mark("gemma2_2b 4 ranks engines")
     counts["mixtral_4l_4ranks_forward"] = parallel_moe(torch, q, zoo,
                                                        kernel_fns, dev)
     torch.cuda.empty_cache()
@@ -9343,10 +9852,11 @@ def main(argv=None) -> int:
                          "result line)")
     ap.add_argument("--parallel", action="store_true",
                     help="only build and run the parallel roles' phases "
-                         "(67-70: AlexNet-224 b100 on four ranks, "
-                         "gemma-2-2b's sharded generate(), the "
-                         "Mixtral-width MoE under expert parallelism, "
-                         "multichip_tp and llm_serving; no result line)")
+                         "(67-73: AlexNet-224 b100 on four ranks, "
+                         "gemma-2-2b's sharded generate() and sharded "
+                         "engines, the Mixtral-width MoE under expert "
+                         "parallelism, multichip_tp and llm_serving; no "
+                         "result line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -9470,7 +9980,7 @@ def main(argv=None) -> int:
         model, x_test, _, _ = alexnet_main_path(torch, q, zoo, kernel_fns,
                                                 dev)
         counts = {"alexnet_b100_4ranks": parallel_alexnet(
-            torch, q, model, x_test, kernel_fns)}
+            torch, alexnet_for_world(torch, q, model, x_test), kernel_fns)}
         del model
         torch.cuda.empty_cache()
         mark("alexnet 4 ranks")
@@ -9575,10 +10085,8 @@ def main(argv=None) -> int:
     counts_by_path["alexnet_engine"] = serve_cnn(torch, q, model,
                                                  kernel_fns)
 
-    # -- 67. AlexNet on four ranks sharing the card (--parallel runs 68-70)
-    counts_by_path["alexnet_b100_4ranks"] = parallel_alexnet(
-        torch, q, model, x_test, kernel_fns)
-    mark("alexnet 4 ranks")
+    # -- 67. (its inputs; the world runs after phase 7, with the gpt2 leg)
+    alex = alexnet_for_world(torch, q, model, x_test)
 
     # -- 54, 55. the native host ops; AlexNet fed by the DataLoader (3
     # batches; --ingest runs 20) ------------------------------------------------
@@ -9642,9 +10150,20 @@ def main(argv=None) -> int:
     hf_refusals(torch, q, TD, LL, GM)
     mark("hf small gates, refusals")
     # -- 7. the decoder main path ---------------------------------------------
+    t_gpt2 = time.perf_counter()
     dec, ids, counts_by_path["gpt2_small_ish_decode"] = decoder_main_path(
         torch, q, zoo, TD, kernel_fns, dev)
-    decoder_timing(torch, dec, ids, args.profile)
+
+    # -- 67. AlexNet on four ranks sharing the card, with the sharded
+    # InferenceEngine and the gpt2 GenerationEngine (--parallel runs 68-73)
+    t67 = time.perf_counter()
+    counts_by_path["alexnet_b100_4ranks"] = parallel_alexnet(
+        torch, alex, kernel_fns, gpt2_for_world(torch, dec))
+    t67 = time.perf_counter() - t67
+    mark("alexnet and gpt2, 4 ranks")
+    # the gpt2 legs run one timed repeat fewer than the others: they pay
+    # for phase 67's sharded engines
+    decoder_timing(torch, dec, ids, args.profile, trials=2)
     mark("gpt2 main path and timing")
 
     # -- 12. the gpt2 engine ---------------------------------------------------
@@ -9659,16 +10178,19 @@ def main(argv=None) -> int:
                                                      kernel_fns)
     mark("gpt2 extend")
     counts_by_path["gpt2_speculative_self_draft"] = speculative_path(
-        torch, dec, dec, ids, "gpt2_self_draft", kernel_fns)
+        torch, dec, dec, ids, "gpt2_self_draft", kernel_fns, trials=1)
     draft = build_draft(torch, q, zoo, TD, ids)
     counts_by_path["gpt2_speculative_small_draft"] = speculative_path(
-        torch, dec, draft, ids, "gpt2_small_draft", kernel_fns)
+        torch, dec, draft, ids, "gpt2_small_draft", kernel_fns, trials=1)
     del draft
     mark("gpt2 speculative")
     counts_by_path["gpt2_engine_chunked"] = engine_chunked(torch, dec, "gpt2",
                                                            kernel_fns)
     del dec
     torch.cuda.empty_cache()
+    log(json.dumps({"phase": "gpt2_legs",
+                    "seconds": time.perf_counter() - t_gpt2 - t67,
+                    "phase67_seconds": t67}))
     mark("gpt2")
 
     # -- 9. the llama W4A8 main path ------------------------------------------

@@ -4,13 +4,12 @@ The serving stack in one script — llama GQA decode, RMSNorm smoothing,
 the accuracy configuration for many-boundary stacks
 (rounding='nearest'), HF-named checkpoint ingestion (utils/hf.py),
 speculative decoding (draft model, target-exact greedy), the
-continuous-batching engine with multi-chunk syncing, W4A8 serving (4-bit
-weights on the u8 activation path), the MoE family, and a
-quantized-artifact checkpoint round-trip, and the expert-parallel forward
-of the MoE in a spawned world of 4 ranks on a (2, 2) mesh (TP attention +
-EP experts; ``parallel/``).  The JAX package's other sharded leg, the
-engine over a tensor-parallel mesh, prints a skip line: the sharded
-engines are the next slice of the port (ROADMAP.md queue 1).
+continuous-batching engine with multi-chunk syncing, the same engine over
+a shard()ed llama on a (2, 2) mesh (head-sharded u8 slot caches) in a
+spawned world of 4 ranks, W4A8 serving (4-bit weights on the u8
+activation path), the MoE family, a quantized-artifact checkpoint
+round-trip, and the expert-parallel forward of the MoE in a spawned world
+of 4 ranks on a (2, 2) mesh (TP attention + EP experts; ``parallel/``).
 
     python -m int8inferenceengine_tpu_torch.examples.llm_serving \
         [--device cpu]
@@ -58,17 +57,33 @@ def hf_named(state: dict) -> dict:
     return out
 
 
-def expert_parallel_rank(path: str, prompt: np.ndarray, cfg, device: str
-                         ) -> np.ndarray:
-    """One rank of the expert-parallel leg: the saved MoE loaded and
-    sharded over a (2, 2) mesh (DP x TP attention + EP experts); its
-    forward on ``prompt``."""
+def parallel_rank(moe_path: str, llama_path: str, prompt: np.ndarray, cfg,
+                  device: str):
+    """One rank of the two parallel legs: (the expert-parallel forward on
+    ``prompt`` of the saved MoE sharded over a (2, 2) mesh (DP x TP
+    attention + EP experts), the sharded-engine leg's tokens).  The
+    engine leg: the saved llama sharded over a (2, 2) mesh and a
+    ``GenerationEngine`` (2 slots) built on every rank; rank 0 submits
+    ``prompt[0]`` for 8 tokens, the other ranks follow (their tokens are
+    None)."""
+    import torch.distributed as dist
     dev = device_of(device)
+    mesh_dev = "cpu" if dev.type == "cpu" else None
     moe = models.build("moe_tiny", config=cfg, device=dev)
-    utils.load(moe, path)
-    moe.shard(make_mesh((2, 2), devices="cpu" if dev.type == "cpu"
-                        else None))
-    return moe(q.tensor(prompt, device=dev)).numpy()
+    utils.load(moe, moe_path)
+    moe.shard(make_mesh((2, 2), devices=mesh_dev))
+    moe_out = moe(q.tensor(prompt, device=dev)).numpy()
+    del moe
+    m = models.build("llama_tiny", config=cfg, device=dev)
+    utils.load(m, llama_path)
+    m.shard(make_mesh((2, 2), devices=mesh_dev))
+    eng = GenerationEngine(m, slots=2, chunk_steps=8)
+    try:
+        toks = (eng.submit(prompt[0], 8).result(timeout=600)
+                if dist.get_rank() == 0 else None)
+    finally:
+        eng.shutdown()
+    return moe_out, toks
 
 
 def calibrated(m, cal, dev):
@@ -158,9 +173,12 @@ def main(argv=None) -> dict:
     finally:
         eng.shutdown()
 
-    # --- the engine over a shard()ed decoder: the next slice ------------
-    print("(the sharded engines are the port's next slice, ROADMAP.md "
-          "queue 1: skipping the sharded-engine leg)")
+    # --- the engine over a shard()ed decoder: its llama (the leg runs in
+    # the world of the expert-parallel leg, below) ------------------------
+    m_tp = models.build("llama_tiny", config=cfg, device=dev)
+    m_tp.load(tw.state_dict())
+    calibrated(m_tp, cal, dev)
+    want_tp = m_tp.generate(prompt[:1], 8)[0]
 
     # --- W4A8: 4-bit weights on the static u8 activation path -----------
     w4 = models.build("llama_tiny", device=dev,
@@ -191,16 +209,23 @@ def main(argv=None) -> dict:
     calibrated(moe, cal, dev)
     base = moe(q.tensor(prompt, device=dev)).numpy()
     checks["moe_finite"] = bool(np.isfinite(base).all())
+    # --- the parallel legs in one spawned world of 4 ranks: the MoE's
+    # expert-parallel forward, the engine over the shard()ed llama -------
     with tempfile.TemporaryDirectory() as d:
-        path = f"{d}/moe_int8.npz"
-        utils.save(moe, path)
-        outs = run_world(expert_parallel_rank, 4,
-                         args=(path, prompt, cfg, dev.type),
+        utils.save(moe, f"{d}/moe_int8.npz")
+        utils.save(m_tp, f"{d}/llama_int8.npz")
+        outs = run_world(parallel_rank, 4,
+                         args=(f"{d}/moe_int8.npz", f"{d}/llama_int8.npz",
+                               prompt, cfg, dev.type),
                          device=dev.type, timeout_s=600)
     checks["expert_parallel_bit_exact"] = all(
-        np.array_equal(o, base) for o in outs)
+        np.array_equal(o, base) for o, _ in outs)
     print(f"expert-parallel forward bit-exact: "
           f"{checks['expert_parallel_bit_exact']}")
+    checks["sharded_engine_equals_generate"] = bool(
+        np.array_equal(outs[0][1], want_tp))
+    print(f"SHARDED engine (TP (2,2) mesh, head-sharded u8 cache) "
+          f"== generate: {checks['sharded_engine_equals_generate']}")
     checks["wall_s"] = time.perf_counter() - t_start
     return checks
 

@@ -875,10 +875,20 @@ class TextDecoder(Module):
         after the last row is done changes nothing that is returned).  On
         the CPU the same body runs as a loop.
 
+        A ``shard()``ed target (every rank calls it with the same
+        arguments; JAX ``_sharded_spec_fn``): the prompt rows split over
+        the data axis, the target runs its TP roles (head-sharded caches,
+        row-parallel sums in the verify extend) and the draft, which must
+        stay unsharded, computes the same thing on every rank.  The
+        macro-steps run eagerly, and each data group stops on its own
+        rows; the rows are gathered once after the loop, so every rank
+        returns all of them, equal to greedy ``generate()``.
+
         Afterwards ``speculative_stats`` holds the run's ``macro_steps``,
         ``row_steps`` (a row's macro-steps while it still needed tokens)
         and ``emitted`` tokens over those row-steps (accepted drafts plus
-        one correction each)."""
+        one correction each); on a sharded target also
+        ``macro_steps_by_data_group``."""
         if not (self.is_quant and draft.is_quant):
             raise RuntimeError(
                 "generate_speculative() requires converted target and "
@@ -887,17 +897,22 @@ class TextDecoder(Module):
             raise ValueError(
                 f"draft vocab {draft.vocab_size} != target vocab "
                 f"{self.vocab_size}")
-        if self._mesh is not None or getattr(draft, "_mesh", None) \
-                is not None:
+        if getattr(draft, "_mesh", None) is not None:
             raise NotImplementedError(
-                "speculative decoding over a shard()ed target or draft is "
-                "the next slice of the port (ROADMAP.md queue 1, the "
-                "sharded engines); decode a sharded model with generate()")
+                "speculative decoding takes a replicated draft: a shard()ed "
+                "draft is unsupported (as in the JAX package); shard the "
+                "target only")
         if draft.device != self.device:
             raise ValueError(f"draft on {draft.device}, target on "
                              f"{self.device}")
         ids = np.asarray(ids)
         b, t0 = ids.shape
+        pa = self._parallel_axes if self._mesh is not None else None
+        if pa is not None and b % pa.data_size:
+            raise ValueError(
+                f"generate_speculative() on a ({pa.data_size}, "
+                f"{pa.model_size}) mesh needs batch % {pa.data_size} == 0, "
+                f"got {b}")
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if k < 1:
@@ -909,61 +924,98 @@ class TextDecoder(Module):
                 f"exceeds max_len (target {self.max_len}, draft "
                 f"{draft.max_len}) — speculative decoding needs k+1 "
                 f"rows of overshoot headroom")
+        if pa is None:
+            with torch.no_grad():
+                toks, stats = self._speculate(draft, ids, steps, k, True)
+        else:
+            from ..parallel.sharding import (all_gather_cat, data_rows,
+                                             sharded)
+            with torch.no_grad(), sharded(self):
+                toks, stats = self._speculate(
+                    draft, ids[data_rows(pa, b)], steps, k, False)
+            # the rows, and each data group's counts, gathered once after
+            # the loop; the group that ran longest sets the macro-steps
+            toks = all_gather_cat(toks, pa.data_group, 0)
+            stats = all_gather_cat(stats[None], pa.data_group, 0)
+            by_group = [int(x) for x in stats[:, 0].cpu()]
+            stats = torch.cat([stats[:, :1].max(0).values,
+                               stats[:, 1:].sum(0)])
+        self.speculative_stats = dict(zip(
+            ("macro_steps", "row_steps", "emitted"),
+            (int(x) for x in stats.cpu())))
+        if pa is not None:
+            self.speculative_stats["macro_steps_by_data_group"] = by_group
+        return toks.cpu().numpy().astype(np.int32)
+
+    def _speculate(self, draft, ids: np.ndarray, steps: int, k: int,
+                   capture: bool):
+        """``generate_speculative``'s body on the prompt rows ``ids``:
+        (int64 device tokens [B, steps], the counts [macro-steps,
+        row-steps, emitted]).  ``capture`` replays the macro-step as a CUDA
+        graph on the card; without it (a sharded target, whose model-group
+        collectives cannot be captured over gloo) the macro-steps run
+        eagerly until this rank's rows are done: each data group stops on
+        its own count, which is sound because no collective of the loop
+        crosses the data axis."""
+        b, t0 = ids.shape
         dev = self.device
         width = steps + k + 1
-        with torch.no_grad():
-            prompt = Tensor(torch.tensor(ids.astype(np.int64), device=dev))
-            codes0, tcache = self._prefill(prompt)
-            _, dcache = draft._prefill(prompt)
-            tok = codes0.argmax(-1)
-            out = torch.zeros((b, width), dtype=torch.int64, device=dev)
-            out[:, 0] = tok
-            n_out = torch.ones((b,), dtype=torch.int64, device=dev)
-            pos = torch.full((b,), t0, dtype=torch.int64, device=dev)
-            cols = torch.arange(k + 1, device=dev)
-            park = torch.full((b,), width - (k + 1), dtype=torch.int64,
-                              device=dev)
-            # macro-steps, active row-steps, tokens emitted
-            counts = torch.zeros((3,), dtype=torch.int64, device=dev)
-            one = torch.ones((), dtype=torch.int64, device=dev)
+        prompt = Tensor(torch.tensor(ids.astype(np.int64), device=dev))
+        codes0, tcache = self._prefill(prompt)
+        _, dcache = draft._prefill(prompt)
+        tok = codes0.argmax(-1)
+        out = torch.zeros((b, width), dtype=torch.int64, device=dev)
+        out[:, 0] = tok
+        n_out = torch.ones((b,), dtype=torch.int64, device=dev)
+        pos = torch.full((b,), t0, dtype=torch.int64, device=dev)
+        cols = torch.arange(k + 1, device=dev)
+        park = torch.full((b,), width - (k + 1), dtype=torch.int64,
+                          device=dev)
+        # macro-steps, active row-steps, tokens emitted
+        counts = torch.zeros((3,), dtype=torch.int64, device=dev)
+        one = torch.ones((), dtype=torch.int64, device=dev)
 
-            def macro():
-                # 1) the draft's k greedy tokens; step i writes the k/v of
-                # its input token at pos + i, the (k+1)-th d_k's
-                dtok, drafted = tok, []
-                for i in range(k + 1):
-                    dcodes, _ = draft._decode_step(dcache, pos + i, dtok)
-                    dtok = dcodes.argmax(-1)
-                    drafted.append(dtok)
-                dtoks = torch.stack(drafted[:k], 1)             # [B, k]
-                # 2) the target verifies [tok, d_1..d_k] in one extend
-                codes, _ = self._extend_step(
-                    tcache, pos, torch.cat([tok[:, None], dtoks], 1))
-                g = codes.argmax(-1)                            # [B, k+1]
-                # 3) the longest matching prefix plus the correction
-                a = (dtoks == g[:, :k]).to(torch.int64).cumprod(1).sum(1)
-                active = n_out < steps
-                na = torch.where(active, a + 1, torch.zeros_like(a))
-                # 4) all k+1 candidates at the row's offset (the first na
-                # survive); finished rows write into the scratch tail
-                off = torch.where(active, n_out, park)
-                out.scatter_(1, off[:, None] + cols, g)
-                tok.copy_(torch.where(active, g.gather(1, a[:, None])[:, 0],
-                                      tok))
-                pos.add_(na)
-                n_out.add_(na)
-                counts.add_(torch.stack([one, active.sum(), na.sum()]))
+        def macro():
+            # 1) the draft's k greedy tokens; step i writes the k/v of
+            # its input token at pos + i, the (k+1)-th d_k's
+            dtok, drafted = tok, []
+            for i in range(k + 1):
+                dcodes, _ = draft._decode_step(dcache, pos + i, dtok)
+                dtok = dcodes.argmax(-1)
+                drafted.append(dtok)
+            dtoks = torch.stack(drafted[:k], 1)             # [B, k]
+            # 2) the target verifies [tok, d_1..d_k] in one extend
+            codes, _ = self._extend_step(
+                tcache, pos, torch.cat([tok[:, None], dtoks], 1))
+            g = codes.argmax(-1)                            # [B, k+1]
+            # 3) the longest matching prefix plus the correction
+            a = (dtoks == g[:, :k]).to(torch.int64).cumprod(1).sum(1)
+            active = n_out < steps
+            na = torch.where(active, a + 1, torch.zeros_like(a))
+            # 4) all k+1 candidates at the row's offset (the first na
+            # survive); finished rows write into the scratch tail
+            off = torch.where(active, n_out, park)
+            out.scatter_(1, off[:, None] + cols, g)
+            tok.copy_(torch.where(active, g.gather(1, a[:, None])[:, 0],
+                                  tok))
+            pos.add_(na)
+            n_out.add_(na)
+            counts.add_(torch.stack([one, active.sum(), na.sum()]))
 
+        def done():
+            return bool(n_out.min() >= steps)
+
+        if capture:
             # at full acceptance a macro-step emits k + 1 tokens
             program = graphs.run_until(
-                macro, lambda: bool(n_out.min() >= steps), dev,
-                first=-(-(steps - 1) // (k + 1)), every=4)
-            toks = out[:, :steps].cpu().numpy().astype(np.int32)
-            self.speculative_stats = dict(zip(
-                ("macro_steps", "row_steps", "emitted"),
-                (int(x) for x in counts.cpu())))
-        del program
-        return toks
+                macro, done, dev, first=-(-(steps - 1) // (k + 1)),
+                every=4)
+            toks = out[:, :steps].clone()
+            del program
+            return toks, counts
+        while not done():
+            macro()
+        return out[:, :steps], counts
 
 
 def torch_text_decoder(vocab_size: int = 1000, max_len: int = 64,

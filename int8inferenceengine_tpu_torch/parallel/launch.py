@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import pickle
 import queue
 import shutil
 import tempfile
@@ -24,8 +25,10 @@ import traceback
 
 
 def _rank_main(rank: int, world: int, store: str, device: str,
-               collective_timeout_s: float, fn, args, out):
+               collective_timeout_s: float, call: str, out):
     try:
+        with open(call, "rb") as f:
+            fn, args = pickle.load(f)
         import torch
         # ranks share the host's cores: one torch thread each
         torch.set_num_threads(1)
@@ -54,7 +57,8 @@ def run_world(fn, world_size: int, args=(), device: str = "cuda",
     """``fn(*args)`` in each of ``world_size`` spawned ranks on ``device``
     ("cuda": every rank on the node's cards, ``cuda:{rank % cards}``; or
     "cpu"); returns the ranks' results in rank order.  ``fn`` and
-    ``args`` are pickled (``fn`` by its import path).  The ranks meet
+    ``args`` are pickled (``fn`` by its import path) into the store
+    directory once, and each rank loads them.  The ranks meet
     through a file store in ``store_dir`` (a fresh temporary directory by
     default); each collective gives up after ``timeout_s``, and the whole
     world must finish within it, or every rank is killed and this
@@ -71,9 +75,15 @@ def run_world(fn, world_size: int, args=(), device: str = "cuda",
     store_dir = tempfile.mkdtemp(prefix="i8ie_world_") if own_dir \
         else store_dir
     store = os.path.join(store_dir, f"store_{os.getpid()}_{time.time_ns()}")
+    # the call pickled once, for every rank to load: passed to each
+    # process, a large argument would hold each rank's start until the
+    # one before it had read it
+    call = store + ".call"
+    with open(call, "wb") as f:
+        pickle.dump((fn, args), f)
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, store, device, timeout_s, fn,
-                               args, out))
+                         args=(r, world_size, store, device, timeout_s, call,
+                               out))
              for r in range(world_size)]
     results, errors = {}, []
     deadline = time.monotonic() + timeout_s
@@ -107,6 +117,8 @@ def run_world(fn, world_size: int, args=(), device: str = "cuda",
                 p.join(timeout=5)
         if own_dir:
             shutil.rmtree(store_dir, ignore_errors=True)
+        else:
+            os.remove(call)
     if errors:
         raise RuntimeError("; ".join(errors))
     return [results[r] for r in range(world_size)]

@@ -13,6 +13,13 @@ The backend follows one rule (``backend_for``): ``gloo`` on the CPU; on
 the card ``nccl`` when every rank of the node has a card of its own, and
 ``gloo`` when ranks share one (NCCL refuses two ranks on one device).
 gloo moves the collectives of CUDA tensors through host memory.
+
+Beside the axis groups, every mesh holds ``control``: one world-wide gloo
+group for host decisions (``parallel/lockstep.py``: the sharded engines'
+control records), whatever backend the axes use, so that no control
+message enters a CUDA stream.  Every group of a mesh gives up after the
+``timeout_s`` that ``initialize_distributed`` was given, so a lost rank
+fails every rank instead of leaving one waiting.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# the collectives' time limit that initialize_distributed was given (None:
+# torch.distributed's default), which make_mesh gives every group it makes
+_timeout_s: float | None = None
 
 
 def local_rank() -> int:
@@ -53,6 +64,7 @@ def initialize_distributed(init_method: str | None = None,
     None, or ``"cpu"``) picks the backend by ``backend_for``.  Every
     collective of the group fails after ``timeout_s`` seconds instead of
     waiting on a lost rank."""
+    global _timeout_s
     if dist.is_initialized():
         return
     if world_size is None:
@@ -76,6 +88,7 @@ def initialize_distributed(init_method: str | None = None,
         backend, init_method=init_method or "env://",
         world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s), **kwargs)
+    _timeout_s = float(timeout_s)
 
 
 class Mesh:
@@ -83,17 +96,20 @@ class Mesh:
     as ``mesh.shape[data_axis]`` reads it), ``axis_names``, ``coords``
     (this rank's index on each axis), ``groups`` (the process group of
     this rank's line along each axis; None on an axis of size 1),
-    ``ranks`` (the global ranks laid out over the mesh) and ``device``
-    (this rank's device)."""
+    ``ranks`` (the global ranks laid out over the mesh), ``device``
+    (this rank's device) and ``control`` (the world-wide gloo group of the
+    host's decisions)."""
 
     def __init__(self, shape: dict, axis_names: tuple, coords: dict,
-                 groups: dict, ranks: np.ndarray, device: torch.device):
+                 groups: dict, ranks: np.ndarray, device: torch.device,
+                 control):
         self.shape = shape
         self.axis_names = axis_names
         self.coords = coords
         self.groups = groups
         self.ranks = ranks
         self.device = device
+        self.control = control
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank {dist.get_rank()} at "
@@ -129,6 +145,8 @@ def make_mesh(shape=None, axis_names=("data", "model"), devices=None
         device = torch.device(devices)
     ranks = np.arange(n).reshape(shape)
     me = dist.get_rank()
+    timeout = (None if _timeout_s is None
+               else datetime.timedelta(seconds=_timeout_s))
     coords = dict(zip(axis_names,
                       (int(c) for c in np.unravel_index(me, shape))))
     groups = {}
@@ -138,8 +156,10 @@ def make_mesh(shape=None, axis_names=("data", "model"), devices=None
             continue
         lines = np.moveaxis(ranks, ax, -1).reshape(-1, shape[ax])
         for line in lines:                 # every rank creates every group
-            g = dist.new_group([int(r) for r in line])
+            g = dist.new_group([int(r) for r in line], timeout=timeout)
             if me in line:
                 groups[name] = g
+    control = dist.new_group(list(range(n)), timeout=timeout,
+                             backend="gloo")
     return Mesh(dict(zip(axis_names, shape)), tuple(axis_names), coords,
-                groups, ranks, device)
+                groups, ranks, device, control)

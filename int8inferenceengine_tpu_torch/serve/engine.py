@@ -31,6 +31,16 @@ to per-request futures.
   point (quantized zeros).  The same codes as the float path under
   'trunc' rounding (the host quantize truncates, as the JAX package's
   does).
+* **A ``shard()``ed model.**  Every rank builds the engine with the same
+  arguments; world rank 0 takes the requests, coalesces them into one
+  tile per request shape (a request that the model refuses then fails
+  alone, on every rank at once) and broadcasts each tile's padded batch
+  (``parallel/lockstep.py``); every rank runs
+  the sharded forward (``sharded_forward``: the tile's rows split over the
+  data axis, so every tile must divide by it) and rank 0 resolves the
+  futures.  The other ranks' ``submit()`` raises; their ``shutdown()``
+  returns once rank 0's has drained.  The forward runs eagerly: gloo's
+  collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import torch
 
 from .. import graphs, native
 from ..data import prelayout, wrap_quantized
+from ..parallel.lockstep import HEARTBEAT_S
 from ..tensor import Tensor
 
 __all__ = ["InferenceEngine", "EngineStats"]
@@ -171,11 +182,6 @@ class InferenceEngine:
         256)``; each step pads only up to the smallest tile that fits the
         coalesced rows (one captured forward per tile); the largest tile
         caps request size.  Default: one ``max_batch`` tile."""
-        if getattr(model, "_mesh", None) is not None:
-            raise NotImplementedError(
-                "InferenceEngine over a shard()ed model is the next slice "
-                "of the port (ROADMAP.md queue 1, the sharded engines); "
-                "call the sharded model directly on every rank")
         self.quantize_ingest = bool(quantize_ingest)
         self._ingest = None
         if self.quantize_ingest:
@@ -190,6 +196,18 @@ class InferenceEngine:
             max_batch = self.tiles[-1]
         else:
             self.tiles = (int(max_batch),)
+        self._ctl = None
+        if getattr(model, "_mesh", None) is not None:
+            from ..parallel.lockstep import Lockstep
+            data = model._parallel_axes.data_size
+            if any(t % data for t in self.tiles):
+                raise ValueError(
+                    f"tiles {self.tiles} must divide over the data axis "
+                    f"({data}) of the sharded model")
+            self._ctl = Lockstep(model._mesh)
+        # this rank takes requests and resolves them: the unsharded engine,
+        # or world rank 0 of a sharded one
+        self._host = self._ctl is None or self._ctl.leader
         self.model = model
         self.max_batch = int(max_batch)
         self.batch_timeout_s = float(batch_timeout_s)
@@ -204,6 +222,8 @@ class InferenceEngine:
         # dispatched-but-unread steps; bounded so the scheduler can batch
         # ahead of the device without running away
         self._done: queue.Queue = queue.Queue(maxsize=max_inflight)
+        self._error: BaseException | None = None
+        self._failed: str | None = None  # rank 0: its last tile's error
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._collector = threading.Thread(target=self._collect, daemon=True)
@@ -212,7 +232,10 @@ class InferenceEngine:
 
     # -- client API ----------------------------------------------------------
     def submit(self, x) -> Future:
-        """Enqueue a request batch [n, ...]; returns a Future of np.ndarray."""
+        """Enqueue a request batch [n, ...]; returns a Future of np.ndarray.
+        On a sharded engine only world rank 0 takes requests."""
+        if not self._host:
+            raise self._ctl.follower_error("submit()")
         if not self._running:
             raise RuntimeError("engine is shut down")
         arr = np.asarray(x, dtype=np.float32)
@@ -230,12 +253,18 @@ class InferenceEngine:
         return self.submit(x).result()
 
     def shutdown(self, wait: bool = True) -> None:
+        """Serve what is queued, then stop.  On a sharded engine every rank
+        calls it: another rank's returns once rank 0's has drained."""
         self._running = False
         self._queue.put(None)
         if wait:
             self._thread.join()
             self._done.put(None)
             self._collector.join()
+            if not self._host and self._error is not None:
+                raise RuntimeError(
+                    f"the sharded engine failed on rank {self._ctl.rank}: "
+                    f"{self._error!r}") from self._error
         else:
             self._done.put(None)
 
@@ -252,7 +281,9 @@ class InferenceEngine:
             self._pending = None
         deadline = None
         while True:
-            timeout = None
+            # a sharded engine's rank 0 wakes to keep the others' waits
+            # inside their time limit
+            timeout = None if self._ctl is None else HEARTBEAT_S
             if reqs or self._stopping:
                 if deadline is None:
                     deadline = time.monotonic() + self.batch_timeout_s
@@ -279,17 +310,24 @@ class InferenceEngine:
             with torch.no_grad(), (torch.cuda.stream(self._stream)
                                    if self._cuda
                                    else contextlib.nullcontext()):
+                if not self._host:
+                    try:
+                        self._follow()
+                    except BaseException as e:
+                        self._error = e
+                        raise
+                    return
                 while True:
                     reqs = self._take_batch()
                     if reqs is None:
+                        if self._ctl is not None:
+                            self._send({"stop": True})
                         return
                     if not reqs:
+                        if self._ctl is not None and self._ctl.idle():
+                            self._send({})
                         continue
-                    try:
-                        self._dispatch(reqs)
-                    except Exception as e:  # propagate to all waiters
-                        for r in reqs:
-                            self._resolve(r, exc=e)
+                    self._dispatch(reqs)
         finally:
             # a submit() racing shutdown() can enqueue after the sentinel;
             # fail anything left so no future hangs forever
@@ -304,29 +342,37 @@ class InferenceEngine:
                         "scheduled"))
 
     def _dispatch(self, reqs: list[_Request]) -> None:
-        reqs = [r for r in reqs if not r.future.cancelled()]
-        if not reqs:
-            return
+        """One tile per request shape, so that a request the model refuses
+        fails alone (on a sharded engine, on every rank at once)."""
+        by_shape: dict[tuple, list] = {}
+        for r in reqs:
+            if not r.future.cancelled():
+                by_shape.setdefault(r.data.shape[1:], []).append(r)
+        for group in by_shape.values():
+            try:
+                self._dispatch_tile(group)
+            except Exception as e:  # propagate to the tile's waiters
+                for r in group:
+                    self._resolve(r, exc=e)
+
+    def _dispatch_tile(self, reqs: list[_Request]) -> None:
         rows = sum(r.n for r in reqs)
         tile = next(t for t in self.tiles if t >= rows)
         pad = tile - rows
         shape = (tile,) + reqs[0].data.shape[1:]
-        if any(r.data.shape[1:] != shape[1:] for r in reqs):
-            raise ValueError(f"requests of shapes "
-                             f"{[r.data.shape[1:] for r in reqs]} cannot "
-                             f"share a batch")
-        if not self._cuda:
+        if not self._cuda or self._ctl is not None:
             batch = np.concatenate([r.data for r in reqs]
                                    + [np.zeros((pad,) + shape[1:],
                                                np.float32)])
-            if self._ingest is None:
-                t = Tensor(torch.from_numpy(batch))
-            else:
-                scale, zp, tag = self._ingest
-                t = wrap_quantized(native.quantize_u8(batch, scale, zp),
-                                   scale, zp, tag, device="cpu")
-            out = self.model(t).logical_data
-            result = lambda: out[:rows].numpy()          # noqa: E731
+            if self._ctl is not None:
+                self._send({"batch": batch})
+            try:
+                out = self._forward(batch)[:rows].cpu()
+            except Exception as e:
+                if self._ctl is not None:
+                    self._failed = type(e).__name__
+                raise
+            result = out.numpy
         else:
             key = (shape, self._ingest)
             fwd = self._forwards.get(key)
@@ -347,6 +393,51 @@ class InferenceEngine:
         self.stats.images += rows
         self.stats.padded_rows += pad
         self._done.put((reqs, result))   # bounded: applies backpressure
+
+    def _forward(self, batch: np.ndarray) -> torch.Tensor:
+        """The eager forward of a host tile on the model's device (the
+        sharded forward on a sharded model)."""
+        dev = self.model.device
+        if self._ingest is None:
+            t = Tensor(torch.from_numpy(batch).to(dev))
+        else:
+            scale, zp, tag = self._ingest
+            t = wrap_quantized(native.quantize_u8(batch, scale, zp),
+                               scale, zp, tag, device=dev)
+        return self.model(t).logical_data
+
+    def _send(self, record: dict) -> None:
+        """Rank 0 of a sharded engine: broadcast ``record`` with the
+        outcome of the tile broadcast before it (None, or the name of the
+        error that its forward raised here)."""
+        record["failed"], self._failed = self._failed, None
+        self._ctl.send(record)
+
+    def _follow(self) -> None:
+        """A sharded engine's scheduler on a rank other than 0: run rank
+        0's tiles until its shutdown.  A tile that the model refuses fails
+        on rank 0 too (the same code on the same tile), and the next record
+        says so; a failure of this rank's alone, or of rank 0's alone,
+        raises here (the ranks' collectives are then out of step)."""
+        mine = None               # (this rank's error or None) of a tile
+        while True:
+            rec = self._ctl.recv()
+            if mine is not None:
+                (err,) = mine
+                theirs = rec.get("failed")
+                if theirs != (None if err is None else type(err).__name__):
+                    raise RuntimeError(
+                        f"a tile failed on rank {self._ctl.rank} with "
+                        f"{err!r} and on rank 0 with {theirs}") from err
+                mine = None
+            if rec.get("stop"):
+                return
+            if "batch" in rec:
+                try:
+                    self._forward(rec["batch"])
+                    mine = (None,)
+                except Exception as e:   # held to rank 0's outcome above
+                    mine = (e,)
 
     @staticmethod
     def _resolve(req: _Request, result=None, exc=None) -> bool:

@@ -69,9 +69,33 @@ stream in and out of slots:
   at, so a request's tokens follow ``generate()``'s within the float
   path's tolerance rather than bit for bit.
 
-Not ported, refused with ``NotImplementedError``: a ``shard()``ed model
-(the sharded engines, with lockstep admission across ranks, are the next
-slice of the port; ``generate()`` runs sharded).
+* **Sharded serving** (a ``shard()``ed decoder; JAX ``serve/generation.py``
+  "Sharded serving").  Every rank builds the engine with the same
+  arguments.  World rank 0 takes ``submit``/``submit_stream``/
+  ``register_prefix``, decides every admission and completion, and
+  broadcasts one control record before each step (``parallel/lockstep.py``);
+  the other ranks apply the records in order, their ``submit()`` raises,
+  and their ``shutdown()`` returns once rank 0's has drained.  Slots split
+  over the data axis (``slots % data_size == 0``; data group d owns the
+  slot rows [d * slots / data_size, (d + 1) * slots / data_size)), and the
+  slot caches are head-sharded over the model axis where ``wk1``'s output
+  stays a channel shard (head-local, as the model's ``tp_roles`` make it,
+  or overlap mode: ``_kv_sharded``), channel-replicated otherwise (the MQA
+  fallback).  Prompts are replicated over the data axis:
+  every rank prefills every admission under its TP roles and keeps the
+  rows of its own slots; a chunked admission of a slot that another group
+  owns runs on a spare row (``_rows``) so that every rank computes the
+  same first token.  After each chunk the ranks all-gather the slots'
+  tokens over the data group and rank 0 applies eos, ``stop`` and the
+  remaining counts.  Prefix registrations run on the engine's thread, in
+  order with the chunks.  The draw stays keyed by (seed, position), so the
+  sharded engine's sampled tokens equal the unsharded engine's.  Every
+  program runs eagerly (gloo's collectives cannot be captured; a graph over
+  NCCL is later work), and ``weight_only`` models are refused
+  (``NotImplementedError``), as in the JAX package.  Until ``shutdown()``
+  the engine's thread owns the model's process groups: call nothing else
+  on the sharded model meanwhile, or the ranks' collectives pair up
+  wrongly.
 """
 
 from __future__ import annotations
@@ -98,7 +122,8 @@ class GenerationStats:
     requests: int = 0          # completed requests
     tokens: int = 0            # tokens delivered (prefill + decode)
     prefills: int = 0
-    chunks: int = 0            # decode chunks run on the device
+    chunks: int = 0            # decode chunks run on the device (every
+    #                            rank of a sharded engine counts its own)
     chunk_slots_active: int = 0   # sum of active slots across chunks
     prefix_hits: int = 0       # admissions seeded from a registered prefix
     latencies_s: list = dataclasses.field(default_factory=list)
@@ -119,7 +144,7 @@ class GenerationStats:
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "future", "tokens", "t_submit",
                  "temperature", "seed", "top_p", "top_k", "prefix_id",
-                 "eos_id", "stream_q", "stop")
+                 "eos_id", "stream_q", "stop", "prefix_entry")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  temperature: float = 0.0, seed: int = 0,
@@ -136,9 +161,26 @@ class _GenRequest:
         self.eos_id = eos_id               # None = no eos
         self.stream_q = None               # set by submit_stream
         self.stop = ()                     # multi-token stop sequences
+        self.prefix_entry = None           # (tokens, rows), at admission
         self.future: Future = Future()
         self.tokens: list[int] = []
         self.t_submit = time.perf_counter()
+
+    def fields(self, slot: int) -> tuple:
+        """What an admission's control record carries (a sharded engine's
+        other ranks rebuild the request from it: ``_from_fields``)."""
+        return (slot, self.prompt, self.max_new, self.temperature,
+                self.seed, self.top_p, self.top_k, self.eos_id,
+                self.prefix_id)
+
+
+class _Registration:
+    """A prefix registration queued for a sharded engine's thread."""
+    __slots__ = ("tokens", "future")
+
+    def __init__(self, tokens: np.ndarray):
+        self.tokens = tokens
+        self.future: Future = Future()
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -146,12 +188,6 @@ def _bucket(n: int, lo: int = 8) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not implemented by the PyTorch port's GenerationEngine "
-        f"yet (ROADMAP.md queue 1, {item})")
 
 
 def _check_eos(eos_id) -> None:
@@ -163,7 +199,7 @@ def _check_eos(eos_id) -> None:
 
 class GenerationEngine:
     """Continuous-batching decoding over a converted TextDecoder (or
-    LlamaDecoder).
+    LlamaDecoder), unsharded or ``shard()``ed (see the module docstring).
 
     >>> eng = GenerationEngine(model, slots=4)
     >>> fut = eng.submit([5, 17, 99], max_new_tokens=32)
@@ -180,9 +216,32 @@ class GenerationEngine:
                  max_prefixes: int = 32):
         if not model.is_quant:
             raise RuntimeError("GenerationEngine requires a converted model")
-        if getattr(model, "_mesh", None) is not None:
-            raise _unported("serving a shard()ed model",
-                            "the next slice: the sharded engines")
+        mesh = getattr(model, "_mesh", None)
+        self._pa = self._ctl = None
+        self._kv_sharded = False
+        if mesh is not None:
+            if model.config.weight_only:
+                raise NotImplementedError(
+                    "sharded serving runs the static-INT8 u8-cache path; "
+                    "weight_only + shard() serving is unsupported (as in "
+                    "the JAX package): use the static mode, or an "
+                    "unsharded engine")
+            from ..parallel.lockstep import Lockstep
+            self._pa = model._parallel_axes
+            if int(slots) % self._pa.data_size:
+                raise ValueError(
+                    f"slots {slots} must divide over the data axis "
+                    f"({self._pa.data_size})")
+            self._ctl = Lockstep(mesh)
+            # head-local TP (or overlap mode) keeps the captured k/v, and
+            # so the slot caches, a channel shard; the MQA fallback
+            # gathers them
+            wk = model.wk1
+            self._kv_sharded = bool(wk._tp_sharded and (
+                wk._tp_local or self._pa.overlap))
+        # this rank takes requests and resolves them: the unsharded engine,
+        # or world rank 0 of a sharded one
+        self._host = self._ctl is None or self._ctl.leader
         if prefill_chunk is not None and not \
                 1 <= int(prefill_chunk) <= model.max_len:
             raise ValueError(f"prefill_chunk must be in [1, max_len="
@@ -208,23 +267,31 @@ class GenerationEngine:
                               else int(prefill_chunk))
         dev = self.device = model.device
         self._cuda = dev.type == "cuda"
+        # this rank's slot rows [_row0, _row0 + _rows) of the global slots
+        data = self._pa.data_size if self._pa else 1
+        self._rows = self.slots // data
+        self._row0 = self._pa.data_index * self._rows if self._pa else 0
+        self._kv_channels = model.kv_heads * model.head_dim // (
+            self._pa.model_size if self._kv_sharded else 1)
         if self._ring_serving:
             # per-layer rows: a ring layer's slot caches are its own
             self._kv = None
             self._caches = {i: tuple(
-                torch.zeros((self.slots, model._cache_rows(i),
-                             model.kv_heads * model.head_dim),
+                torch.zeros((self._rows, model._cache_rows(i),
+                             self._kv_channels),
                             dtype=torch.uint8, device=dev) for _ in range(2))
                 for i in range(1, model.depth + 1)}
         else:
             # every layer's k and v slot caches are views of one buffer
             # [depth, 2, slots, max_len, C]: a prefix seeds all of them in
-            # one copy
-            self._kv = self._kv_buffer(self.slots)
-            self._caches = self._views(self._kv)
+            # one copy.  A sharded chunked engine keeps one spare row past
+            # its slots for the admissions of the other data groups
+            spare = int(self._pa is not None and prefill_chunk is not None)
+            self._kv = self._kv_buffer(self._rows + spare)
+            self._caches = self._views(self._kv.narrow(2, 0, self._rows))
 
         def zeros(dtype, fill=0):
-            return torch.full((self.slots,), fill, dtype=dtype, device=dev)
+            return torch.full((self._rows,), fill, dtype=dtype, device=dev)
 
         self._pos = zeros(torch.int64)
         self._tok = zeros(torch.int64)
@@ -235,12 +302,15 @@ class GenerationEngine:
         self._topp = zeros(torch.float32, 1.0)    # 1 = no nucleus
         self._topk = zeros(torch.int64)           # 0 = no top-k
         self._eos = zeros(torch.int64, -1)        # -1 = none
-        self._out = torch.zeros((self.slots,
+        self._out = torch.zeros((self._rows,
                                  self.sync_chunks * self.chunk_steps),
                                 dtype=torch.int64, device=dev)
         self._col = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._work = torch.zeros((1,), dtype=torch.int64, device=dev)
         self._stream = torch.cuda.Stream(dev) if self._cuda else None
+        # the programs' capture stream: none for a sharded engine, whose
+        # collectives cannot be captured over gloo
+        self._capture = None if self._pa else self._stream
         self._queue: queue.Queue[_GenRequest | None] = queue.Queue()
         self._active = [None] * self.slots  # slot -> _GenRequest | None
         self.stats = GenerationStats()
@@ -253,22 +323,29 @@ class GenerationEngine:
         self._next_pid = 1
         self._prefixes: dict[int, tuple] = {}   # id -> (tokens, kv rows)
         self._seed_fns: dict[int, object] = {}  # prefix length -> seed
+        # a sharded engine's control state on rank 0: registrations queued
+        # for the engine's thread, prefixes dropped and slots freed since
+        # the last record
+        self._regs: queue.Queue[_Registration] = queue.Queue()
+        self._unregs: list[int] = []
+        self._freed: list[int] = []
+        self._error: BaseException | None = None
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def _kv_buffer(self, rows: int) -> torch.Tensor:
         """Every layer's k and v caches of ``rows`` slots in one buffer:
-        [depth, 2, rows, max_len, Hkv*D] u8, or head-split [depth, 2, rows,
-        Hkv, max_len, D] float32 for a weight-only model."""
+        [depth, 2, rows, max_len, C] u8 (C this rank's channels), or
+        head-split [depth, 2, rows, Hkv, max_len, D] float32 for a
+        weight-only model."""
         m = self.model
         if self._float:
             return torch.zeros((m.depth, 2, rows, m.kv_heads, m.max_len,
                                 m.head_dim), dtype=torch.float32,
                                device=self.device)
-        return torch.zeros((m.depth, 2, rows, m.max_len,
-                            m.kv_heads * m.head_dim), dtype=torch.uint8,
-                           device=self.device)
+        return torch.zeros((m.depth, 2, rows, m.max_len, self._kv_channels),
+                           dtype=torch.uint8, device=self.device)
 
     def _first_rows(self, kv: torch.Tensor, t: int) -> torch.Tensor:
         """The view of positions [0, t) of a ``_kv_buffer``."""
@@ -279,6 +356,22 @@ class GenerationEngine:
         """Layer i's (k, v) caches as views of ``kv`` [depth, 2, ...]."""
         return {i: (kv[i - 1, 0], kv[i - 1, 1])
                 for i in range(1, kv.shape[0] + 1)}
+
+    def _bound(self):
+        """The model's shards bound and its TP context active (a sharded
+        engine), or nothing."""
+        if self._pa is None:
+            return contextlib.nullcontext()
+        from ..parallel.sharding import sharded
+        return sharded(self.model)
+
+    def _owns(self, slot: int) -> bool:
+        return self._row0 <= slot < self._row0 + self._rows
+
+    def _local_row(self, slot: int) -> int:
+        """Slot ``slot``'s row in this rank's caches: its own row, or the
+        spare row past them for a slot that another data group owns."""
+        return slot - self._row0 if self._owns(slot) else self._rows
 
     # -- public API -----------------------------------------------------------
     def register_prefix(self, tokens) -> int:
@@ -294,54 +387,78 @@ class GenerationEngine:
         differ in its last bits from a bucketed prefill's, so there the
         prefixed tokens follow the cold ones within the float path's
         tolerance.  The rows come from the chunked extend
-        (``prefill_chunk`` must be set), run eagerly in the caller's thread
-        on a private one-row cache, and are published under a lock.
-        Raises ``RuntimeError`` when the table holds ``max_prefixes``."""
+        (``prefill_chunk`` must be set), run eagerly on a private one-row
+        cache: in the caller's thread, or on a sharded engine in the
+        engine's thread on every rank (called on rank 0; it waits for
+        them).  Raises ``RuntimeError`` when the table holds
+        ``max_prefixes``."""
+        if self._ctl is not None and not self._host:
+            raise self._ctl.follower_error("register_prefix()")
         if self.prefill_chunk is None:
             raise ValueError(
                 "prefix caching rides the chunked-prefill program; "
                 "construct GenerationEngine(..., prefill_chunk=P)")
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         t0 = len(tokens)
-        m = self.model
         if t0 == 0:
             raise ValueError("empty prefix")
-        if t0 >= m.max_len:
+        if t0 >= self.model.max_len:
             raise ValueError(
-                f"prefix {t0} leaves no room under max_len {m.max_len}")
-        kv = self._kv_buffer(1)
-        caches = self._views(kv)
-        pad = np.zeros((m.max_len,), np.int64)
-        pad[:t0] = tokens
+                f"prefix {t0} leaves no room under max_len "
+                f"{self.model.max_len}")
+        if self._pa is not None:
+            if not self._running:
+                raise RuntimeError("engine is shut down")
+            reg = _Registration(tokens)
+            self._regs.put(reg)
+            return reg.future.result()
         with torch.no_grad():
-            for c0 in self._chunk_starts(0, t0):
-                m._extend_step(caches, torch.tensor(
-                    [c0], dtype=torch.int64, device=self.device),
-                    torch.tensor(pad[None, c0:c0 + self.prefill_chunk],
-                                 device=self.device))
-            rows = self._first_rows(kv, t0)[:, :, 0].clone()
+            rows = self._prefix_rows(tokens)
         if self._cuda:
             # the engine's stream reads the rows: they must be written
             torch.cuda.current_stream(self.device).synchronize()
         with self._prefix_lock:
-            if len(self._prefixes) >= self.max_prefixes:
-                raise RuntimeError(
-                    f"prefix table full ({self.max_prefixes} registered "
-                    f"prefixes, each holding KV rows on device); "
-                    f"unregister_prefix() one first or raise max_prefixes")
+            self._check_table()
             pid = self._next_pid
             self._next_pid += 1
             self._prefixes[pid] = (tokens, rows)
         return pid
 
+    def _check_table(self) -> None:
+        if len(self._prefixes) >= self.max_prefixes:
+            raise RuntimeError(
+                f"prefix table full ({self.max_prefixes} registered "
+                f"prefixes, each holding KV rows on device); "
+                f"unregister_prefix() one first or raise max_prefixes")
+
+    def _prefix_rows(self, tokens: np.ndarray) -> torch.Tensor:
+        """The prefix's rows of every layer [depth, 2, t0, ...]: the
+        chunked extend over a private one-row cache."""
+        m, t0 = self.model, len(tokens)
+        kv = self._kv_buffer(1)
+        caches = self._views(kv)
+        pad = np.zeros((m.max_len,), np.int64)
+        pad[:t0] = tokens
+        with self._bound():
+            for c0 in self._chunk_starts(0, t0):
+                m._extend_step(caches, torch.tensor(
+                    [c0], dtype=torch.int64, device=self.device),
+                    torch.tensor(pad[None, c0:c0 + self.prefill_chunk],
+                                 device=self.device))
+        return self._first_rows(kv, t0)[:, :, 0].clone()
+
     def unregister_prefix(self, prefix_id: int) -> None:
         """Drop a registered prefix (its device rows are freed when no
         admission holds them).  A queued request that names it fails alone,
         at admission."""
+        if self._ctl is not None and not self._host:
+            raise self._ctl.follower_error("unregister_prefix()")
         with self._prefix_lock:
             if prefix_id not in self._prefixes:
                 raise ValueError(f"unknown prefix_id {prefix_id}")
             del self._prefixes[prefix_id]
+            if self._pa is not None:
+                self._unregs.append(prefix_id)
 
     def _build_request(self, prompt, max_new_tokens: int,
                        temperature: float = 0.0, seed: int = 0,
@@ -349,6 +466,8 @@ class GenerationEngine:
                        prefix_id: int | None = None,
                        eos_id: int | None = None,
                        stop=None) -> _GenRequest:
+        if self._ctl is not None and not self._host:
+            raise self._ctl.follower_error("submit()")
         if not self._running:
             raise RuntimeError("engine is shut down")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -400,7 +519,8 @@ class GenerationEngine:
         (int32).  Per-request: ``temperature``/``seed``, ``top_p``,
         ``top_k``, ``prefix_id`` (a registered prefix that the prompt
         starts with), ``eos_id`` (overrides the engine's) and ``stop`` (a
-        list of token sequences; a match ends the output after it)."""
+        list of token sequences; a match ends the output after it).  On a
+        sharded engine only world rank 0 takes requests."""
         req = self._build_request(prompt, max_new_tokens, **kw)
         self._queue.put(req)
         return req.future
@@ -427,10 +547,19 @@ class GenerationEngine:
         return self.submit(prompt, max_new_tokens).result()
 
     def shutdown(self, wait: bool = True) -> None:
+        """Stop taking requests, finish the admitted and queued ones, and
+        end the engine's thread.  On a sharded engine every rank calls it:
+        rank 0's ends the ranks' lockstep once its slots have drained, and
+        another rank's returns then (raising if that rank's engine
+        failed)."""
         self._running = False
         self._queue.put(None)
         if wait:
             self._thread.join()
+            if not self._host and self._error is not None:
+                raise RuntimeError(
+                    f"the sharded engine failed on rank {self._ctl.rank}: "
+                    f"{self._error!r}") from self._error
 
     # -- device programs -------------------------------------------------------
     def _h2d(self, arr, dtype) -> torch.Tensor:
@@ -442,20 +571,32 @@ class GenerationEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _prefill_into(self, slots, prompts_pad, t0s, temps, seeds, topps,
-                      topks, sampled: bool, use_topp: bool, use_topk: bool):
-        """Batched prefill of the right-padded prompts [n, bucket] in one
-        forward (eager; a graph per (bucket, n) is later work): the rows
-        (a ring layer's ring tail) scatter into the slots' caches, and each
-        prompt's first token is picked from its row ``t0 - 1``."""
+    def _prefill_into(self, part, prompts_pad, t0s, vecs, sampled: bool,
+                      use_topp: bool, use_topk: bool):
+        """Batched prefill of the right-padded prompts [n, bucket] of the
+        admissions ``part`` in one forward (eager; a graph per (bucket, n)
+        is later work): the rows (a ring layer's ring tail) of this rank's
+        slots scatter into their caches, and each prompt's first token is
+        picked from its row ``t0 - 1``.  ``vecs`` are the requests'
+        sampling vectors (``_request_vectors``)."""
         m = self.model
-        codes, cache1 = m._prefill(Tensor(prompts_pad), last=t0s,
-                                   full_cache=not self._ring_serving)
-        for i, (k1, v1) in cache1.items():           # [n, rows, C]
-            self._caches[i][0].index_copy_(0, slots, k1)
-            self._caches[i][1].index_copy_(0, slots, v1)
+        with self._bound():
+            codes, cache1 = m._prefill(Tensor(prompts_pad), last=t0s,
+                                       full_cache=not self._ring_serving)
+        own = [j for j, (slot, _) in enumerate(part) if self._owns(slot)]
+        if own:
+            rows = self._h2d([part[j][0] - self._row0 for j in own],
+                             torch.int64)
+            pick = (None if len(own) == len(part)
+                    else self._h2d(own, torch.int64))
+            for i, (k1, v1) in cache1.items():           # [n, rows, C]
+                if pick is not None:
+                    k1, v1 = k1.index_select(0, pick), v1.index_select(0, pick)
+                self._caches[i][0].index_copy_(0, rows, k1)
+                self._caches[i][1].index_copy_(0, rows, v1)
         if not sampled:
             return codes.argmax(-1)
+        temps, seeds, topps, topks, _ = vecs
         return m._pick(codes, temps, seeds, t0s - 1,
                        topps if use_topp else None,
                        topks if use_topk else None)
@@ -494,32 +635,58 @@ class GenerationEngine:
                use_topk: bool = False):
         """The decode-chunk program of this variant, built at the first
         request that needs it: on the card its first call runs eagerly
-        (the warm-up) and captures it, later calls replay the graph."""
+        (the warm-up) and captures it, later calls replay the graph (a
+        sharded engine's run eagerly every time)."""
         key = (sampled, use_topp, use_topk)
         fn = self._chunk_fns.get(key)
         if fn is None:
             fn = self._chunk_fns[key] = graphs.Captured(
-                self._chunk_body(*key), self._stream)
+                self._chunk_body(*key), self._capture)
         return fn
+
+    def _run_chunks(self, key: tuple, rem: np.ndarray, multi: bool):
+        """The chunk step of the scheduler on this rank: the slots' act and
+        remaining counts from ``rem`` (every slot's), then one chunk of
+        variant ``key``, or ``sync_chunks`` of them back to back with
+        ``multi``; returns ``_fetch_async``'s wait."""
+        rem = rem[self._row0:self._row0 + self._rows]
+        self._act.copy_(self._h2d(rem > 0, torch.bool))
+        self._rem.copy_(self._h2d(rem, torch.int64))
+        self._col.zero_()
+        self._work.zero_()
+        chunk = self._chunk(*key)
+        n = self.sync_chunks if multi else 1
+        with self._bound():
+            for _ in range(n):
+                chunk()
+        self.stats.chunks += n
+        return self._fetch_async(n * self.chunk_steps)
 
     def _fetch_async(self, ncols: int):
         """Start copying the first ``ncols`` token columns and the work
-        counter to the host; returns a function that waits for the copy
-        and gives (tokens [slots, ncols] int64, work)."""
+        counter to the host (a sharded engine's gathered over the data
+        group first, every slot's tokens on every rank); returns a
+        function that waits for the copy and gives (tokens [slots, ncols]
+        int64, work)."""
+        out, work = self._out[:, :ncols], self._work
+        if self._pa is not None:
+            from ..parallel.sharding import all_gather_cat, all_reduce_sum
+            out = all_gather_cat(out, self._pa.data_group, 0)
+            work = all_reduce_sum(work.clone(), self._pa.data_group)
         if not self._cuda:
-            toks, work = self._out[:, :ncols].clone(), self._work.clone()
+            toks, work = out.clone(), work.clone()
             return lambda: (toks.numpy(), int(work[0]))
         toks = torch.empty((self.slots, ncols), dtype=torch.int64,
                            pin_memory=True)
-        work = torch.empty((1,), dtype=torch.int64, pin_memory=True)
-        toks.copy_(self._out[:, :ncols], non_blocking=True)
-        work.copy_(self._work, non_blocking=True)
+        host = torch.empty((1,), dtype=torch.int64, pin_memory=True)
+        toks.copy_(out, non_blocking=True)
+        host.copy_(work, non_blocking=True)
         done = torch.cuda.Event()
         done.record(self._stream)
 
         def wait():
             done.synchronize()
-            return toks.numpy(), int(work[0])
+            return toks.numpy(), int(host[0])
 
         return wait
 
@@ -554,47 +721,55 @@ class GenerationEngine:
         n = len(part)
         pad = np.zeros((n, bucket), np.int64)
         t0s = np.zeros((n,), np.int64)
-        slots = np.zeros((n,), np.int64)
         for j, (slot, req) in enumerate(part):
             t0s[j] = len(req.prompt)
             pad[j, :t0s[j]] = req.prompt
-            slots[j] = slot
             # register BEFORE the device work: if prefill raises, the crash
             # handler must fail these requests' futures too
             self._active[slot] = req
         reqs = [req for _, req in part]
-        slots_d = self._h2d(slots, torch.int64)
         t0s_d = self._h2d(t0s, torch.int64)
-        temps, seeds, topps, topks = self._slot_vectors(slots_d, reqs)
-        use_topp = any(r.top_p < 1.0 for r in reqs)
-        use_topk = any(r.top_k > 0 for r in reqs)
-        sampled = any(r.temperature > 0 for r in reqs)
+        vecs = self._request_vectors(reqs)
         toks_d = self._prefill_into(
-            slots_d, self._h2d(pad, torch.int64), t0s_d, temps, seeds,
-            topps, topks, sampled, use_topp, use_topk)
-        self._started(part, slots_d, t0s_d, toks_d)
+            part, self._h2d(pad, torch.int64), t0s_d, vecs,
+            any(r.temperature > 0 for r in reqs),
+            any(r.top_p < 1.0 for r in reqs),
+            any(r.top_k > 0 for r in reqs))
+        self._started(part, t0s_d, toks_d, vecs)
 
-    def _slot_vectors(self, slots_d, reqs):
-        """Write the requests' sampling and eos settings into their
-        slots' device vectors; returns (temps, seeds, topps, topks) of the
+    def _request_vectors(self, reqs):
+        """The requests' (temps, seeds, topps, topks, eos) on the device."""
+        return (self._h2d([r.temperature for r in reqs], torch.float32),
+                self._h2d([fold_seed(r.seed) for r in reqs], torch.int64),
+                self._h2d([r.top_p for r in reqs], torch.float32),
+                self._h2d([r.top_k for r in reqs], torch.int64),
+                self._h2d([-1 if r.eos_id is None else r.eos_id
+                           for r in reqs], torch.int64))
+
+    def _started(self, part, t0s_d, toks_d, vecs) -> None:
+        """The admitted requests' sampling and eos settings, first tokens
+        ``toks_d`` and positions (their prompts' lengths ``t0s_d``) into
+        this rank's slots; then, on the host rank, the first tokens to the
         requests."""
-        temps = self._h2d([r.temperature for r in reqs], torch.float32)
-        topps = self._h2d([r.top_p for r in reqs], torch.float32)
-        topks = self._h2d([r.top_k for r in reqs], torch.int64)
-        seeds = self._h2d([fold_seed(r.seed) for r in reqs], torch.int64)
-        eos = self._h2d([-1 if r.eos_id is None else r.eos_id
-                         for r in reqs], torch.int64)
-        for buf, val in ((self._temp, temps), (self._topp, topps),
-                         (self._topk, topks), (self._seed, seeds),
-                         (self._eos, eos)):
-            buf.index_copy_(0, slots_d, val)
-        return temps, seeds, topps, topks
+        own = [j for j, (slot, _) in enumerate(part) if self._owns(slot)]
+        if own:
+            rows = self._h2d([part[j][0] - self._row0 for j in own],
+                             torch.int64)
+            if len(own) < len(part):
+                pick = self._h2d(own, torch.int64)
 
-    def _started(self, part, slots_d, t0s_d, toks_d) -> None:
-        """The admitted requests' first tokens ``toks_d`` (their prompts'
-        lengths ``t0s_d``) into their slots, then to the requests."""
-        self._tok.index_copy_(0, slots_d, toks_d)
-        self._pos.index_copy_(0, slots_d, t0s_d)
+                def mine(v):
+                    return v.index_select(0, pick)
+            else:
+                def mine(v):
+                    return v
+            for buf, val in zip((self._temp, self._seed, self._topp,
+                                 self._topk, self._eos), vecs):
+                buf.index_copy_(0, rows, mine(val))
+            self._tok.index_copy_(0, rows, mine(toks_d))
+            self._pos.index_copy_(0, rows, mine(t0s_d))
+        if not self._host:
+            return
         toks = toks_d.cpu().numpy()
         self.stats.prefills += len(part)
         for j, (slot, req) in enumerate(part):
@@ -616,8 +791,8 @@ class GenerationEngine:
         return starts
 
     def _extend_body(self):
-        """The one-slot extend program: slot ``_xslot``'s rows into the
-        one-row scratch cache, ``_extend_step`` over the [1, P] chunk
+        """The one-slot extend program: slot row ``_xslot``'s rows into
+        the one-row scratch cache, ``_extend_step`` over the [1, P] chunk
         ``_xtoks`` at position ``_xbase``, the rows written back; returns
         the chunk's logit codes [P, V]."""
         m = self.model
@@ -637,17 +812,18 @@ class GenerationEngine:
 
         return body
 
-    def _extend(self, slot: int, chunk: np.ndarray, base: int):
-        """Run the extend program on one chunk of slot ``slot``'s prompt
-        at position ``base``; returns the chunk's codes [P, V] (the
+    def _extend(self, row: int, chunk: np.ndarray, base: int):
+        """Run the extend program on one chunk of a prompt in cache row
+        ``row`` at position ``base``; returns the chunk's codes [P, V] (the
         program's output, valid until its next call)."""
         if self._extend_program is None:
             self._extend_program = graphs.Captured(self._extend_body(),
-                                                   self._stream)
-        self._xslot.copy_(self._h2d([slot], torch.int64))
+                                                   self._capture)
+        self._xslot.copy_(self._h2d([row], torch.int64))
         self._xbase.copy_(self._h2d([base], torch.int64))
         self._xtoks.copy_(self._h2d(chunk[None], torch.int64))
-        return self._extend_program()
+        with self._bound():
+            return self._extend_program()
 
     def _seed_fn(self, base: int):
         """The seed program of prefixes of ``base`` tokens: all layers'
@@ -667,51 +843,59 @@ class GenerationEngine:
 
     def _admit_chunked(self, slot: int, req: _GenRequest) -> None:
         """Prefill one prompt through the extend program, chunk by chunk;
-        with ``req.prefix_id``, seed the prefix's rows into the slot first
-        and chunk only the suffix.  The first token is greedy or drawn with
-        the request's (seed, position t0 - 1) stream, as the bucketed
-        path's."""
+        with ``req.prefix_id``, seed the prefix's rows (``prefix_entry``)
+        into the slot first and chunk only the suffix.  The first token is
+        greedy or drawn with the request's (seed, position t0 - 1) stream,
+        as the bucketed path's."""
         t0 = len(req.prompt)
         # registered before the device work: a failure below must fail
         # this request's future through the crash handler
         self._active[slot] = req
+        row = self._local_row(slot)
         base = 0
         if req.prefix_id is not None:
-            with self._prefix_lock:
-                entry = self._prefixes.get(req.prefix_id)
-            if entry is None:
-                # a stale prefix_id is the caller's mistake: fail only
-                # this request
-                self._active[slot] = None
-                req.future.set_exception(ValueError(
-                    f"prefix {req.prefix_id} was unregistered while the "
-                    "request was queued"))
-                self._stream_close(req)
-                return
-            pre_tokens, rows = entry
+            pre_tokens, rows = req.prefix_entry
             base = len(pre_tokens)
             if self._cuda:
                 # rows made on another stream, read on this one: not freed
                 # for reuse before the seed has run
                 rows.record_stream(self._stream)
-            self._seed_fn(base)(rows, slot)
-            self.stats.prefix_hits += 1
+            self._seed_fn(base)(rows, row)
+            if self._host:
+                self.stats.prefix_hits += 1
         pad = np.zeros((self.model.max_len,), np.int64)
         pad[:t0] = req.prompt
         starts = self._chunk_starts(base, t0)
         for c0 in starts:
-            codes = self._extend(slot, pad[c0:c0 + self.prefill_chunk], c0)
-        row = codes[(t0 - 1) - starts[-1]][None]          # [1, V]
-        slots_d = self._h2d([slot], torch.int64)
+            codes = self._extend(row, pad[c0:c0 + self.prefill_chunk], c0)
+        last = codes[(t0 - 1) - starts[-1]][None]          # [1, V]
         t0s_d = self._h2d([t0], torch.int64)
-        temps, seeds, topps, topks = self._slot_vectors(slots_d, [req])
+        vecs = self._request_vectors([req])
         if req.temperature > 0:
-            tok = self.model._pick(row, temps, seeds, t0s_d - 1,
+            temps, seeds, topps, topks, _ = vecs
+            tok = self.model._pick(last, temps, seeds, t0s_d - 1,
                                    topps if req.top_p < 1.0 else None,
                                    topks if req.top_k > 0 else None)
         else:
-            tok = row.argmax(-1)
-        self._started([(slot, req)], slots_d, t0s_d, tok)
+            tok = last.argmax(-1)
+        self._started([(slot, req)], t0s_d, tok, vecs)
+
+    def _resolve_prefix(self, req: _GenRequest) -> bool:
+        """Bind a prefixed request to its prefix's rows at admission; False
+        (and the request failed alone) when the prefix was unregistered
+        while the request was queued."""
+        if req.prefix_id is None:
+            return True
+        with self._prefix_lock:
+            req.prefix_entry = self._prefixes.get(req.prefix_id)
+        if req.prefix_entry is not None:
+            return True
+        # a stale prefix_id is the caller's mistake: fail only this request
+        req.future.set_exception(ValueError(
+            f"prefix {req.prefix_id} was unregistered while the request "
+            "was queued"))
+        self._stream_close(req)
+        return False
 
     @staticmethod
     def _stream_push(req: _GenRequest, tok: int) -> None:
@@ -740,6 +924,8 @@ class GenerationEngine:
         # (its tokens dropped) until an admission overwrites them
         req = self._active[slot]
         self._active[slot] = None
+        if self._ctl is not None:
+            self._freed.append(slot)
         self.stats.requests += 1
         self.stats.tokens += min(len(req.tokens), req.max_new)
         if len(self.stats.latencies_s) < 10_000:
@@ -754,43 +940,140 @@ class GenerationEngine:
             with torch.no_grad(), (torch.cuda.stream(self._stream)
                                    if self._cuda
                                    else contextlib.nullcontext()):
-                self._loop_inner()
+                if self._host:
+                    self._loop_inner()
+                else:
+                    self._follow()
         except BaseException as e:          # fail pending futures, loudly
             # the engine is dead: later submit()s must raise instead of
             # enqueueing futures nothing will ever resolve
             self._running = False
+            self._error = e
+            if self._ctl is not None and self._host:
+                # end the other ranks' lockstep now (their own collective
+                # may have failed first: then this fails too)
+                try:
+                    self._ctl.send({"stop": True, "error": repr(e)})
+                except Exception:
+                    pass
             for s, req in enumerate(self._active):
                 if req is not None and not req.future.done():
                     req.future.set_exception(e)
                 if req is not None:
                     self._stream_close(req)
                 self._active[s] = None
+            self._fail_queued(e)
+            raise
+        finally:
+            # the programs close over the engine: without them a dropped
+            # engine (its model, caches and graphs' memory) is freed at once,
+            # not at the next cyclic garbage collection
+            self._chunk_fns.clear()
+            self._extend_program = None
+            self._seed_fns.clear()
+
+    def _fail_queued(self, exc: BaseException) -> None:
+        """Fail every queued request and registration with ``exc``."""
+        for q in (self._queue, self._regs):
             while True:
                 try:
-                    req = self._queue.get_nowait()
+                    item = q.get_nowait()
                 except queue.Empty:
                     break
-                if req is not None and not req.future.done():
-                    req.future.set_exception(e)
-                    self._stream_close(req)
-            raise
+                if item is not None and not item.future.done():
+                    item.future.set_exception(exc)
+                    if isinstance(item, _GenRequest):
+                        self._stream_close(item)
 
     def _loop_inner(self) -> None:
         try:
             self._drain_loop()
+            if self._ctl is not None:
+                self._ctl.send({"stop": True})
         finally:
             # shutdown: fail anything still queued — a request that will
             # never run must not leave its future pending forever
-            while True:
+            self._fail_queued(RuntimeError("engine shut down before this "
+                                           "request was scheduled"))
+
+    def _send(self, record: dict) -> None:
+        """A sharded engine's control record to the other ranks (with the
+        slots freed since the last one); nothing unsharded."""
+        if self._ctl is not None:
+            record["freed"], self._freed = self._freed, []
+            self._ctl.send(record)
+
+    def _registrations(self) -> list:
+        """Rank 0 of a sharded engine: the queued prefix registrations,
+        each given its id (or failed when the table is full)."""
+        regs = []
+        while True:
+            try:
+                reg = self._regs.get_nowait()
+            except queue.Empty:
+                return regs
+            with self._prefix_lock:
                 try:
-                    req = self._queue.get_nowait()
-                except queue.Empty:
-                    break
-                if req is not None and not req.future.done():
-                    req.future.set_exception(
-                        RuntimeError("engine shut down before this "
-                                     "request was scheduled"))
-                    self._stream_close(req)
+                    self._check_table()
+                except RuntimeError as e:
+                    reg.future.set_exception(e)
+                    continue
+                pid = self._next_pid
+                self._next_pid += 1
+                # the id is held until the rows come (so the table bound
+                # counts it); its entry is filled by _register
+                self._prefixes[pid] = None
+            regs.append((pid, reg))
+
+    def _register(self, pid: int, tokens: np.ndarray) -> None:
+        """A sharded engine's prefix rows, computed on every rank in the
+        engine's thread (data-replicated, channel-sharded like the slot
+        caches), under id ``pid``."""
+        rows = self._prefix_rows(tokens)
+        with self._prefix_lock:
+            self._prefixes[pid] = (tokens, rows)
+
+    def _from_fields(self, fields) -> tuple:
+        """(slot, request) of an admission's control record on a rank that
+        follows: the request rebuilt, its prefix rows from this rank's
+        table."""
+        slot, prompt, max_new, temp, seed, top_p, top_k, eos, pid = fields
+        req = _GenRequest(prompt, max_new, temp, seed, top_p, top_k, pid,
+                          eos)
+        if pid is not None:
+            req.prefix_entry = self._prefixes[pid]
+        return slot, req
+
+    def _apply(self, rec: dict, pairs=None) -> None:
+        """The admission part of a control record, on every rank in one
+        order: freed slots, prefix registrations, admissions (rank 0
+        passes its own requests as ``pairs``), dropped prefixes."""
+        for s in rec.get("freed", ()):
+            self._active[s] = None
+        for pid, tokens in rec.get("register", ()):
+            self._register(pid, tokens)
+        if pairs is None:
+            pairs = [self._from_fields(f) for f in rec.get("admit", ())]
+        if pairs:
+            self._admit_batch(pairs)
+        with self._prefix_lock:
+            for pid in rec.get("unregister", ()):
+                self._prefixes.pop(pid, None)
+
+    def _follow(self) -> None:
+        """A sharded engine's thread on a rank other than 0: apply rank
+        0's records until its shutdown."""
+        while True:
+            rec = self._ctl.recv()
+            if rec.get("stop"):
+                if rec.get("error"):
+                    raise RuntimeError(f"rank 0's engine failed: "
+                                       f"{rec['error']}")
+                return
+            self._apply(rec)
+            if "chunk" in rec:
+                # the tokens are rank 0's to read
+                self._run_chunks(rec["chunk"], rec["rem"], rec["multi"])
 
     def _drain_loop(self) -> None:
         # overlap=True: ``pending`` holds the dispatched-but-unread chunk —
@@ -799,13 +1082,14 @@ class GenerationEngine:
         pending = None
         while (self._running or pending is not None
                or any(r is not None for r in self._active)):
+            regs = self._registrations() if self._ctl is not None else []
             admits, taken = [], set()
             while self._running:
                 slot = next((s for s, r in enumerate(self._active)
                              if r is None and s not in taken), None)
                 if slot is None:
                     break
-                idle = (not admits and pending is None
+                idle = (not admits and not regs and pending is None
                         and all(r is None for r in self._active))
                 try:
                     req = (self._queue.get(timeout=0.1) if idle
@@ -815,44 +1099,47 @@ class GenerationEngine:
                 if req is None:          # shutdown: drain active slots
                     self._running = False
                     break
+                if not self._resolve_prefix(req):
+                    continue
                 admits.append((slot, req))
                 taken.add(slot)
-            if admits:
-                self._admit_batch(admits)
+            with self._prefix_lock:
+                unregs, self._unregs = self._unregs, []
+            if admits or regs or unregs:
+                rec = {"register": [(pid, r.tokens) for pid, r in regs],
+                       "admit": [req.fields(slot) for slot, req in admits],
+                       "unregister": unregs}
+                self._send(rec)
+                try:
+                    self._apply(rec, admits)
+                except BaseException as e:
+                    for _, r in regs:
+                        r.future.set_exception(e)
+                    raise
+                for pid, r in regs:
+                    r.future.set_result(pid)
             if any(r is not None for r in self._active):
                 snapshot = list(self._active)
                 n_act = sum(r is not None for r in snapshot)
-                sampled = any(r is not None and r.temperature > 0
-                              for r in snapshot)
-                use_topp = any(r is not None and r.top_p < 1.0
-                               for r in snapshot)
-                use_topk = any(r is not None and r.top_k > 0
-                               for r in snapshot)
+                key = tuple(any(r is not None and cond(r) for r in snapshot)
+                            for cond in (lambda r: r.temperature > 0,
+                                         lambda r: r.top_p < 1.0,
+                                         lambda r: r.top_k > 0))
                 rem = np.zeros((self.slots,), np.int64)
                 for s, r in enumerate(snapshot):
                     if r is not None:
                         rem[s] = max(1, r.max_new - len(r.tokens))
-                self._act.copy_(self._h2d(rem > 0, torch.bool))
-                self._rem.copy_(self._h2d(rem, torch.int64))
-                self._col.zero_()
-                self._work.zero_()
-                chunk = self._chunk(sampled, use_topp, use_topk)
                 # with nothing queued no slot can be refilled: run
                 # sync_chunks chunks back to back before reading tokens
                 # back (the JAX package's multi-chunk while_loop, without
                 # its early exit)
-                if (self.sync_chunks > 1 and pending is None
-                        and self._queue.empty()):
-                    for _ in range(self.sync_chunks):
-                        chunk()
-                    wait = self._fetch_async(self.sync_chunks
-                                             * self.chunk_steps)
-                    self.stats.chunks += self.sync_chunks
+                multi = (self.sync_chunks > 1 and pending is None
+                         and self._queue.empty())
+                self._send({"chunk": key, "rem": rem, "multi": multi})
+                wait = self._run_chunks(key, rem, multi)
+                if multi:
                     fetch = (wait, snapshot, True)
                 else:
-                    chunk()
-                    wait = self._fetch_async(self.chunk_steps)
-                    self.stats.chunks += 1
                     self.stats.chunk_slots_active += n_act
                     if self.overlap:
                         pending, fetch = (wait, snapshot, False), pending
@@ -860,6 +1147,8 @@ class GenerationEngine:
                         fetch = (wait, snapshot, False)
             else:
                 fetch, pending = pending, None
+            if self._ctl is not None:
+                self._ctl.heartbeat()
             if fetch is None:
                 continue
             wait, snapshot, multi = fetch
@@ -878,4 +1167,3 @@ class GenerationEngine:
                     if self._done(req, int(t)):
                         self._finish(s)
                         break
-

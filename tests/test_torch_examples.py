@@ -270,7 +270,8 @@ def test_text_generation_main():
 def test_llm_serving_main():
     checks = llm_serving.main(CPU)
     flags = {k: v for k, v in checks.items() if isinstance(v, bool)}
-    assert len(flags) == 7 and all(flags.values()), checks
+    assert len(flags) == 8 and all(flags.values()), checks
+    assert checks["sharded_engine_equals_generate"], checks
     assert checks["fp32_max_abs_diff"] < 1e-4, checks
 
 

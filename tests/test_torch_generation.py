@@ -156,16 +156,19 @@ def test_unported_options_raise(model, monkeypatch):
         mp.setattr(model, "ring_cache", True, raising=False)
         with pytest.raises(ValueError, match="prefill_chunk"):
             GenerationEngine(model, prefill_chunk=8)
-    with monkeypatch.context() as mp:
-        mp.setattr(model, "_mesh", object(), raising=False)
-        with pytest.raises(NotImplementedError, match="sharded"):
-            GenerationEngine(model)
     # weight-only models are served since the float KV cache was ported
     # (tests/test_torch_float_cache.py): float head-split slot caches
     wo = tzoo.build("llama_tiny", device="cpu", config=qt.QuantConfig(
         weight_only=True, weight_bits=4), vocab_size=64, max_len=16,
         dim=128, depth=1, heads=4, kv_heads=2)
     wo.convert()
+    # a shard()ed model is served since the sharded engines were ported
+    # (tests/test_torch_parallel_generate.py), except a weight-only one,
+    # which the JAX package refuses too
+    with monkeypatch.context() as mp:
+        mp.setattr(wo, "_mesh", object(), raising=False)
+        with pytest.raises(NotImplementedError, match="weight_only"):
+            GenerationEngine(wo)
     eng = GenerationEngine(wo, slots=2)
     try:
         assert eng._caches[1][0].dtype == torch.float32

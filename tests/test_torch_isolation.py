@@ -75,6 +75,7 @@ def test_port_imports_without_jax():
                 "utils.adaround", "utils.hf", "data", "native",
                 "parallel", "parallel.context", "parallel.mesh",
                 "parallel.sharding", "parallel.overlap", "parallel.launch",
+                "parallel.lockstep",
                 "examples") + tuple(f"examples.{name}" for name in EXAMPLES):
         assert f"int8inferenceengine_tpu_torch.{mod}" in names, mod
 

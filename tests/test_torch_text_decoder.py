@@ -263,3 +263,71 @@ def test_decoder_guards():
     ids = _ids(2, 4)
     np.testing.assert_array_equal(m.generate_speculative(m, ids, 3),
                                   m.generate(ids, 3))
+
+
+def _fma_epilogue(orig):
+    """``ops/gemm_int8._requant_epilogue`` with the GEMM order's ``acc *
+    mult + zp`` rounded once, as a fused multiply-add rounds it (the
+    product and the sum taken in float64, then rounded to float32)."""
+    from int8inferenceengine_tpu_torch.ops.functional import ACTIVATIONS
+    from int8inferenceengine_tpu_torch.ops.quant import f32, quantize_u8
+
+    def epilogue(c, ep, *, scale_a, scale_c, zp_c, relu=False,
+                 rounding="trunc", order="gemm", act=None):
+        if order != "gemm":
+            return orig(c, ep, scale_a=scale_a, scale_c=scale_c, zp_c=zp_c,
+                        relu=relu, rounding=rounding, order=order, act=act)
+        q = (c.to(torch.float64) * ep.reshape(1, -1).to(torch.float64)
+             + float(zp_c)).to(torch.float32).clamp(0.0, 255.0)
+        if rounding == "nearest":
+            q = q + f32(0.5, c.device)
+        qi = q.to(torch.int32)
+        if act is not None:
+            name, act_scale, act_zp = act
+            x = ((qi.to(torch.float32) - f32(zp_c, c.device))
+                 * f32(scale_c, c.device))
+            return quantize_u8(ACTIVATIONS[name](x), act_scale, act_zp,
+                               rounding)
+        return (qi.clamp_min(int(zp_c)) if relu else qi).to(torch.uint8)
+
+    return epilogue
+
+
+def test_nearest_tie_moves_with_xla_fma_contraction(monkeypatch):
+    """gpt_tiny (vocab 97, dim 128, depth 2, 4 heads) under 'nearest',
+    converted by the port on the tenth 4 x 16 draw of seed 0 and carried
+    into the JAX package: its jitted ``generate(prompt[:, :8], 20)`` leaves
+    the port's tokens on row 0 from step 12.  The cause is XLA:CPU, not
+    the port: the jitted program contracts the GEMM epilogue's ``acc *
+    mult + zp`` into one fused multiply-add, which rounds once, where the
+    reference's order (the JAX package run op by op, the port, the card's
+    ``__fmul_rn``/``__fadd_rn``) rounds the product and then the sum.  A
+    value such as fc1's 22524 * 0.002020067 + 128 is 173.5 exactly when
+    rounded twice (code 174 under 'nearest') and 173.49998 when fused
+    (code 173).  The port's greedy tokens with its epilogue rounded once
+    are JAX's jitted tokens on every row and step."""
+    from int8inferenceengine_tpu_torch.ops import gemm_int8 as G
+    from test_torch_cnn_zoo import install_jax_state
+    from test_torch_parallel import twin_state
+    geo = dict(vocab_size=97, max_len=48, dim=128, depth=2, heads=4)
+    rng = np.random.default_rng(0)
+    for _ in range(10):
+        ids = rng.integers(0, 97, (4, 16)).astype(np.int32)
+    m = tzoo.build("gpt_tiny", config=qt.QuantConfig(rounding="nearest"),
+                   device="cpu", **geo)
+    m.load(twin_state("gpt_tiny", **geo))
+    m.prepare()
+    m(qt.tensor(ids, device="cpu"))
+    m.convert()
+    jm = jzoo.build("gpt_tiny", config=qj.QuantConfig(rounding="nearest"),
+                    **geo)
+    install_jax_state(jm, export_state(m))
+    prompt = ids[:, :8]
+    want = np.asarray(jm.generate(prompt, 20))
+    got = m.generate(prompt, 20)
+    np.testing.assert_array_equal(np.argwhere(got != want)[:, 0], [0] * 8)
+    np.testing.assert_array_equal(np.argwhere(got != want)[:, 1],
+                                  np.arange(12, 20))
+    monkeypatch.setattr(G, "_requant_epilogue",
+                        _fma_epilogue(G._requant_epilogue))
+    np.testing.assert_array_equal(m.generate(prompt, 20), want)

@@ -15,6 +15,7 @@ parent built, converted or not), which every rank installs with
 which its test reports.
 """
 
+import numpy as np
 import torch
 
 import int8inferenceengine_tpu_torch as qt
@@ -211,7 +212,243 @@ def ring(case):
     return {"got": got.numpy(), "reference": want.numpy()}
 
 
+def _submit_all(eng, case):
+    """``case['prefixes']`` registered, then every request of ``case``
+    submitted at once (``prefix`` = i names the i-th registered prefix);
+    (their tokens, the prefix ids)."""
+    pids = [eng.register_prefix(p) for p in case.get("prefixes", ())]
+    futs = []
+    for r in case["requests"]:
+        kw = dict(r.get("kw", {}))
+        if "prefix" in kw:
+            kw["prefix_id"] = pids[kw.pop("prefix")]
+        futs.append(eng.submit(r["prompt"], r["n"], **kw))
+    return [f.result(timeout=120) for f in futs], pids
+
+
+def engine(case):
+    """``GenerationEngine`` over the model ``shard()``ed on ``mesh``: every
+    rank builds it, rank 0 registers ``prefixes`` (if any), submits every
+    request at once, reads the tokens and drops the prefixes, a
+    follower's ``submit()`` must raise, and every rank shuts it down.
+    Beside it: the unsharded ``generate()`` of each greedy request and,
+    with ``unsharded_engine``, the same requests through the unsharded
+    engine (``_oracle``); with ``sharded_generate`` their sharded
+    ``generate()`` (``_batched_generate``)."""
+    import torch.distributed as dist
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    reqs = case["requests"]
+    greedy = [not r.get("kw", {}).get("temperature") for r in reqs]
+    kw = case["engine"]
+
+    def unsharded(m):
+        got = {"base": _batched_generate(
+            m, [r["prompt"] if g else None for r, g in zip(reqs, greedy)],
+            [r["n"] for r in reqs], 1)}
+        if case.get("unsharded_engine"):
+            eng = GenerationEngine(m, **kw)
+            try:
+                got["unsharded_engine"] = _submit_all(eng, case)[0]
+            finally:
+                eng.shutdown()
+        return got
+
+    out = _oracle(case, unsharded)
+    m = build(case["model"], case["state"])
+    mesh = make_mesh(case["mesh"], devices="cpu")
+    m.shard(mesh)
+    if case.get("sharded_generate"):
+        out["sharded_generate"] = _batched_generate(
+            m, [r["prompt"] if g else None for r, g in zip(reqs, greedy)],
+            [r["n"] for r in reqs], mesh.shape["data"])
+    eng = GenerationEngine(m, **kw)
+    out["kv_sharded"] = eng._kv_sharded
+    out["cache_channels"] = int(eng._kv_channels)
+    try:
+        if dist.get_rank() == 0:
+            tokens, pids = _submit_all(eng, case)
+            got = {"out": tokens, "pids": pids}
+            for pid in pids:
+                eng.unregister_prefix(pid)
+            got["stats"] = {"requests": eng.stats.requests,
+                            "prefix_hits": eng.stats.prefix_hits,
+                            "chunks": eng.stats.chunks}
+        else:
+            try:
+                eng.submit(reqs[0]["prompt"], 2)
+                got = "a follower's submit() did not raise"
+            except RuntimeError as e:
+                got = str(e)
+    finally:
+        eng.shutdown()
+    # rank 0's tokens and rank 1's refusal on every rank, so that every
+    # rank returns the same
+    out.update(_from_rank0(got if dist.get_rank() == 0 else None))
+    out["follower"] = _from_rank0(got if dist.get_rank() == 1 else None, 1)
+    return out
+
+
+def _batched_generate(m, prompts, ns, rows_multiple):
+    """Each prompt's ``generate()`` tokens (None for a None prompt): one
+    call a prompt length, its distinct prompts as the rows of one batch
+    (rows are independent), padded to a multiple of ``rows_multiple``."""
+    out = [None] * len(prompts)
+    for t in sorted({len(p) for p in prompts if p is not None}):
+        idx = [i for i, p in enumerate(prompts)
+               if p is not None and len(p) == t]
+        rows = []
+        for i in idx:
+            if not any(np.array_equal(prompts[i], r) for r in rows):
+                rows.append(prompts[i])
+        rows += rows[:1] * (-len(rows) % rows_multiple)
+        toks = m.generate(np.stack(rows), max(ns[i] for i in idx))
+        for i in idx:
+            j = next(j for j, r in enumerate(rows)
+                     if np.array_equal(prompts[i], r))
+            out[i] = toks[j, :ns[i]]
+    return out
+
+
+def _from_rank0(value, src=0):
+    """``value`` of rank ``src`` on every rank."""
+    import torch.distributed as dist
+    box = [value]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def _oracle(case, fn):
+    """``fn`` of the case's unsharded model, computed once, on one rank (a
+    model of its own, so that every rank's sharded model has the same
+    history), and returned on every rank."""
+    import zlib
+    import torch.distributed as dist
+    src = zlib.crc32(case["name"].encode()) % dist.get_world_size()
+    return _from_rank0(fn(build(case["model"], case["state"]))
+                       if dist.get_rank() == src else None, src)
+
+
+def engine_guards(case):
+    """The sharded engine's refusals: slots that do not divide the data
+    axis; a weight-only model; and a prefix registration, which
+    composes."""
+    import torch.distributed as dist
+    from int8inferenceengine_tpu_torch.serve import GenerationEngine
+    out = {"slots": None, "weight_only": None}
+    m = build(case["model"], case["state"])
+    m.shard(make_mesh(case["mesh"], devices="cpu"))
+    try:
+        GenerationEngine(m, slots=case["bad_slots"])
+    except ValueError:
+        out["slots"] = "ValueError"
+    eng = GenerationEngine(m, slots=4, prefill_chunk=8)
+    try:
+        pid = eng.register_prefix([1, 2, 3]) if dist.get_rank() == 0 \
+            else None
+    finally:
+        eng.shutdown()
+    out["pid"] = _from_rank0(pid)
+    wo = build(case["weight_only_model"], case["weight_only_state"])
+    wo.shard(make_mesh(case["mesh"], devices="cpu"))
+    try:
+        GenerationEngine(wo, slots=4)
+    except NotImplementedError:
+        out["weight_only"] = "NotImplementedError"
+    return out
+
+
+def speculative(case):
+    """Greedy ``generate()`` and ``generate_speculative`` with the
+    replicated ``draft`` unsharded, then with the target ``shard()``ed on
+    ``mesh``; the guards (a sharded draft, a batch that does not divide
+    the data axis)."""
+    ids, steps, k = case["ids"], case["steps"], case["k"]
+    out = _oracle(case, lambda t: {
+        "base": t.generate(ids, steps),
+        "spec_base": t.generate_speculative(
+            build(case["draft"], case["draft_state"]), ids, steps, k=k)})
+    t = build(case["model"], case["state"])
+    d = build(case["draft"], case["draft_state"])
+    mesh = make_mesh(case["mesh"], devices="cpu")
+    t.shard(mesh)
+    out["sharded"] = t.generate(ids, steps)
+    out["spec"] = t.generate_speculative(d, ids, steps, k=k)
+    out["stats"] = t.speculative_stats
+    guards = {}
+    try:
+        t.generate_speculative(d, ids[:3], steps, k=k)
+    except ValueError:
+        guards["batch"] = "ValueError"
+    d.shard(mesh)
+    try:
+        t.generate_speculative(d, ids, steps, k=k)
+    except NotImplementedError:
+        guards["sharded_draft"] = "NotImplementedError"
+    out["guards"] = guards
+    return out
+
+
+def inference_engine(case):
+    """``InferenceEngine`` over LeNet ``shard()``ed on ``mesh``: rank 0
+    submits a request the model refuses (3 channels) and then ``x``;
+    the unsharded forward beside it."""
+    import torch.distributed as dist
+    from int8inferenceengine_tpu_torch.serve import InferenceEngine
+    x = case["x"]
+    out = _oracle(case, lambda m: {
+        "base": m(qt.tensor(x, device="cpu")).numpy()})
+    m = build(case["model"], case["state"])
+    m.shard(make_mesh(case["mesh"], devices="cpu"))
+    eng = InferenceEngine(m, max_batch=32)
+    got = None
+    try:
+        if dist.get_rank() == 0:
+            bad = eng.submit(case["bad"])
+            good = eng.submit(x)
+            got = {"out": good.result(timeout=120),
+                   "small": eng.infer(x[:4])}
+            try:
+                bad.result(timeout=120)
+                got["bad"] = None
+            except Exception as e:
+                got["bad"] = type(e).__name__
+    finally:
+        eng.shutdown()
+    out.update(_from_rank0(got))
+    out["follower_failure"] = _follower_failure(m, x[:4])
+    return out
+
+
+def _follower_failure(m, x):
+    """A tile that fails on rank 1 alone (after its forward, so that no
+    collective is left open): rank 0 serves it, and rank 1's engine raises
+    at the next record, which its ``shutdown()`` reports.  (rank 0's
+    reply, rank 1's error) on every rank."""
+    import torch.distributed as dist
+    from int8inferenceengine_tpu_torch.serve import InferenceEngine
+    forward = InferenceEngine._forward
+
+    def failing(self, batch):
+        forward(self, batch)
+        raise MemoryError("rank 1 alone")
+    if dist.get_rank() == 1:      # before the engine's thread can run
+        InferenceEngine._forward = failing
+    try:
+        eng = InferenceEngine(m, max_batch=32)
+        reply = eng.infer(x).shape if dist.get_rank() == 0 else None
+        try:
+            eng.shutdown()
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+    finally:
+        InferenceEngine._forward = forward
+    return _from_rank0(reply), _from_rank0(err, 1)
+
+
 KINDS = {"forward": forward, "generate": generate,
+         "engine": engine, "engine_guards": engine_guards,
+         "speculative": speculative, "inference_engine": inference_engine,
          "shard_before_convert": shard_before_convert,
          "load_after_shard": load_after_shard, "raises": raises,
          "ring": ring}
